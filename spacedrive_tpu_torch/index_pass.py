@@ -33,7 +33,7 @@ from .object.media.thumbnail import process
 from .object.media.thumbnail.store import ThumbnailStore
 from .ops import cas, embed_torch
 from .parallel.autotune import EMBED_DEVICE_BATCH, IDENTIFY_DEVICE_WINDOW, THUMB_DEVICE_BATCH
-from .parallel.feeder import WindowPipeline, pipeline_depth
+from .parallel.feeder import WindowPipeline
 
 
 @dataclass
@@ -83,7 +83,7 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
         return cursor + IDENTIFY_DEVICE_WINDOW, (idx, fin)
 
     wait_s = 0.0
-    pipe = WindowPipeline(fetch, 0, depth=pipeline_depth(1))
+    pipe = WindowPipeline(fetch, 0)  # FEEDER_BASE_DEPTH windows ahead
     try:
         while (window := pipe.take()) is not None:
             idx, fin = window

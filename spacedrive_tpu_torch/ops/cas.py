@@ -264,32 +264,24 @@ def cas_id_cpu(path: str | os.PathLike, size: int | None = None) -> str:
 # --- batched device hashing -------------------------------------------------
 
 
-def batch_ladder(n_devices: int = 1) -> tuple[int, ...]:
-    """Pad ladder for an n-device dispatch: every rung is the per-device
-    rung times the device count."""
-    n = max(1, n_devices)
-    return BATCH_LADDER if n == 1 else tuple(r * n for r in BATCH_LADDER)
-
-
-def device_batch(n_devices: int = 1) -> int:
-    """Max rows per dispatch: DEVICE_BATCH per participating device."""
-    return DEVICE_BATCH * max(1, n_devices)
+def batch_ladder() -> tuple[int, ...]:
+    """Pad ladder of a single-device dispatch."""
+    return BATCH_LADDER
 
 
 def pack_canonical_batch(
-    messages: Sequence[bytes], max_chunks: int, n_devices: int = 1
+    messages: Sequence[bytes], max_chunks: int
 ) -> tuple[np.ndarray, np.ndarray]:
     """The one batch-shape policy for device hashing: at most
-    device_batch(n) messages pack into a `(ladder_size,
-    max_chunks*1024)` uint8 array plus int32 lengths. Pad rows hash one
-    zero byte and are sliced off by the caller. The array starts
-    uninitialized and each row writes its message plus an explicit zero
-    tail: one pass over the buffer."""
+    DEVICE_BATCH messages pack into a `(ladder_size, max_chunks*1024)`
+    uint8 array plus int32 lengths. Pad rows hash one zero byte and are
+    sliced off by the caller. The array starts uninitialized and each
+    row writes its message plus an explicit zero tail: one pass over
+    the buffer."""
     n = len(messages)
-    cap = device_batch(n_devices)
-    if n > cap:
-        raise ValueError(f"pack at most {cap} messages, got {n}")
-    n_pad = next(s for s in batch_ladder(n_devices) if s >= n)
+    if n > DEVICE_BATCH:
+        raise ValueError(f"pack at most {DEVICE_BATCH} messages, got {n}")
+    n_pad = next(s for s in BATCH_LADDER if s >= n)
     arr = np.empty((n_pad, max_chunks * 1024), np.uint8)
     lens = np.ones((n_pad,), np.int32)
     for j, msg in enumerate(messages):

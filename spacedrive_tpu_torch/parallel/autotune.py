@@ -21,7 +21,6 @@ THUMB_DEVICE_BATCH = 32
 #: embedding images per device forward
 EMBED_DEVICE_BATCH = 32
 
-#: feeder read-ahead: base depth and hard cap (parallel/feeder.py's
-#: pipeline_depth derives the per-device scaling)
+#: feeder read-ahead of a single-device pass: windows parked ahead of
+#: the consumer (parallel/feeder.py)
 FEEDER_BASE_DEPTH = 3
-FEEDER_DEPTH_CAP = 8

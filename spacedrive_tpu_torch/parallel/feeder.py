@@ -17,18 +17,9 @@ import collections
 import threading
 from typing import Any, Callable, Generic, TypeVar
 
-from .autotune import FEEDER_BASE_DEPTH, FEEDER_DEPTH_CAP
+from .autotune import FEEDER_BASE_DEPTH
 
 T = TypeVar("T")
-
-
-def pipeline_depth(
-    n_devices: int, base: int = FEEDER_BASE_DEPTH, cap: int = FEEDER_DEPTH_CAP
-) -> int:
-    """Prefetch depth that keeps an n-device dispatch fed: one extra
-    in-flight window per doubling of the device count, capped so host
-    memory stays bounded. 1→3, 2→4, 4→5, 8→6."""
-    return min(cap, base + max(0, int(n_devices).bit_length() - 1))
 
 
 class WindowPipeline(Generic[T]):

@@ -28,7 +28,20 @@ def test_constants_match():
                  "DEVICE_BATCH", "CHUNK_DIGEST_LEN"):
         assert getattr(cas, name) == getattr(jcas, name), name
     assert cas.batch_ladder() == jcas.batch_ladder()
-    assert cas.batch_ladder(4) == jcas.batch_ladder(4)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 256, 257, 1024])
+def test_pack_pads_to_the_jax_ladder_rung(n):
+    """A batch of n messages pads to the first rung that holds it, the
+    same rung as the JAX package's single-device pack; pad rows are one
+    zero byte."""
+    msgs = [bytes([i % 251]) * (i % 7) for i in range(n)]
+    arr, lens = cas.pack_canonical_batch(msgs, 1)
+    jarr, jlens = jcas.pack_canonical_batch(msgs, 1)
+    rung = next(r for r in cas.batch_ladder() if r >= n)
+    assert arr.shape == jarr.shape == (rung, 1024)
+    np.testing.assert_array_equal(lens, jlens)
+    assert (lens[n:] == 1).all() and not arr[n:].any()
 
 
 @pytest.mark.parametrize("size", EDGE_SIZES)

@@ -9,6 +9,7 @@ import pytest
 
 from spacedrive_tpu.parallel import feeder as jfeeder
 from spacedrive_tpu_torch.parallel import feeder
+from spacedrive_tpu_torch.parallel.autotune import FEEDER_BASE_DEPTH
 
 
 def _drain(pipe):
@@ -35,9 +36,11 @@ def test_same_windows_as_jax(depth):
     assert feeder.WindowPipeline(_fetch(0), 0).take() is None
 
 
-@pytest.mark.parametrize("n", [1, 2, 4, 8, 64])
-def test_pipeline_depth_matches_jax(n):
-    assert feeder.pipeline_depth(n) == jfeeder.pipeline_depth(n)
+def test_default_depth_is_the_jax_single_device_depth():
+    assert FEEDER_BASE_DEPTH == jfeeder.pipeline_depth(1)
+    pipe = feeder.WindowPipeline(_fetch(0), 0)
+    assert pipe._depth == FEEDER_BASE_DEPTH
+    pipe.close()
 
 
 def test_read_ahead_is_bounded_by_depth():
