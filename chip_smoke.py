@@ -12,7 +12,14 @@ a corpus from the seed (4,096 files: 3,072 over 100 KiB, 768 over the
 small buckets, 256 JPEG/PNG images), runs the indexing pass
 (`index_pass`, device="cuda") and checks its cas_ids against the plain
 path on the card and the reference on the host, its thumbnails against
-their expected dimensions, and its embeddings.
+their expected dimensions, and its embeddings. Phase 4 runs the library
+path (`python -m spacedrive_tpu_torch index --library`: IndexerJob →
+FileIdentifierJob on the job system, K1 launched from the identifier's
+window pipeline) over the phase-3 corpus plus 16,384 small files, three
+times: a cold scan (cas_ids against phase 3, the plain path and the
+reference; objects, duplicates and journal entries checked), a warm
+rescan of the unchanged tree (K1 must not launch), and an incremental
+rescan after 32 in-place rewrites, 16 additions and 16 deletions.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -379,7 +386,221 @@ def phase_pass(rng, tmp: str) -> dict:
         "identify_dispatch_share": t["dispatch"] / t["identify"],
     }
     print(json.dumps({"pass": stages}), flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "corpus": corpus, "cas_ids": result.cas_ids,
+            "large": [p for p, s in files if s > cas.MINIMUM_FILE_SIZE]}
+
+
+# --- phase 4: the library path ------------------------------------------------
+
+# a 1M-file library cut to ~20k file_path rows for the time limit; the
+# file widths (1 B-16 KiB small files, 101-512 KiB large ones, the
+# 1024 x 57-chunk hot dispatch) stay
+N_LIB_SMALL = 16_384
+LIBRARY_CUT = ("a 1M-file library cut to the phase-3 corpus plus 16,384 small files "
+               "(~20.5k file_path rows) for the time limit")
+
+
+def add_small_files(root: str, rng) -> list[str]:
+    """16,384 files of 1 B-16 KiB (log-uniform sizes) in 64 directories;
+    a quarter repeat the bytes of another of them."""
+    n_dup = N_LIB_SMALL // 4
+    sizes = np.exp(rng.uniform(0, np.log(16 * 1024), N_LIB_SMALL - n_dup)).astype(int)
+    datas = [rng.bytes(int(s)) for s in sizes]
+    datas += [datas[int(i)] for i in rng.integers(0, len(datas), n_dup)]
+    paths = []
+    for i, data in enumerate(datas):
+        d = os.path.join(root, "small", f"s{i % 64:02d}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"m{i:05d}.dat")
+        with open(path, "wb") as f:
+            f.write(data)
+        paths.append(path)
+    return paths
+
+
+def library_rows(data_dir: str) -> tuple[list[dict], dict, list[dict]]:
+    """(file rows with their object, journal rows by key, the last
+    indexer and identifier job rows) of the smoke's library."""
+    from spacedrive_tpu_torch.node.library import Libraries
+
+    (lib,) = Libraries(data_dir).load_all()
+    try:
+        rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")
+        journal = {(r["materialized_path"], r["name"], r["extension"]): r
+                   for r in lib.db.query("SELECT * FROM index_journal")}
+        jobs = lib.db.query("SELECT * FROM job ORDER BY date_created DESC, rowid DESC LIMIT 2")[::-1]
+    finally:
+        lib.close()
+    return rows, journal, jobs
+
+
+def run_library_pass(corpus: str, data_dir: str) -> dict:
+    """One `index --library` run on the card, with K1's launch count
+    set to 0 just before it and read just after; returns its numbers."""
+    import asyncio
+    from datetime import datetime
+
+    from spacedrive_tpu_torch.cli import index_library
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    blake3_cuda.chunk_cvs.launches = 0
+    t0 = time.perf_counter()
+    summary = asyncio.run(index_library(corpus, data_dir, "smoke", DEVICE))
+    wall = time.perf_counter() - t0
+    launches = blake3_cuda.chunk_cvs.launches
+    rows, journal, jobs = library_rows(data_dir)
+    check([j["name"] for j in jobs] == ["indexer", "file_identifier"]
+          and all(j["status"] == 2 for j in jobs), f"library jobs did not complete: {jobs}")
+    meta = [unpackb(j["metadata"]) for j in jobs]
+    secs = [(datetime.fromisoformat(j["date_completed"])
+             - datetime.fromisoformat(j["date_started"])).total_seconds() for j in jobs]
+    ident = meta[1]
+    return {
+        "summary": summary, "rows": rows, "journal": journal, "indexer": meta[0],
+        "identifier": ident, "launches": launches,
+        "numbers": {
+            "files": summary["files"],
+            "files_per_s": summary["files"] / wall,
+            "seconds": wall,
+            "indexer_s": secs[0],
+            "indexer_walk_s": meta[0]["scan_read_time"],
+            "indexer_db_s": meta[0]["db_write_time"],
+            "identifier_s": secs[1],
+            "identifier_read_s": ident["read_time"],
+            "identifier_rehash_s": ident["rehash_time"],
+            "identifier_dispatch_s": ident["dispatch_time"],
+            "identifier_hash_wait_s": ident["hash_wait_time"],
+            "identifier_db_s": ident["db_time"],
+            "k1_launches": launches,
+            "device_files": ident["device_files"],
+            "walk_journal_hits": meta[0].get("journal_hit", 0),
+            "identifier_journal_hits": ident["journal_hits"],
+            "dirty_range_rehash": ident["journal_dirty_rehash"],
+        },
+    }
+
+
+def _row_path(corpus: str, r: dict) -> str:
+    name = r["name"] + (f".{r['extension']}" if r["extension"] else "")
+    return os.path.join(corpus, r["materialized_path"].strip("/"), name)
+
+
+def rewrite_in_place(path: str) -> None:
+    """Flip 64 bytes inside the first sample range (same length) and
+    move the mtime on, as an editor saving in place would."""
+    from spacedrive_tpu_torch.ops import cas
+
+    off = cas.HEADER_OR_FOOTER_SIZE + 100
+    with open(path, "r+b") as f:
+        f.seek(off)
+        old = f.read(64)
+        f.seek(off)
+        f.write(bytes(b ^ 0x5A for b in old))
+    st = os.stat(path)
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000_000))
+
+
+def phase_library(rng, tmp: str, p3: dict) -> dict:
+    from spacedrive_tpu_torch.ops import cas
+
+    corpus = p3["corpus"]
+    data_dir = os.path.join(tmp, "library")
+    t0 = time.perf_counter()
+    small = add_small_files(corpus, rng)
+    print(f"phase 4: +{len(small)} small files in {time.perf_counter() - t0:.1f} s; {LIBRARY_CUT}",
+          flush=True)
+
+    # cold scan
+    cold = run_library_pass(corpus, data_dir)
+    rows = cold["rows"]
+    print(json.dumps({"library_cold": cold["summary"]}), flush=True)
+    check(cold["launches"] > 0, "the cold library scan launched K1 no time")
+    check(len(rows) == len(p3["cas_ids"]) + len(small),
+          f"library has {len(rows)} files, want {len(p3['cas_ids']) + len(small)}")
+    by_path = {_row_path(corpus, r): r for r in rows}
+    for path, want in p3["cas_ids"].items():
+        check(by_path[path]["cas_id"] == want, f"library cas_id of {path} differs from phase 3")
+    sized = [(p, os.path.getsize(p)) for p in by_path]
+    hashed = [(p, s) for p, s in sized if s > 0]
+    plain = plain_cas_ids([cas.read_message(p, s) for p, s in hashed])
+    for (p, _), want in zip(hashed, plain):
+        check(by_path[p]["cas_id"] == want, f"library cas_id of {p} differs from the plain path")
+    for p, s in sized:
+        if s == 0:
+            check(by_path[p]["cas_id"] is None and by_path[p]["object_id"] is None,
+                  f"empty file {p} got a cas_id or an object")
+    for i in rng.choice(len(hashed), 64, replace=False):
+        p, s = hashed[i]
+        check(by_path[p]["cas_id"] == cas.cas_id_cpu(p, s), f"library cas_id of {p} != blake3_ref")
+    objects_of: dict[str, set] = {}
+    for r in rows:
+        if r["cas_id"] is not None:
+            objects_of.setdefault(r["cas_id"], set()).add(r["object_id"])
+    check(all(len(o) == 1 and None not in o for o in objects_of.values()),
+          "rows of one cas_id do not share one object")
+    check(cold["summary"]["objects"] == len(objects_of),
+          f"{cold['summary']['objects']} objects for {len(objects_of)} distinct cas_ids")
+    check(len(objects_of) < len(hashed), "no duplicates were linked to a shared object")
+    keys = {(r["materialized_path"], r["name"], r["extension"]) for r in rows}
+    check(keys <= set(cold["journal"]), "a file has no journal entry after the cold scan")
+    print(f"phase 4: cold scan {len(rows)} files; {len(hashed)} cas_ids == phase 3 / plain path; "
+          f"64 == blake3_ref; {len(objects_of)} objects == distinct cas_ids", flush=True)
+
+    # warm rescan of the unchanged tree
+    warm = run_library_pass(corpus, data_dir)
+    check(warm["launches"] == 0, f"the warm rescan launched K1 {warm['launches']} times")
+    # every file the cold scan hashed is a journal hit, and so is every
+    # empty file (journaled with the "" sentinel): nothing else
+    n_empty = len(sized) - len(hashed)
+    check(cold["identifier"]["device_files"] == len(hashed),
+          f"cold scan hashed {cold['identifier']['device_files']} files, want {len(hashed)}")
+    check(warm["indexer"].get("journal_hit") == len(hashed) + n_empty == len(rows),
+          f"warm journal hits {warm['indexer'].get('journal_hit')} != {len(hashed)} hashed "
+          f"+ {n_empty} empty files")
+    check(warm["identifier"]["device_files"] == 0 and warm["identifier"]["journal_dirty_rehash"] == 0,
+          "the warm rescan hashed files")
+    check({r["id"]: r["cas_id"] for r in warm["rows"]} == {r["id"]: r["cas_id"] for r in rows},
+          "the warm rescan changed cas_ids")
+    print(f"phase 4: warm rescan: 0 K1 launches, {len(rows)} journal hits ({len(hashed)} hashed "
+          f"+ {n_empty} empty files)", flush=True)
+
+    # incremental rescan: 32 rewrites in place, 16 additions, 16 deletions
+    rewritten = [p3["large"][int(i)] for i in rng.choice(len(p3["large"]), 32, replace=False)]
+    for p in rewritten:
+        rewrite_in_place(p)
+    added = []
+    for i, size in enumerate([int(x) for x in rng.integers(1, 400_000, 16)]):
+        path = os.path.join(corpus, "added", f"a{i:02d}.bin")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(rng.bytes(size))
+        added.append(path)
+    deleted = [small[int(i)] for i in rng.choice(len(small), 16, replace=False)]
+    for p in deleted:
+        os.remove(p)
+    inc = run_library_pass(corpus, data_dir)
+    ident = inc["identifier"]
+    check(ident["device_files"] == len(added),
+          f"incremental rescan hashed {ident['device_files']} files on the card, want {len(added)}")
+    check(ident["journal_dirty_rehash"] == len(rewritten),
+          f"{ident['journal_dirty_rehash']} dirty-range rehashes, want {len(rewritten)}")
+    check(inc["launches"] > 0, "the incremental rescan launched K1 no time")
+    by_path = {_row_path(corpus, r): r for r in inc["rows"]}
+    check(not any(p in by_path for p in deleted), "deleted files still have rows")
+    check(len(inc["rows"]) == len(rows) + len(added) - len(deleted), "row count after rescan")
+    for p in rewritten + added:
+        check(by_path[p]["cas_id"] == cas.cas_id_cpu(p), f"cas_id of {p} != blake3_ref after rescan")
+    print(f"phase 4: incremental rescan: {len(rewritten)} dirty-range rehashes, {len(added)} "
+          f"files through K1, {len(deleted)} rows removed", flush=True)
+
+    out = {"cut": LIBRARY_CUT}
+    for name, run in (("cold", cold), ("warm", warm), ("incremental", inc)):
+        out[name] = run["numbers"]
+    print(json.dumps({"library_pass": out}), flush=True)
+    return {"launches": {name: run["launches"] for name, run in
+                         (("library_cold", cold), ("library_warm", warm),
+                          ("library_incremental", inc))}}
 
 
 def main() -> int:
@@ -405,7 +626,10 @@ def main() -> int:
     kernel = phase_kernel(rng, sm_clock_hz)
     with tempfile.TemporaryDirectory(prefix="sd_chip_smoke_") as tmp:
         got = phase_pass(rng, tmp)
-    kernel["launches"] = got["launches"]
+        lib = phase_library(rng, tmp, got)
+    # launches on the main paths, each counted from 0 just before it
+    kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"]}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,38 @@
 """Command line of the PyTorch/CUDA package.
 
     python -m spacedrive_tpu_torch index <path> --data-dir D [--device cuda|cpu]
+    python -m spacedrive_tpu_torch index <path> --data-dir D --library NAME [--device cuda|cpu]
 
-walks <path>, computes every file's cas_id, writes thumbnails under
-`D/thumbnails/` and embeds the images, then prints one JSON line:
-files, objects (distinct cas_ids), bytes, thumbnails, backend, seconds.
+Without `--library`: walks <path>, computes every file's cas_id, writes
+thumbnails under `D/thumbnails/` and embeds the images, then prints one
+JSON line: files, objects (distinct cas_ids), bytes, thumbnails,
+backend, seconds.
+
+With `--library NAME`: the library path (counterpart of
+`spacedrive_tpu/cli.py cmd_index`). It opens or creates the library NAME
+under `D/libraries/`, adds <path> as a location if it is not one yet,
+and runs `scan_location` (IndexerJob → FileIdentifierJob) on the port's
+job system; the identifier hashes through the BLAKE3 chunk kernel on
+"cuda". It prints one JSON line: library, location_id, files, objects,
+bytes, backend, seconds (objects and bytes as node/statistics.py counts
+them). A second run over an unchanged tree hashes nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
+import os
 import sys
+import time
 
 
 def cmd_index(args: argparse.Namespace) -> int:
+    if args.library is not None:
+        summary = asyncio.run(index_library(args.path, args.data_dir, args.library, args.device))
+        print(json.dumps(summary))
+        return 0
     from .index_pass import index_pass
 
     result = index_pass(args.path, args.data_dir, device=args.device)
@@ -22,12 +40,70 @@ def cmd_index(args: argparse.Namespace) -> int:
     return 0
 
 
+def open_library(libraries, name: str):
+    """The library called `name` under `libraries`, created if absent;
+    the other libraries there are closed again."""
+    found = None
+    for lib in libraries.load_all():
+        if lib.name == name and found is None:
+            found = lib
+        else:
+            lib.close()
+    return found if found is not None else libraries.create(name)
+
+
+async def index_library(path: str, data_dir: str, library: str, backend: str = "cuda") -> dict:
+    """Scan `path` into the library `library` and return the summary
+    line (the JAX package's `sdx index` keys, without thumbnails and
+    labels). Raises if a job of the scan failed."""
+    from .db.database import now_iso
+    from .jobs import JobManager, JobStatus
+    from .location.locations import LocationCreateArgs, scan_location
+    from .node.library import Libraries
+    from .node.statistics import update_statistics
+    from .tasks import TaskSystem
+
+    lib = open_library(Libraries(data_dir), library)
+    manager = JobManager(TaskSystem(2))
+    try:
+        t0 = time.perf_counter()
+        started = now_iso()
+        loc = lib.db.find_one("location", path=os.path.abspath(path))
+        if loc is None:
+            loc = LocationCreateArgs(path=path).create(lib)
+        await scan_location(lib, loc, manager, backend=backend)
+        await manager.wait_idle()
+        elapsed = time.perf_counter() - t0
+        failed = lib.db.query(
+            "SELECT name, errors_text FROM job WHERE status = ? AND date_created >= ?",
+            (int(JobStatus.FAILED), started),
+        )
+        if failed:
+            raise RuntimeError(f"scan failed: {failed}")
+        stats = update_statistics(lib.db)
+        return {
+            "library": lib.name,
+            "location_id": loc["id"],
+            "files": lib.db.count("file_path", "is_dir = 0"),
+            "objects": stats["total_object_count"],
+            "bytes": int(stats["total_bytes_used"]),
+            "backend": backend,
+            "seconds": round(elapsed, 2),
+        }
+    finally:
+        await manager.system.shutdown()
+        lib.close()
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m spacedrive_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("index", help="index a directory: cas_ids, thumbnails, embeddings")
     p.add_argument("path")
-    p.add_argument("--data-dir", required=True, help="where thumbnails/ is written")
+    p.add_argument("--data-dir", required=True,
+                   help="where thumbnails/ (or, with --library, libraries/) is written")
+    p.add_argument("--library", default=None,
+                   help="index into this library (created if absent) through the job chain")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.set_defaults(func=cmd_index)
     return parser

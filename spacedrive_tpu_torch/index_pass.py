@@ -161,22 +161,27 @@ def index_pass(
     `keep_pixels` keeps each device-resized thumbnail array in the
     result (for parity checks)."""
     device = torch.device(device)
+    root = os.path.normpath(os.fspath(path))
     t_start = time.perf_counter()
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
-    files = [e for e in walk(path) if not e.is_dir]
+    files = [
+        (e.iso_file_path.join_on(root), e.metadata.size_in_bytes, e.iso_file_path.extension)
+        for e in walk(root).walked
+        if not e.iso_file_path.is_dir
+    ]
     timings["walk"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    ids = identify([(e.path, e.size_in_bytes) for e in files], device, timings)
+    ids = identify([(p, size) for p, size, _ in files], device, timings)
     timings["identify"] = time.perf_counter() - t0
-    cas_ids = {e.path: c for e, c in zip(files, ids)}
+    cas_ids = {p: c for (p, _, _), c in zip(files, ids)}
 
     # one thumbnail and one vector per object (distinct cas_id)
     images: dict[str, str] = {}
-    for e, c in zip(files, ids):
-        if c is not None and process.can_generate(e.extension):
-            images.setdefault(c, e.path)
+    for (p, _, ext), c in zip(files, ids):
+        if c is not None and process.can_generate(ext):
+            images.setdefault(c, p)
     items = list(images.items())
 
     result = IndexResult(summary={}, cas_ids=cas_ids, timings=timings)
@@ -195,7 +200,7 @@ def index_pass(
     result.summary = {
         "files": len(files),
         "objects": len({c for c in ids if c is not None}),
-        "bytes": sum(e.size_in_bytes for e in files),
+        "bytes": sum(size for _, size, _ in files),
         "thumbnails": len(result.thumbnails),
         "backend": str(device),
         "seconds": round(elapsed, 2),

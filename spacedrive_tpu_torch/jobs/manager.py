@@ -1,0 +1,235 @@
+"""JobManager — ingest/dispatch/pause/resume/cancel/cold_resume.
+
+Parity: ref:core/src/job/manager.rs (Jobs::{ingest,dispatch,pause,
+resume,cancel,cold_resume}) + JobBuilder chaining
+(ref:core/src/location/mod.rs:455-472 spawns Indexer → FileIdentifier →
+MediaProcessor chains). Reports persist in the library's `job` table;
+progress streams over the library event bus as JobProgressEvent.
+
+Counterpart of `spacedrive_tpu/jobs/manager.py`, without job events,
+trace context, outcome notifications and query invalidation (the port
+has no node or API to receive them).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import uuid
+from typing import Any
+
+from ..db.database import now_iso
+from ..tasks import TaskStatus, TaskSystem
+from ..utils.tasks import supervise
+from .job import JobContext, JobRunnerTask, StatefulJob, status_for_result
+from .report import JobProgressEvent, JobReport, JobStatus
+
+logger = logging.getLogger(__name__)
+
+# name -> class, for cold resume deserialization; populated by
+# register_job (each job module registers itself at import).
+JOB_REGISTRY: dict[str, type[StatefulJob]] = {}
+
+
+def register_job(cls: type[StatefulJob]) -> type[StatefulJob]:
+    JOB_REGISTRY[cls.NAME] = cls
+    return cls
+
+
+class JobBuilder:
+    """JobBuilder(init_job).queue_next(other).spawn(manager, library)."""
+
+    def __init__(self, job: StatefulJob):
+        self.job = job
+
+    def queue_next(self, job: StatefulJob) -> "JobBuilder":
+        tail = self.job
+        while tail.next_jobs:
+            tail = tail.next_jobs[-1]
+        tail.queue_next(job)
+        return self
+
+    async def spawn(self, manager: "JobManager", library: Any) -> uuid.UUID:
+        await manager.ingest(self.job, library)
+        return self.job.id
+
+
+class JobManager:
+    def __init__(self, task_system: TaskSystem | None = None):
+        self.system = task_system or TaskSystem()
+        self._active: dict[uuid.UUID, tuple[Any, JobContext]] = {}  # job id -> (handle, ctx)
+        self._supervisors: set = set()
+        self._supervisor_by_job: dict[uuid.UUID, Any] = {}
+
+    # --- ingest & drive (ref:manager.rs:101-178) ---
+
+    async def ingest(self, job: StatefulJob, library: Any, parent: JobReport | None = None) -> None:
+        report = JobReport(
+            id=job.id,
+            name=job.NAME,
+            action=self._action_string(job),
+            parent_id=parent.id if parent else None,
+            status=JobStatus.QUEUED,
+        )
+        report.create(library.db)
+        self._dispatch(job, library, report)
+
+    def _dispatch(self, job: StatefulJob, library: Any, report: JobReport) -> None:
+        ctx = JobContext(library, report, manager=self)
+        report.status = JobStatus.RUNNING
+        report.started_at = report.started_at or now_iso()
+        report.update(library.db)
+        handle = self.system.dispatch(JobRunnerTask(job, ctx))
+        self._active[job.id] = (handle, ctx)
+        # keep a strong ref: the loop only weak-refs tasks and a GC'd
+        # supervisor would drop final status writes + job chaining
+        sup = supervise(
+            asyncio.ensure_future(self._supervise(job, library, handle, ctx)),
+            self._supervisors, logger, f"job supervisor ({report.name})",
+        )
+        self._supervisor_by_job[job.id] = sup
+        sup.add_done_callback(lambda _t, jid=job.id: self._supervisor_by_job.pop(jid, None))
+
+    async def _supervise(self, job: StatefulJob, library: Any, handle, ctx: JobContext) -> None:
+        result = await handle.wait()
+        report = ctx.report
+        report.status = status_for_result(result.status, bool(job.errors))
+        if result.status == TaskStatus.ERROR:
+            if isinstance(result.error, asyncio.CancelledError):
+                # a cancellation surfacing as ERROR (e.g. re-raised from
+                # inside the job body during node shutdown) is not a
+                # crash — no spurious failed transition, no error toast
+                report.status = JobStatus.CANCELED
+            else:
+                report.errors_text.append(str(result.error))
+        if report.status == JobStatus.PAUSED:
+            report.data = job.serialize_state()  # resume state
+        else:
+            report.data = None
+        if report.status.is_finished and report.status != JobStatus.PAUSED:
+            report.completed_at = now_iso()
+        if isinstance(result.output, dict):
+            report.metadata.update(result.output)
+        report.update(library.db)
+        self._emit_progress(ctx)
+        self._active.pop(job.id, None)
+        logger.info("job %s -> %s", job.NAME, report.status.name)
+
+        # chain: spawn queued next jobs on success (ref:mod.rs:213-231)
+        if report.status in (JobStatus.COMPLETED, JobStatus.COMPLETED_WITH_ERRORS):
+            for next_job in job.next_jobs:
+                await self.ingest(next_job, library, parent=report)
+
+    # --- control (ref:manager.rs:222-267) ---
+
+    async def pause(self, job_id: uuid.UUID) -> None:
+        """Interrupt at the next step boundary and persist the
+        serialized resume state (the reference serializes JobState on
+        pause, ref:core/src/job/worker.rs pause handling)."""
+        entry = self._active.get(job_id)
+        if entry is None:
+            return
+        handle, ctx = entry
+        await handle.pause()
+        # job may complete before reaching a pause boundary — wait on
+        # whichever happens first
+        paused = asyncio.ensure_future(handle.wait_paused())
+        done = asyncio.ensure_future(handle.wait())
+        await asyncio.wait({paused, done}, return_when=asyncio.FIRST_COMPLETED)
+        done.cancel()
+        if not paused.done():
+            paused.cancel()
+            return  # finished instead of pausing; supervisor persists it
+        runner = handle.task
+        report = ctx.report
+        report.status = JobStatus.PAUSED
+        report.data = runner.job.serialize_state()
+        report.update(ctx.library.db)
+        self._emit_progress(ctx)
+
+    async def resume(self, job_id: uuid.UUID) -> None:
+        entry = self._active.get(job_id)
+        if entry:
+            await entry[0].resume()
+            report = entry[1].report
+            report.status = JobStatus.RUNNING
+            report.update(entry[1].library.db)
+
+    async def cancel(self, job_id: uuid.UUID) -> None:
+        entry = self._active.get(job_id)
+        if entry:
+            await entry[0].cancel()
+
+    async def wait(self, job_id: uuid.UUID) -> JobReport | None:
+        entry = self._active.get(job_id)
+        if entry is None:
+            return None
+        await entry[0].wait()
+        # the supervisor writes the final status after the task settles
+        sup = self._supervisor_by_job.get(job_id)
+        if sup is not None:
+            await asyncio.shield(sup)
+        return entry[1].report
+
+    async def wait_idle(self) -> None:
+        """Wait until no job is actively running (paused/parked jobs
+        don't count — they only finish after resume)."""
+        while True:
+            waiters = [
+                asyncio.ensure_future(h.wait())
+                for jid, (h, _) in self._active.items()
+                if h.task.id not in self.system._paused
+            ]
+            if not waiters:
+                return
+            done, pending = await asyncio.wait(waiters, return_when=asyncio.FIRST_COMPLETED)
+            for p in pending:
+                p.cancel()
+            await asyncio.sleep(0)
+
+    # --- crash recovery (ref:manager.rs:269-320) ---
+
+    async def cold_resume(self, library: Any) -> int:
+        """Re-dispatch persisted Paused/Running/Queued jobs at library
+        load; unparseable ones are marked Canceled."""
+        resumed = 0
+        rows = library.db.query(
+            "SELECT * FROM job WHERE status IN (?, ?, ?) AND parent_id IS NULL",
+            (int(JobStatus.PAUSED), int(JobStatus.RUNNING), int(JobStatus.QUEUED)),
+        )
+        for row in rows:
+            report = JobReport.from_row(row)
+            if not report.data:
+                report.status = JobStatus.CANCELED
+                report.update(library.db)
+                continue
+            try:
+                job = StatefulJob.deserialize_state(report.data, JOB_REGISTRY)
+            except Exception:  # noqa: BLE001 - corrupt state is expected input
+                logger.warning("cold_resume: dropping unparseable job %s", report.name)
+                report.status = JobStatus.CANCELED
+                report.update(library.db)
+                continue
+            self._dispatch(job, library, report)
+            resumed += 1
+        return resumed
+
+    # --- events ---
+
+    def _emit_progress(self, ctx: JobContext) -> None:
+        library = ctx.library
+        event = ctx.report.progress_event(getattr(library, "id", None))
+        bus = getattr(library, "event_bus", None)
+        if bus is not None:
+            bus.emit(("JobProgress", event))
+
+    @staticmethod
+    def _action_string(job: StatefulJob) -> str:
+        """"{action}(-{children})*" composition (ref:schema.prisma:405)."""
+        parts = [job.NAME]
+        tail = job.next_jobs
+        while tail:
+            parts.append(tail[-1].NAME)
+            tail = tail[-1].next_jobs
+        return "-".join(parts)
+

@@ -1,251 +1,347 @@
-"""Filesystem walk for the indexing pass.
+"""Filesystem walker with injected DB fetchers.
 
-Counterpart of `spacedrive_tpu/location/indexer/walker.py` with the parts
-of `files/isolated_path.py` and `location/indexer/rules.py` it needs: a
-breadth-first walk over a to-walk queue (ref:core/src/location/indexer/
-walk.rs:119-200), per-entry rule application with the accept-by-children
-state machine (walk.rs:476-586), ancestor backfill (walk.rs:616-661) and
-the symlink skip. There is no library DB in this slice, so there are no
-DB fetchers: every accepted entry is new.
+Parity: ref:core/src/location/indexer/walk.rs — breadth-first walk over
+a to_walk queue (:119-200), per-entry rule application and the
+accept-by-children state machine (:476-586), ancestor backfill (:616-
+661), symlink skip, existing-row diffing into to_create/to_update
+(:334-430), and per-directory to_remove fetching (:664-680).
+
+The DB is injected as plain callables (exactly the reference's
+generics-based design) so the walker unit-tests hermetically.
+
+Counterpart of `spacedrive_tpu/location/indexer/walker.py`. Called with
+the root alone, `walk` applies the location defaults (`no_os_protected`)
+against an empty DB, as the library-less indexing pass (index_pass.py)
+does.
 """
 
 from __future__ import annotations
 
-import enum
+import logging
 import os
-import re
-from dataclasses import dataclass
-from typing import Sequence
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Callable
 
+from ...db.database import blob_u64
+from ...files.isolated_path import FilePathMetadata, IsolatedFilePathData
+from .rules import IndexerRule, RuleKind, no_os_protected
 
-# --- paths (files/isolated_path.py) ------------------------------------------
+logger = logging.getLogger(__name__)
 
-
-def separate_name_and_extension(filename: str) -> tuple[str, str]:
-    """('archive.tar', 'gz') for 'archive.tar.gz'; hidden files like
-    '.env' have no extension."""
-    stem, dot, ext = filename.rpartition(".")
-    if not dot or not stem or not ext:
-        return filename, ""
-    return stem, ext
-
-
-@dataclass(frozen=True)
-class WalkedEntry:
-    """One accepted entry: where it is, and the stat facts the pass uses."""
-
-    path: str
-    relative_path: str  # "/"-separated, relative to the walk root
-    is_dir: bool
-    extension: str  # without the dot; "" for directories
-    size_in_bytes: int
-    inode: int
-
-
-def _entry(root: str, path: str, is_dir: bool, st: os.stat_result) -> WalkedEntry:
-    rel = os.path.relpath(path, root).replace(os.sep, "/")
-    ext = "" if is_dir else separate_name_and_extension(os.path.basename(path))[1]
-    return WalkedEntry(path, rel, is_dir, ext, 0 if is_dir else st.st_size, st.st_ino)
-
-
-# --- rules (location/indexer/rules.py) ---------------------------------------
-
-
-class RuleKind(enum.IntEnum):
-    ACCEPT_FILES_BY_GLOB = 0
-    REJECT_FILES_BY_GLOB = 1
-    ACCEPT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT = 2
-    REJECT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT = 3
-
-
-def glob_to_regex(glob: str) -> str:
-    """globset-syntax glob → anchored regex. `*` and `?` may cross `/`
-    (globset's default literal_separator=false), `{a,b}` alternates,
-    `[...]` is a class, `**/` also matches the empty prefix."""
-    return _translate(glob) + r"\Z"
-
-
-def _translate(glob: str) -> str:
-    i, n = 0, len(glob)
-    out: list[str] = []
-    while i < n:
-        c = glob[i]
-        if c == "*":
-            if glob[i:i + 2] == "**" and glob[i + 2:i + 3] == "/":
-                out.append("(?:.*/)?")
-                i += 3
-            else:
-                out.append(".*")
-                i += 2 if glob[i:i + 2] == "**" else 1
-        elif c == "?":
-            out.append(".")
-            i += 1
-        elif c == "[":
-            j = i + 1
-            if j < n and glob[j] in "!^":
-                j += 1
-            if j < n and glob[j] == "]":
-                j += 1
-            while j < n and glob[j] != "]":
-                j += 1
-            if j >= n:
-                out.append(re.escape(c))
-                i += 1
-            else:
-                cls = glob[i + 1:j]
-                if cls.startswith("!"):
-                    cls = "^" + cls[1:]
-                out.append(f"[{cls}]")
-                i = j + 1
-        elif c == "{":
-            j = i + 1
-            depth = 1
-            while j < n and depth:
-                if glob[j] == "{":
-                    depth += 1
-                elif glob[j] == "}":
-                    depth -= 1
-                j += 1
-            if depth:
-                out.append(re.escape(c))
-                i += 1
-            else:
-                parts = _split_alternation(glob[i + 1:j - 1])
-                out.append("(?:" + "|".join(_translate(p) for p in parts) + ")")
-                i = j
-        else:
-            out.append(re.escape(c))
-            i += 1
-    return "".join(out)
-
-
-def _split_alternation(inner: str) -> list[str]:
-    parts, depth, cur = [], 0, []
-    for ch in inner:
-        if ch == "{":
-            depth += 1
-        elif ch == "}":
-            depth -= 1
-        if ch == "," and depth == 0:
-            parts.append("".join(cur))
-            cur = []
-        else:
-            cur.append(ch)
-    parts.append("".join(cur))
-    return parts
+TO_WALK_QUEUE_INITIAL_CAPACITY = 32
+WALKER_PATHS_BUFFER_INITIAL_CAPACITY = 512
 
 
 @dataclass
-class RulePerKind:
-    kind: RuleKind
-    params: list[str]  # globs or child-dir names
+class WalkedEntry:
+    iso_file_path: IsolatedFilePathData
+    metadata: FilePathMetadata | None
+    pub_id: bytes = field(default_factory=lambda: uuid.uuid4().bytes)
+    object_id: int | None = None  # set for to_update entries
+    # index-journal verdict for file entries ("hit"|"miss"|"invalidated"|
+    # "bypassed"; None when no journal was consulted) — a non-hit on a
+    # to_update entry tells the job to clear cas_id so the identifier
+    # re-hashes the changed content
+    journal_verdict: str | None = None
 
-    def __post_init__(self) -> None:
-        self._res = [re.compile(glob_to_regex(g)) for g in self.params]
-
-    def apply(self, path: str) -> bool:
-        """Whether `path` passes: an accept-glob passes iff it matches, a
-        reject-glob iff it does not; the children rules inspect the
-        directory's entries (ref:rules/mod.rs:430-560)."""
-        if self.kind in (RuleKind.ACCEPT_FILES_BY_GLOB, RuleKind.REJECT_FILES_BY_GLOB):
-            p = path.replace(os.sep, "/")
-            matched = any(r.match(p) for r in self._res)
-            return matched if self.kind == RuleKind.ACCEPT_FILES_BY_GLOB else not matched
-        has_child = _dir_has_children(path, set(self.params))
-        if self.kind == RuleKind.ACCEPT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT:
-            return has_child
-        return not has_child
+    def key(self):
+        return self.iso_file_path
 
 
-def _dir_has_children(path: str, names: set[str]) -> bool:
-    try:
-        if not os.path.isdir(path):
-            return False
-        with os.scandir(path) as it:
-            return any(e.name in names and e.is_dir(follow_symlinks=False) for e in it)
-    except OSError:
-        return False
+@dataclass
+class ToWalkEntry:
+    path: str
+    parent_dir_accepted_by_its_children: bool | None = None
+    maybe_parent: str | None = None
 
 
-def no_os_protected() -> list[RulePerKind]:
-    """The one system rule a new location gets by default
-    (ref:rules/seed.rs, "No OS protected")."""
-    return [
-        RulePerKind(
-            RuleKind.REJECT_FILES_BY_GLOB,
-            [
-                "**/.spacedrive",
-                "**/*~",
-                "**/.fuse_hidden*",
-                "**/.directory",
-                "**/.Trash-*",
-                "**/.nfs*",
-                "/{dev,sys,proc}",
-                "/{run,var,boot}",
-                "**/lost+found",
-            ],
-        )
-    ]
+@dataclass
+class WalkResult:
+    walked: list[WalkedEntry]                 # to create
+    to_update: list[WalkedEntry]              # changed vs DB
+    to_walk: list[ToWalkEntry]                # remaining when limit hit
+    to_remove: list[dict[str, Any]]           # DB rows no longer on disk
+    errors: list[Exception]
+    paths_and_sizes: dict[str, int]           # dir -> accumulated bytes
 
 
-def _apply_all(rules: Sequence[RulePerKind], path: str) -> dict[RuleKind, list[bool]]:
-    out: dict[RuleKind, list[bool]] = {}
-    for rule in rules:
-        out.setdefault(rule.kind, []).append(rule.apply(path))
-    return out
+# fetcher signatures (injected):
+#   file_paths_db_fetcher(iso_paths) -> rows with keys
+#       {pub_id, object_id, inode, hidden, date_modified, size_in_bytes_bytes,
+#        materialized_path, name, extension, is_dir}
+#   to_remove_db_fetcher(parent_iso, found_iso_paths) -> rows
+#       {pub_id, cas_id, object_id, ...}
+#   journal_check(iso, metadata) -> verdict string — the index-journal
+#       consult for every walked FILE (location/indexer/journal.py);
+#       injected like the DB fetchers so the walker stays hermetic
+FilePathsFetcher = Callable[[list[IsolatedFilePathData]], list[dict]]
+ToRemoveFetcher = Callable[[IsolatedFilePathData, list[IsolatedFilePathData]], list[dict]]
+JournalCheck = Callable[[IsolatedFilePathData, FilePathMetadata], str]
 
 
-# --- walk ----------------------------------------------------------------------
+def walk(
+    root: str | os.PathLike,
+    indexer_rules: list[IndexerRule] | None = None,
+    iso_file_path_factory: Callable[[str, bool], IsolatedFilePathData] | None = None,
+    file_paths_db_fetcher: FilePathsFetcher | None = None,
+    to_remove_db_fetcher: ToRemoveFetcher | None = None,
+    update_notifier: Callable[[str, int], None] | None = None,
+    limit: int = 100_000,
+    initial_accepted_by_children: bool | None = None,
+    journal_check: JournalCheck | None = None,
+) -> WalkResult:
+    """Full recursive walk from `root` (ref:walk.rs:119-200). When the
+    limit is hit, the remaining dirs come back in `to_walk` so callers
+    can continue in later steps (ref keep_walking, walk.rs:200).
+    Omitted arguments mean the location defaults (`no_os_protected`)
+    and a DB with no rows for location 0."""
+    root = os.fspath(root)
+    if indexer_rules is None:
+        indexer_rules = [no_os_protected()]
+    if iso_file_path_factory is None:
+        def iso_file_path_factory(p: str, is_dir: bool) -> IsolatedFilePathData:
+            return IsolatedFilePathData.new(0, root, p, is_dir)
+    if file_paths_db_fetcher is None:
+        def file_paths_db_fetcher(isos):
+            return []
+    if to_remove_db_fetcher is None:
+        def to_remove_db_fetcher(parent, isos):
+            return []
+    to_walk: list[ToWalkEntry] = [ToWalkEntry(root, initial_accepted_by_children, None)]
+    indexed_paths: dict[IsolatedFilePathData, WalkedEntry] = {}
+    errors: list[Exception] = []
+    paths_and_sizes: dict[str, int] = {}
+    to_remove: list[dict] = []
 
-
-def walk(root: str | os.PathLike, rules: Sequence[RulePerKind] | None = None) -> list[WalkedEntry]:
-    """Full recursive walk from `root` with `rules` (default: the
-    location defaults, `no_os_protected`). Returns the accepted entries,
-    directories included, in walk order; the root itself is not one."""
-    root = os.path.normpath(os.fspath(root))
-    rules = no_os_protected() if rules is None else list(rules)
-    to_walk: list[tuple[str, bool | None]] = [(root, None)]
-    indexed: dict[str, WalkedEntry] = {}
     while to_walk:
-        path, parent_accepted_by_children = to_walk.pop(0)
-        try:
-            dir_entries = list(os.scandir(path))
-        except OSError:
+        entry = to_walk.pop(0)
+        entry_size, removed = _inner_walk_single_dir(
+            root, entry, indexer_rules, iso_file_path_factory,
+            to_remove_db_fetcher, indexed_paths, to_walk, errors,
+            update_notifier,
+        )
+        to_remove.extend(removed)
+        paths_and_sizes[entry.path] = paths_and_sizes.get(entry.path, 0) + entry_size
+        if entry.maybe_parent is not None:
+            paths_and_sizes[entry.maybe_parent] = (
+                paths_and_sizes.get(entry.maybe_parent, 0) + entry_size
+            )
+        if len(indexed_paths) >= limit:
+            break
+
+    walked, to_update = _filter_existing_paths(
+        indexed_paths, file_paths_db_fetcher, journal_check
+    )
+    return WalkResult(walked, to_update, to_walk, to_remove, errors, paths_and_sizes)
+
+
+def walk_single_dir(
+    root: str | os.PathLike,
+    indexer_rules: list[IndexerRule],
+    iso_file_path_factory: Callable[[str, bool], IsolatedFilePathData],
+    file_paths_db_fetcher: FilePathsFetcher,
+    to_remove_db_fetcher: ToRemoveFetcher,
+    journal_check: JournalCheck | None = None,
+) -> WalkResult:
+    """Shallow walk (one directory, no recursion) — the light-rescan
+    path (ref:walk.rs:265 walk_single_dir, shallow.rs)."""
+    root = os.fspath(root)
+    indexed_paths: dict[IsolatedFilePathData, WalkedEntry] = {}
+    errors: list[Exception] = []
+    size, removed = _inner_walk_single_dir(
+        root, ToWalkEntry(root), indexer_rules, iso_file_path_factory,
+        to_remove_db_fetcher, indexed_paths, None, errors, None,
+    )
+    walked, to_update = _filter_existing_paths(
+        indexed_paths, file_paths_db_fetcher, journal_check
+    )
+    return WalkResult(walked, to_update, [], removed, errors, {root: size})
+
+
+def _inner_walk_single_dir(
+    root: str,
+    entry: ToWalkEntry,
+    indexer_rules: list[IndexerRule],
+    iso_file_path_factory: Callable[[str, bool], IsolatedFilePathData],
+    to_remove_db_fetcher: ToRemoveFetcher,
+    indexed_paths: dict[IsolatedFilePathData, WalkedEntry],
+    maybe_to_walk: list[ToWalkEntry] | None,
+    errors: list[Exception],
+    update_notifier: Callable[[str, int], None] | None,
+) -> tuple[int, list[dict]]:
+    path = entry.path
+    try:
+        iso_to_walk = iso_file_path_factory(path, True)
+    except Exception as e:  # noqa: BLE001
+        errors.append(e)
+        return 0, []
+    try:
+        dir_entries = list(os.scandir(path))
+    except OSError as e:
+        errors.append(e)
+        return 0, []
+
+    paths_buffer: dict[IsolatedFilePathData, WalkedEntry] = {}
+
+    for dirent in dir_entries:
+        accept_by_children_dir = entry.parent_dir_accepted_by_its_children
+        current_path = dirent.path
+
+        if update_notifier is not None:
+            update_notifier(current_path, len(indexed_paths) + len(paths_buffer))
+
+        rules_per_kind = IndexerRule.apply_all(indexer_rules, current_path)
+
+        # rejected by any reject-glob (ref:walk.rs:519-527)
+        if any(not ok for ok in rules_per_kind.get(RuleKind.REJECT_FILES_BY_GLOB, [])):
             continue
-        for dirent in dir_entries:
-            accept_by_children_dir = parent_accepted_by_children
-            current = dirent.path
-            per_kind = _apply_all(rules, current)
-            if not all(per_kind.get(RuleKind.REJECT_FILES_BY_GLOB, [])):
+
+        try:
+            st = dirent.stat(follow_symlinks=False)
+            if dirent.is_symlink():
+                continue  # symlinks hard-ignored (ref:walk.rs:540)
+            is_dir = dirent.is_dir(follow_symlinks=False)
+        except OSError as e:
+            errors.append(e)
+            continue
+
+        if is_dir:
+            # reject dir + children entirely (ref:walk.rs:546-557)
+            if any(
+                not ok
+                for ok in rules_per_kind.get(
+                    RuleKind.REJECT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT, []
+                )
+            ):
                 continue
+            accept_results = rules_per_kind.get(
+                RuleKind.ACCEPT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT
+            )
+            if accept_results is not None:
+                if any(accept_results):
+                    accept_by_children_dir = True
+                if accept_by_children_dir is None:
+                    accept_by_children_dir = False
+            if maybe_to_walk is not None:
+                maybe_to_walk.append(
+                    ToWalkEntry(current_path, accept_by_children_dir, path)
+                )
+
+        # rejected when accept-globs exist and none matched (ref:walk.rs:588-597)
+        accepts = rules_per_kind.get(RuleKind.ACCEPT_FILES_BY_GLOB)
+        if accepts is not None and all(not a for a in accepts):
+            continue
+
+        if accept_by_children_dir is None or accept_by_children_dir:
             try:
-                st = dirent.stat(follow_symlinks=False)
-                if dirent.is_symlink():
-                    continue  # symlinks hard-ignored (ref:walk.rs:540)
-                is_dir = dirent.is_dir(follow_symlinks=False)
-            except OSError:
+                iso = iso_file_path_factory(current_path, is_dir)
+                metadata = FilePathMetadata.from_path(current_path, st)
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
                 continue
-            if is_dir:
-                if not all(per_kind.get(RuleKind.REJECT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT, [])):
-                    continue
-                accepts = per_kind.get(RuleKind.ACCEPT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT)
-                if accepts is not None:
-                    if any(accepts):
-                        accept_by_children_dir = True
-                    if accept_by_children_dir is None:
-                        accept_by_children_dir = False
-                to_walk.append((current, accept_by_children_dir))
-            accepts = per_kind.get(RuleKind.ACCEPT_FILES_BY_GLOB)
-            if accepts is not None and not any(accepts):
-                continue
-            if accept_by_children_dir is None or accept_by_children_dir:
-                indexed[current] = _entry(root, current, is_dir, st)
-                # ancestor backfill up to (not including) the root
-                ancestor = os.path.dirname(current)
-                while ancestor != root and len(ancestor) > len(root) and ancestor not in indexed:
-                    try:
-                        indexed[ancestor] = _entry(root, ancestor, True, os.stat(ancestor))
-                    except OSError:
-                        pass
+            paths_buffer[iso] = WalkedEntry(iso, metadata)
+
+            # ancestor backfill up to (not incl.) root (ref:walk.rs:616-661)
+            ancestor = os.path.dirname(current_path)
+            while ancestor != root and len(ancestor) > len(root):
+                try:
+                    aiso = iso_file_path_factory(ancestor, True)
+                except Exception as e:  # noqa: BLE001
+                    errors.append(e)
+                    break
+                if aiso in indexed_paths or aiso in paths_buffer:
+                    break
+                try:
+                    ameta = FilePathMetadata.from_path(ancestor)
+                except OSError as e:
+                    errors.append(e)
                     ancestor = os.path.dirname(ancestor)
-    return list(indexed.values())
+                    continue
+                paths_buffer[aiso] = WalkedEntry(aiso, ameta)
+                ancestor = os.path.dirname(ancestor)
+
+    try:
+        to_remove = to_remove_db_fetcher(iso_to_walk, list(paths_buffer.keys()))
+    except Exception as e:  # noqa: BLE001
+        errors.append(e)
+        to_remove = []
+
+    entry_size = sum(
+        w.metadata.size_in_bytes for w in paths_buffer.values() if w.metadata
+    )
+    indexed_paths.update(paths_buffer)
+    return entry_size, to_remove
+
+
+def _filter_existing_paths(
+    indexed_paths: dict[IsolatedFilePathData, WalkedEntry],
+    file_paths_db_fetcher: FilePathsFetcher,
+    journal_check: JournalCheck | None = None,
+) -> tuple[list[WalkedEntry], list[WalkedEntry]]:
+    """Split into (to_create, to_update) against existing DB rows
+    (ref:walk.rs:334-430): an existing row updates when inode, mtime
+    (±1 ms) or hidden changed — directory sizes are ignored. Every FILE
+    entry additionally gets its index-journal verdict (the per-file
+    hit/miss/invalidated stream a warm pass is measured by)."""
+    if not indexed_paths:
+        return [], []
+    if journal_check is not None:
+        for iso, entry in indexed_paths.items():
+            if not iso.is_dir and entry.metadata is not None:
+                try:
+                    entry.journal_verdict = journal_check(iso, entry.metadata)
+                except Exception:  # noqa: BLE001 - journal must not kill walks
+                    logger.exception("journal_check failed")
+                    entry.journal_verdict = None
+    try:
+        rows = file_paths_db_fetcher(list(indexed_paths.keys()))
+    except Exception:  # noqa: BLE001 - treat fetch failure as "no rows"
+        logger.exception("file_paths_db_fetcher failed; treating all as new")
+        rows = []
+
+    in_db: dict[IsolatedFilePathData, dict] = {}
+    for row in rows:
+        iso = IsolatedFilePathData.from_db_row(
+            row.get("location_id", 0),
+            row["materialized_path"],
+            row["name"],
+            row["extension"],
+            bool(row["is_dir"]),
+        )
+        in_db[iso] = row
+
+    to_create: list[WalkedEntry] = []
+    to_update: list[WalkedEntry] = []
+    for iso, entry in indexed_paths.items():
+        row = in_db.get(iso)
+        if row is None:
+            to_create.append(entry)
+            continue
+        meta = entry.metadata
+        if meta is None or row.get("inode") is None:
+            continue
+        changed = (
+            blob_u64(row["inode"]) != meta.inode
+            or _mtime_differs(row.get("date_modified"), meta)
+            or row.get("hidden") is None
+            or bool(row["hidden"]) != meta.hidden
+        )
+        if changed:
+            entry.pub_id = row["pub_id"]
+            entry.object_id = row.get("object_id")
+            to_update.append(entry)
+    return to_create, to_update
+
+
+def _mtime_differs(stored: str | None, meta: FilePathMetadata) -> bool:
+    if stored is None:
+        return True
+    import datetime as _dt
+
+    try:
+        old = _dt.datetime.fromisoformat(stored)
+    except ValueError:
+        return True
+    delta = meta.modified_at - old
+    return abs(delta.total_seconds()) > 0.001

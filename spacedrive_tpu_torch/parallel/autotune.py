@@ -15,6 +15,10 @@ BATCH_LADDER = (32, 256, 1024)
 #: dispatch of the top ladder rung
 IDENTIFY_DEVICE_WINDOW = BATCH_LADDER[-1]
 
+#: identifier rows per window on the CPU backend: the reference's
+#: parity chunk (ref:core/src/object/file_identifier/mod.rs:34)
+IDENTIFY_CPU_WINDOW = 100
+
 #: thumbnail images per device resize call
 THUMB_DEVICE_BATCH = 32
 

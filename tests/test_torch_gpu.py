@@ -9,7 +9,12 @@ import nothing of JAX, so they also run where JAX is not installed:
 
 Tolerances: K1 and the hashes bit-identical; resize within 1 uint8 level
 (float32 sums in another order); embed allclose(atol=1e-5, rtol=1e-5).
+With --noconftest no coroutine-test runner is installed, so the library
+chain test drives its event loop with asyncio.run itself.
 """
+
+import asyncio
+import os
 
 import numpy as np
 import pytest
@@ -80,3 +85,55 @@ def test_embed_on_cuda_matches_cpu():
     x = np.random.default_rng(3).random((20, 32, 32, 3), dtype=np.float32)
     np.testing.assert_allclose(embed_torch.embed_batch(x, "cuda"),
                                embed_torch.embed_batch(x, "cpu"), atol=1e-5, rtol=1e-5)
+
+
+async def _scan(data_dir, loc, backend):
+    """Index `loc` into a library under `data_dir` twice on `backend`;
+    returns ({row key: cas_id} after the first scan, K1 launches of each
+    scan, identifier run metadata of the second)."""
+    from spacedrive_tpu_torch.jobs import JobManager
+    from spacedrive_tpu_torch.location.locations import LocationCreateArgs, scan_location
+    from spacedrive_tpu_torch.node.library import Libraries
+    from spacedrive_tpu_torch.tasks import TaskSystem
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    lib = Libraries(data_dir).create("gpu")
+    mgr = JobManager(TaskSystem(2))
+    try:
+        location = LocationCreateArgs(path=str(loc)).create(lib)
+        launches, ids = [], None
+        for _ in range(2):
+            before = blake3_cuda.chunk_cvs.launches
+            await scan_location(lib, location, mgr, backend=backend)
+            await mgr.wait_idle()
+            launches.append(blake3_cuda.chunk_cvs.launches - before)
+            if ids is None:
+                ids = {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"]
+                       for r in lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")}
+        jobs = lib.db.query("SELECT status, metadata FROM job WHERE name = 'file_identifier' "
+                            "ORDER BY date_created")
+        assert [j["status"] for j in jobs] == [2, 2]
+        return ids, launches, unpackb(jobs[-1]["metadata"])
+    finally:
+        await mgr.system.shutdown()
+        lib.close()
+
+
+def test_library_chain_on_cuda_matches_cpu_and_warm_scan_launches_nothing(tmp_path):
+    rng = np.random.default_rng(4)
+    loc = tmp_path / "loc"
+    for i, size in enumerate([0, 1, 1024, 5000, 102400, 102401, 300_000] + list(
+            rng.integers(1, 400_000, 120))):
+        d = loc / f"d{i % 5}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"f{i:03d}.bin").write_bytes(rng.bytes(int(size)))
+    (loc / "dup.bin").write_bytes((loc / "d1" / "f006.bin").read_bytes())
+    cuda_ids, cuda_launches, warm = asyncio.run(_scan(tmp_path / "cuda", loc, "cuda"))
+    cpu_ids, cpu_launches, _ = asyncio.run(_scan(tmp_path / "cpu", loc, "cpu"))
+    assert cuda_ids == cpu_ids and len(cuda_ids) == 128
+    assert cuda_ids[("/", "dup", "bin")] == cuda_ids[("/d1/", "f006", "bin")]
+    assert cuda_launches[0] > 0 and cuda_launches[1] == 0 and cpu_launches == [0, 0]
+    assert warm["device_files"] == 0
+    for (mat, name, ext), cas_id in list(cuda_ids.items())[:16]:
+        path = os.path.join(loc, mat.strip("/"), f"{name}.{ext}")
+        assert cas_id == (cas.cas_id_cpu(path) if os.path.getsize(path) else None)

@@ -1,4 +1,5 @@
-"""The port's filesystem walk against the JAX package's walker.
+"""The port's filesystem walk and indexer rules against the JAX
+package's walker and rules.
 
 Exact: the same accepted entries (relative paths, kinds, sizes) for the
 default rules and for the child-directory and glob rules, on the
@@ -12,7 +13,8 @@ import pytest
 from spacedrive_tpu.files.isolated_path import IsolatedFilePathData
 from spacedrive_tpu.location.indexer import rules as jrules
 from spacedrive_tpu.location.indexer import walk as jwalk
-from spacedrive_tpu_torch.location.indexer import walker
+from spacedrive_tpu_torch.files import isolated_path
+from spacedrive_tpu_torch.location.indexer import rules, walker
 
 
 @pytest.fixture()
@@ -53,9 +55,17 @@ def _jax_walk(root, rules):
     return out
 
 
-def _port_walk(root, rules=None):
-    return {e.relative_path: (e.is_dir, e.extension, e.size_in_bytes)
-            for e in walker.walk(root, rules)}
+def _port_walk(root, indexer_rules=None):
+    """The port's walk as the library-less pass calls it: the root alone
+    (default rules), or the root and a rule list."""
+    res = walker.walk(root, indexer_rules)
+    assert not res.errors
+    out = {}
+    for e in res.walked:
+        iso = e.iso_file_path
+        size = 0 if iso.is_dir else e.metadata.size_in_bytes
+        out[iso.relative_path] = (iso.is_dir, iso.extension, size)
+    return out
 
 
 def test_default_rules_match_jax(location):
@@ -69,11 +79,14 @@ def test_default_rules_match_jax(location):
 
 def test_child_directory_and_glob_rules_match_jax(location):
     port_rules = [
-        walker.RulePerKind(walker.RuleKind.ACCEPT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT, [".git"]),
-        walker.RulePerKind(walker.RuleKind.REJECT_FILES_BY_GLOB,
-                           ["{**/node_modules/*,**/node_modules}", "{**/target/*,**/target}"]),
+        rules.IndexerRule("r", [rules.RulePerKind(
+            rules.RuleKind.ACCEPT_IF_CHILDREN_DIRECTORIES_ARE_PRESENT, [".git"])]),
+        rules.IndexerRule("r", [rules.RulePerKind(
+            rules.RuleKind.REJECT_FILES_BY_GLOB,
+            ["{**/node_modules/*,**/node_modules}", "{**/target/*,**/target}"])]),
     ]
-    jax_rules = [jrules.IndexerRule("r", [jrules.RulePerKind(r.kind.value, r.params)])
+    jax_rules = [jrules.IndexerRule("r", [jrules.RulePerKind(p.kind.value, p.params)
+                                          for p in r.rules])
                  for r in port_rules]
     got = _port_walk(location, port_rules)
     assert got == _jax_walk(location, jax_rules)
@@ -84,10 +97,11 @@ def test_child_directory_and_glob_rules_match_jax(location):
 @pytest.mark.parametrize("glob", ["**/*.{png,jpg}", "/{dev,sys,proc}", "**/.Trash-*",
                                   "a?c[!x]*", "**/lost+found", "{a,{b,c}}/*"])
 def test_glob_translation_matches_jax(glob):
-    assert walker.glob_to_regex(glob) == jrules.glob_to_regex(glob)
+    assert rules.glob_to_regex(glob) == jrules.glob_to_regex(glob)
 
 
 def test_separate_name_and_extension():
-    assert walker.separate_name_and_extension("archive.tar.gz") == ("archive.tar", "gz")
-    assert walker.separate_name_and_extension(".env") == (".env", "")
-    assert walker.separate_name_and_extension("noext") == ("noext", "")
+    split = isolated_path.separate_name_and_extension
+    assert split("archive.tar.gz") == ("archive.tar", "gz")
+    assert split(".env") == (".env", "")
+    assert split("noext") == ("noext", "")
