@@ -13,13 +13,18 @@ small buckets, 256 JPEG/PNG images), runs the indexing pass
 (`index_pass`, device="cuda") and checks its cas_ids against the plain
 path on the card and the reference on the host, its thumbnails against
 their expected dimensions, and its embeddings. Phase 4 runs the library
-path (`python -m spacedrive_tpu_torch index --library`: IndexerJob →
-FileIdentifierJob on the job system, K1 launched from the identifier's
-window pipeline) over the phase-3 corpus plus 16,384 small files, three
-times: a cold scan (cas_ids against phase 3, the plain path and the
-reference; objects, duplicates and journal entries checked), a warm
-rescan of the unchanged tree (K1 must not launch), and an incremental
-rescan after 32 in-place rewrites, 16 additions and 16 deletions.
+path (`python -m spacedrive_tpu_torch index --library`: a Node on the
+card, IndexerJob → FileIdentifierJob → MediaProcessorJob on its job
+system, K1 launched from the identifier's window pipeline, the images
+sent to the node's thumbnailer actor and embedded) over the phase-3
+corpus plus 16,384 small files, three times: a cold scan (cas_ids
+against phase 3, the plain path and the reference; objects, duplicates
+and journal entries checked; each image's webp, media_data row,
+embedding, search-index vector and journal vouches checked against
+phase 3), a warm rescan of the unchanged tree (K1 must not launch, the
+media job must do nothing, no webp may change), and an incremental
+rescan after 32 in-place rewrites, 16 additions (4 of them images) and
+16 deletions.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -386,7 +391,8 @@ def phase_pass(rng, tmp: str) -> dict:
         "identify_dispatch_share": t["dispatch"] / t["identify"],
     }
     print(json.dumps({"pass": stages}), flush=True)
-    return {"launches": launches, "corpus": corpus, "cas_ids": result.cas_ids,
+    return {"launches": launches, "corpus": corpus, "data_dir": data_dir,
+            "cas_ids": result.cas_ids, "images": images, "embeddings": result.embeddings,
             "large": [p for p, s in files if s > cas.MINIMUM_FILE_SIZE]}
 
 
@@ -418,47 +424,81 @@ def add_small_files(root: str, rng) -> list[str]:
     return paths
 
 
-def library_rows(data_dir: str) -> tuple[list[dict], dict, list[dict]]:
-    """(file rows with their object, journal rows by key, the last
-    indexer and identifier job rows) of the smoke's library."""
+def library_rows(data_dir: str) -> dict:
+    """The smoke library's file rows, journal rows by key, the last
+    indexer, identifier and media job rows, media_data and
+    object_embedding rows, and the search sidecar's object ids."""
     from spacedrive_tpu_torch.node.library import Libraries
 
     (lib,) = Libraries(data_dir).load_all()
     try:
-        rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")
-        journal = {(r["materialized_path"], r["name"], r["extension"]): r
-                   for r in lib.db.query("SELECT * FROM index_journal")}
-        jobs = lib.db.query("SELECT * FROM job ORDER BY date_created DESC, rowid DESC LIMIT 2")[::-1]
+        out = {
+            "lib_id": str(lib.id),
+            "rows": lib.db.query("SELECT * FROM file_path WHERE is_dir = 0"),
+            "journal": {(r["materialized_path"], r["name"], r["extension"]): r
+                        for r in lib.db.query("SELECT * FROM index_journal")},
+            "jobs": lib.db.query("SELECT * FROM job ORDER BY date_created DESC, rowid DESC "
+                                 "LIMIT 3")[::-1],
+            "media_data": lib.db.query("SELECT * FROM media_data"),
+            "embeddings": lib.db.query("SELECT * FROM object_embedding"),
+        }
+        with open(lib.db.path + ".searchidx/meta.json", encoding="utf-8") as f:
+            out["sidecar_ids"] = json.load(f)["ids"]
     finally:
         lib.close()
-    return rows, journal, jobs
+    return out
+
+
+def webp_files(data_dir: str) -> dict[str, tuple[int, int]]:
+    """{webp path: (size, mtime_ns)} under the library's thumbnail store."""
+    out = {}
+    for dirpath, _, files in os.walk(os.path.join(data_dir, "thumbnails")):
+        for f in files:
+            if f.endswith(".webp"):
+                st = os.stat(os.path.join(dirpath, f))
+                out[os.path.join(dirpath, f)] = (st.st_size, st.st_mtime_ns)
+    return out
 
 
 def run_library_pass(corpus: str, data_dir: str) -> dict:
-    """One `index --library` run on the card, with K1's launch count
-    set to 0 just before it and read just after; returns its numbers."""
+    """One `index --library` run on the card (a Node on DEVICE and
+    `cli.index_into`, as `cli.index_library` runs it), with K1's launch
+    count set to 0 just before it and read just after; returns its
+    numbers."""
     import asyncio
     from datetime import datetime
 
-    from spacedrive_tpu_torch.cli import index_library
+    from spacedrive_tpu_torch.cli import index_into
+    from spacedrive_tpu_torch.node.node import Node
     from spacedrive_tpu_torch.ops import blake3_cuda
     from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
 
+    async def scan():
+        node = Node(data_dir, device=DEVICE)
+        await node.start()
+        try:
+            summary = await index_into(node, corpus, "smoke")
+            th = node.thumbnailer
+            return summary, dict(th.stage_seconds), th.generated, th.errors, dict(node.stage_seconds)
+        finally:
+            await node.shutdown()
+
     blake3_cuda.chunk_cvs.launches = 0
     t0 = time.perf_counter()
-    summary = asyncio.run(index_library(corpus, data_dir, "smoke", DEVICE))
+    summary, actor_s, generated, thumb_errors, job_s = asyncio.run(scan())
     wall = time.perf_counter() - t0
     launches = blake3_cuda.chunk_cvs.launches
-    rows, journal, jobs = library_rows(data_dir)
-    check([j["name"] for j in jobs] == ["indexer", "file_identifier"]
+    got = library_rows(data_dir)
+    jobs = got["jobs"]
+    check([j["name"] for j in jobs] == ["indexer", "file_identifier", "media_processor"]
           and all(j["status"] == 2 for j in jobs), f"library jobs did not complete: {jobs}")
     meta = [unpackb(j["metadata"]) for j in jobs]
     secs = [(datetime.fromisoformat(j["date_completed"])
              - datetime.fromisoformat(j["date_started"])).total_seconds() for j in jobs]
-    ident = meta[1]
+    ident, media = meta[1], meta[2]
     return {
-        "summary": summary, "rows": rows, "journal": journal, "indexer": meta[0],
-        "identifier": ident, "launches": launches,
+        **got, "summary": summary, "indexer": meta[0], "identifier": ident, "media": media,
+        "launches": launches, "generated": generated,
         "numbers": {
             "files": summary["files"],
             "files_per_s": summary["files"] / wall,
@@ -472,11 +512,25 @@ def run_library_pass(corpus: str, data_dir: str) -> dict:
             "identifier_dispatch_s": ident["dispatch_time"],
             "identifier_hash_wait_s": ident["hash_wait_time"],
             "identifier_db_s": ident["db_time"],
+            "media_s": secs[2],
+            "thumb_decode_s": actor_s["decode"],
+            "thumb_device_s": actor_s["device"],
+            "thumb_encode_s": actor_s["encode"],
+            "thumb_batch_s": actor_s["batch"],
+            "media_data_s": job_s.get("media_data", 0.0),
+            "embed_decode_s": job_s.get("embed_decode", 0.0),
+            "embed_forward_s": job_s.get("embed_forward", 0.0),
+            "embed_write_s": job_s.get("embed_write", 0.0),
             "k1_launches": launches,
             "device_files": ident["device_files"],
             "walk_journal_hits": meta[0].get("journal_hit", 0),
             "identifier_journal_hits": ident["journal_hits"],
             "dirty_range_rehash": ident["journal_dirty_rehash"],
+            "thumbnails_dispatched": media["thumbnails_dispatched"],
+            "thumbnails_generated": generated,
+            "thumbnail_errors": thumb_errors,
+            "media_data_extracted": media["media_data_extracted"],
+            "embeddings_written": media["embeddings_written"],
         },
     }
 
@@ -501,7 +555,88 @@ def rewrite_in_place(path: str) -> None:
     os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000_000))
 
 
+def check_media(cold: dict, p3: dict, data_dir: str, rng) -> None:
+    """The cold scan's media job against phase 3: a webp per image at
+    `scale_dimensions` after orientation, within a mean 1 level of phase
+    3's thumbnail of the same cas_id; a media_data row per image with
+    its written resolution; an embedding per image allclose 1e-5 to
+    phase 3's (8 also to the CPU forward); the search sidecar; and the
+    journal's thumb, embed and media vouches."""
+    from PIL import Image
+
+    from spacedrive_tpu_torch.models import embedder
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
+    from spacedrive_tpu_torch.ops import embed_torch, thumbnail_torch
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    images = p3["images"]
+    n = len(images)
+    by_path = {_row_path(p3["corpus"], r): r for r in cold["rows"]}
+    cas_of_object = {r["object_id"]: r["cas_id"] for r in cold["rows"] if r["object_id"]}
+    dims_of_cas = {by_path[p]["cas_id"]: (w, h) for p, w, h, _ in images}
+    media = cold["media"]
+    check(media["thumbnails_dispatched"] == n and cold["generated"] == n,
+          f"{media['thumbnails_dispatched']} thumbnails dispatched, {cold['generated']} written, "
+          f"want {n}")
+    check(media["media_data_extracted"] == n and media["embeddings_written"] == n,
+          f"media job metadata {media}, want {n} media_data rows and {n} embeddings")
+
+    store = ThumbnailStore(os.path.join(data_dir, "thumbnails"))
+    p3_store = ThumbnailStore(p3["data_dir"])
+    mean_d, max_d = 0.0, 0
+    for path, w, h, orientation in images:
+        row = by_path[path]
+        cas_id = row["cas_id"]
+        webp = store.path_for(cold["lib_id"], cas_id)
+        check(os.path.exists(webp), f"no library thumbnail for {path}")
+        tw, th = thumbnail_torch.scale_dimensions(w, h)
+        if orientation in (5, 6, 7, 8):
+            tw, th = th, tw
+        with Image.open(webp) as im:
+            check(im.size == (tw, th), f"library thumbnail of {path} is {im.size}, want {(tw, th)}")
+            got = np.asarray(im.convert("RGBA"), np.int16)
+        with Image.open(p3_store.path_for(None, cas_id)) as im:
+            want = np.asarray(im.convert("RGBA"), np.int16)
+        d = np.abs(got - want)
+        mean_d, max_d = max(mean_d, float(d.mean())), max(max_d, int(d.max()))
+        payload = unpackb(cold["journal"][(row["materialized_path"], row["name"],
+                                           row["extension"])]["payload"])
+        check(payload.get("thumb") is True and payload.get("embed") is True
+              and isinstance(payload.get("media"), str) and payload["media"] != "",
+              f"journal entry of {path} does not vouch thumb, embed and media: {payload}")
+    check(mean_d <= 1.0, f"a library thumbnail differs from phase 3's by mean |d| {mean_d}")
+
+    check(len(cold["media_data"]) == n, f"{len(cold['media_data'])} media_data rows, want {n}")
+    for r in cold["media_data"]:
+        want = list(dims_of_cas[cas_of_object[r["object_id"]]])
+        check(unpackb(r["resolution"]) == want, f"media_data resolution {r['resolution']} != {want}")
+
+    check(len(cold["embeddings"]) == n, f"{len(cold['embeddings'])} embeddings, want {n}")
+    vec_of_cas = {}
+    for r in cold["embeddings"]:
+        cas_id = cas_of_object[r["object_id"]]
+        vec = embedder.blob_to_vector(r["vector"])
+        check(vec is not None and r["dim"] == embedder.EMBED_DIM
+              and r["model"] == embedder.MODEL_NAME, f"malformed embedding row of {cas_id}")
+        check(np.allclose(vec, p3["embeddings"][cas_id], atol=1e-5, rtol=1e-5),
+              f"library embedding of {cas_id} differs from phase 3's")
+        vec_of_cas[cas_id] = vec
+    sample = [images[int(i)][0] for i in rng.choice(n, 8, replace=False)]
+    host = embed_torch.embed_batch(np.stack([embedder.decode_image(p) for p in sample]), "cpu")
+    for p, want in zip(sample, host):
+        check(np.allclose(vec_of_cas[by_path[p]["cas_id"]], want, atol=1e-5, rtol=1e-5),
+              f"library embedding of {p} differs from the CPU forward")
+    ids = cold["sidecar_ids"]
+    check(len(ids) == len(set(ids)) == n and set(ids) == {r["object_id"] for r in cold["embeddings"]},
+          f"the search sidecar holds {len(ids)} vectors, want the {n} embedded objects")
+    print(f"phase 4: cold media job: {n} webps at their dims (vs phase 3: max mean |d| "
+          f"{mean_d:.4f}, max |d| {max_d}); {n} media_data rows; {n} embeddings == phase 3 "
+          f"(8 == CPU forward); sidecar {len(ids)} vectors; journal vouches thumb/embed/media",
+          flush=True)
+
+
 def phase_library(rng, tmp: str, p3: dict) -> dict:
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
     from spacedrive_tpu_torch.ops import cas
 
     corpus = p3["corpus"]
@@ -546,8 +681,10 @@ def phase_library(rng, tmp: str, p3: dict) -> dict:
     check(keys <= set(cold["journal"]), "a file has no journal entry after the cold scan")
     print(f"phase 4: cold scan {len(rows)} files; {len(hashed)} cas_ids == phase 3 / plain path; "
           f"64 == blake3_ref; {len(objects_of)} objects == distinct cas_ids", flush=True)
+    check_media(cold, p3, data_dir, rng)
 
     # warm rescan of the unchanged tree
+    webps = webp_files(data_dir)
     warm = run_library_pass(corpus, data_dir)
     check(warm["launches"] == 0, f"the warm rescan launched K1 {warm['launches']} times")
     # every file the cold scan hashed is a journal hit, and so is every
@@ -564,18 +701,31 @@ def phase_library(rng, tmp: str, p3: dict) -> dict:
           "the warm rescan changed cas_ids")
     print(f"phase 4: warm rescan: 0 K1 launches, {len(rows)} journal hits ({len(hashed)} hashed "
           f"+ {n_empty} empty files)", flush=True)
+    check(warm["media"] == {"media_data_extracted": 0, "media_data_skipped": 0,
+                            "thumbnails_dispatched": 0, "embeddings_written": 0},
+          f"the warm rescan's media job did work: {warm['media']}")
+    check(warm["generated"] == 0, f"the warm rescan wrote {warm['generated']} thumbnails")
+    check(webp_files(data_dir) == webps, "the warm rescan changed a webp file")
+    print("phase 4: warm rescan: 0 thumbnails dispatched or written, 0 media_data rows "
+          "extracted, 0 embeddings; no webp changed", flush=True)
 
     # incremental rescan: 32 rewrites in place, 16 additions, 16 deletions
     rewritten = [p3["large"][int(i)] for i in rng.choice(len(p3["large"]), 32, replace=False)]
     for p in rewritten:
         rewrite_in_place(p)
     added = []
-    for i, size in enumerate([int(x) for x in rng.integers(1, 400_000, 16)]):
+    for i, size in enumerate([int(x) for x in rng.integers(1, 400_000, 12)]):
         path = os.path.join(corpus, "added", f"a{i:02d}.bin")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             f.write(rng.bytes(size))
         added.append(path)
+    added_images = [_image((os.path.join(corpus, "added", f"a{12 + i:02d}.{fmt}"), w, h,
+                            int(rng.integers(1 << 30)), fmt, orientation))
+                    for i, (w, h, fmt, orientation) in enumerate(
+                        [(1600, 1200, "jpg", 6), (900, 1350, "png", 1), (2400, 1350, "jpg", 8),
+                         (700, 700, "png", 1)])]
+    added += [p for p, *_ in added_images]
     deleted = [small[int(i)] for i in rng.choice(len(small), 16, replace=False)]
     for p in deleted:
         os.remove(p)
@@ -593,6 +743,19 @@ def phase_library(rng, tmp: str, p3: dict) -> dict:
         check(by_path[p]["cas_id"] == cas.cas_id_cpu(p), f"cas_id of {p} != blake3_ref after rescan")
     print(f"phase 4: incremental rescan: {len(rewritten)} dirty-range rehashes, {len(added)} "
           f"files through K1, {len(deleted)} rows removed", flush=True)
+    n_new = len(added_images)
+    check(inc["media"] == {"media_data_extracted": n_new, "media_data_skipped": 0,
+                           "thumbnails_dispatched": n_new, "embeddings_written": n_new},
+          f"the incremental media job did not do exactly the {n_new} new images: {inc['media']}")
+    check(inc["generated"] == n_new, f"the incremental rescan wrote {inc['generated']} thumbnails")
+    store = ThumbnailStore(os.path.join(data_dir, "thumbnails"))
+    for path, w, h, orientation in added_images:
+        cas_id = by_path[path]["cas_id"]
+        check(store.exists(inc["lib_id"], cas_id), f"no thumbnail for the new image {path}")
+        check(inc["journal"][(by_path[path]["materialized_path"], by_path[path]["name"],
+                              by_path[path]["extension"])]["cas_id"] == cas_id, "journal cas")
+    print(f"phase 4: incremental rescan: the media job thumbnailed, extracted and embedded "
+          f"exactly the {n_new} new images", flush=True)
 
     out = {"cut": LIBRARY_CUT}
     for name, run in (("cold", cold), ("warm", warm), ("incremental", inc)):

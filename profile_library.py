@@ -4,8 +4,9 @@
 
 Writes a seeded tree of small files (1 B-16 KiB, log-uniform sizes, a
 quarter repeating another file's bytes, 64 directories) into a
-temporary directory, then runs the IndexerJob -> FileIdentifierJob
-chain twice (cold, then warm) under cProfile. For each run it prints
+temporary directory, then runs the IndexerJob -> FileIdentifierJob ->
+MediaProcessorJob chain twice (cold, then warm) under cProfile (the
+tree holds no image, so the media job finds nothing to do). For each run it prints
 one JSON line with the wall seconds, files/s and the jobs' stage
 seconds, then the `--top` functions by their own time. cProfile adds a
 cost to every Python call, so its seconds are larger than an
@@ -50,7 +51,7 @@ def job_seconds(data_dir: str) -> dict:
     (lib,) = Libraries(data_dir).load_all()
     try:
         jobs = lib.db.query("SELECT name, metadata FROM job ORDER BY date_created DESC, "
-                            "rowid DESC LIMIT 2")
+                            "rowid DESC LIMIT 3")
     finally:
         lib.close()
     meta = {j["name"]: unpackb(j["metadata"]) for j in jobs}

@@ -9,13 +9,17 @@ JSON line: files, objects (distinct cas_ids), bytes, thumbnails,
 backend, seconds.
 
 With `--library NAME`: the library path (counterpart of
-`spacedrive_tpu/cli.py cmd_index`). It opens or creates the library NAME
-under `D/libraries/`, adds <path> as a location if it is not one yet,
-and runs `scan_location` (IndexerJob → FileIdentifierJob) on the port's
-job system; the identifier hashes through the BLAKE3 chunk kernel on
-"cuda". It prints one JSON line: library, location_id, files, objects,
-bytes, backend, seconds (objects and bytes as node/statistics.py counts
-them). A second run over an unchanged tree hashes nothing.
+`spacedrive_tpu/cli.py cmd_index`). It starts a Node on the device,
+opens or creates the library NAME under `D/libraries/`, adds <path> as
+a location if it is not one yet, and runs `scan_location` (IndexerJob →
+FileIdentifierJob → MediaProcessorJob) on the node's job system: the
+identifier hashes through the BLAKE3 chunk kernel on "cuda", the media
+job sends the images to the node's thumbnailer and writes media_data
+rows, embeddings and the search index. It prints one JSON line:
+library, location_id, files, objects, bytes, thumbnails, backend,
+seconds (objects and bytes as node/statistics.py counts them). A second
+run over an unchanged tree hashes, thumbnails, extracts and embeds
+nothing.
 """
 
 from __future__ import annotations
@@ -40,59 +44,58 @@ def cmd_index(args: argparse.Namespace) -> int:
     return 0
 
 
-def open_library(libraries, name: str):
-    """The library called `name` under `libraries`, created if absent;
-    the other libraries there are closed again."""
-    found = None
-    for lib in libraries.load_all():
-        if lib.name == name and found is None:
-            found = lib
-        else:
-            lib.close()
-    return found if found is not None else libraries.create(name)
-
-
 async def index_library(path: str, data_dir: str, library: str, backend: str = "cuda") -> dict:
-    """Scan `path` into the library `library` and return the summary
-    line (the JAX package's `sdx index` keys, without thumbnails and
+    """Scan `path` into the library `library` on a Node of its own and
+    return the summary line. Raises if a job of the scan failed."""
+    from .node.node import Node
+
+    node = Node(data_dir, device=backend)
+    await node.start()
+    try:
+        return await index_into(node, path, library)
+    finally:
+        await node.shutdown()
+
+
+async def index_into(node, path: str, library: str) -> dict:
+    """Scan `path` into the library called `library` (created if absent)
+    of the started `node`, on the node's device, and wait for the scan's
+    jobs and thumbnails (the JAX package's `sdx index` keys, without
     labels). Raises if a job of the scan failed."""
     from .db.database import now_iso
-    from .jobs import JobManager, JobStatus
+    from .jobs import JobStatus
     from .location.locations import LocationCreateArgs, scan_location
-    from .node.library import Libraries
     from .node.statistics import update_statistics
-    from .tasks import TaskSystem
 
-    lib = open_library(Libraries(data_dir), library)
-    manager = JobManager(TaskSystem(2))
-    try:
-        t0 = time.perf_counter()
-        started = now_iso()
-        loc = lib.db.find_one("location", path=os.path.abspath(path))
-        if loc is None:
-            loc = LocationCreateArgs(path=path).create(lib)
-        await scan_location(lib, loc, manager, backend=backend)
-        await manager.wait_idle()
-        elapsed = time.perf_counter() - t0
-        failed = lib.db.query(
-            "SELECT name, errors_text FROM job WHERE status = ? AND date_created >= ?",
-            (int(JobStatus.FAILED), started),
-        )
-        if failed:
-            raise RuntimeError(f"scan failed: {failed}")
-        stats = update_statistics(lib.db)
-        return {
-            "library": lib.name,
-            "location_id": loc["id"],
-            "files": lib.db.count("file_path", "is_dir = 0"),
-            "objects": stats["total_object_count"],
-            "bytes": int(stats["total_bytes_used"]),
-            "backend": backend,
-            "seconds": round(elapsed, 2),
-        }
-    finally:
-        await manager.system.shutdown()
-        lib.close()
+    lib = next((lib for lib in node.libraries.libraries.values() if lib.name == library), None)
+    if lib is None:
+        lib = node.libraries.create(library)
+    t0 = time.perf_counter()
+    started = now_iso()
+    loc = lib.db.find_one("location", path=os.path.abspath(path))
+    if loc is None:
+        loc = LocationCreateArgs(path=path).create(lib)
+    await scan_location(lib, loc, node.jobs, backend=node.device.type)
+    await node.jobs.wait_idle()
+    failed = lib.db.query(
+        "SELECT name, errors_text FROM job WHERE status = ? AND date_created >= ?",
+        (int(JobStatus.FAILED), started),
+    )
+    if failed:
+        raise RuntimeError(f"scan failed: {failed}")
+    await node.thumbnailer.wait_library_batch(lib.id)
+    elapsed = time.perf_counter() - t0
+    stats = update_statistics(lib.db, node.thumbnailer.data_dir)
+    return {
+        "library": lib.name,
+        "location_id": loc["id"],
+        "files": lib.db.count("file_path", "is_dir = 0"),
+        "objects": stats["total_object_count"],
+        "bytes": int(stats["total_bytes_used"]),
+        "thumbnails": node.thumbnailer.generated,
+        "backend": node.device.type,
+        "seconds": round(elapsed, 2),
+    }
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("index", help="index a directory: cas_ids, thumbnails, embeddings")
     p.add_argument("path")
     p.add_argument("--data-dir", required=True,
-                   help="where thumbnails/ (or, with --library, libraries/) is written")
+                   help="where thumbnails/ (and, with --library, libraries/) is written")
     p.add_argument("--library", default=None,
                    help="index into this library (created if absent) through the job chain")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))

@@ -30,13 +30,16 @@ wrong):
 `bypassed`).
 
 Counterpart of `spacedrive_tpu/location/indexer/journal.py` without its
-verdict counters (telemetry), its process-pool consult and the watcher,
-rename, vouch-amend and orphan-prune surface this slice does not run.
-The payload bytes and the verdicts are the same.
+process-pool consult and the watcher, rename and orphan-prune surface
+the port does not run yet. The payload bytes and the verdicts are the
+same. Where the JAX journal counts verdicts and bytes saved into
+process-wide telemetry, each `IndexJournal` here tallies them in its
+own `counts`.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import sqlite3
@@ -184,15 +187,30 @@ class IndexJournal:
 
     def __init__(self, db: Any):
         self.db = db
+        #: verdicts this journal handed out (hit / miss / invalidated /
+        #: bypassed) and the bytes whose work a vouch skipped
+        self.counts: collections.Counter[str] = collections.Counter()
 
     # ---- consult -------------------------------------------------------
 
     def lookup(
         self, location_id: int, key: Key, identity: Identity | None,
+        count_invalidated: bool = True,
     ) -> tuple[str, JournalEntry | None]:
         """(verdict, entry). `hit` entries vouch for their cached
         results; `invalidated` entries are returned too — their chunk
-        cache still powers dirty-range rehash."""
+        cache still powers dirty-range rehash. A pipeline re-consulting
+        a file the walker already judged this pass (the media job)
+        passes `count_invalidated=False`, so one changed file counts one
+        invalidation."""
+        verdict, entry = self._lookup(location_id, key, identity)
+        if verdict != INVALIDATED or count_invalidated:
+            self.counts[verdict] += 1
+        return verdict, entry
+
+    def _lookup(
+        self, location_id: int, key: Key, identity: Identity | None,
+    ) -> tuple[str, JournalEntry | None]:
         if not enabled():
             return BYPASSED, None
         mat, name, ext = key
@@ -218,6 +236,11 @@ class IndexJournal:
         ):
             return HIT, entry
         return INVALIDATED, entry
+
+    def bytes_saved(self, n: int) -> None:
+        """Count `n` bytes whose work a vouch skipped."""
+        if n > 0:
+            self.counts["bytes_saved"] += n
 
     # ---- record --------------------------------------------------------
 
@@ -272,6 +295,60 @@ class IndexJournal:
             )
         except sqlite3.Error:
             logger.exception("index journal batch write failed (non-fatal)")
+
+    def _amend_payload(
+        self, location_id: int, key: Key, cas_id: str | None, **updates: Any,
+    ) -> None:
+        """Merge fields into a FRESH entry's payload. Refuses when the
+        row is missing, stale, or vouches a different cas — an amend
+        must never resurrect an invalidated vouch."""
+        if not enabled():
+            return
+        mat, name, ext = key
+        try:
+            with self.db.transaction() as conn:
+                row = conn.execute(
+                    "SELECT payload, cas_id, stale FROM index_journal "
+                    "WHERE location_id = ? AND materialized_path = ? "
+                    "AND name = ? AND extension = ?",
+                    (location_id, mat, name, ext),
+                ).fetchone()
+                if row is None or row["stale"]:
+                    return
+                if cas_id is not None and row["cas_id"] != cas_id:
+                    return
+                payload = _decode_payload(row["payload"])
+                if payload is None:
+                    return
+                payload["v"] = JOURNAL_FORMAT
+                payload.update(updates)
+                conn.execute(
+                    "UPDATE index_journal SET payload = ?, date_vouched = ? "
+                    "WHERE location_id = ? AND materialized_path = ? "
+                    "AND name = ? AND extension = ?",
+                    (packb(payload), now_iso(), location_id, mat, name, ext),
+                )
+        except sqlite3.Error:
+            logger.exception("index journal amend failed (non-fatal)")
+
+    def vouch_thumb(self, location_id: int, key: Key, cas_id: str) -> None:
+        """Mark the thumbnail stored — call ONLY after the webp landed
+        in the store (a crash between store and this write is safe: the
+        next pass re-checks the store and re-vouches)."""
+        self._amend_payload(location_id, key, cas_id, thumb=True)
+
+    def vouch_embed(self, location_id: int, key: Key, cas_id: str | None) -> None:
+        """Mark the embedding persisted — call ONLY after the
+        object_embedding row (and its sync ops) committed; a crash
+        between commit and this write just re-embeds once."""
+        self._amend_payload(location_id, key, cas_id, embed=True)
+
+    def vouch_media(self, location_id: int, key: Key, cas_id: str | None,
+                    digest: str) -> None:
+        """Record the media-metadata digest after the media_data upsert.
+        An empty digest is a valid vouch: "probed, nothing to extract"
+        — it stops warm passes from re-probing EXIF-less files."""
+        self._amend_payload(location_id, key, cas_id, media=digest)
 
     # ---- invalidate ----------------------------------------------------
 

@@ -4,9 +4,10 @@ Parity: ref:core/src/location/mod.rs — LocationCreateArgs::create
 (:1-200 region), `scan_location` spawning the job chain (:443-475),
 and `.spacedrive` metadata markers (location/metadata.rs).
 
-Counterpart of `spacedrive_tpu/location/locations.py`. The chain here is
-Indexer → FileIdentifier; the watcher-driven rescans (sub-path, shallow)
-and relinking a moved location are not ported.
+Counterpart of `spacedrive_tpu/location/locations.py`. The chain is
+Indexer → FileIdentifier → MediaProcessor, as there; the watcher-driven
+rescans (sub-path, shallow) and relinking a moved location are not
+ported.
 """
 
 from __future__ import annotations
@@ -84,19 +85,21 @@ async def _spawn_scan_chain(
     shallow: bool = False,
     backend: str = "cuda",
 ) -> uuid.UUID:
-    """The one Indexer → FileIdentifier chain every scan variant spawns
-    (ref:location/mod.rs:443-475 JobBuilder chain). MediaProcessorJob
-    (thumbnails, media data, embeddings) joins the chain in the next
-    slice of the port."""
+    """The one Indexer → FileIdentifier → MediaProcessor chain every
+    scan variant spawns (ref:location/mod.rs:443-475 JobBuilder chain);
+    the identifier and the media job run on `backend`."""
     from ..object.file_identifier.job import FileIdentifierJob
+    from ..object.media.job import MediaProcessorJob
     from .indexer.job import IndexerJob
 
     init: dict[str, Any] = {"location_id": location["id"]}
     if sub_path is not None:
         init["sub_path"] = sub_path
     indexer_init = {**init, "shallow": True} if shallow else dict(init)
-    builder = JobBuilder(IndexerJob(indexer_init)).queue_next(
-        FileIdentifierJob({**init, "backend": backend})
+    builder = (
+        JobBuilder(IndexerJob(indexer_init))
+        .queue_next(FileIdentifierJob({**init, "backend": backend}))
+        .queue_next(MediaProcessorJob({**init, "backend": backend}))
     )
     return await builder.spawn(job_manager, library)
 

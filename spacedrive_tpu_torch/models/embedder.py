@@ -11,6 +11,8 @@ the module instead.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 from torch import nn
@@ -23,6 +25,12 @@ HIDDEN = 128
 MODEL_NAME = "patchpool-v1"
 
 _PARAM_NAMES = ("w1", "b1", "w2", "b2")
+
+
+def enabled() -> bool:
+    """SD_EMBED=0 turns the embedding stage into a true no-op: no
+    pipeline step, no DB writes, no sync ops, no index."""
+    return os.environ.get("SD_EMBED", "1") != "0"
 
 
 def derived_params() -> dict[str, np.ndarray]:
@@ -94,3 +102,20 @@ def decode_image(path: str, image_size: int = IMAGE_SIZE) -> np.ndarray | None:
         return None
     img = Image.fromarray(rgba).convert("RGB").resize((image_size, image_size))
     return np.asarray(img, np.float32) / 255.0
+
+
+def vector_to_blob(vec: np.ndarray) -> bytes:
+    """f32 LE wire/DB encoding of one embedding vector."""
+    return np.asarray(vec, dtype="<f4").tobytes()
+
+
+def blob_to_vector(blob: bytes, dim: int = EMBED_DIM) -> np.ndarray | None:
+    """Strictly validated blob → vector decode (None = corrupt or a
+    foreign width: a poisoned sync op must never wedge index
+    maintenance)."""
+    if not isinstance(blob, (bytes, bytearray, memoryview)) or len(blob) != dim * 4:
+        return None
+    arr = np.frombuffer(bytes(blob), dtype="<f4")
+    if not np.all(np.isfinite(arr)):
+        return None
+    return arr.astype(np.float32)

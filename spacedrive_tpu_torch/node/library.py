@@ -6,7 +6,9 @@ manager loading `libraries/*.sdlibrary` configs next to per-library
 SQLite files (manager/mod.rs:62-130), creating the local Instance row
 on create, wiring the sync manager, and cold-resuming jobs.
 
-Counterpart of `spacedrive_tpu/node/library.py`.
+Counterpart of `spacedrive_tpu/node/library.py`. Each Library also
+holds its search index (object/search/index.LibraryIndex), which the JAX
+package keeps in a process-wide registry.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any
 
 from ..db import LibraryDb
 from ..db.database import new_pub_id, now_iso
+from ..object.search.index import LibraryIndex
 from ..sync.manager import SyncManager
 from ..utils.events import EventBus
 from ..utils.version_manager import VersionManager
@@ -63,13 +66,16 @@ class Library:
         db: LibraryDb,
         instance_uuid: uuid.UUID,
         event_bus: EventBus | None = None,
+        node: Any = None,
     ):
         self.id = lib_id
         self.config = config
         self.db = db
         self.instance_uuid = instance_uuid
         self.event_bus = event_bus or EventBus()
+        self.node = node
         self.sync = SyncManager(db, instance_uuid, self.event_bus)
+        self.search_index = LibraryIndex(self)
 
     @property
     def name(self) -> str:
@@ -86,9 +92,10 @@ class Libraries:
     """Loads/creates libraries under `<data_dir>/libraries/`
     (ref:core/src/library/manager/mod.rs)."""
 
-    def __init__(self, data_dir: str | os.PathLike):
+    def __init__(self, data_dir: str | os.PathLike, node: Any = None):
         self.dir = os.path.join(os.fspath(data_dir), "libraries")
         os.makedirs(self.dir, exist_ok=True)
+        self.node = node
         self.libraries: dict[uuid.UUID, Library] = {}
 
     # --- lifecycle ---
@@ -114,7 +121,7 @@ class Libraries:
         inst = db.find_one("instance", id=config.instance_id)
         if inst is None:
             raise ValueError(f"library {lib_id} missing local instance row")
-        lib = Library(lib_id, config, db, uuid.UUID(bytes=inst["pub_id"]))
+        lib = Library(lib_id, config, db, uuid.UUID(bytes=inst["pub_id"]), node=self.node)
         self.libraries[lib_id] = lib
         return lib
 
@@ -135,7 +142,7 @@ class Libraries:
         config = LibraryConfig(name=name, instance_id=instance_id)
         data = config.to_dict()
         _config_vm.save(self._config_path(lib_id), data)
-        lib = Library(lib_id, config, db, uuid.UUID(bytes=instance_pub))
+        lib = Library(lib_id, config, db, uuid.UUID(bytes=instance_pub), node=self.node)
         self.libraries[lib_id] = lib
 
         from ..location.indexer.rules import seed_rules

@@ -86,6 +86,14 @@ def decode_image(path: str) -> Decoded:
     return Decoded(array=arr, target=(th, tw), orientation=orientation)
 
 
+def decode(path: str, extension: str | None) -> Decoded:
+    """The decoder for `extension` (the JAX package's dispatcher, over
+    the still-image formats this package decodes)."""
+    if not can_generate(extension):
+        raise ThumbError(f"no decoder for extension {extension!r}: {path}")
+    return decode_image(path)
+
+
 def needs_cpu_fallback(d: Decoded) -> bool:
     """Targets beyond the device output canvas (aspect > 4:1) resize on
     the host instead of the batched device path."""

@@ -9,6 +9,7 @@ live at `<data>/thumbnails/<library_id | ephemeral>/<cas_id[0..3]>/
 from __future__ import annotations
 
 import os
+import threading
 
 THUMBNAIL_DIR_VERSION = 1
 _VERSION_FILE = "version.txt"
@@ -64,10 +65,13 @@ class ThumbnailStore:
         return os.path.exists(self.path_for(library_id, cas_id))
 
     def write(self, library_id: str | None, cas_id: str, webp: bytes) -> str:
+        """Publish atomically. The actor encodes and stores on several
+        threads, and rows of one cas_id can share a chunk, so each
+        writer has its own temporary name."""
         path = self.path_for(library_id, cas_id)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = f"{path}.{threading.get_ident()}.tmp"
         with open(tmp, "wb") as f:
             f.write(webp)
-        os.replace(tmp, path)  # atomic publish
+        os.replace(tmp, path)
         return path

@@ -1,8 +1,10 @@
-"""Pipeline sizing constants read by the indexing pass.
+"""Pipeline sizing constants read by the indexing pass and the jobs.
 
 Counterpart of the constants in `spacedrive_tpu/parallel/autotune.py`
 (the one home for pipeline sizing there too). The live controller that
-retunes them is not ported; these are its static top rungs.
+retunes them is not ported; these are its static top rungs, and the
+chunk-size functions return the single-device values its policy starts
+from.
 """
 
 from __future__ import annotations
@@ -28,3 +30,14 @@ EMBED_DEVICE_BATCH = 32
 #: feeder read-ahead of a single-device pass: windows parked ahead of
 #: the consumer (parallel/feeder.py)
 FEEDER_BASE_DEPTH = 3
+
+
+def thumb_chunk_rows() -> int:
+    """Thumbnailer images per device resize chunk (the actor pipeline's
+    quantum)."""
+    return THUMB_DEVICE_BATCH
+
+
+def embed_chunk_rows() -> int:
+    """Images per embed step of the media job (one device forward)."""
+    return EMBED_DEVICE_BATCH

@@ -137,3 +137,78 @@ def test_library_chain_on_cuda_matches_cpu_and_warm_scan_launches_nothing(tmp_pa
     for (mat, name, ext), cas_id in list(cuda_ids.items())[:16]:
         path = os.path.join(loc, mat.strip("/"), f"{name}.{ext}")
         assert cas_id == (cas.cas_id_cpu(path) if os.path.getsize(path) else None)
+
+
+def _media_tree(root):
+    """Seeded images of several aspects and EXIF orientations (one
+    beyond 4:1), a duplicate, an undecodable .png and a non-image."""
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    root.mkdir(parents=True)
+    for i, (w, h, fmt, orientation) in enumerate([
+            (1600, 1200, "jpg", 6), (900, 1350, "png", 1), (2400, 1350, "jpg", 8),
+            (700, 700, "png", 1), (3000, 500, "png", 1), (33, 20, "jpg", 3)]):
+        coarse = rng.integers(0, 256, (6, 6, 3), dtype=np.uint8)
+        img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+        if fmt == "jpg":
+            exif = Image.Exif()
+            exif[0x0112] = orientation
+            img.save(root / f"i{i}.jpg", "JPEG", quality=90, exif=exif.tobytes())
+        else:
+            img.save(root / f"i{i}.png")
+    (root / "dup.png").write_bytes((root / "i1.png").read_bytes())
+    (root / "broken.png").write_bytes(rng.bytes(2000))
+    (root / "notes.txt").write_bytes(b"not an image")
+
+
+async def _media_chain(data_dir, loc, device):
+    """The three-job chain through a Node on `device` (`cli.index_into`);
+    returns the summary and, by cas_id, each webp's pixels, each
+    media_data row and each embedding vector."""
+    from PIL import Image
+
+    from spacedrive_tpu_torch.cli import index_into
+    from spacedrive_tpu_torch.node.node import Node
+
+    node = Node(data_dir, device=device)
+    await node.start()
+    try:
+        summary = await index_into(node, str(loc), "gpu-media")
+        (lib,) = node.libraries.libraries.values()
+        cas_of = {r["object_id"]: r["cas_id"] for r in lib.db.query(
+            "SELECT object_id, cas_id FROM file_path WHERE object_id IS NOT NULL")}
+        thumbs = {}
+        for cas_id in set(cas_of.values()):
+            path = node.thumbnailer.store.path_for(str(lib.id), cas_id)
+            if os.path.exists(path):
+                with Image.open(path) as im:
+                    thumbs[cas_id] = np.asarray(im.convert("RGBA"), np.int16)
+        media = {cas_of[r["object_id"]]: {k: v for k, v in r.items() if k not in ("id", "object_id")}
+                 for r in lib.db.query("SELECT * FROM media_data")}
+        vectors = {cas_of[r["object_id"]]: np.frombuffer(r["vector"], "<f4")
+                   for r in lib.db.query("SELECT * FROM object_embedding")}
+        return summary, thumbs, media, vectors
+    finally:
+        await node.shutdown()
+
+
+def test_media_chain_on_cuda_matches_cpu(tmp_path):
+    """IndexerJob → FileIdentifierJob → MediaProcessorJob on "cuda"
+    (K1, the device resize, the embed forward) against the same chain on
+    "cpu": the same thumbnails at the same dims, within a mean 1 level
+    after webp; media_data rows equal; embeddings allclose 1e-5."""
+    loc = tmp_path / "loc"
+    _media_tree(loc)
+    cuda = asyncio.run(_media_chain(tmp_path / "cuda", loc, "cuda"))
+    cpu = asyncio.run(_media_chain(tmp_path / "cpu", loc, "cpu"))
+    assert cuda[0]["thumbnails"] == cpu[0]["thumbnails"] == 7  # 6 images + the duplicate row
+    assert set(cuda[1]) == set(cpu[1]) and len(cuda[1]) == 6
+    for cas_id, got in cuda[1].items():
+        want = cpu[1][cas_id]
+        assert got.shape == want.shape
+        assert float(np.abs(got - want).mean()) <= 1.0
+    assert cuda[2] == cpu[2] and len(cuda[2]) == 6
+    assert set(cuda[3]) == set(cpu[3]) and len(cuda[3]) == 6
+    for cas_id, vec in cuda[3].items():
+        np.testing.assert_allclose(vec, cpu[3][cas_id], atol=1e-5, rtol=1e-5)

@@ -132,16 +132,16 @@ def _build_tree(loc):
 
 
 async def _scan(library, location, mgr):
-    """One IndexerJob → FileIdentifierJob chain on the CPU; returns the
-    two jobs' run metadata."""
+    """One IndexerJob → FileIdentifierJob → MediaProcessorJob chain on
+    the CPU; returns the indexer's and the identifier's run metadata."""
     job_id = await scan_location(library, location, mgr, backend="cpu")
     await mgr.wait(job_id)
     await mgr.wait_idle()
     rows = library.db.query(
-        "SELECT name, status, metadata FROM job ORDER BY date_created DESC, rowid DESC LIMIT 2")
-    assert [r["name"] for r in rows] == ["file_identifier", "indexer"]
+        "SELECT name, status, metadata FROM job ORDER BY date_created DESC, rowid DESC LIMIT 3")
+    assert [r["name"] for r in rows] == ["media_processor", "file_identifier", "indexer"]
     assert all(r["status"] == 2 for r in rows)
-    return [unpackb(r["metadata"]) for r in rows[::-1]]
+    return [unpackb(r["metadata"]) for r in rows[:0:-1]]
 
 
 def _mk_library(tmp_path, name="jlib"):

@@ -329,22 +329,24 @@ async def test_identifier_rejects_other_backends(tmp_path, backend):
 
 
 def test_cli_library_index_twice(tmp_path, capsys):
-    """`index --library` prints the JAX CLI's keys (no thumbnails or
-    labels); the second run over the unchanged tree hashes nothing."""
+    """`index --library` prints the JAX CLI's keys (no labels); the
+    second run over the unchanged tree hashes and thumbnails nothing."""
     loc = tmp_path / "loc"
     make_tree(str(loc))
     args = ["index", str(loc), "--data-dir", str(tmp_path / "data"), "--library", "L",
             "--device", "cpu"]
     assert cli.main(args) == 0
     first = json.loads(capsys.readouterr().out)
-    assert set(first) == {"library", "location_id", "files", "objects", "bytes", "backend",
-                          "seconds"}
+    assert set(first) == {"library", "location_id", "files", "objects", "bytes", "thumbnails",
+                          "backend", "seconds"}
     assert first["library"] == "L" and first["backend"] == "cpu" and first["files"] > 130
+    assert first["thumbnails"] == 1  # red.png; the tree's other .jpg/.png are random bytes
     assert cli.main(args) == 0
     second = json.loads(capsys.readouterr().out)
     assert {k: second[k] for k in ("files", "objects", "bytes", "location_id")} == \
         {k: first[k] for k in ("files", "objects", "bytes", "location_id")}
-    lib = cli.open_library(PORT.Libraries(tmp_path / "data"), "L")
+    assert second["thumbnails"] == 0
+    (lib,) = PORT.Libraries(tmp_path / "data").load_all()
     try:
         rows = lib.db.query("SELECT name, metadata FROM job WHERE name = 'file_identifier'")
         assert len(rows) == 2
