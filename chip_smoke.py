@@ -461,33 +461,27 @@ def webp_files(data_dir: str) -> dict[str, tuple[int, int]]:
 
 
 def run_library_pass(corpus: str, data_dir: str) -> dict:
-    """One `index --library` run on the card (a Node on DEVICE and
-    `cli.index_into`, as `cli.index_library` runs it), with K1's launch
-    count set to 0 just before it and read just after; returns its
-    numbers."""
+    """One `index --library` run on the card (`cli.index_library` on a
+    Node on DEVICE, which the smoke builds to read its stage seconds),
+    with K1's launch count set to 0 just before it and read just after;
+    returns its numbers."""
     import asyncio
     from datetime import datetime
 
-    from spacedrive_tpu_torch.cli import index_into
+    from spacedrive_tpu_torch.cli import index_library
     from spacedrive_tpu_torch.node.node import Node
     from spacedrive_tpu_torch.ops import blake3_cuda
     from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
 
-    async def scan():
-        node = Node(data_dir, device=DEVICE)
-        await node.start()
-        try:
-            summary = await index_into(node, corpus, "smoke")
-            th = node.thumbnailer
-            return summary, dict(th.stage_seconds), th.generated, th.errors, dict(node.stage_seconds)
-        finally:
-            await node.shutdown()
-
+    node = Node(data_dir, device=DEVICE)
     blake3_cuda.chunk_cvs.launches = 0
     t0 = time.perf_counter()
-    summary, actor_s, generated, thumb_errors, job_s = asyncio.run(scan())
+    summary = asyncio.run(index_library(corpus, data_dir, "smoke", DEVICE, node=node))
     wall = time.perf_counter() - t0
     launches = blake3_cuda.chunk_cvs.launches
+    th = node.thumbnailer
+    actor_s, generated, thumb_errors, job_s = th.stage_seconds, th.generated, th.errors, \
+        node.stage_seconds
     got = library_rows(data_dir)
     jobs = got["jobs"]
     check([j["name"] for j in jobs] == ["indexer", "file_identifier", "media_processor"]

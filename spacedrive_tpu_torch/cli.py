@@ -44,58 +44,57 @@ def cmd_index(args: argparse.Namespace) -> int:
     return 0
 
 
-async def index_library(path: str, data_dir: str, library: str, backend: str = "cuda") -> dict:
-    """Scan `path` into the library `library` on a Node of its own and
-    return the summary line. Raises if a job of the scan failed."""
-    from .node.node import Node
-
-    node = Node(data_dir, device=backend)
-    await node.start()
-    try:
-        return await index_into(node, path, library)
-    finally:
-        await node.shutdown()
-
-
-async def index_into(node, path: str, library: str) -> dict:
+async def index_library(path: str, data_dir: str, library: str, backend: str = "cuda",
+                        node=None) -> dict:
     """Scan `path` into the library called `library` (created if absent)
-    of the started `node`, on the node's device, and wait for the scan's
-    jobs and thumbnails (the JAX package's `sdx index` keys, without
-    labels). Raises if a job of the scan failed."""
+    on a Node on `backend`, wait for the scan's jobs and thumbnails, and
+    return the summary line (the JAX package's `sdx index` keys, without
+    labels). A caller that reads the node's stage seconds afterwards
+    passes its own `node`, built on `data_dir` and `backend`; it is
+    started and shut down here all the same. Raises if a job of the
+    scan failed."""
     from .db.database import now_iso
     from .jobs import JobStatus
     from .location.locations import LocationCreateArgs, scan_location
+    from .node.node import Node
     from .node.statistics import update_statistics
 
-    lib = next((lib for lib in node.libraries.libraries.values() if lib.name == library), None)
-    if lib is None:
-        lib = node.libraries.create(library)
-    t0 = time.perf_counter()
-    started = now_iso()
-    loc = lib.db.find_one("location", path=os.path.abspath(path))
-    if loc is None:
-        loc = LocationCreateArgs(path=path).create(lib)
-    await scan_location(lib, loc, node.jobs, backend=node.device.type)
-    await node.jobs.wait_idle()
-    failed = lib.db.query(
-        "SELECT name, errors_text FROM job WHERE status = ? AND date_created >= ?",
-        (int(JobStatus.FAILED), started),
-    )
-    if failed:
-        raise RuntimeError(f"scan failed: {failed}")
-    await node.thumbnailer.wait_library_batch(lib.id)
-    elapsed = time.perf_counter() - t0
-    stats = update_statistics(lib.db, node.thumbnailer.data_dir)
-    return {
-        "library": lib.name,
-        "location_id": loc["id"],
-        "files": lib.db.count("file_path", "is_dir = 0"),
-        "objects": stats["total_object_count"],
-        "bytes": int(stats["total_bytes_used"]),
-        "thumbnails": node.thumbnailer.generated,
-        "backend": node.device.type,
-        "seconds": round(elapsed, 2),
-    }
+    if node is None:
+        node = Node(data_dir, device=backend)
+    await node.start()
+    try:
+        lib = next((lib for lib in node.libraries.libraries.values() if lib.name == library),
+                   None)
+        if lib is None:
+            lib = node.libraries.create(library)
+        t0 = time.perf_counter()
+        started = now_iso()
+        loc = lib.db.find_one("location", path=os.path.abspath(path))
+        if loc is None:
+            loc = LocationCreateArgs(path=path).create(lib)
+        await scan_location(lib, loc, node.jobs, backend=node.device.type)
+        await node.jobs.wait_idle()
+        failed = lib.db.query(
+            "SELECT name, errors_text FROM job WHERE status = ? AND date_created >= ?",
+            (int(JobStatus.FAILED), started),
+        )
+        if failed:
+            raise RuntimeError(f"scan failed: {failed}")
+        await node.thumbnailer.wait_library_batch(lib.id)
+        elapsed = time.perf_counter() - t0
+        stats = update_statistics(lib.db, node.thumbnailer.data_dir)
+        return {
+            "library": lib.name,
+            "location_id": loc["id"],
+            "files": lib.db.count("file_path", "is_dir = 0"),
+            "objects": stats["total_object_count"],
+            "bytes": int(stats["total_bytes_used"]),
+            "thumbnails": node.thumbnailer.generated,
+            "backend": node.device.type,
+            "seconds": round(elapsed, 2),
+        }
+    finally:
+        await node.shutdown()
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -34,7 +34,9 @@ process-pool consult and the watcher, rename and orphan-prune surface
 the port does not run yet. The payload bytes and the verdicts are the
 same. Where the JAX journal counts verdicts and bytes saved into
 process-wide telemetry, each `IndexJournal` here tallies them in its
-own `counts`.
+own `counts`. No program code reads `counts` yet: it, `bytes_saved` and
+`lookup(count_invalidated=)` keep the JAX journal's API until the port's
+telemetry reads them.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Counterpart of `spacedrive_tpu/object/media/thumbnail/actor.py`
 a node-global actor outside the job system; jobs dispatch batches and
 only await them. Foreground batches are a LIFO stack, background
 batches a FIFO queue (state.rs:23-32); background work is throttled to
-`background_processing_percentage`% of the cores (process.rs:105-128);
+`BACKGROUND_PERCENTAGE`% of the cores (process.rs:105-128);
 each decode gets a 30 s timeout (process.rs:172); queues persist across
 crashes (state.rs); `NewThumbnail` events go to the node's event bus.
 
@@ -15,8 +15,10 @@ actor's `device` (object/media/thumbnail/process.resize_decoded) → webp
 encode and store on threads. Images beyond a 4:1 aspect resize on the
 host (`process.needs_cpu_fallback`), as in the JAX actor. A failed
 device resize is not redone on the host: the actor records it against
-the batch, and the batch's waiters raise `ThumbnailerError`. A file
-that fails to decode only counts in `errors`.
+the batch, and the first waiter that sees it (`wait_batch` for that
+batch, or `wait_library_batch` for its namespace) raises
+`ThumbnailerError` and clears it, so later batches report only their
+own failures. A file that fails to decode only counts in `errors`.
 
 Not ported: the process-pool leg, telemetry and trace context, fault
 points. `stage_seconds` keeps the decode / device / encode totals the
@@ -52,6 +54,9 @@ from .store import ThumbnailStore, get_shard_hex
 logger = logging.getLogger(__name__)
 
 GENERATION_TIMEOUT_S = 30  # ref:process.rs:172
+# share of the cores background batches may use; the JAX actor reads it
+# from the node's settings, which the port does not have yet
+BACKGROUND_PERCENTAGE = 50  # ref:actor.rs:98
 
 
 class ThumbnailerError(RuntimeError):
@@ -65,7 +70,6 @@ class Thumbnailer:
         self,
         data_dir: str | os.PathLike,
         event_bus: Any = None,
-        background_processing_percentage: int = 50,  # ref:actor.rs:98
         device: str | torch.device = "cuda",
     ):
         self.data_dir = os.fspath(data_dir)
@@ -75,8 +79,7 @@ class Thumbnailer:
         self.device = torch.device(device)
         cores = os.cpu_count() or 1
         self._fg_parallelism = cores
-        self.background_percentage = max(0, min(100, background_processing_percentage))
-        self._bg_parallelism = max(1, cores * self.background_percentage // 100)
+        self._bg_parallelism = max(1, cores * BACKGROUND_PERCENTAGE // 100)
         #: images per device resize call
         self.chunk_rows = _autotune.thumb_chunk_rows()
         self._fg: collections.deque[Batch] = collections.deque()  # LIFO
@@ -87,7 +90,8 @@ class Thumbnailer:
         self._batch_ids = itertools.count((secrets.randbits(40) << 20) | 1)
         self._batch_pending: collections.Counter[int] = collections.Counter()
         self._pending: collections.Counter[str] = collections.Counter()
-        self._failed: dict[int, tuple[str, str]] = {}  # batch id -> (namespace, error)
+        # failed batches not yet reported: batch id -> (namespace, error)
+        self._failed: dict[int, tuple[str, str]] = {}
         self._loop: asyncio.AbstractEventLoop | None = None
         self._cond: asyncio.Condition | None = None
         self._wake: asyncio.Event | None = None
@@ -235,25 +239,29 @@ class Thumbnailer:
     async def wait_batch(self, batch_id: int) -> None:
         """Wait for one dispatched batch (ids are per process; an
         unknown or finished id, e.g. after an actor restart, is done).
-        Raises ThumbnailerError if the batch's device resize failed."""
+        Raises ThumbnailerError if the batch's device resize failed and
+        no waiter has reported that yet."""
         if batch_id <= 0:
             return
         self._ensure_started()
         async with self._cond:
             await self._cond.wait_for(
                 lambda: self._stopped or self._batch_pending[batch_id] == 0)
-        if batch_id in self._failed:
-            raise ThumbnailerError(self._failed[batch_id][1])
+        failed = self._failed.pop(batch_id, None)
+        if failed is not None:
+            raise ThumbnailerError(failed[1])
 
     async def wait_library_batch(self, library_id: Any) -> None:
         """Wait for a whole namespace to drain (coarser than
         `wait_batch`; unrelated background work counts too). Raises
-        ThumbnailerError if a batch of the namespace failed."""
+        ThumbnailerError if a batch of the namespace failed since the
+        last report, and clears those failures."""
         self._ensure_started()
         ns = self._ns(str(library_id) if library_id is not None else None)
         async with self._cond:
             await self._cond.wait_for(lambda: self._stopped or self._pending[ns] == 0)
-        failed = [err for fns, err in self._failed.values() if fns == ns]
+        failed = [self._failed.pop(bid)[1] for bid, (fns, _err) in list(self._failed.items())
+                  if fns == ns]
         if failed:
             raise ThumbnailerError(failed[0])
 

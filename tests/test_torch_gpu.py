@@ -162,25 +162,25 @@ def _media_tree(root):
     (root / "notes.txt").write_bytes(b"not an image")
 
 
-async def _media_chain(data_dir, loc, device):
-    """The three-job chain through a Node on `device` (`cli.index_into`);
-    returns the summary and, by cas_id, each webp's pixels, each
-    media_data row and each embedding vector."""
+def _media_chain(data_dir, loc, device):
+    """The three-job chain (`cli.index_library`) on `device`; returns the
+    summary and, by cas_id, each webp's pixels, each media_data row and
+    each embedding vector."""
     from PIL import Image
 
-    from spacedrive_tpu_torch.cli import index_into
-    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.cli import index_library
+    from spacedrive_tpu_torch.node.library import Libraries
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
 
-    node = Node(data_dir, device=device)
-    await node.start()
+    summary = asyncio.run(index_library(str(loc), str(data_dir), "gpu-media", device))
+    (lib,) = Libraries(data_dir).load_all()
     try:
-        summary = await index_into(node, str(loc), "gpu-media")
-        (lib,) = node.libraries.libraries.values()
+        store = ThumbnailStore(os.path.join(data_dir, "thumbnails"))
         cas_of = {r["object_id"]: r["cas_id"] for r in lib.db.query(
             "SELECT object_id, cas_id FROM file_path WHERE object_id IS NOT NULL")}
         thumbs = {}
         for cas_id in set(cas_of.values()):
-            path = node.thumbnailer.store.path_for(str(lib.id), cas_id)
+            path = store.path_for(str(lib.id), cas_id)
             if os.path.exists(path):
                 with Image.open(path) as im:
                     thumbs[cas_id] = np.asarray(im.convert("RGBA"), np.int16)
@@ -190,7 +190,7 @@ async def _media_chain(data_dir, loc, device):
                    for r in lib.db.query("SELECT * FROM object_embedding")}
         return summary, thumbs, media, vectors
     finally:
-        await node.shutdown()
+        lib.close()
 
 
 def test_media_chain_on_cuda_matches_cpu(tmp_path):
@@ -200,8 +200,8 @@ def test_media_chain_on_cuda_matches_cpu(tmp_path):
     after webp; media_data rows equal; embeddings allclose 1e-5."""
     loc = tmp_path / "loc"
     _media_tree(loc)
-    cuda = asyncio.run(_media_chain(tmp_path / "cuda", loc, "cuda"))
-    cpu = asyncio.run(_media_chain(tmp_path / "cpu", loc, "cpu"))
+    cuda = _media_chain(tmp_path / "cuda", loc, "cuda")
+    cpu = _media_chain(tmp_path / "cpu", loc, "cpu")
     assert cuda[0]["thumbnails"] == cpu[0]["thumbnails"] == 7  # 6 images + the duplicate row
     assert set(cuda[1]) == set(cpu[1]) and len(cuda[1]) == 6
     for cas_id, got in cuda[1].items():

@@ -170,7 +170,9 @@ async def test_device_failure_fails_the_batch_without_host_fallback(tmp_path, mo
     monkeypatch.setattr(actor_mod, "resize_decoded", broken)
     th = _cpu_thumbnailer(tmp_path / "data")
     entries = _make_images(tmp_path, n=3)
-    bid = th.new_indexed_thumbnails_batch("libD", entries)
+    # two failing batches: each waiter kind sees the one it waits on
+    bid = th.new_indexed_thumbnails_batch("libD", entries[:2])
+    th.new_indexed_thumbnails_batch("libD", entries[2:])
     with pytest.raises(ThumbnailerError, match="illegal memory access"):
         await th.wait_batch(bid)
     with pytest.raises(ThumbnailerError):
@@ -178,6 +180,34 @@ async def test_device_failure_fails_the_batch_without_host_fallback(tmp_path, mo
     # nothing was resized on the host instead
     assert th.generated == 0 and th.errors == 3
     assert not any(th.store.exists("libD", c) for c, _, _ in entries)
+    await th.shutdown()
+
+
+async def test_failure_is_reported_once_and_later_batches_succeed(tmp_path, monkeypatch):
+    """A failed batch raises in the first waiter that sees it; a good
+    batch after it on the same actor, and the namespace's next drain,
+    do not raise."""
+    def broken(batch, device):
+        raise RuntimeError("device lost")
+
+    th = _cpu_thumbnailer(tmp_path / "data")
+    entries = _make_images(tmp_path, n=4)
+    monkeypatch.setattr(actor_mod, "resize_decoded", broken)
+    bad = th.new_indexed_thumbnails_batch("libF", entries[:2])
+    with pytest.raises(ThumbnailerError, match="device lost"):
+        await th.wait_batch(bad)
+    await th.wait_batch(bad)  # reported already
+    monkeypatch.undo()
+    good = th.new_indexed_thumbnails_batch("libF", entries[2:])
+    await th.wait_batch(good)
+    await th.wait_library_batch("libF")
+    assert th.generated == 2 and th.errors == 2
+    # a failure no batch waiter took is reported by the next drain, once
+    monkeypatch.setattr(actor_mod, "resize_decoded", broken)
+    th.new_indexed_thumbnails_batch("libF", entries[:2])
+    with pytest.raises(ThumbnailerError, match="device lost"):
+        await th.wait_library_batch("libF")
+    await th.wait_library_batch("libF")
     await th.shutdown()
 
 
