@@ -5,9 +5,11 @@
 Phase 1 checks for a CUDA device, prints its name and power limit, and
 builds the BLAKE3 chunk kernel (K1) from the sources in this checkout.
 Phase 2 holds K1 bit for bit against its plain torch version on the
-card at every small cas bucket (32 rows) and at the 1024-row x 57-chunk
-hot bucket, checks rows against the pure-Python reference, and times K1
-and the plain version at the hot shape with CUDA events. Phase 3 builds
+card at every small cas bucket (32 rows), at the 1024-row x 57-chunk
+hot bucket and at the validator's 1024-row x 256-chunk bucket, checks
+rows against the pure-Python reference, times K1 and the plain version
+with CUDA events, and counts the instructions of K1's block loop in the
+built kernel's SASS (`cuobjdump -sass`) for a bound by count. Phase 3 builds
 a corpus from the seed (4,096 files: 3,072 over 100 KiB, 768 over the
 small buckets, 256 JPEG/PNG images), runs the indexing pass
 (`index_pass`, device="cuda") and checks its cas_ids against the plain
@@ -24,13 +26,22 @@ embedding, search-index vector and journal vouches checked against
 phase 3), a warm rescan of the unchanged tree (K1 must not launch, the
 media job must do nothing, no webp may change), and an incremental
 rescan after 32 in-place rewrites, 16 additions (4 of them images) and
-16 deletions.
+16 deletions. Phase 5 runs the library's read side on phase 4's library:
+16 near-duplicate images are added and scanned, ObjectValidatorJob
+writes every file's integrity_checksum (K1 on buckets of 1-256 chunks,
+the host C hasher for the rest; held against the host hasher and the
+reference), `duplicates` and `search` run through their CLI helpers
+(pHash bits against the plain CPU path, planted pairs grouped, exact
+groups against the DB after one object is split in two; semantic, name
+and label queries), and
+`near_pairs` and the scorer run at 262,144 seeded hashes and vectors
+against host references.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
-table and the pass's stage times as JSON.
+table, the pass's stage times and the read side's numbers as JSON.
 """
 
 from __future__ import annotations
@@ -64,6 +75,8 @@ DEVICE = "cuda"
 # each hash dispatch keeps the production shape (1024 rows x 57 chunks)
 N_LARGE, N_SMALL, N_IMAGES = 3072, 768, 256
 LONG_SIDE = (640, 4032)
+# the validator's largest bucket: DEVICE_BATCH rows of 256 chunks
+VALIDATOR_ROWS, VALIDATOR_CHUNKS = 1024, 256
 
 
 class SmokeFailure(Exception):
@@ -115,14 +128,11 @@ def phase_kernel(rng, sm_clock_hz: float) -> dict:
     from spacedrive_tpu_torch.ops import blake3_cuda, blake3_ref, blake3_torch, cas
 
     dev = torch.device(DEVICE)
-    shapes = [(32, c) for c in cas.SMALL_BUCKETS] + [(1024, cas.LARGE_CHUNKS)]
-    max_err = 0
-    for rows, c in shapes:
-        cap = c * 1024
-        edges = [0, 1, 63, 64, 65, 1023, 1024, 1025, cap - 1, cap, max(0, cap - 1024), cap // 2]
-        edges = sorted({n for n in edges if n <= cap})
-        n_real = rows - 4  # the last rows stay pad rows (length 1, zero byte)
-        lengths = edges + [int(x) for x in rng.integers(0, cap + 1, n_real - len(edges))]
+
+    def hold(rows: int, c: int, lengths: list[int], what: str = "") -> tuple[int, tuple]:
+        """K1 against its plain version on messages of `lengths` packed
+        into `rows` x `c` chunks, and 16 rows' digests against blake3_ref;
+        returns the largest difference and the lanes."""
         msgs, (arr, lens) = packed_batch(rng, lengths, c)
         check(arr.shape[0] == rows, f"pack gave {arr.shape[0]} rows, want {rows}")
         words = blake3_torch.host_words(arr).to(dev)
@@ -131,13 +141,36 @@ def phase_kernel(rng, sm_clock_hz: float) -> dict:
         plain = blake3_torch.chunk_cvs_plain(*lanes)
         torch.cuda.synchronize()
         err = int((k1.to(torch.int64) - plain.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
         check(torch.equal(k1, plain), f"K1 differs from its plain version at {rows}x{c}")
         hexes = blake3_torch.words_to_hex(blake3_torch.hash_batch(words, lens, c, dev), 64)
         for i in sorted(rng.choice(len(msgs), 16, replace=False)):
             check(hexes[i] == blake3_ref.blake3_hex(msgs[i]),
                   f"row {i} (len {len(msgs[i])}) of {rows}x{c} differs from blake3_ref")
-        print(f"phase 2: K1 == plain at {rows} rows x {c} chunks; 16 rows == blake3_ref", flush=True)
+        print(f"phase 2: K1 == plain at {rows} rows x {c} chunks{what}; 16 rows == blake3_ref",
+              flush=True)
+        return err, lanes
+
+    max_err = 0
+    for rows, c in [(32, c) for c in cas.SMALL_BUCKETS] + [(1024, cas.LARGE_CHUNKS)]:
+        cap = c * 1024
+        edges = [0, 1, 63, 64, 65, 1023, 1024, 1025, cap - 1, cap, max(0, cap - 1024), cap // 2]
+        edges = sorted({n for n in edges if n <= cap})
+        n_real = rows - 4  # the last rows stay pad rows (length 1, zero byte)
+        lengths = edges + [int(x) for x in rng.integers(0, cap + 1, n_real - len(edges))]
+        max_err = max(max_err, hold(rows, c, lengths)[0])
+
+    # the validator's largest shape: 1024 rows x 256 chunks (whole files
+    # of up to 256 KiB), random lengths with every 1024*k and 1024*k+1
+    rows, c = VALIDATOR_ROWS, VALIDATOR_CHUNKS
+    cap = c * 1024
+    edges = sorted({n for k in range(c + 1) for n in (1024 * k, 1024 * k + 1) if 0 < n <= cap})
+    lengths = edges + [int(x) for x in rng.integers(1, cap + 1, rows - len(edges))]
+    err, lanes = hold(rows, c, lengths, f" (the validator's largest bucket; lengths 1024k and "
+                                        f"1024k+1 for k = 0..{c})")
+    max_err = max(max_err, err)
+    validator_ms = cuda_ms(lambda: blake3_cuda.chunk_cvs(*lanes), reps=20)
+    validator_plain_ms = cuda_ms(lambda: blake3_torch.chunk_cvs_plain(*lanes), reps=3, warmup=1)
+    validator_bound = k1_bound(lanes, sm_clock_hz)
 
     # timing at the hot shape with production data: 1024 sampled
     # messages of 57,352 bytes (56 full chunks and one 8-byte chunk)
@@ -149,17 +182,12 @@ def phase_kernel(rng, sm_clock_hz: float) -> dict:
           "K1 differs from its plain version on the hot batch")
     k1_ms = cuda_ms(lambda: blake3_cuda.chunk_cvs(*lanes), reps=50)
     plain_ms = cuda_ms(lambda: blake3_torch.chunk_cvs_plain(*lanes), reps=20, warmup=1)
-    chunk_len = lanes[1].to(torch.int64)
-    active_blocks = int(((chunk_len + 63) // 64).clamp(min=1).sum())
-    n = lanes[0].shape[0]
-    ops = active_blocks * OPS_PER_BLOCK
-    nbytes = n * 1024 + 3 * n * 4 + 8 * n * 4  # words + lane vectors in, CVs out
-    ops_ms = ops / (SMS * INT32_LANES_PER_SM * sm_clock_hz) * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    print(json.dumps({"hot_shape": {"lanes": n, "active_blocks": active_blocks, "ops": ops,
-                                    "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}}),
-          flush=True)
+    hot = k1_bound(lanes, sm_clock_hz)
+    sass = k1_sass_count()
+    by_count = hot["active_blocks"] * sass["loop_cycles_per_lane_block"] / (SMS * sm_clock_hz) * 1e3
+    print(json.dumps({"hot_shape": hot, "validator_shape": validator_bound, "k1_sass": sass,
+                      "k1_bound_by_count_ms": by_count,
+                      "k1_share_of_bound_by_count": by_count / k1_ms}), flush=True)
     torch_ops_ms(dev, blake3_torch._as_u32(blake3_cuda.chunk_cvs(*lanes)).T.reshape(rows, c, 8))
     return {
         "name": "blake3_chunk_cvs",
@@ -170,10 +198,87 @@ def phase_kernel(rng, sm_clock_hz: float) -> dict:
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms": hot["bound_ms"],
+        "bound_by": hot["bound_by"],
+        "bound_ms_by_count": by_count,
+        "ms_1024x256": validator_ms,
+        "plain_ms_1024x256": validator_plain_ms,
+        "bound_ms_1024x256": validator_bound["bound_ms"],
         "library_ms": None,
     }
+
+
+def k1_bound(lanes, sm_clock_hz: float) -> dict:
+    """K1's least time for these lanes, derived: the larger of the
+    integer operations of the active blocks (OPS_PER_BLOCK each) over the
+    card's INT32 lanes and the bytes (words and lane vectors in, CVs
+    out) over HBM."""
+    chunk_len = lanes[1].to(torch.int64)
+    active_blocks = int(((chunk_len + 63) // 64).clamp(min=1).sum())
+    n = lanes[0].shape[0]
+    ops = active_blocks * OPS_PER_BLOCK
+    nbytes = n * 1024 + 3 * n * 4 + 8 * n * 4
+    ops_ms = ops / (SMS * INT32_LANES_PER_SM * sm_clock_hz) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"lanes": n, "active_blocks": active_blocks, "ops": ops, "bytes": nbytes,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+# SASS opcodes that issue to the 32-bit integer pipes (64 lanes per SM
+# on sm_90, the CUDA programming guide's throughput table)
+INT_OPCODES = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "IMAD", "IMUL",
+               "LEA", "ISETP", "SEL", "IMNMX", "IABS", "BMSK", "POPC", "FLO", "BREV"}
+NON_ISSUE = {"NOP"}
+
+
+def k1_sass_count() -> dict:
+    """Count the instructions of K1's block loop (one compression: 7
+    rounds x 8 G plus the output xors) in the built kernel's SASS
+    (`cuobjdump -sass` of the extension). The loop is the range closed
+    by the kernel's backward branch. Returns the opcode counts, the
+    integer-pipe instructions per G, and the cycles one lane-block costs
+    an SM: the larger of its integer instructions over 64 lanes and all
+    its instructions over the SM's issue rate of 4 warp instructions (128
+    lanes) a clock."""
+    import glob
+    import re
+    import shutil
+
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    so = sorted(glob.glob(os.path.join(blake3_cuda.BUILD_DIR, "blake3_chunk", "*.so")))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(bool(so), "no built K1 extension to disassemble")
+    out = subprocess.run([tool, "-sass", so[0]], capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    body = out[out.index("blake3_chunk_cvs_kernel"):]
+    end = body.find("Function :", 10)
+    body = body if end < 0 else body[:end]
+    instrs = []  # (address, opcode, text)
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;/]*?)\s*;", body):
+        text = m.group(2).strip()
+        tokens = [t for t in text.split() if not t.startswith("@")]
+        if tokens:
+            instrs.append((int(m.group(1), 16), tokens[0].split(".")[0], text))
+    loops = []
+    for addr, op, text in instrs:
+        target = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)`\s*)?(0x[0-9a-f]+)", text)
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+    # the block loop; if the disassembly shows none, the whole kernel
+    lo, hi = max(loops, key=lambda r: r[1] - r[0]) if loops else (0, instrs[-1][0])
+    ops: dict[str, int] = {}
+    for addr, op, _ in instrs:
+        if lo <= addr <= hi and op not in NON_ISSUE:
+            ops[op] = ops.get(op, 0) + 1
+    total = sum(ops.values())
+    int_ops = sum(n for op, n in ops.items() if op in INT_OPCODES)
+    g_per_block = 7 * 8
+    return {"loop_found": bool(loops), "loop_instructions": total, "loop_int_instructions": int_ops,
+            "int_per_g": int_ops / g_per_block, "derived_int_per_g": 12,
+            "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+            "loop_cycles_per_lane_block": max(int_ops / INT32_LANES_PER_SM, total / 128)}
 
 
 def torch_ops_ms(dev, cvs) -> None:
@@ -757,7 +862,531 @@ def phase_library(rng, tmp: str, p3: dict) -> dict:
     print(json.dumps({"library_pass": out}), flush=True)
     return {"launches": {name: run["launches"] for name, run in
                          (("library_cold", cold), ("library_warm", warm),
-                          ("library_incremental", inc))}}
+                          ("library_incremental", inc))},
+            "corpus": corpus, "data_dir": data_dir,
+            "images": [p for p, *_ in p3["images"]] + [p for p, *_ in added_images]}
+
+
+# --- phase 5: the library's read side ----------------------------------------
+
+# near duplicates planted before phase 5's scan: corpus JPEGs re-encoded
+# at another quality, corpus PNGs resized by 0.9
+N_NEAR_JPEG, N_NEAR_PNG = 8, 8
+NEAR_QUALITY, NEAR_SCALE = 60, 0.9
+DUP_THRESHOLD = 8  # the CLI's default
+# the image share of a 1M-file library (BASELINE config 5, full-library
+# dedup): 262,144 seeded hashes with 1,024 planted clusters, the pair
+# set checked against a host all-pairs on the first 16,384
+N_PAIR_HASHES, N_PAIR_CLUSTERS, N_PAIR_SUBSET = 262_144, 1024, 16_384
+# the search index at the same scale, with planted exact ties
+N_SEARCH_VECTORS, SEARCH_K = 262_144, 100
+# files held against blake3_ref (pure Python, ~0.5 MB/s): device-leg
+# files at random and the smallest host-leg ones
+N_REF_DEVICE, N_REF_HOST = 60, 4
+
+
+def _near_copy(args) -> None:
+    from PIL import Image
+
+    src, dst = args
+    with Image.open(src) as im:
+        if dst.endswith(".jpg"):
+            im.convert("RGB").save(dst, "JPEG", quality=NEAR_QUALITY)
+        else:
+            w, h = im.size
+            im.resize((max(1, int(w * NEAR_SCALE)), max(1, int(h * NEAR_SCALE))),
+                      Image.BILINEAR).save(dst, "PNG", compress_level=1)
+
+
+def add_near_duplicates(corpus: str, images: list[str], rng) -> list[tuple[str, str]]:
+    """N_NEAR_JPEG corpus JPEGs re-encoded and N_NEAR_PNG corpus PNGs
+    resized under corpus/near/; returns (original, copy) pairs."""
+    jpgs = [p for p in images if p.endswith(".jpg")]
+    pngs = [p for p in images if p.endswith(".png")]
+    pairs = []
+    for group in (jpgs, pngs):
+        n = N_NEAR_JPEG if group is jpgs else N_NEAR_PNG
+        for i in sorted(rng.choice(len(group), n, replace=False)):
+            src = group[int(i)]
+            pairs.append((src, os.path.join(corpus, "near", "n_" + os.path.basename(src))))
+    os.makedirs(os.path.join(corpus, "near"), exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(_near_copy, pairs))
+    return pairs
+
+
+def _open_library(data_dir: str):
+    from spacedrive_tpu_torch.node.library import Libraries
+
+    (lib,) = Libraries(data_dir).load_all()
+    return lib
+
+
+def _timed(totals: dict, key: str, fn, sync: bool = False):
+    """`fn`, adding its wall seconds to totals[key] (after a device
+    synchronize when `sync`, so that its device work counts)."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            return out
+        finally:
+            totals[key] += time.perf_counter() - t0
+    return timed
+
+
+def run_validator(data_dir: str, corpus: str) -> dict:
+    """ObjectValidatorJob over the location on a Node on DEVICE, K1's
+    launches and the validator's leg counts set to 0 just before it and
+    read just after. The job's seconds are split by timing, for this run
+    only, the host leg (`file_checksum`: read and C hash of a whole
+    file), the packing of device batches, `hash_batch` up to a device
+    synchronize (copy in, K1, the tree reduction) and `write_ops`; the
+    rest is the device leg's reads, the row queries, op building and the
+    job system."""
+    import asyncio
+
+    from spacedrive_tpu_torch.jobs import JobBuilder
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.object.validation import file_checksums
+    from spacedrive_tpu_torch.object.validation import hash as vhash
+    from spacedrive_tpu_torch.object.validation.job import ObjectValidatorJob
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.sync.manager import SyncManager
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    async def run() -> dict:
+        node = Node(data_dir, device=DEVICE)
+        await node.start()
+        try:
+            (lib,) = node.libraries.libraries.values()
+            loc = lib.db.find_one("location", path=os.path.abspath(corpus))
+            job = ObjectValidatorJob({"location_id": loc["id"]})
+            await JobBuilder(job).spawn(node.jobs, lib)
+            await node.jobs.wait_idle()
+            return lib.db.find_one("job", id=job.id.bytes)
+        finally:
+            await node.shutdown()
+
+    split = dict.fromkeys(("host_hash_s", "pack_s", "device_hash_s", "db_write_s"), 0.0)
+    patches = [(vhash, "file_checksum", _timed(split, "host_hash_s", vhash.file_checksum)),
+               (vhash.cas, "pack_canonical_batch",
+                _timed(split, "pack_s", vhash.cas.pack_canonical_batch)),
+               (vhash.blake3_torch, "hash_batch",
+                _timed(split, "device_hash_s", vhash.blake3_torch.hash_batch, sync=True)),
+               (SyncManager, "write_ops", _timed(split, "db_write_s", SyncManager.write_ops))]
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    for owner, name, wrapped in patches:
+        setattr(owner, name, wrapped)
+    file_checksums.device_files.clear()
+    file_checksums.host_files = 0
+    blake3_cuda.chunk_cvs.launches = 0
+    t0 = time.perf_counter()
+    try:
+        row = asyncio.run(run())
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+    seconds = time.perf_counter() - t0
+    launches = blake3_cuda.chunk_cvs.launches
+    check(row is not None and row["status"] == 2,
+          f"the validator job did not complete: {row and row['errors_text']}")
+    split["other_s"] = seconds - sum(split.values())
+    return {"seconds": seconds, "launches": launches, "metadata": unpackb(row["metadata"]),
+            "device_files": dict(sorted(file_checksums.device_files.items())),
+            "host_files": file_checksums.host_files, "split_s": split}
+
+
+def check_validator(data_dir: str, corpus: str, got: dict, rng) -> dict:
+    """Every file's integrity_checksum against the host C hasher over the
+    whole file; N_REF_DEVICE + N_REF_HOST files against blake3_ref; one
+    CRDT op per row; K1 launched."""
+    from spacedrive_tpu_torch.object.validation import file_checksum
+    from spacedrive_tpu_torch.object.validation.hash import DEVICE_MAX_BYTES
+    from spacedrive_tpu_torch.ops import blake3_ref
+
+    lib = _open_library(data_dir)
+    try:
+        rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")
+        n_ops = lib.db.count("crdt_operation", "kind = 'u:integrity_checksum'")
+    finally:
+        lib.close()
+    paths = [_row_path(corpus, r) for r in rows]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:  # the C hasher releases the interpreter lock
+        want = list(pool.map(file_checksum, paths))
+    host_hasher_s = time.perf_counter() - t0
+    for r, p, w in zip(rows, paths, want):
+        check(r["integrity_checksum"] == w, f"integrity_checksum of {p} != the host hasher's")
+    check(got["metadata"]["validated"] == len(rows), f"validated {got['metadata']} of {len(rows)}")
+    check(n_ops == len(rows), f"{n_ops} integrity_checksum ops for {len(rows)} rows")
+    check(got["launches"] > 0, "the validator launched K1 no time")
+    check(sum(got["device_files"].values()) + got["host_files"] == len(rows),
+          f"device {got['device_files']} + host {got['host_files']} files != {len(rows)} rows")
+    sizes = [os.path.getsize(p) for p in paths]
+    device_leg = [i for i, n in enumerate(sizes) if 0 < n <= DEVICE_MAX_BYTES]
+    host_leg = sorted((i for i, n in enumerate(sizes) if n > DEVICE_MAX_BYTES), key=sizes.__getitem__)
+    sample = [int(i) for i in rng.choice(device_leg, N_REF_DEVICE, replace=False)] \
+        + host_leg[:N_REF_HOST]
+    t0 = time.perf_counter()
+    for i in sample:
+        with open(paths[i], "rb") as f:
+            check(rows[i]["integrity_checksum"] == blake3_ref.blake3_hex(f.read(), 32),
+                  f"integrity_checksum of {paths[i]} != blake3_ref")
+    ref_s = time.perf_counter() - t0
+    print(f"phase 5: validator: {len(rows)} integrity_checksums == the host hasher; "
+          f"{len(sample)} == blake3_ref; {n_ops} CRDT ops; device files by bucket "
+          f"{got['device_files']}, host files {got['host_files']}, K1 launches "
+          f"{got['launches']}", flush=True)
+    return {"files": len(rows), "bytes": sum(sizes), "check_host_hasher_s": host_hasher_s,
+            "check_ref_s": ref_s, "check_ref_bytes": sum(sizes[i] for i in sample)}
+
+
+def _gray_plane(path: str):
+    """The duplicate job's decode: the original, JPEG in draft mode."""
+    from PIL import Image
+
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    with Image.open(path) as img:
+        if img.format == "JPEG":
+            img.draft("RGB", (phash_torch.DCT_SIZE, phash_torch.DCT_SIZE))
+        return phash_torch.to_gray32(np.asarray(img.convert("RGBA")))
+
+
+def _duplicates_run(data_dir: str) -> tuple[list, dict, float]:
+    import asyncio
+
+    from spacedrive_tpu_torch.cli import duplicates_library
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    t0 = time.perf_counter()
+    groups = asyncio.run(duplicates_library(data_dir, "smoke", DUP_THRESHOLD, DEVICE))
+    seconds = time.perf_counter() - t0
+    lib = _open_library(data_dir)
+    try:
+        row = lib.db.query_one("SELECT metadata FROM job WHERE name = 'duplicate_detector' "
+                               "ORDER BY date_created DESC, rowid DESC LIMIT 1")
+    finally:
+        lib.close()
+    return groups, unpackb(row["metadata"]), seconds
+
+
+def split_one_object(data_dir: str) -> None:
+    """Move the last file of a non-image object that several files share
+    onto a new object of the same kind: the state two devices leave when
+    each mints an object for one cas_id before sync merges them, and the
+    one exact-duplicate group a scan alone never makes."""
+    from spacedrive_tpu_torch.files.kind import ObjectKind
+
+    lib = _open_library(data_dir)
+    try:
+        row = lib.db.query_one(
+            "SELECT fp.id, fp.object_id, o.kind FROM file_path fp "
+            "JOIN object o ON o.id = fp.object_id WHERE o.kind != ? AND fp.object_id IN "
+            "(SELECT object_id FROM file_path GROUP BY object_id HAVING COUNT(*) > 1) "
+            "ORDER BY fp.id DESC LIMIT 1", (int(ObjectKind.Image),))
+        check(row is not None, "no object is shared by two files")
+        new = lib.db.insert("object", pub_id=b"split-object" + row["object_id"].to_bytes(4, "big"),
+                            kind=row["kind"])
+        lib.db.update("file_path", {"id": row["id"]}, object_id=new)
+    finally:
+        lib.close()
+
+
+def check_duplicates(data_dir: str, corpus: str, pairs: list[tuple[str, str]]) -> dict:
+    """`duplicates` through the CLI helper, after `split_one_object`:
+    every image object hashed (8 bytes), the bits equal to the plain CPU
+    path on the same gray planes but for counted near-median flips,
+    every planted pair in one near group, the exact groups equal to the
+    DB's cas_id groups (one), and a second run hashing nothing."""
+    import torch as _torch
+
+    from spacedrive_tpu_torch.files.kind import ObjectKind
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    split_one_object(data_dir)
+    groups, meta, seconds = _duplicates_run(data_dir)
+    lib = _open_library(data_dir)
+    try:
+        objs = lib.db.query("SELECT id, phash FROM object WHERE kind = ?", (int(ObjectKind.Image),))
+        rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0 AND object_id IS NOT NULL")
+    finally:
+        lib.close()
+    check(all(o["phash"] is not None and len(o["phash"]) == 8 for o in objs),
+          "an image object has no 8-byte phash")
+    check(meta["hashed"] == len(objs), f"the job hashed {meta['hashed']} of {len(objs)} images")
+    path_of = {}
+    for r in rows:
+        path_of.setdefault(r["object_id"], _row_path(corpus, r))
+    with ThreadPoolExecutor(8) as pool:
+        planes = np.stack(list(pool.map(_gray_plane, [path_of[o["id"]] for o in objs])))
+    plain = np.unpackbits(phash_torch.phash_batch(planes, "cpu"), axis=1)
+    got = np.unpackbits(np.frombuffer(b"".join(o["phash"] for o in objs), np.uint8)
+                        .reshape(-1, 8), axis=1)
+    ac = phash_torch.dct_low(_torch.from_numpy(planes)).numpy()
+    med = np.median(ac[:, 1:], axis=1, keepdims=True)
+    near_median = np.abs(ac - med) <= 1e-5 * np.abs(ac).max(axis=1, keepdims=True)
+    flips = got != plain
+    check(not (flips & ~near_median).any(), "a pHash bit away from the median differs from "
+          "the plain CPU path")
+
+    object_of = {p: oid for oid, p in path_of.items()}
+    near = [set(g["object_ids"]) for g in groups if g["kind"] == "near"]
+    for a, b in pairs:
+        oa, ob = object_of[a], object_of[b]
+        check(any(oa in g and ob in g for g in near), f"planted pair {a}, {b} is in no near group")
+    by_cas: dict[str, set] = {}
+    for r in rows:
+        if r["cas_id"] is not None:
+            by_cas.setdefault(r["cas_id"], set()).add(r["object_id"])
+    want_exact = sorted(sorted(ids) for ids in by_cas.values() if len(ids) > 1)
+    got_exact = sorted(sorted(g["object_ids"]) for g in groups if g["kind"] == "exact")
+    check(got_exact == want_exact and len(want_exact) == 1,
+          f"exact groups {got_exact} != the DB's cas_id groups {want_exact}")
+
+    groups2, meta2, seconds2 = _duplicates_run(data_dir)
+    check(meta2["hashed"] == 0, f"the second duplicates run hashed {meta2['hashed']}")
+    check([sorted(g["object_ids"]) for g in groups2] == [sorted(g["object_ids"]) for g in groups],
+          "the second duplicates run found other groups")
+    print(f"phase 5: duplicates: {len(objs)} image objects hashed on the card, {int(flips.sum())} "
+          f"bits differ from the plain CPU path (all within 1e-5 of the median); {len(near)} near "
+          f"groups hold every one of the {len(pairs)} planted pairs; {len(got_exact)} exact "
+          f"groups == the DB's; a second run hashed 0", flush=True)
+    return {"images": len(objs), "seconds": seconds, "second_run_s": seconds2,
+            "near_groups": len(near), "exact_groups": len(got_exact),
+            "flips_near_median": int(flips.sum()), "reused": meta.get("reused", 0)}
+
+
+def _popcount64(x: np.ndarray) -> np.ndarray:
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(x)
+    table = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+    return table[x.view(np.uint8)].reshape(*x.shape, 8).sum(-1)
+
+
+def host_pairs(h64: np.ndarray, threshold: int) -> list[tuple[int, int]]:
+    """All pairs (i < j) within `threshold` bits, row-major, by XOR and
+    popcount on the host."""
+    out = []
+    for off in range(0, len(h64), 512):
+        d = _popcount64(h64[off:off + 512, None] ^ h64[None, :])
+        r, c = np.nonzero(d <= threshold)
+        keep = off + r < c
+        out += list(zip((off + r[keep]).tolist(), c[keep].tolist()))
+    return out
+
+
+def check_near_pairs_at_scale(rng) -> dict:
+    """`near_pairs` at N_PAIR_HASHES seeded hashes with N_PAIR_CLUSTERS
+    planted clusters (2-4 members, each at most DUP_THRESHOLD/2 bits from
+    its centre): every planted pair returned, every returned pair within
+    the threshold by host XOR-popcount, and on the first N_PAIR_SUBSET
+    hashes the pair set equal to a host all-pairs."""
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    bits = rng.integers(0, 2, (N_PAIR_HASHES, 64)).astype(bool)
+    members = rng.permutation(N_PAIR_HASHES)[:N_PAIR_CLUSTERS * 4].reshape(N_PAIR_CLUSTERS, 4)
+    planted = set()
+    for c, row in enumerate(members):
+        size = 2 + c % 3
+        centre = bits[row[0]].copy()
+        for m in row[:size]:
+            flip = rng.choice(64, int(rng.integers(0, DUP_THRESHOLD // 2 + 1)), replace=False)
+            bits[m] = centre
+            bits[m, flip] ^= True
+        for i in range(size):
+            for j in range(i + 1, size):
+                planted.add((int(min(row[i], row[j])), int(max(row[i], row[j]))))
+    packed = np.packbits(bits, axis=1)
+    hashes = [h.tobytes() for h in packed]
+    h64 = packed.view(">u8").reshape(-1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pairs = list(phash_torch.near_pairs(hashes, DUP_THRESHOLD, DEVICE))
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = set(pairs)
+    check(len(got) == len(pairs), "near_pairs returned a pair twice")
+    check(planted <= got, f"{len(planted - got)} planted pairs missing from near_pairs")
+    a = np.array([p[0] for p in pairs])
+    b = np.array([p[1] for p in pairs])
+    dist = _popcount64(h64[a] ^ h64[b])
+    check(bool((dist <= DUP_THRESHOLD).all()), "near_pairs returned a pair beyond the threshold")
+    sub = list(phash_torch.near_pairs(hashes[:N_PAIR_SUBSET], DUP_THRESHOLD, DEVICE))
+    check(sub == host_pairs(h64[:N_PAIR_SUBSET], DUP_THRESHOLD),
+          f"near_pairs on {N_PAIR_SUBSET} hashes != the host all-pairs")
+    print(f"phase 5: near_pairs at {N_PAIR_HASHES} hashes: {len(pairs)} pairs in {seconds:.3f} s "
+          f"(peak device memory {peak / 2**30:.2f} GiB), all {len(planted)} planted pairs among "
+          f"them, all within {DUP_THRESHOLD} bits; the {N_PAIR_SUBSET}-hash subset's {len(sub)} "
+          f"pairs == host all-pairs", flush=True)
+    return {"hashes": N_PAIR_HASHES, "pairs": len(pairs), "planted_pairs": len(planted),
+            "seconds": seconds, "peak_device_bytes": peak, "subset_pairs": len(sub)}
+
+
+def _search(data_dir: str, query: str, semantic: bool, take: int) -> dict:
+    import asyncio
+
+    from spacedrive_tpu_torch.cli import search_library
+
+    return asyncio.run(search_library(query, data_dir, "smoke", semantic, take, DEVICE))
+
+
+def check_search(data_dir: str, images: list[str], rng) -> dict:
+    """`search` through the CLI helper: a corpus image's path ranks its
+    own object first at cosine 1 ± 1e-5; a name search equals its SQL;
+    a label-name probe is the centroid of the labeled objects' vectors
+    and ranks as a host float64 ranking does."""
+    from spacedrive_tpu_torch.models import embedder
+
+    probe_path = images[int(rng.integers(len(images)))]
+    t0 = time.perf_counter()
+    out = _search(data_dir, probe_path, True, 5)
+    semantic_s = time.perf_counter() - t0
+    check(out["resolved"] and len(out["nodes"]) == 5, f"semantic query by path: {out}")
+    first = out["nodes"][0]
+    name = os.path.basename(probe_path)
+    check(f"{first['name']}.{first['extension']}" == name,
+          f"semantic query by {name} ranked {first['name']} first")
+    check(abs(first["score"] - 1.0) <= 1e-5, f"self cosine {first['score']}")
+
+    out = _search(data_dir, "img01", False, 10)
+    lib = _open_library(data_dir)
+    try:
+        want = [r["id"] for r in lib.db.query(
+            "SELECT id FROM file_path WHERE name LIKE '%img01%' ORDER BY name ASC, id ASC "
+            "LIMIT 10")]
+        objs = [r["object_id"] for r in lib.db.query(
+            "SELECT object_id FROM object_embedding ORDER BY object_id LIMIT 3")]
+        lid = lib.db.insert("label", name="smoke-label")
+        for oid in objs:
+            lib.db.insert("label_on_object", label_id=lid, object_id=oid)
+        emb = {r["object_id"]: embedder.blob_to_vector(r["vector"])
+               for r in lib.db.query("SELECT object_id, vector FROM object_embedding")}
+        fp_of = {r["object_id"]: r["id"] for r in lib.db.query(
+            "SELECT object_id, MIN(id) AS id FROM file_path WHERE object_id IS NOT NULL "
+            "GROUP BY object_id")}
+    finally:
+        lib.close()
+    check([n["id"] for n in out["nodes"]] == want and want, f"name search != SQL {want}")
+
+    out = _search(data_dir, "smoke-label", True, 10)
+    check(out["resolved"] is True, "the label-name probe did not resolve")
+    ids = sorted(emb)
+    unit = np.stack([emb[i] / np.linalg.norm(emb[i]) for i in ids]).astype(np.float64)
+    centroid = unit[[ids.index(o) for o in objs]].mean(0)
+    centroid /= np.linalg.norm(centroid)
+    scores = unit @ centroid
+    order = np.argsort(-scores, kind="stable")[:10]
+    check([n["id"] for n in out["nodes"]] == [fp_of[ids[i]] for i in order],
+          "the label-name probe ranks otherwise than the host")
+    check(np.allclose([n["score"] for n in out["nodes"]], scores[order], atol=1e-5, rtol=1e-5),
+          "label-name probe scores differ from the host's")
+    print(f"phase 5: search: {name} ranks itself first (cosine {first['score']:.7f}); name "
+          f"search == SQL ({len(want)} rows); label probe == host ranking", flush=True)
+    return {"semantic_query_s": semantic_s}
+
+
+def check_query_at_scale(rng) -> dict:
+    """The scorer at N_SEARCH_VECTORS seeded vectors with planted exact
+    ties: the card's top-k ids equal a host stable ranking of the card's
+    scores (np.argsort(-s, kind="stable")), ties included, and the
+    scores equal a host float64 product within 1e-5."""
+    import types
+
+    from spacedrive_tpu_torch.object.search import index as search_index
+
+    m = rng.standard_normal((N_SEARCH_VECTORS, 128), dtype=np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    probe_row = int(rng.integers(N_SEARCH_VECTORS))
+    tied = np.array([t for t in rng.permutation(N_SEARCH_VECTORS)[:513] if t != probe_row][:512])
+    m[tied[:8]] = m[probe_row]  # 9 rows tied at the top
+    for k in range(8, 512, 4):  # 126 more groups of 4 tied rows
+        m[tied[k + 1:k + 4]] = m[tied[k]]
+    dev_m = torch.from_numpy(m).to(DEVICE)
+    probe = torch.from_numpy(m[probe_row]).to(DEVICE)
+    scores, rows = search_index.score_top_k(dev_m, probe, SEARCH_K)
+    s = (dev_m * probe).sum(dim=1).cpu().numpy()
+    want = np.argsort(-s, kind="stable")[:SEARCH_K]
+    check(rows.cpu().numpy().tolist() == want.tolist(), "the card's top-k != the host's stable ranking")
+    check(sorted(rows[:9].tolist()) == rows[:9].tolist()
+          and set(rows[:9].tolist()) == {probe_row, *tied[:8].tolist()},
+          "the tied top rows are not in row order")
+    host = m.astype(np.float64) @ m[probe_row].astype(np.float64)
+    check(np.allclose(scores.cpu().numpy(), host[want], atol=1e-5, rtol=1e-5),
+          "scores differ from the host float64 product")
+    query_ms = cuda_ms(lambda: search_index.score_top_k(dev_m, probe, SEARCH_K), reps=20)
+    library_ms = cuda_ms(lambda: torch.topk(dev_m @ probe, SEARCH_K), reps=20)
+    idx = search_index.LibraryIndex(types.SimpleNamespace(node=None))
+    idx._matrix, idx._ids, idx._loaded = m, list(range(N_SEARCH_VECTORS)), True
+    idx.query(m[probe_row], SEARCH_K, DEVICE)  # uploads the matrix once
+    t0 = time.perf_counter()
+    for _ in range(10):
+        idx.query(m[probe_row], SEARCH_K, DEVICE)
+    host_query_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"phase 5: query at {N_SEARCH_VECTORS} vectors: top-{SEARCH_K} == host stable "
+          f"ranking, 9 tied top rows in row order; {query_ms:.3f} ms a query on the card "
+          f"({host_query_ms:.3f} ms through LibraryIndex.query)", flush=True)
+    return {"vectors": N_SEARCH_VECTORS, "k": SEARCH_K, "score_top_k_ms": query_ms,
+            "matmul_topk_ms": library_ms, "library_query_ms": host_query_ms}
+
+
+def read_side_ops_ms(rng) -> dict:
+    """The read side's torch programs at the main path's shapes: the DCT
+    of 64 planes (one duplicate step), one near_pairs block (4096 rows
+    against 262,144 columns)."""
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    gray = torch.from_numpy(rng.random((64, 32, 32), dtype=np.float32)).to(DEVICE)
+    cols = phash_torch._plus_minus(torch.from_numpy(
+        rng.integers(0, 2, (N_PAIR_HASHES, 64)).astype(bool)).to(DEVICE))
+    return {
+        "phash_64_ms": cuda_ms(lambda: phash_torch.phash_bits(gray), reps=20),
+        "near_pairs_block_4096x262144_ms": cuda_ms(
+            lambda: phash_torch.match_bitmap(cols[:phash_torch.PAIR_BLOCK], cols, DUP_THRESHOLD),
+            reps=10),
+    }
+
+
+def phase_read_side(rng, p4: dict) -> dict:
+    corpus, data_dir = p4["corpus"], p4["data_dir"]
+    t_phase = time.perf_counter()
+    steps_s: dict[str, float] = {}  # wall seconds of each step, its checks included
+
+    def step(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps_s[name] = time.perf_counter() - t0
+        return out
+
+    pairs = step("near_copies", add_near_duplicates, corpus, p4["images"], rng)
+    scan = step("rescan", run_library_pass, corpus, data_dir)
+    check(scan["media"]["thumbnails_dispatched"] == len(pairs),
+          f"the rescan's media job dispatched {scan['media']['thumbnails_dispatched']} "
+          f"thumbnails, want the {len(pairs)} near copies")
+    print(f"phase 5: +{len(pairs)} near duplicates scanned in {scan['numbers']['seconds']:.1f} s "
+          f"(K1 launches {scan['launches']})", flush=True)
+
+    got = step("validator", run_validator, data_dir, corpus)
+    validator = {**step("validator_check", check_validator, data_dir, corpus, got, rng),
+                 **{k: got[k] for k in ("seconds", "launches", "device_files", "host_files",
+                                        "split_s")}}
+    duplicates = step("duplicates", check_duplicates, data_dir, corpus, pairs)
+    near_pairs = step("near_pairs_at_scale", check_near_pairs_at_scale, rng)
+    search = step("search", check_search, data_dir, p4["images"], rng)
+    query = step("query_at_scale", check_query_at_scale, rng)
+    ops_ms = step("torch_ops", read_side_ops_ms, rng)
+    out = {"cut": LIBRARY_CUT, "near_copies": len(pairs),
+           "rescan": {k: scan["numbers"][k] for k in ("seconds", "files_per_s", "k1_launches")},
+           "validator": validator, "duplicates": duplicates, "near_pairs": near_pairs,
+           "search": {**search, **query}, "torch_ops_ms": ops_ms, "steps_s": steps_s,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"read_side": out}), flush=True)
+    return {"launches": {"read_side_rescan": scan["launches"], "validator": got["launches"]}}
 
 
 def main() -> int:
@@ -784,8 +1413,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="sd_chip_smoke_") as tmp:
         got = phase_pass(rng, tmp)
         lib = phase_library(rng, tmp, got)
+        read = phase_read_side(rng, lib)
     # launches on the main paths, each counted from 0 just before it
-    kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"]}
+    kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"],
+                                  **read["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(name_power, flush=True)

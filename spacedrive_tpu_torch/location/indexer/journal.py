@@ -352,6 +352,11 @@ class IndexJournal:
         — it stops warm passes from re-probing EXIF-less files."""
         self._amend_payload(location_id, key, cas_id, media=digest)
 
+    def record_phash(self, location_id: int, key: Key, cas_id: str | None,
+                     phash: bytes) -> None:
+        """Record the pHash after the `object.phash` update committed."""
+        self._amend_payload(location_id, key, cas_id, phash=bytes(phash))
+
     # ---- invalidate ----------------------------------------------------
 
     def mark_stale(self, location_id: int, key: Key) -> int:

@@ -3,8 +3,9 @@
 Counterpart of the part of `spacedrive_tpu/node/node.py` the scan chain
 uses (ref:core/src/lib.rs:82-250): the event bus, the task system, the
 job manager, the libraries (each `Library.node` points back here) and
-the node-wide thumbnailer actor on an explicit device. `start` binds the
-thumbnailer to the running loop, loads the libraries and cold-resumes
+the node-wide thumbnailer actor on the node's explicit device, which is
+also the default device of the read-side jobs and of the semantic
+search. `start` binds the thumbnailer to the running loop, loads the libraries and cold-resumes
 their jobs; `shutdown` persists the thumbnailer's queues and stops the
 task system. A Node lives within one event loop (one `asyncio.run`).
 
@@ -22,9 +23,14 @@ from typing import Any
 import torch
 
 from ..jobs import JobManager
-from ..location.indexer import job as _indexer_job  # noqa: F401 - registers the
-from ..object.file_identifier import job as _identifier_job  # noqa: F401 - chain's jobs
-from ..object.media import job as _media_job  # noqa: F401 - for cold resume
+
+# each import registers its jobs, so that `start` can cold-resume them
+from ..location.indexer import job as _indexer_job  # noqa: F401
+from ..object import duplicates as _duplicates_job  # noqa: F401
+from ..object.file_identifier import job as _identifier_job  # noqa: F401
+from ..object.media import job as _media_job  # noqa: F401
+from ..object.validation import job as _validator_job  # noqa: F401
+
 from ..object.media.thumbnail.actor import Thumbnailer
 from ..tasks import TaskSystem
 from ..utils.events import EventBus

@@ -1,9 +1,9 @@
-"""Per-library vector index: a memmap-backed matrix of embeddings.
+"""Per-library vector index: a memmap-backed matrix of embeddings and
+its cosine top-k query.
 
-Counterpart of `spacedrive_tpu/object/search/index.py` without its query
-side (`query`, `probe_for` and the scorer come with the semantic-search
-slice). One L2-normalized float32 [N, EMBED_DIM] matrix plus an aligned
-object-id list, built from `object_embedding` rows and kept up to date
+Counterpart of `spacedrive_tpu/object/search/index.py`. One
+L2-normalized float32 [N, EMBED_DIM] matrix plus an aligned object-id
+list, built from `object_embedding` rows and kept up to date
 incrementally: the media job's embed step calls `refresh` after its
 `sync.write_ops` commit, and `on_embeddings_applied` is the hook for
 rows that sync applies.
@@ -17,6 +17,15 @@ The matrix persists next to the library DB (`<db>.searchidx/`:
 `vectors.f32`, little-endian float32 rows, and `meta.json` with dim,
 ids, watermark and stamp; the JAX package's format) and is memmapped
 back on load.
+
+A query scores the whole matrix against the probe on the device
+(`score_top_k`: an elementwise product and a row sum in float32, which
+no TF32 setting touches) and ranks it by a stable descending sort, so
+equal scores keep the lower row first, as `lax.top_k` orders them in
+the JAX package. The matrix stays on the device until a refresh changes
+it. The query's device is the caller's, else the library's node's, else
+"cuda". Unlike the JAX index, a device failure raises: there is no host
+fallback and no `search.query` fault point.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import threading
 from typing import Any
 
 import numpy as np
+import torch
 
 from ...models import embedder as _embedder
 
@@ -39,6 +49,23 @@ def _normalize(vec: np.ndarray) -> np.ndarray:
     if n <= 0.0 or not np.isfinite(n):
         return np.zeros_like(vec)
     return (vec / np.float32(n)).astype(np.float32)
+
+
+def device_of(library: Any, device: str | torch.device | None = None) -> torch.device:
+    """`device` when given, else the library's node's device, else "cuda"."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device(getattr(getattr(library, "node", None), "device", None) or "cuda")
+
+
+def score_top_k(matrix: torch.Tensor, probe: torch.Tensor,
+                k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cosine scores of the k best rows of `matrix` [N, D] against
+    `probe` [D] (both normalized, float32, on one device) and their row
+    indices, best first; equal scores keep the lower row first."""
+    scores = (matrix * probe).sum(dim=1)
+    rows = torch.sort(scores, descending=True, stable=True).indices[:k]
+    return scores[rows], rows
 
 
 class LibraryIndex:
@@ -54,6 +81,8 @@ class LibraryIndex:
         self._watermark = 0  # max object_embedding.id folded in
         self._stamp = ""  # max date_calculated folded in (ISO text)
         self._loaded = False
+        #: the matrix on the last query's device, until a refresh changes it
+        self._on_device: tuple[str, torch.Tensor] | None = None
 
     # ---- persistence ---------------------------------------------------
 
@@ -120,6 +149,7 @@ class LibraryIndex:
                 self._matrix = np.zeros((0, _embedder.EMBED_DIM), np.float32)
                 self._ids, self._pos = [], {}
                 self._watermark, self._stamp = 0, ""
+                self._on_device = None
             rows = db.query(
                 "SELECT id, object_id, vector, date_calculated "
                 "FROM object_embedding WHERE id > ? "
@@ -156,8 +186,31 @@ class LibraryIndex:
                           if matrix.size else np.stack(fresh))
                 self._ids.extend(fresh_ids)
             self._matrix = matrix.astype(np.float32, copy=False)
+            self._on_device = None
             self._persist()
             return len(self._ids)
+
+    # ---- scoring -------------------------------------------------------
+
+    def query(self, probe: np.ndarray, k: int = 10,
+              device: str | torch.device | None = None) -> list[tuple[int, float]]:
+        """Top-k (object_id, cosine) for a probe vector, scored on
+        `device` (see `device_of`)."""
+        device = device_of(self._library, device)
+        with self._lock:
+            ids = list(self._ids)
+            if not ids:
+                return []
+            if self._on_device is None or self._on_device[0] != str(device):
+                self._on_device = (str(device), torch.from_numpy(
+                    np.array(self._matrix, np.float32)).to(device))
+            matrix = self._on_device[1]
+        probe = _normalize(np.asarray(probe, np.float32))
+        k = min(int(k), len(ids))
+        if k <= 0:
+            return []
+        scores, rows = score_top_k(matrix, torch.from_numpy(probe).to(device), k)
+        return [(ids[i], v) for i, v in zip(rows.tolist(), scores.tolist())]
 
     def vectors(self) -> tuple[list[int], np.ndarray]:
         """(object ids, their normalized vectors [N, EMBED_DIM]), a copy."""
@@ -187,3 +240,39 @@ def on_embeddings_applied(library: Any) -> None:
         get_index(library).refresh()
     except Exception:  # noqa: BLE001 - maintenance is best-effort
         logger.exception("search index refresh after sync apply failed")
+
+
+def query(library: Any, probe: np.ndarray, k: int = 10,
+          device: str | torch.device | None = None) -> list[tuple[int, float]]:
+    idx = get_index(library)
+    idx.refresh()
+    return idx.query(probe, k=k, device=device)
+
+
+def probe_for(library: Any, text: str,
+              device: str | torch.device | None = None) -> np.ndarray | None:
+    """Resolve a query string to a probe vector: an existing image path
+    embeds on `device` (see `device_of`); otherwise the string is
+    matched against stored label names and the probe is the centroid of
+    the labeled objects' vectors. None = unresolvable."""
+    if os.path.exists(text):
+        img = _embedder.decode_image(text)
+        if img is None:
+            return None
+        from ...ops import embed_torch
+
+        return embed_torch.embed_batch(img[None, ...], device_of(library, device))[0]
+    row = library.db.query_one("SELECT id FROM label WHERE name = ?", (text,))
+    if row is None:
+        return None
+    obj_ids = [r["object_id"] for r in library.db.query(
+        "SELECT object_id FROM label_on_object WHERE label_id = ?", (row["id"],))]
+    if not obj_ids:
+        return None
+    idx = get_index(library)
+    idx.refresh()
+    with idx._lock:
+        vecs = [np.asarray(idx._matrix)[idx._pos[oid]] for oid in obj_ids if oid in idx._pos]
+    if not vecs:
+        return None
+    return _normalize(np.mean(np.stack(vecs), axis=0))

@@ -8,7 +8,11 @@ import nothing of JAX, so they also run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
 Tolerances: K1 and the hashes bit-identical; resize within 1 uint8 level
-(float32 sums in another order); embed allclose(atol=1e-5, rtol=1e-5).
+(float32 sums in another order); embed allclose(atol=1e-5, rtol=1e-5);
+pHash bits equal except within 1e-5 × max|coefficient| of the median
+(float64 sums in another order), pair sets exact; search scores
+allclose 1e-5 with the same ids in the same order; validator checksums
+bit-identical.
 With --noconftest no coroutine-test runner is installed, so the library
 chain test drives its event loop with asyncio.run itself.
 """
@@ -212,3 +216,81 @@ def test_media_chain_on_cuda_matches_cpu(tmp_path):
     assert set(cuda[3]) == set(cpu[3]) and len(cuda[3]) == 6
     for cas_id, vec in cuda[3].items():
         np.testing.assert_allclose(vec, cpu[3][cas_id], atol=1e-5, rtol=1e-5)
+
+
+def test_phash_on_cuda_matches_cpu_whatever_the_tf32_setting():
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    rng = np.random.default_rng(6)
+    gray = rng.random((300, 32, 32), dtype=np.float32)
+    cpu = phash_torch.phash_batch(gray, "cpu")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got = phash_torch.phash_batch(gray, "cuda")
+            flips = np.unpackbits(got, axis=1) != np.unpackbits(cpu, axis=1)
+            ac = phash_torch.dct_low(torch.from_numpy(gray)).numpy()
+            med = np.median(ac[:, 1:], axis=1, keepdims=True)
+            near = np.abs(ac - med) <= 1e-5 * np.abs(ac).max(axis=1, keepdims=True)
+            assert not (flips & ~near).any(), tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_near_pairs_on_cuda_match_cpu_and_xor():
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 2, (9000, 64)).astype(bool)
+    for c in range(0, 8990, 13):  # planted pairs 1-5 bits apart
+        bits[c + 1] = bits[c]
+        bits[c + 1, rng.choice(64, int(rng.integers(1, 6)), replace=False)] ^= True
+    hashes = [h.tobytes() for h in np.packbits(bits, axis=1)]
+    for threshold in (0, 5, 16):
+        got = list(phash_torch.near_pairs(hashes, threshold, "cuda"))
+        assert got == list(phash_torch.near_pairs(hashes, threshold, "cpu"))
+        for i, j in got[:200]:
+            assert int((bits[i] ^ bits[j]).sum()) <= threshold
+    sub = hashes[:500]
+    assert np.array_equal(phash_torch.hamming_matrix(sub, "cuda"),
+                          phash_torch.hamming_matrix(sub, "cpu"))
+
+
+def test_query_on_cuda_matches_cpu_with_ties():
+    import types
+
+    from spacedrive_tpu_torch.object.search import index as search_index
+
+    rng = np.random.default_rng(8)
+    m = rng.normal(size=(5000, 128)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    m[[10, 999, 4000]] = m[3]
+    idx = search_index.LibraryIndex(types.SimpleNamespace(node=None))
+    idx._matrix, idx._ids, idx._loaded = m, list(range(5000)), True
+    for probe in (m[3], rng.normal(size=128)):
+        got = idx.query(probe, k=50, device="cuda")
+        want = idx.query(probe, k=50, device="cpu")
+        assert [i for i, _ in got] == [i for i, _ in want]
+        np.testing.assert_allclose([s for _, s in got], [s for _, s in want], atol=1e-5, rtol=1e-5)
+    assert [i for i, _ in idx.query(m[3], k=4, device="cuda")] == [3, 10, 999, 4000]
+
+
+def test_file_checksums_on_cuda_at_256_chunks(tmp_path):
+    """Every validator bucket on the card, 256 chunks included: the
+    digests equal the CPU path's and the host hasher's, and K1 ran."""
+    from spacedrive_tpu_torch.object.validation import file_checksum, file_checksums
+
+    rng = np.random.default_rng(9)
+    paths = []
+    for chunks in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        cap = chunks * 1024
+        for n in [cap, cap - 1, max(1, cap // 2 + 1)] * 6:
+            paths.append(str(tmp_path / f"{len(paths)}.bin"))
+            with open(paths[-1], "wb") as f:
+                f.write(rng.bytes(n))
+    before = blake3_cuda.chunk_cvs.launches
+    got = file_checksums(paths, "cuda")
+    assert blake3_cuda.chunk_cvs.launches > before
+    assert got == file_checksums(paths, "cpu")
+    assert got == [file_checksum(p) for p in paths]
