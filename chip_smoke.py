@@ -35,18 +35,30 @@ reference), `duplicates` and `search` run through their CLI helpers
 groups against the DB after one object is split in two; semantic, name
 and label queries), and
 `near_pairs` and the scorer run at 262,144 seeded hashes and vectors
-against host references.
+against host references. Phase 6 runs the labeler: LabelerNet at full
+width (seeded weights) on 16 seeded 224² images on the card against the
+CPU in bf16 (decisions may flip only within 0.35 ± 0.05), timed at batch
+16 and 256 with CUDA events and traced with torch.profiler; `labeler
+provision --bundled` into phase 4's data dir and one more `index
+--library`, whose label rows must equal a CPU forward on the actor's
+decoded inputs and which search filters by; and a CNN and a YOLOv8-layout
+ONNX graph on the card against the CPU in float32 with the TF32 globals
+off and on, then `labeler provision --from model.onnx` and one actor
+batch. Phases 4-5 scan with no labeler model provisioned, so the
+node's labeler skips their images.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
-table, the pass's stage times and the read side's numbers as JSON.
+table, the pass's stage times, the read side's and the labeler's numbers
+as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -587,6 +599,9 @@ def run_library_pass(corpus: str, data_dir: str) -> dict:
     th = node.thumbnailer
     actor_s, generated, thumb_errors, job_s = th.stage_seconds, th.generated, th.errors, \
         node.stage_seconds
+    lb = node.image_labeler
+    labeler = {"labeled": lb.labeled, "skipped": lb.skipped, "errors": lb.errors,
+               "forwards": lb.forwards, "stage_s": dict(lb.stage_seconds)}
     got = library_rows(data_dir)
     jobs = got["jobs"]
     check([j["name"] for j in jobs] == ["indexer", "file_identifier", "media_processor"]
@@ -597,7 +612,7 @@ def run_library_pass(corpus: str, data_dir: str) -> dict:
     ident, media = meta[1], meta[2]
     return {
         **got, "summary": summary, "indexer": meta[0], "identifier": ident, "media": media,
-        "launches": launches, "generated": generated,
+        "launches": launches, "generated": generated, "labeler": labeler,
         "numbers": {
             "files": summary["files"],
             "files_per_s": summary["files"] / wall,
@@ -630,6 +645,8 @@ def run_library_pass(corpus: str, data_dir: str) -> dict:
             "thumbnail_errors": thumb_errors,
             "media_data_extracted": media["media_data_extracted"],
             "embeddings_written": media["embeddings_written"],
+            "labeled": lb.labeled,
+            "labeler_skipped": lb.skipped,
         },
     }
 
@@ -1389,6 +1406,342 @@ def phase_read_side(rng, p4: dict) -> dict:
     return {"launches": {"read_side_rescan": scan["launches"], "validator": got["launches"]}}
 
 
+# --- phase 6: the labeler --------------------------------------------------
+
+# LabelerNet computes in bf16 on the card (cuDNN) and on the CPU (oneDNN),
+# sums in another order: probabilities within LABEL_BAND, and a label
+# decision may differ only where the CPU probability lies within
+# LABEL_BAND of the threshold (the bound tests/test_torch_labeler.py
+# states against the JAX forward). ONNX graphs run in float32 with TF32
+# off inside each call: within ONNX_RTOL (and ONNX_ATOL near zero).
+LABEL_THRESHOLD, LABEL_BAND = 0.35, 0.05
+ONNX_RTOL, ONNX_ATOL = 1e-5, 1e-5
+LABEL_BATCH, LABEL_BATCH_LARGE, LABEL_SIZE = 16, 256, 224
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+
+
+def device_kernels(fn) -> dict:
+    """Kernels launched by one call of `fn` and their summed device
+    milliseconds, from a `torch.profiler` trace (None where the trace
+    shows no device time), and the five largest kernels as [name,
+    launches, ms]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
+    return {"kernels": sum(e.count for e in evs), "device_busy_ms": busy if busy > 0 else None,
+            "top_kernels": [[e.key[:100], e.count, e.self_device_time_total / 1e3]
+                            for e in top]}
+
+
+def _label_flips(got: np.ndarray, want: np.ndarray) -> tuple[int, int]:
+    """(decisions that differ outside the band, differing inside it)."""
+    differ = (got >= LABEL_THRESHOLD) != (want >= LABEL_THRESHOLD)
+    near = np.abs(want - LABEL_THRESHOLD) <= LABEL_BAND
+    return int((differ & ~near).sum()), int((differ & near).sum())
+
+
+def check_labeler_net(rng) -> dict:
+    """(a) LabelerNet at full width (seeded weights, 80 classes) on 16
+    seeded 224² images on the card against the CPU, both bf16; then its
+    forward timed at batch 16 and 256."""
+    import copy
+
+    from spacedrive_tpu_torch.models import labeler
+
+    seed = int(rng.integers(1 << 31))
+    cpu = labeler.init_params(torch.Generator().manual_seed(seed))
+    gpu = copy.deepcopy(cpu).to(DEVICE)
+    x = rng.random((LABEL_BATCH, LABEL_SIZE, LABEL_SIZE, 3), dtype=np.float32)
+    t0 = time.perf_counter()
+    want = labeler.infer_step(cpu, torch.from_numpy(x))[0].numpy()
+    cpu_s = time.perf_counter() - t0
+    got, mask = labeler.infer_step(gpu, torch.from_numpy(x).to(DEVICE))
+    got = got.cpu().numpy()
+    check(got.shape == (LABEL_BATCH, labeler.NUM_CLASSES) and np.isfinite(got).all(),
+          f"LabelerNet on the card gave {got.shape} or non-finite probabilities")
+    check(np.array_equal(mask.cpu().numpy(), got >= LABEL_THRESHOLD), "infer_step's mask")
+    dprob = float(np.abs(got - want).max())
+    outside, inside = _label_flips(got, want)
+    check(outside == 0, f"{outside} label decisions flip outside {LABEL_THRESHOLD} ± {LABEL_BAND}")
+    check(dprob <= LABEL_BAND, f"max |dprob| {dprob} over {LABEL_BAND}")
+
+    flops = labeler.conv_flops(gpu, LABEL_SIZE)
+    params = sum(p.numel() for p in gpu.parameters())
+    timings = {}
+    for batch in (LABEL_BATCH, LABEL_BATCH_LARGE):
+        images = torch.rand((batch, LABEL_SIZE, LABEL_SIZE, 3), device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(seed + batch))
+        with torch.no_grad():
+            ms = cuda_ms(lambda: gpu(images), reps=20)
+            kernels = device_kernels(lambda: gpu(images))
+        moved = images.numel() * 4 + params * 4 + batch * labeler.NUM_CLASSES * 4
+        bound_ms = max(moved / HBM_BYTES_PER_S, batch * flops / BF16_PEAK_FLOPS) * 1e3
+        timings[batch] = {"ms": ms, "images_per_s": batch / ms * 1e3,
+                          "gflop_per_s": batch * flops / ms / 1e6, "bound_ms": bound_ms,
+                          "bound_by": "operations" if batch * flops / BF16_PEAK_FLOPS
+                          > moved / HBM_BYTES_PER_S else "bytes", **kernels}
+        if kernels["device_busy_ms"] is not None:
+            timings[batch]["device_idle_share"] = max(0.0, 1 - kernels["device_busy_ms"] / ms)
+    print(f"phase 6: LabelerNet full width ({params} parameters, {flops / 1e9:.3f} GFLOP per "
+          f"{LABEL_SIZE}² image from the shapes): card vs CPU bf16 max |dprob| {dprob:.5f}, "
+          f"{inside} decisions flip inside {LABEL_THRESHOLD} ± {LABEL_BAND}, 0 outside; "
+          f"{timings[LABEL_BATCH]['ms']:.3f} ms at batch {LABEL_BATCH}, "
+          f"{timings[LABEL_BATCH_LARGE]['ms']:.3f} ms at batch {LABEL_BATCH_LARGE} "
+          f"({timings[LABEL_BATCH_LARGE]['images_per_s']:.0f} images/s, "
+          f"{timings[LABEL_BATCH_LARGE]['gflop_per_s']:.0f} GFLOP/s)", flush=True)
+    return {"parameters": params, "gflop_per_image": flops / 1e9, "max_dprob": dprob,
+            "flips_in_band": inside, "cpu_forward_s": cpu_s,
+            "batch_16": timings[LABEL_BATCH], "batch_256": timings[LABEL_BATCH_LARGE]}
+
+
+def _cli_json(argv: list[str]) -> tuple[int, dict]:
+    """`python -m spacedrive_tpu_torch <argv>` in process; (rc, its JSON)."""
+    import contextlib
+    import io
+
+    from spacedrive_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, json.loads(out.getvalue())
+
+
+def check_labeled_library(data_dir: str, corpus: str) -> dict:
+    """(b) `labeler provision --bundled` into the library's data dir, then
+    `index --library` once more: every image row the port decodes is
+    labelled on the card, with the names a CPU forward of the port gives
+    on the same decoded inputs (outside the band); `search.paths`
+    filtered by a written label returns exactly its files; `labeler
+    status` says enabled."""
+    from spacedrive_tpu_torch.api.search import search_paths
+    from spacedrive_tpu_torch.models import checkpoint, labeler, labeler_actor
+    from spacedrive_tpu_torch.object.media.thumbnail.process import IMAGE_EXTENSIONS
+
+    rc, info = _cli_json(["labeler", "provision", "--bundled", "--data-dir", data_dir])
+    check(rc == 0 and info.get("kind") == "checkpoint", f"labeler provision --bundled: {info}")
+    rc, status = _cli_json(["labeler", "status", "--data-dir", data_dir])
+    check(rc == 0 and status["enabled"] is True, f"labeler status: {status}")
+
+    decoded: dict[int, np.ndarray] = {}  # object id → the actor's decoded input
+    decode = labeler_actor.ImageLabeler._decode_chunk
+
+    def recording(self, chunk):
+        out = decode(self, chunk)
+        for entry, arr in zip(chunk, out):
+            if arr is not None:
+                decoded[entry["object_id"]] = arr
+        return out
+
+    labeler_actor.ImageLabeler._decode_chunk = recording
+    try:
+        scan = run_library_pass(corpus, data_dir)
+    finally:
+        labeler_actor.ImageLabeler._decode_chunk = decode
+    lb = scan["labeler"]
+    images = [r for r in scan["rows"]
+              if (r["extension"] or "").lower() in IMAGE_EXTENSIONS and r["object_id"]]
+    check(lb["errors"] == 0 and lb["skipped"] == 0, f"the labeler failed or skipped: {lb}")
+    check(lb["labeled"] == len(images) and len(decoded) == len({r["object_id"] for r in images}),
+          f"labelled {lb['labeled']} of {len(images)} image rows")
+    check(lb["forwards"] == -(-len(images) // labeler_actor.DEFAULT_BATCH_SIZE),
+          f"{lb['forwards']} labeler forwards for {len(images)} images")
+
+    tree, meta = checkpoint.load(os.path.join(data_dir, "image_labeler", "weights.npz"))
+    classes = list(meta["classes"])
+    cpu = labeler.from_flax(tree, len(classes), meta["widths"], meta["depths"], "cpu")
+    ids = sorted(decoded)
+    want = labeler.infer_step(cpu, torch.from_numpy(np.stack([decoded[i] for i in ids])))[0]
+    want = want.numpy()
+    lib = _open_library(data_dir)
+    try:
+        rows = lib.db.query("SELECT lo.object_id, l.id, l.name FROM label_on_object lo "
+                            "JOIN label l ON l.id = lo.label_id")
+        got = np.zeros_like(want)  # 1 where the card wrote the label
+        pos = {oid: k for k, oid in enumerate(ids)}
+        for r in rows:
+            if r["name"] in classes:
+                got[pos[r["object_id"]], classes.index(r["name"])] = 1.0
+        outside, inside = _label_flips(got, want)
+        check(outside == 0, f"{outside} label rows differ from the CPU forward outside the band")
+        by_label = collections.Counter(r["name"] for r in rows if r["name"] in classes)
+        name = by_label.most_common(1)[0][0]
+        lid = next(r["id"] for r in rows if r["name"] == name)
+        hits, cursor = [], None
+        while True:  # the API's pages of at most 100 rows
+            page = search_paths(lib, {"filter": {"labels": [lid]}, "take": 100,
+                                      **({"cursor": cursor} if cursor else {})})
+            hits += page["nodes"]
+            cursor = page["cursor"]
+            if cursor is None:
+                break
+        want_ids = [r["id"] for r in lib.db.query(
+            "SELECT id FROM file_path WHERE object_id IN (SELECT object_id FROM "
+            "label_on_object WHERE label_id = ?) ORDER BY id", (lid,))]
+        check(sorted(n["id"] for n in hits) == want_ids,
+              f"search.paths filtered by {name!r} != its files")
+        label_rows = lib.db.count("label")
+    finally:
+        lib.close()
+    semantic = _search(data_dir, name, True, 5)
+    check(semantic["resolved"] is True, f"semantic search by the label {name!r} did not resolve")
+    n_rows = sum(by_label.values())
+    print(f"phase 6: {lb['labeled']} image rows labelled on the card in {lb['forwards']} "
+          f"forwards, {n_rows} label_on_object rows == the CPU forward ({inside} decisions "
+          f"inside the band); search by {name!r} returns its {len(want_ids)} files", flush=True)
+    return {"rescan_s": scan["numbers"]["seconds"], "k1_launches": scan["launches"],
+            "images": len(images), "labeled": lb["labeled"], "forwards": lb["forwards"],
+            "decode_s": lb["stage_s"].get("decode", 0.0),
+            "forward_s": lb["stage_s"].get("forward", 0.0),
+            "write_s": lb["stage_s"].get("write", 0.0),
+            "label_on_object_rows": n_rows, "label_rows": label_rows, "flips_in_band": inside,
+            "labels": dict(by_label)}
+
+
+def _onnx_graphs(rng) -> dict[str, bytes]:
+    """A seeded CNN classifier (Conv s2 p1 → BN → SiLU → MaxPool → GAP →
+    Gemm) and a YOLOv8-layout head ([B, 4 + 80, 784 anchors]) at the
+    actor's batch and 224²."""
+    from spacedrive_tpu_torch.models import onnx_proto as P
+
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    x = P.make_value_info("x", (LABEL_BATCH, 3, LABEL_SIZE, LABEL_SIZE))
+    cnn = P.make_model([
+        P.make_node("Conv", ["x", "w", "b"], ["c"], strides=[2, 2], pads=[1, 1, 1, 1],
+                    kernel_shape=[3, 3]),
+        P.make_node("BatchNormalization", ["c", "g", "be", "mu", "var"], ["bn"]),
+        P.make_node("Sigmoid", ["bn"], ["sig"]),
+        P.make_node("Mul", ["bn", "sig"], ["silu"]),
+        P.make_node("MaxPool", ["silu"], ["mp"], kernel_shape=[2, 2], strides=[2, 2]),
+        P.make_node("GlobalAveragePool", ["mp"], ["gap"]),
+        P.make_node("Flatten", ["gap"], ["flat"]),
+        P.make_node("Gemm", ["flat", "fw", "fb"], ["out"], transB=1),
+    ], [x], [P.make_value_info("out", (LABEL_BATCH, 5))], {
+        "w": f(64, 3, 3, 3), "b": f(64), "g": f(64), "be": f(64), "mu": f(64) * 0.1,
+        "var": rng.random(64).astype(np.float32) + 0.5, "fw": f(5, 64), "fb": f(5)})
+    head = P.make_model([
+        P.make_node("Conv", ["x", "w"], ["c"], kernel_shape=[8, 8], strides=[8, 8]),
+        P.make_node("Reshape", ["c", "shape"], ["r"]),
+        P.make_node("Transpose", ["r"], ["rt"], perm=[0, 2, 1]),
+        P.make_node("MatMul", ["rt", "m"], ["mm"]),
+        P.make_node("Sigmoid", ["mm"], ["s"]),
+        P.make_node("Transpose", ["s"], ["out"], perm=[0, 2, 1]),
+    ], [x], [P.make_value_info("out", (LABEL_BATCH, 84, 784))], {
+        "w": f(32, 3, 8, 8) * 0.1, "shape": np.array([LABEL_BATCH, 32, 784], np.int64),
+        "m": f(32, 84) * 0.2})
+    return {"cnn": P.encode_model(cnn), "yolo_head": P.encode_model(head)}
+
+
+def check_onnx(rng, tmp: str, images: list[str]) -> dict:
+    """(c) The ONNX executor: each graph on the card against the CPU in
+    float32, again with the TF32 globals on; then `labeler provision
+    --from model.onnx` and one actor batch of 16 corpus images on the
+    card against the CPU actor."""
+    import asyncio
+    import types
+
+    from spacedrive_tpu_torch.db.database import LibraryDb
+    from spacedrive_tpu_torch.models import labeler_actor, onnx_runtime
+
+    x = rng.random((LABEL_BATCH, 3, LABEL_SIZE, LABEL_SIZE), dtype=np.float32)
+    out: dict = {}
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    graphs = _onnx_graphs(rng)
+    for name, buf in graphs.items():
+        want = onnx_runtime.load(buf, "cpu")(torch.from_numpy(x))[0].numpy()
+        model = onnx_runtime.load(buf, DEVICE)
+        dev_x = torch.from_numpy(x).to(DEVICE)
+        runs = {}
+        try:
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+                runs[tf32] = model(dev_x)[0].cpu().numpy()
+                check(np.allclose(runs[tf32], want, rtol=ONNX_RTOL, atol=ONNX_ATOL),
+                      f"ONNX {name} on the card (TF32 globals {tf32}) differs from the CPU: "
+                      f"max |d| {np.abs(runs[tf32] - want).max()}")
+                check(torch.backends.cudnn.allow_tf32 is tf32, "the executor left TF32 flags")
+            ms = cuda_ms(lambda: model(dev_x), reps=20)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        out[name] = {"max_abs_err": float(np.abs(runs[False] - want).max()),
+                     "tf32_on_bitwise_equal": bool(np.array_equal(runs[True], runs[False])),
+                     "ms": ms, "nodes": len(model.nodes), **device_kernels(lambda: model(dev_x))}
+
+    src = os.path.join(tmp, "classifier.onnx")
+    with open(src, "wb") as fh:
+        fh.write(graphs["cnn"])
+    names = os.path.join(tmp, "classes.txt")
+    with open(names, "w") as fh:
+        fh.write("\n".join(f"class {c}" for c in "abcde") + "\n")
+    data_dir = os.path.join(tmp, "onnx_node")
+    rc, info = _cli_json(["labeler", "provision", "--from", src, "--classes", names,
+                          "--data-dir", data_dir, "--device", DEVICE])
+    check(rc == 0 and info["kind"] == "onnx" and info["classes"] == 5,
+          f"labeler provision --from model.onnx: {info}")
+    lib = types.SimpleNamespace(id="66666666-6666-6666-6666-666666666666",
+                                db=LibraryDb(None, memory=True))
+    entries = [{"file_path_id": i, "path": p,
+                "object_id": lib.db.insert("object", pub_id=os.urandom(16), kind=5)}
+               for i, p in enumerate(images[:LABEL_BATCH])]
+    actor = labeler_actor.ImageLabeler(os.path.join(data_dir, "image_labeler"), device=DEVICE)
+
+    async def one_batch():
+        try:
+            await actor.wait_batch(actor.new_batch(lib, entries))
+        finally:
+            await actor.shutdown()
+
+    asyncio.run(one_batch())
+    check(actor.labeled == LABEL_BATCH and actor.forwards == 1 and actor.errors == 0,
+          f"the ONNX actor batch: labeled {actor.labeled}, forwards {actor.forwards}")
+    cpu_actor = labeler_actor.ImageLabeler(os.path.join(data_dir, "image_labeler"), device="cpu")
+    check(cpu_actor._ensure_model(), "the CPU actor did not load the model")
+    arrays = np.stack(cpu_actor._decode_chunk(entries))
+    want = cpu_actor._infer_chunk(arrays)
+    got = actor._infer_chunk(arrays)
+    check(np.allclose(got, want, rtol=ONNX_RTOL, atol=ONNX_ATOL),
+          "the ONNX actor on the card differs from the CPU actor")
+    written = {(r["object_id"], r["name"]) for r in lib.db.query(
+        "SELECT lo.object_id, l.name FROM label_on_object lo JOIN label l ON l.id = lo.label_id")}
+    check(written == {(e["object_id"], actor.classes[j]) for e, row in zip(entries, want)
+                      for j in np.nonzero(row >= LABEL_THRESHOLD)[0]},
+          "the ONNX actor's label rows differ from the CPU probabilities")
+    lib.db.close()
+    print(f"phase 6: ONNX on the card == CPU (rtol {ONNX_RTOL}) with the TF32 globals on and "
+          f"off: cnn {out['cnn']['ms']:.3f} ms, yolo_head {out['yolo_head']['ms']:.3f} ms at "
+          f"batch {LABEL_BATCH}; provision --from model.onnx + one actor batch: "
+          f"{len(written)} label rows == CPU", flush=True)
+    out["actor_rows"] = len(written)
+    return out
+
+
+def phase_labeler(rng, tmp: str, p4: dict) -> dict:
+    t_phase = time.perf_counter()
+    steps_s: dict[str, float] = {}
+
+    def step(name: str, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        steps_s[name] = time.perf_counter() - t0
+        return result
+
+    net = step("labeler_net", check_labeler_net, rng)
+    library = step("library", check_labeled_library, p4["data_dir"], p4["corpus"])
+    onnx = step("onnx", check_onnx, rng, tmp, p4["images"])
+    out = {"net": net, "library": library, "onnx": onnx, "steps_s": steps_s,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"labeler": out}), flush=True)
+    return {"launches": {"labeler_rescan": library["k1_launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1414,9 +1767,10 @@ def main() -> int:
         got = phase_pass(rng, tmp)
         lib = phase_library(rng, tmp, got)
         read = phase_read_side(rng, lib)
+        labels = phase_labeler(rng, tmp, lib)
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"],
-                                  **read["launches"]}
+                                  **read["launches"], **labels["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(name_power, flush=True)

@@ -5,6 +5,9 @@
     python -m spacedrive_tpu_torch duplicates --data-dir D --library NAME [--threshold 8] [--device ...]
     python -m spacedrive_tpu_torch search QUERY --data-dir D --library NAME [--semantic] [--take 10]
         [--device ...]
+    python -m spacedrive_tpu_torch labeler provision --data-dir D
+        [--bundled | --from FILE [--classes FILE] [--sha256 HEX] | --url URL] [--device ...]
+    python -m spacedrive_tpu_torch labeler status --data-dir D
 
 Without `--library`: walks <path>, computes every file's cas_id, writes
 thumbnails under `D/thumbnails/` and embeds the images, then prints one
@@ -18,11 +21,13 @@ a location if it is not one yet, and runs `scan_location` (IndexerJob →
 FileIdentifierJob → MediaProcessorJob) on the node's job system: the
 identifier hashes through the BLAKE3 chunk kernel on "cuda", the media
 job sends the images to the node's thumbnailer and writes media_data
-rows, embeddings and the search index. It prints one JSON line:
-library, location_id, files, objects, bytes, thumbnails, backend,
+rows, embeddings and the search index, and sends every image to the
+node's labeler actor, which writes `label` and `label_on_object` rows
+once a model is provisioned. It prints one JSON line: library,
+location_id, files, objects, bytes, thumbnails, labeled, backend,
 seconds (objects and bytes as node/statistics.py counts them). A second
 run over an unchanged tree hashes, thumbnails, extracts and embeds
-nothing.
+nothing; it labels every image again.
 
 `duplicates` (counterpart of `sdx duplicates`) runs DuplicateDetectorJob
 on the library (pHashes of the image objects that lack one, on the
@@ -30,7 +35,17 @@ device) and prints the near and exact duplicate groups as JSON.
 `search` (counterpart of `sdx search`) prints a name search over the
 library's files, or with `--semantic` the cosine top-k of the vector
 index: QUERY is an image path to embed or a stored label name; a query
-that resolves to neither exits 1.
+that resolves to neither exits 1. Both build their node without the
+labeler.
+
+`labeler provision` (counterpart of `sdx labeler provision`) installs
+the labeler's model under `D/image_labeler/`: `--bundled` the
+in-package checkpoint, checked against its sha256 pin with no network;
+`--from` a local `.onnx` or `.npz` (an ONNX model is validated by a
+smoke inference on `--device`); otherwise a download from `--url`
+(default: the YOLOv8n release asset). It prints the install's info as
+JSON, or `{"error": ...}` and exits 1. `labeler status` prints the
+provisioned artifact and whether labeling is enabled.
 """
 
 from __future__ import annotations
@@ -67,11 +82,10 @@ async def index_library(path: str, data_dir: str, library: str, backend: str = "
                         node=None) -> dict:
     """Scan `path` into the library called `library` (created if absent)
     on a Node on `backend`, wait for the scan's jobs and thumbnails, and
-    return the summary line (the JAX package's `sdx index` keys, without
-    labels). A caller that reads the node's stage seconds afterwards
-    passes its own `node`, built on `data_dir` and `backend`; it is
-    started and shut down here all the same. Raises if a job of the
-    scan failed."""
+    return the summary line (the JAX package's `sdx index` keys). A
+    caller that reads the node's stage seconds afterwards passes its own
+    `node`, built on `data_dir` and `backend`; it is started and shut
+    down here all the same. Raises if a job of the scan failed."""
     from .db.database import now_iso
     from .jobs import JobStatus
     from .location.locations import LocationCreateArgs, scan_location
@@ -105,6 +119,7 @@ async def index_library(path: str, data_dir: str, library: str, backend: str = "
             "objects": stats["total_object_count"],
             "bytes": int(stats["total_bytes_used"]),
             "thumbnails": node.thumbnailer.generated,
+            "labeled": node.image_labeler.labeled if node.image_labeler else 0,
             "backend": node.device.type,
             "seconds": round(elapsed, 2),
         }
@@ -124,7 +139,7 @@ async def duplicates_library(data_dir: str, library: str, threshold: int = 8,
     from .object.duplicates import DuplicateDetectorJob, find_duplicates
 
     if node is None:
-        node = Node(data_dir, device=backend)
+        node = Node(data_dir, device=backend, with_labeler=False)
     try:
         lib = await _open(node, library)
         job = DuplicateDetectorJob({"threshold": threshold})
@@ -147,7 +162,7 @@ async def search_library(query: str, data_dir: str, library: str, semantic: bool
     from .node.node import Node
 
     if node is None:
-        node = Node(data_dir, device=backend)
+        node = Node(data_dir, device=backend, with_labeler=False)
     try:
         lib = await _open(node, library)
         if semantic:
@@ -173,6 +188,53 @@ def cmd_search(args: argparse.Namespace) -> int:
               file=sys.stderr)
         return 1
     print(json.dumps(out, indent=2, default=str))
+    return 0
+
+
+def cmd_labeler(args: argparse.Namespace) -> int:
+    labeler_dir = os.path.join(args.data_dir, "image_labeler")
+    if args.labeler_cmd == "provision":
+        from .models import provision
+
+        try:
+            classes = None
+            if args.classes:
+                with open(args.classes) as f:
+                    classes = [ln.strip() for ln in f if ln.strip()]
+            if args.bundled:
+                if args.src or args.url or args.sha256 or args.classes:
+                    raise ValueError(
+                        "--bundled installs the pinned in-package artifact; "
+                        "it cannot combine with --from/--url/--sha256/--classes"
+                    )
+                info = provision.install_bundled(labeler_dir)
+            elif args.src:
+                info = provision.import_artifact(args.src, labeler_dir, classes=classes,
+                                                 sha256=args.sha256, device=args.device)
+            else:
+                url = args.url or provision.DEFAULT_MODEL_URL
+                print(f"downloading {url}…", file=sys.stderr, flush=True)
+                info = provision.fetch(url, labeler_dir, classes=classes, sha256=args.sha256,
+                                       device=args.device)
+        except Exception as e:  # noqa: BLE001 - CLI contract: JSON + rc 1
+            print(json.dumps({"error": f"{type(e).__name__}: {e}"}))
+            return 1
+        print(json.dumps(info, indent=2))
+        return 0
+    from .models.labeler_actor import ImageLabeler
+
+    artifact = ImageLabeler(labeler_dir).resolve_artifact()
+    info = {"artifact": None, "enabled": False}
+    if artifact is not None:
+        info = {"artifact": {"kind": artifact[0], "path": artifact[1]}, "enabled": True}
+        if artifact[0] == "checkpoint":
+            from .models import checkpoint
+
+            _params, meta = checkpoint.load(artifact[1])
+            info["classes"] = len(meta["classes"])
+            info["image_size"] = meta["image_size"]
+            info["metrics"] = meta.get("metrics", {})
+    print(json.dumps(info, indent=2))
     return 0
 
 
@@ -205,6 +267,27 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--take", type=int, default=10)
     se.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     se.set_defaults(func=cmd_search)
+
+    lb = sub.add_parser("labeler", help="image-labeler model artifacts")
+    lbs = lb.add_subparsers(dest="labeler_cmd", required=True)
+    st = lbs.add_parser("status", help="show the provisioned model artifact")
+    st.add_argument("--data-dir", required=True)
+    lp = lbs.add_parser("provision", help="install a model: the bundled one, a local file "
+                        "or a download")
+    lp.add_argument("--data-dir", required=True)
+    lp.add_argument("--from", dest="src",
+                    help="local .onnx classifier or .npz checkpoint to import")
+    lp.add_argument("--bundled", action="store_true",
+                    help="install the in-package sha256-pinned checkpoint (no network)")
+    lp.add_argument("--url", default=None,
+                    help="ONNX download URL (default: the official YOLOv8n release asset)")
+    lp.add_argument("--sha256", default=None,
+                    help="pin the artifact's sha256; a mismatch aborts before install")
+    lp.add_argument("--classes",
+                    help="text file of class names, one per line (stored as classes.json)")
+    lp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where an ONNX model's smoke inference runs")
+    lb.set_defaults(func=cmd_labeler)
     return parser
 
 

@@ -4,15 +4,18 @@ Counterpart of `spacedrive_tpu/object/media/job.py`
 (ref:core/src/object/media/media_processor/job.rs): init dispatches the
 thumbnails to the node-wide thumbnailer actor (:148-170); the steps are
 chunks of BATCH_SIZE files of EXIF extraction, a `wait_thumbnails`
-rendezvous (:83-88, :199-230) and, unless SD_EMBED=0, chunks of
-embedding forwards on the job's `backend` device ("cuda" or "cpu").
-Every result is vouched in the index journal after it is durable, so a
-warm rescan redoes none of it.
+rendezvous (:83-88, :199-230), unless SD_EMBED=0 chunks of embedding
+forwards on the job's `backend` device ("cuda" or "cpu"), and, when the
+node has an image labeler, a `wait_labels` rendezvous with the batch of
+every image row init sent it (:176-196). Every thumbnail, media_data
+row and embedding is vouched in the index journal after it is durable,
+so a warm rescan redoes none of it; labels have no vouch, so every scan
+relabels every image row, as in the JAX job.
 
 The port decodes still images only: rows whose extension it cannot
 process yet (video, documents, HEIF) get no step and no journal vouch,
-so a later pass picks them up. Not ported: the image-labeler rendezvous,
-the process-pool decode leg, telemetry. The stage seconds the JAX job
+so a later pass picks them up, and get no labels. Not ported: the
+process-pool decode leg, telemetry. The stage seconds the JAX job
 observes into its histograms are added to the node's totals
 (`Node.add_stage_seconds`) when the library has a node.
 """
@@ -182,6 +185,19 @@ class MediaProcessorJob(StatefulJob):
                 self.steps.append({"kind": "embed",
                                    "ids": [(r["id"], r["object_id"]) for r in chunk]})
 
+        # every (still-image) row goes to the node's labeler actor on
+        # every scan (no journal vouch, as in the JAX job: the
+        # label_on_object upserts make a relabel idempotent); a step
+        # awaits the batch
+        labeler = getattr(getattr(library, "node", None), "image_labeler", None)
+        if labeler is not None and rows:
+            batch_id = labeler.new_batch(library, [
+                {"file_path_id": r["id"], "object_id": r["object_id"],
+                 "path": _full_path(loc_path, r)}
+                for r in rows
+            ])
+            self.steps.append({"kind": "wait_labels", "batch_id": batch_id})
+
         self.run_metadata.update(
             media_data_extracted=0, media_data_skipped=0,
             thumbnails_dispatched=dispatched, embeddings_written=0,
@@ -198,6 +214,8 @@ class MediaProcessorJob(StatefulJob):
             return await asyncio.to_thread(self._embed_files, ctx, step)
         if kind == "wait_thumbnails":
             return await self._wait_thumbnails(ctx, step)
+        if kind == "wait_labels":
+            return await self._wait_labels(ctx, step)
         raise JobError(f"unknown media step {kind!r}")
 
     def _extract_media_data(self, ctx: JobContext, step: dict) -> StepResult:
@@ -322,6 +340,15 @@ class MediaProcessorJob(StatefulJob):
             for mat, name, ext, cas_hex in step.get("vouch", []):
                 if thumbnailer.store.exists(lib_id, cas_hex):
                     journal.vouch_thumb(loc_id, (mat, name, ext), cas_hex)
+        return StepResult()
+
+    async def _wait_labels(self, ctx: JobContext, step: dict) -> StepResult:
+        """Rendezvous with the labeler actor for this job's batch; after a
+        resume the id is from a dead process and counts as done (the
+        actor re-queues persisted batches on its own)."""
+        labeler = getattr(getattr(ctx.library, "node", None), "image_labeler", None)
+        if labeler is not None:
+            await labeler.wait_batch(step["batch_id"])
         return StepResult()
 
     async def finalize(self, ctx: JobContext) -> Any:

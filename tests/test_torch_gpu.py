@@ -294,3 +294,121 @@ def test_file_checksums_on_cuda_at_256_chunks(tmp_path):
     assert blake3_cuda.chunk_cvs.launches > before
     assert got == file_checksums(paths, "cpu")
     assert got == [file_checksum(p) for p in paths]
+
+
+# ---- the labeler (slice 5) ---------------------------------------------------
+#
+# LabelerNet runs in bf16 on both devices (cuDNN against oneDNN, sums in
+# another order): probabilities within 0.05 and the label decisions at
+# 0.35 equal outside 0.35 ± 0.05, the bound `tests/test_torch_labeler.py`
+# states against the JAX forward. ONNX graphs run in float32 with TF32
+# off inside each call: within 1e-5 of the CPU whatever the TF32 globals.
+
+LABEL_THRESHOLD, LABEL_BAND = 0.35, 0.05
+
+
+def _assert_labels_agree(got: np.ndarray, want: np.ndarray) -> None:
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert np.abs(got - want).max() <= LABEL_BAND
+    outside = np.abs(want - LABEL_THRESHOLD) > LABEL_BAND
+    assert np.array_equal((got >= LABEL_THRESHOLD)[outside], (want >= LABEL_THRESHOLD)[outside])
+
+
+def test_labeler_net_on_cuda_matches_cpu():
+    import copy
+
+    from spacedrive_tpu_torch.models import labeler
+
+    cpu = labeler.init_params(torch.Generator().manual_seed(0))  # full width, 80 classes
+    gpu = copy.deepcopy(cpu).to("cuda")
+    x = torch.rand((8, 96, 96, 3), generator=torch.Generator().manual_seed(1))
+    want, want_mask = labeler.infer_step(cpu, x)
+    got, got_mask = labeler.infer_step(gpu, x.cuda())
+    assert got.device.type == "cuda" and got_mask.dtype == torch.bool
+    _assert_labels_agree(got.cpu().numpy(), want.numpy())
+
+
+def _onnx_graphs():
+    from spacedrive_tpu_torch.models import onnx_proto as P
+
+    rng = np.random.default_rng(10)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    cnn = P.make_model([
+        P.make_node("Conv", ["x", "w", "b"], ["c"], strides=[2, 2], pads=[1, 1, 1, 1],
+                    kernel_shape=[3, 3]),
+        P.make_node("BatchNormalization", ["c", "g", "be", "mu", "var"], ["bn"]),
+        P.make_node("Sigmoid", ["bn"], ["sig"]),
+        P.make_node("Mul", ["bn", "sig"], ["silu"]),
+        P.make_node("MaxPool", ["silu"], ["mp"], kernel_shape=[2, 2], strides=[2, 2]),
+        P.make_node("Resize", ["mp", "", "sc"], ["up"], mode="cubic"),
+        P.make_node("GlobalAveragePool", ["up"], ["gap"]),
+        P.make_node("Flatten", ["gap"], ["flat"]),
+        P.make_node("Gemm", ["flat", "fw", "fb"], ["out"], transB=1),
+    ], [P.make_value_info("x", (4, 3, 64, 64))], [P.make_value_info("out", (4, 10))], {
+        "w": f(64, 3, 3, 3), "b": f(64), "g": f(64), "be": f(64), "mu": f(64) * 0.1,
+        "var": rng.random(64).astype(np.float32) + 0.5, "sc": np.array([1, 1, 1.5, 1.5],
+                                                                       np.float32),
+        "fw": f(10, 64), "fb": f(10)})
+    # a YOLOv8-layout head: [B, 4 + 80 classes, 256 anchors]
+    head = P.make_model([
+        P.make_node("Conv", ["x", "w"], ["c"], kernel_shape=[4, 4], strides=[4, 4]),
+        P.make_node("Reshape", ["c", "shape"], ["r"]),
+        P.make_node("Transpose", ["r"], ["rt"], perm=[0, 2, 1]),
+        P.make_node("MatMul", ["rt", "m"], ["mm"]),
+        P.make_node("Sigmoid", ["mm"], ["s"]),
+        P.make_node("Transpose", ["s"], ["out"], perm=[0, 2, 1]),
+    ], [P.make_value_info("x", (4, 3, 64, 64))], [P.make_value_info("out", (4, 84, 256))], {
+        "w": f(32, 3, 4, 4), "shape": np.array([4, 32, 256], np.int64), "m": f(32, 84) * 0.2})
+    return [P.encode_model(cnn), P.encode_model(head)]
+
+
+def test_onnx_on_cuda_matches_cpu_whatever_the_tf32_setting():
+    from spacedrive_tpu_torch.models import onnx_runtime
+
+    x = np.random.default_rng(11).standard_normal((4, 3, 64, 64)).astype(np.float32)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        for buf in _onnx_graphs():
+            want = onnx_runtime.load(buf, "cpu")(torch.from_numpy(x))[0].numpy()
+            model = onnx_runtime.load(buf, "cuda")
+            for tf32 in (True, False):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.backends.cudnn.allow_tf32 = tf32
+                got = model(torch.from_numpy(x).cuda())[0]
+                assert got.device.type == "cuda"
+                np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-5)
+                # the call restores the caller's flags
+                assert torch.backends.cudnn.allow_tf32 is tf32
+                assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_labeler_actor_on_cuda_matches_cpu(tmp_path):
+    from PIL import Image
+
+    from spacedrive_tpu_torch.models import labeler_actor, provision
+
+    rng = np.random.default_rng(12)
+    paths = []
+    for i in range(21):
+        paths.append(str(tmp_path / f"{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (30 + i, 50, 3), dtype=np.uint8)).save(paths[-1])
+    provision.install_bundled(str(tmp_path / "ckpt"))
+    onnx_dir = tmp_path / "onnx"
+    onnx_dir.mkdir()
+    (onnx_dir / "model.onnx").write_bytes(_onnx_graphs()[0])
+    for d, agree in ((tmp_path / "ckpt", _assert_labels_agree),
+                     (onnx_dir, lambda g, w: np.testing.assert_allclose(g, w, rtol=1e-5,
+                                                                         atol=1e-5))):
+        probs = {}
+        for device in ("cuda", "cpu"):
+            actor = labeler_actor.ImageLabeler(str(d), device=device)
+            assert actor._ensure_model()
+            out = []
+            for off in range(0, len(paths), actor.batch_size):
+                images = np.stack(actor._decode_chunk(
+                    [{"path": p} for p in paths[off:off + actor.batch_size]]))
+                out.append(actor._infer_chunk(images))
+            probs[device] = np.concatenate(out)
+        agree(probs["cuda"], probs["cpu"])

@@ -329,8 +329,9 @@ async def test_identifier_rejects_other_backends(tmp_path, backend):
 
 
 def test_cli_library_index_twice(tmp_path, capsys):
-    """`index --library` prints the JAX CLI's keys (no labels); the
-    second run over the unchanged tree hashes and thumbnails nothing."""
+    """`index --library` prints the JAX CLI's keys (`labeled` 0: no
+    labeler model is provisioned); the second run over the unchanged
+    tree hashes and thumbnails nothing."""
     loc = tmp_path / "loc"
     make_tree(str(loc))
     args = ["index", str(loc), "--data-dir", str(tmp_path / "data"), "--library", "L",
@@ -338,7 +339,8 @@ def test_cli_library_index_twice(tmp_path, capsys):
     assert cli.main(args) == 0
     first = json.loads(capsys.readouterr().out)
     assert set(first) == {"library", "location_id", "files", "objects", "bytes", "thumbnails",
-                          "backend", "seconds"}
+                          "labeled", "backend", "seconds"}
+    assert first["labeled"] == 0
     assert first["library"] == "L" and first["backend"] == "cpu" and first["files"] > 130
     assert first["thumbnails"] == 1  # red.png; the tree's other .jpg/.png are random bytes
     assert cli.main(args) == 0
