@@ -329,7 +329,7 @@ def array_to_tensor(name: str, arr: np.ndarray) -> dict[str, Any]:
     }
 
 
-# --- builder API (tests + export) -----------------------------------------
+# --- graph construction API (tests + export) ------------------------------
 
 
 def make_attribute(name: str, value: Any) -> dict[str, Any]:

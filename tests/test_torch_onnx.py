@@ -117,7 +117,7 @@ def _resize_cases():
     return out
 
 
-# op → builder of [(graph bytes, inputs)], one entry per ONNX op the
+# op → a function making [(graph bytes, inputs)], one entry per ONNX op the
 # runtimes register (64)
 CASES = {
     "Add": lambda: [_one("Add", {"x": X}, {"b": _f(4, seed=9)})],
