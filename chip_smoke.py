@@ -45,14 +45,23 @@ decoded inputs and which search filters by; and a CNN and a YOLOv8-layout
 ONNX graph on the card against the CPU in float32 with the TF32 globals
 off and on, then `labeler provision --from model.onnx` and one actor
 batch. Phases 4-5 scan with no labeler model provisioned, so the
-node's labeler skips their images.
+node's labeler skips their images. Phase 7 trains the labeler: (a) one
+full-width `train_step` (224², batch 8) on the card against the CPU
+from one seeded `create_train_state` (loss, every gradient, the
+parameters after the step), then steps at batch 64 timed with CUDA
+events and one traced with torch.profiler; (b) a user's run: 720
+rendered scenes in a folder per kind, `labeler train` on the card at
+the TrainConfig defaults (600 steps), then `index --library` of 48
+held-out renders, whose labels must name their kind and equal a CPU
+forward of the saved checkpoint; (c) the resize, the embedder and the
+scorer with the TF32 globals on, against the CPU.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
-table, the pass's stage times, the read side's and the labeler's numbers
-as JSON.
+table, the pass's stage times, the read side's, the labeler's and the
+training's numbers as JSON.
 """
 
 from __future__ import annotations
@@ -1515,21 +1524,16 @@ def _cli_json(argv: list[str]) -> tuple[int, dict]:
     return rc, json.loads(out.getvalue())
 
 
-def check_labeled_library(data_dir: str, corpus: str) -> dict:
-    """(b) `labeler provision --bundled` into the library's data dir, then
-    `index --library` once more: every image row the port decodes is
-    labelled on the card, with the names a CPU forward of the port gives
-    on the same decoded inputs (outside the band); `search.paths`
-    filtered by a written label returns exactly its files; `labeler
-    status` says enabled."""
-    from spacedrive_tpu_torch.api.search import search_paths
+def labelled_scan(corpus: str, data_dir: str) -> dict:
+    """`index --library` of `corpus` on the card with a LabelerNet
+    checkpoint provisioned in `data_dir`, the actor's decoded inputs
+    recorded (the smoke wraps `_decode_chunk`): every image row the port
+    decodes is labelled, and the label rows equal a CPU forward of the
+    checkpoint on those inputs outside the band. Returns the scan, the
+    image rows, the label rows (object_id, label id, name), the classes
+    and the decisions that differ inside the band."""
     from spacedrive_tpu_torch.models import checkpoint, labeler, labeler_actor
     from spacedrive_tpu_torch.object.media.thumbnail.process import IMAGE_EXTENSIONS
-
-    rc, info = _cli_json(["labeler", "provision", "--bundled", "--data-dir", data_dir])
-    check(rc == 0 and info.get("kind") == "checkpoint", f"labeler provision --bundled: {info}")
-    rc, status = _cli_json(["labeler", "status", "--data-dir", data_dir])
-    check(rc == 0 and status["enabled"] is True, f"labeler status: {status}")
 
     decoded: dict[int, np.ndarray] = {}  # object id → the actor's decoded input
     decode = labeler_actor.ImageLabeler._decode_chunk
@@ -1565,13 +1569,38 @@ def check_labeled_library(data_dir: str, corpus: str) -> dict:
     try:
         rows = lib.db.query("SELECT lo.object_id, l.id, l.name FROM label_on_object lo "
                             "JOIN label l ON l.id = lo.label_id")
-        got = np.zeros_like(want)  # 1 where the card wrote the label
-        pos = {oid: k for k, oid in enumerate(ids)}
-        for r in rows:
-            if r["name"] in classes:
-                got[pos[r["object_id"]], classes.index(r["name"])] = 1.0
-        outside, inside = _label_flips(got, want)
-        check(outside == 0, f"{outside} label rows differ from the CPU forward outside the band")
+    finally:
+        lib.close()
+    got = np.zeros_like(want)  # 1 where the card wrote the label
+    pos = {oid: k for k, oid in enumerate(ids)}
+    for r in rows:
+        if r["name"] in classes:
+            got[pos[r["object_id"]], classes.index(r["name"])] = 1.0
+    outside, inside = _label_flips(got, want)
+    check(outside == 0, f"{outside} label rows differ from the CPU forward outside the band")
+    return {"scan": scan, "images": images, "rows": rows, "classes": classes,
+            "flips_in_band": inside}
+
+
+def check_labeled_library(data_dir: str, corpus: str) -> dict:
+    """(b) `labeler provision --bundled` into the library's data dir, then
+    `index --library` once more (`labelled_scan`): every image row the
+    port decodes is labelled on the card, with the names a CPU forward of
+    the port gives on the same decoded inputs (outside the band);
+    `search.paths` filtered by a written label returns exactly its files;
+    `labeler status` says enabled."""
+    from spacedrive_tpu_torch.api.search import search_paths
+
+    rc, info = _cli_json(["labeler", "provision", "--bundled", "--data-dir", data_dir])
+    check(rc == 0 and info.get("kind") == "checkpoint", f"labeler provision --bundled: {info}")
+    rc, status = _cli_json(["labeler", "status", "--data-dir", data_dir])
+    check(rc == 0 and status["enabled"] is True, f"labeler status: {status}")
+
+    got = labelled_scan(corpus, data_dir)
+    scan, rows, classes, inside = got["scan"], got["rows"], got["classes"], got["flips_in_band"]
+    lb, images = scan["labeler"], got["images"]
+    lib = _open_library(data_dir)
+    try:
         by_label = collections.Counter(r["name"] for r in rows if r["name"] in classes)
         name = by_label.most_common(1)[0][0]
         lid = next(r["id"] for r in rows if r["name"] == name)
@@ -1742,6 +1771,253 @@ def phase_labeler(rng, tmp: str, p4: dict) -> dict:
     return {"launches": {"labeler_rescan": library["k1_launches"]}}
 
 
+# --- phase 7: training ---------------------------------------------------
+
+# One training step, card against CPU, both bf16 (cuDNN's weight gradients
+# against oneDNN's, in another order and not bitwise reproducible): the
+# loss within TRAIN_LOSS_ATOL, each parameter's gradient within
+# TRAIN_GRAD_RTOL relative L2 and cosine >= TRAIN_GRAD_COS, the
+# parameters after the step within one AdamW step each way (2·lr): the
+# bounds tests/test_torch_train.py states against the JAX step.
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_COS = 0.015, 0.25, 0.97
+TRAIN_CHECK_BATCH, TRAIN_BATCH, TRAIN_TIMED_STEPS = 8, 64, 30
+# 7b: a folder of SCENE_CLASSES x SCENES_PER_KIND renders at the
+# TrainConfig defaults; HELD_OUT_PER_KIND renders from another seed to
+# label after training
+SCENES_PER_KIND, HELD_OUT_PER_KIND, HELD_OUT_SEED = 120, 8, 987654
+MIN_EVAL_TOP1, MIN_HELD_OUT_HITS = 0.9, 6
+# float32 paths held with the TF32 globals on (tests/test_torch_gpu.py's
+# tolerances): the resize within 1 level, embeddings and scores 1e-5
+TF32_EMBED_TOL, TF32_SCORE_TOL = 1e-5, 1e-5
+
+
+def _rel_cos(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    got, want = got.double().ravel(), want.double().ravel()
+    return (float((got - want).norm() / want.norm()),
+            float(got @ want / (got.norm() * want.norm())))
+
+
+def check_train_step(rng) -> dict:
+    """(a) `labeler.train_step` at the full width (80 classes, widths
+    32-256, depths 1,2,2,1, 224²) from one seeded `create_train_state`:
+    one step on the card against one on the CPU on a seeded batch of 8;
+    then steps at batch 64 timed with CUDA events, one traced."""
+    from spacedrive_tpu_torch.models import labeler
+
+    seed = int(rng.integers(1 << 31))
+    size = labeler.DEFAULT_IMAGE_SIZE
+    cpu, cpu_opt = labeler.create_train_state(torch.Generator().manual_seed(seed))
+    gpu, gpu_opt = labeler.create_train_state(torch.Generator().manual_seed(seed),
+                                              model=labeler.LabelerNet().to(DEVICE))
+    lr = cpu_opt.defaults["lr"]
+    x = torch.from_numpy(rng.random((TRAIN_CHECK_BATCH, size, size, 3), dtype=np.float32))
+    y = torch.zeros((TRAIN_CHECK_BATCH, labeler.NUM_CLASSES))
+    y[torch.arange(TRAIN_CHECK_BATCH),
+      torch.from_numpy(rng.integers(0, labeler.NUM_CLASSES, TRAIN_CHECK_BATCH))] = 1.0
+    t0 = time.perf_counter()
+    want = float(labeler.train_step(cpu, cpu_opt, x, y))
+    cpu_s = time.perf_counter() - t0
+    got = float(labeler.train_step(gpu, gpu_opt, x.to(DEVICE), y.to(DEVICE)))
+    check(np.isfinite(got) and abs(got - want) <= TRAIN_LOSS_ATOL,
+          f"train_step loss on the card {got} vs the CPU {want}")
+    worst_rel, worst_cos, max_dp = 0.0, 1.0, 0.0
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        rel, cos = _rel_cos(q.grad.cpu(), p.grad)
+        check(rel <= TRAIN_GRAD_RTOL and cos >= TRAIN_GRAD_COS,
+              f"gradient of {name}: card vs CPU relative L2 {rel}, cosine {cos}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        max_dp = max(max_dp, float((q.detach().cpu() - p.detach()).abs().max()))
+    check(max_dp <= 2 * lr * 1.001 + 1e-6, f"parameters after the step differ by {max_dp}")
+
+    images = torch.rand((TRAIN_BATCH, size, size, 3), device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(seed))
+    labels = torch.zeros((TRAIN_BATCH, labeler.NUM_CLASSES), device=DEVICE)
+    labels[torch.arange(TRAIN_BATCH), torch.arange(TRAIN_BATCH) % labeler.NUM_CLASSES] = 1.0
+
+    def step():
+        return labeler.train_step(gpu, gpu_opt, images, labels)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_TIMED_STEPS):
+        loss = step()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
+    check(bool(torch.isfinite(loss)), "the timed steps' loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    kernels = device_kernels(step)
+    work = 3 * labeler.conv_flops(gpu, size) * TRAIN_BATCH
+    bound_ms = work / BF16_PEAK_FLOPS * 1e3
+    out = {"loss_cpu": want, "loss_card": got, "cpu_step_s": cpu_s,
+           "grad_rel_l2_max": worst_rel, "grad_cos_min": worst_cos, "param_max_abs_diff": max_dp,
+           "batch": TRAIN_BATCH, "timed_steps": TRAIN_TIMED_STEPS, "ms_per_step": ms,
+           "images_per_s": TRAIN_BATCH / ms * 1e3, "tflop_per_s": work / ms / 1e9,
+           "bound_ms": bound_ms, "bound_share": bound_ms / ms, "peak_memory_bytes": peak,
+           **kernels}
+    if kernels["device_busy_ms"] is not None:
+        out["device_idle_share"] = max(0.0, 1 - kernels["device_busy_ms"] / ms)
+    print(f"phase 7: train_step full width, card vs CPU at batch {TRAIN_CHECK_BATCH}: loss "
+          f"{got:.5f} vs {want:.5f}, gradients within {worst_rel:.4f} relative L2 (cosine >= "
+          f"{worst_cos:.5f}), parameters within {max_dp:.2e}; batch {TRAIN_BATCH}: "
+          f"{ms:.3f} ms per step ({out['images_per_s']:.0f} images/s, "
+          f"{out['tflop_per_s']:.1f} TFLOP/s, {100 * out['bound_share']:.2f}% of the bf16 "
+          f"bound), {kernels['kernels']} kernels per step, peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    return out
+
+
+def _save_png(path: str, arr: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray((arr * 255).astype(np.uint8)).save(path)
+
+
+def check_training_run(rng, tmp: str) -> dict:
+    """(b) A user's training run: SCENES_PER_KIND renders of each scene
+    kind at the TrainConfig defaults (96², widths 16-128, batch 32, 600
+    steps) in a folder per kind, `labeler train` on the card into a fresh
+    data dir, then `index --library` of HELD_OUT_PER_KIND held-out renders
+    per kind (seed 987654) there: eval top-1 >= MIN_EVAL_TOP1, every row
+    labelled, >= MIN_HELD_OUT_HITS of each kind's rows carry its name at
+    the actor's threshold, and the rows equal a CPU forward of the saved
+    checkpoint (`labelled_scan`)."""
+    from spacedrive_tpu_torch.models import train
+
+    cfg = train.TrainConfig()
+    t0 = time.perf_counter()
+    tree, held = os.path.join(tmp, "scenes"), os.path.join(tmp, "held_out")
+    os.makedirs(held)
+    r = np.random.default_rng(int(rng.integers(1 << 31)))
+    for kind in train.SCENE_CLASSES:
+        os.makedirs(os.path.join(tree, kind))
+        for i in range(SCENES_PER_KIND):
+            _save_png(os.path.join(tree, kind, f"{i:04d}.png"),
+                      train.render_scene(kind, r, cfg.image_size))
+    r = np.random.default_rng(HELD_OUT_SEED)
+    for kind in train.SCENE_CLASSES:
+        for i in range(HELD_OUT_PER_KIND):
+            _save_png(os.path.join(held, f"{kind.replace(' ', '_')}_{i}.png"),
+                      train.render_scene(kind, r, cfg.image_size))
+    render_s = time.perf_counter() - t0
+
+    data_dir = os.path.join(tmp, "train_node")
+    t0 = time.perf_counter()
+    rc, out = _cli_json(["labeler", "train", tree, "--data-dir", data_dir, "--device", DEVICE])
+    train_s = time.perf_counter() - t0
+    check(rc == 0 and out["checkpoint"] == os.path.join(data_dir, "image_labeler", "weights.npz"),
+          f"labeler train: {out}")
+    metrics = out["metrics"]
+    check(metrics["eval_top1"] >= MIN_EVAL_TOP1 and np.isfinite(metrics["final_loss"]),
+          f"labeler train's metrics {metrics}: eval top-1 under {MIN_EVAL_TOP1}")
+
+    got = labelled_scan(held, data_dir)
+    scan = got["scan"]
+    names: dict[int, set[str]] = collections.defaultdict(set)
+    for row in got["rows"]:
+        names[row["object_id"]].add(row["name"])
+    hits = collections.Counter()
+    for row in got["images"]:
+        kind = row["name"].rsplit("_", 1)[0].replace("_", " ")
+        hits[kind] += kind in names[row["object_id"]]
+    check(len(got["images"]) == len(train.SCENE_CLASSES) * HELD_OUT_PER_KIND,
+          f"{len(got['images'])} held-out image rows")
+    check(all(hits[k] >= MIN_HELD_OUT_HITS for k in train.SCENE_CLASSES),
+          f"held-out renders named by kind: {dict(hits)} (< {MIN_HELD_OUT_HITS} of "
+          f"{HELD_OUT_PER_KIND})")
+    lb = scan["labeler"]
+    print(f"phase 7: labeler train over {len(train.SCENE_CLASSES) * SCENES_PER_KIND} renders: "
+          f"{cfg.steps} steps in {train_s:.1f} s ({cfg.steps / train_s:.1f} steps/s with data, "
+          f"eval and save), eval top-1 {metrics['eval_top1']:.3f}; index of "
+          f"{len(got['images'])} held-out renders: {lb['labeled']} labelled, by kind "
+          f"{dict(hits)}, rows == the CPU forward ({got['flips_in_band']} decisions inside "
+          f"the band), {scan['launches']} K1 launches", flush=True)
+    return {"renders": len(train.SCENE_CLASSES) * SCENES_PER_KIND, "render_s": render_s,
+            "train_s": train_s, "steps": cfg.steps, "steps_per_s": cfg.steps / train_s,
+            "metrics": metrics, "index_s": scan["numbers"]["seconds"],
+            "held_out": len(got["images"]), "labeled": lb["labeled"],
+            "forwards": lb["forwards"], "hits_by_kind": dict(hits),
+            "flips_in_band": got["flips_in_band"], "k1_launches": scan["launches"]}
+
+
+def check_tf32(rng) -> dict:
+    """(c) The resize, the embedder and the scorer on the card with the
+    TF32 globals on and `set_float32_matmul_precision("high")`, against
+    the CPU at their stated tolerances; the globals are off again after."""
+    import types
+
+    from spacedrive_tpu_torch.object.search import index as search_index
+    from spacedrive_tpu_torch.ops import embed_torch
+    from spacedrive_tpu_torch.ops import thumbnail_torch as tt
+
+    shapes = [(3024, 4032), (4032, 3024), (1080, 1920), (700, 500)]
+    images = [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for h, w in shapes]
+    targets = [tt.scale_dimensions(w, h)[::-1] for h, w in shapes]
+    x = rng.random((64, 32, 32, 3), dtype=np.float32)
+    m = rng.normal(size=(65_536, 128)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    m[[10, 999, 40_000]] = m[3]
+    idx = search_index.LibraryIndex(types.SimpleNamespace(node=None))
+    idx._matrix, idx._ids, idx._loaded = m, list(range(len(m))), True
+    probes = (m[3], rng.normal(size=128).astype(np.float32))
+    want_resize = tt.resize_batch(images, targets, device="cpu")
+    want_embed = embed_torch.embed_batch(x, "cpu")
+    want_query = [idx.query(p, k=100, device="cpu") for p in probes]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        resize = tt.resize_batch(images, targets, device=DEVICE)
+        embed = embed_torch.embed_batch(x, DEVICE)
+        query = [idx.query(p, k=100, device=DEVICE) for p in probes]
+        still_on = torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    check(still_on, "a float32 path left the caller's TF32 globals changed")
+    levels = max(int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max())
+                 for g, w in zip(resize, want_resize))
+    check(all(g.shape == w.shape for g, w in zip(resize, want_resize)) and levels <= 1,
+          f"resize with TF32 on: {levels} levels from the CPU")
+    embed_err = float(np.abs(embed - want_embed).max())
+    check(np.allclose(embed, want_embed, atol=TF32_EMBED_TOL, rtol=TF32_EMBED_TOL),
+          f"embeddings with TF32 on: max |d| {embed_err} from the CPU")
+    score_err = 0.0
+    for got, want in zip(query, want_query):
+        check([i for i, _ in got] == [i for i, _ in want], "scorer ranking with TF32 on")
+        d = np.abs(np.array([s for _, s in got]) - np.array([s for _, s in want]))
+        score_err = max(score_err, float(d.max()))
+        check(np.allclose([s for _, s in got], [s for _, s in want], atol=TF32_SCORE_TOL,
+                          rtol=TF32_SCORE_TOL), f"scores with TF32 on: max |d| {score_err}")
+    check([i for i, _ in query[0][:4]] == [3, 10, 999, 40_000], "scorer ties with TF32 on")
+    print(f"phase 7: TF32 globals on: resize within {levels} level(s) of the CPU, embeddings "
+          f"within {embed_err:.2e}, scores within {score_err:.2e}, ties in row order", flush=True)
+    return {"resize_max_levels": levels, "embed_max_abs_err": embed_err,
+            "score_max_abs_err": score_err}
+
+
+def phase_training(rng, tmp: str) -> dict:
+    t_phase = time.perf_counter()
+    steps_s: dict[str, float] = {}
+
+    def step(name: str, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        steps_s[name] = time.perf_counter() - t0
+        return result
+
+    train_step = step("train_step", check_train_step, rng)
+    run = step("training_run", check_training_run, rng, tmp)
+    tf32 = step("tf32", check_tf32, rng)
+    out = {"train_step": train_step, "training_run": run, "tf32": tf32, "steps_s": steps_s,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"training": out}), flush=True)
+    return {"launches": {"training_index": run["k1_launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1768,9 +2044,11 @@ def main() -> int:
         lib = phase_library(rng, tmp, got)
         read = phase_read_side(rng, lib)
         labels = phase_labeler(rng, tmp, lib)
+        training = phase_training(rng, tmp)
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"],
-                                  **read["launches"], **labels["launches"]}
+                                  **read["launches"], **labels["launches"],
+                                  **training["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(name_power, flush=True)

@@ -8,6 +8,10 @@
     python -m spacedrive_tpu_torch labeler provision --data-dir D
         [--bundled | --from FILE [--classes FILE] [--sha256 HEX] | --url URL] [--device ...]
     python -m spacedrive_tpu_torch labeler status --data-dir D
+    python -m spacedrive_tpu_torch labeler train DATASET --data-dir D [--out F] [--image-size 96]
+        [--batch-size 32] [--steps 600] [--lr 1e-3] [--device ...]
+    python -m spacedrive_tpu_torch labeler train-demo --data-dir D [--out F] [--steps 300]
+        [--device ...]
 
 Without `--library`: walks <path>, computes every file's cas_id, writes
 thumbnails under `D/thumbnails/` and embeds the images, then prints one
@@ -46,6 +50,14 @@ smoke inference on `--device`); otherwise a download from `--url`
 (default: the YOLOv8n release asset). It prints the install's info as
 JSON, or `{"error": ...}` and exits 1. `labeler status` prints the
 provisioned artifact and whether labeling is enabled.
+
+`labeler train` (counterpart of `sdx labeler train`) trains a LabelerNet
+checkpoint on a folder-per-class dataset (`DATASET/<class>/*.png|jpg|…`)
+on `--device`; `labeler train-demo` trains the 32² demo net on
+scikit-learn's bundled digit scans. Both write the checkpoint to `--out`
+(default `D/image_labeler/weights.npz`, the artifact the node's labeler
+loads on its next scan), report progress on stderr and print
+`{"checkpoint", "metrics"}` as JSON.
 """
 
 from __future__ import annotations
@@ -221,6 +233,8 @@ def cmd_labeler(args: argparse.Namespace) -> int:
             return 1
         print(json.dumps(info, indent=2))
         return 0
+    if args.labeler_cmd in ("train", "train-demo"):
+        return _train(args, labeler_dir)
     from .models.labeler_actor import ImageLabeler
 
     artifact = ImageLabeler(labeler_dir).resolve_artifact()
@@ -235,6 +249,32 @@ def cmd_labeler(args: argparse.Namespace) -> int:
             info["image_size"] = meta["image_size"]
             info["metrics"] = meta.get("metrics", {})
     print(json.dumps(info, indent=2))
+    return 0
+
+
+def _train(args: argparse.Namespace, labeler_dir: str) -> int:
+    from .models import checkpoint
+    from .models.train import TrainConfig, array_batches, digits_demo_dataset, train, train_folder
+
+    def progress(step: int, loss: float) -> None:
+        print(f"step {step}/{cfg.steps}  loss {loss:.4f}", file=sys.stderr, flush=True)
+
+    out = args.out or os.path.join(labeler_dir, "weights.npz")
+    if args.labeler_cmd == "train":
+        cfg = TrainConfig(image_size=args.image_size, batch_size=args.batch_size,
+                          steps=args.steps, learning_rate=args.lr,
+                          use_device=args.device != "cpu")
+        metrics = train_folder(args.dataset, out, cfg, progress=progress)
+    else:
+        cfg = TrainConfig(image_size=32, widths=(8, 16, 32, 32, 32), depths=(1, 1, 1, 1),
+                          batch_size=64, steps=args.steps, use_device=args.device != "cpu")
+        (tr_x, tr_y), (ev_x, ev_y), classes = digits_demo_dataset(cfg.image_size)
+        params, _model, metrics = train(array_batches(tr_x, tr_y, cfg.batch_size), classes, cfg,
+                                        eval_set=(ev_x, ev_y), progress=progress)
+        checkpoint.save(out, params, classes=classes, image_size=cfg.image_size,
+                        widths=cfg.widths, depths=cfg.depths,
+                        extra={"metrics": metrics, "trained_on": "sklearn-digits"})
+    print(json.dumps({"checkpoint": out, "metrics": metrics}, indent=2))
     return 0
 
 
@@ -287,6 +327,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="text file of class names, one per line (stored as classes.json)")
     lp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where an ONNX model's smoke inference runs")
+    lt = lbs.add_parser("train", help="train a checkpoint on a folder-per-class dataset")
+    lt.add_argument("dataset", help="root dir: <root>/<class_name>/*.jpg")
+    lt.add_argument("--data-dir", required=True)
+    lt.add_argument("--out", help="checkpoint path (default: <data-dir>/image_labeler/weights.npz)")
+    lt.add_argument("--image-size", type=int, default=96)
+    lt.add_argument("--batch-size", type=int, default=32)
+    lt.add_argument("--steps", type=int, default=600)
+    lt.add_argument("--lr", type=float, default=1e-3)
+    lt.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ld = lbs.add_parser("train-demo", help="self-contained demo: train on bundled digit scans")
+    ld.add_argument("--data-dir", required=True)
+    ld.add_argument("--out", help="checkpoint path (default: <data-dir>/image_labeler/weights.npz)")
+    ld.add_argument("--steps", type=int, default=300)
+    ld.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     lb.set_defaults(func=cmd_labeler)
     return parser
 

@@ -1,7 +1,8 @@
 """LabelerNet: the image labeler's multi-label classifier, in torch.
 
 Counterpart of `spacedrive_tpu/models/labeler.py` (the flax
-`LabelerNet`, `ConvBlock`, `Bottleneck` and `infer_step`). The
+`LabelerNet`, `ConvBlock`, `Bottleneck`, `infer_step` and the training
+functions `create_train_state`, `loss_fn` and `train_step`). The
 reference labels library images with YOLOv8 and keeps every class whose
 confidence clears a threshold as a text label
 (ref:crates/ai/src/image_labeler/actor.rs:67-73); this model is a
@@ -22,13 +23,18 @@ same parameters: compute in bf16 with float32 parameters, and
 
 Parameters load from the flax tree (`params_from_flax`, the layout of a
 `models/checkpoint.py` artifact) or from a seeded generator
-(`init_params`). The public input layout is the JAX package's:
+(`init_params`, `create_train_state`), and go back to a flax tree with
+`params_to_flax`. They are trainable; the serving loaders (`from_flax`,
+`init_params`) return the model frozen, so a forward outside `no_grad`
+builds no graph. The public input layout is the JAX package's:
 float[B, H, W, 3] in [0, 1].
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
+
+import math
 
 import numpy as np
 import torch
@@ -76,9 +82,9 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.stride = stride
         self.groups = min(32, cout // 4)
-        self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3), requires_grad=False)
-        self.scale = nn.Parameter(torch.ones(cout), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
+        self.scale = nn.Parameter(torch.ones(cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (top, bottom), (left, right) = (same_pads(x.shape[2], self.stride),
@@ -133,10 +139,10 @@ class LabelerNet(nn.Module):
             stages.append(nn.Sequential(ConvBlock(cin, width, stride=2),
                                         *(Bottleneck(width) for _ in range(depth))))
         self.stages = nn.Sequential(*stages)
-        self.dense0_weight = nn.Parameter(torch.zeros(HIDDEN, self.widths[-1]), requires_grad=False)
-        self.dense0_bias = nn.Parameter(torch.zeros(HIDDEN), requires_grad=False)
-        self.dense1_weight = nn.Parameter(torch.zeros(num_classes, HIDDEN), requires_grad=False)
-        self.dense1_bias = nn.Parameter(torch.zeros(num_classes), requires_grad=False)
+        self.dense0_weight = nn.Parameter(torch.zeros(HIDDEN, self.widths[-1]))
+        self.dense0_bias = nn.Parameter(torch.zeros(HIDDEN))
+        self.dense1_weight = nn.Parameter(torch.zeros(num_classes, HIDDEN))
+        self.dense1_bias = nn.Parameter(torch.zeros(num_classes))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         # NHWC in, NCHW strides of the same memory: channels-last convs
@@ -192,21 +198,49 @@ def params_from_flax(tree: Any, model: LabelerNet) -> dict[str, torch.Tensor]:
     return state
 
 
+def params_to_flax(model: LabelerNet) -> dict[str, Any]:
+    """`model`'s parameters as the flax tree (nested dicts of float32
+    numpy arrays, `params_from_flax`'s inverse): conv kernels OIHW → HWIO,
+    dense kernels [out, in] → [in, out]. `checkpoint.save` writes it as
+    the JAX package writes its own."""
+    def leaf(p: torch.Tensor) -> np.ndarray:
+        return np.ascontiguousarray(p.detach().to("cpu", torch.float32).numpy())
+
+    tree: dict[str, Any] = {}
+    for path, block in model.blocks():
+        node = tree
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node["Conv_0"] = {"kernel": leaf(block.weight.permute(2, 3, 1, 0))}
+        node["GroupNorm_0"] = {"scale": leaf(block.scale), "bias": leaf(block.bias)}
+    for i in (0, 1):
+        tree[f"Dense_{i}"] = {"kernel": leaf(getattr(model, f"dense{i}_weight").t()),
+                              "bias": leaf(getattr(model, f"dense{i}_bias"))}
+    return tree
+
+
 def from_flax(tree: Any, num_classes: int, widths: Sequence[int], depths: Sequence[int],
               device: str | torch.device = "cuda") -> LabelerNet:
     """A LabelerNet of that architecture holding the flax tree's weights,
-    on `device`, in eval mode."""
+    on `device`, frozen and in eval mode."""
     model = LabelerNet(num_classes, widths, depths)
     model.load_state_dict(params_from_flax(tree, model))
-    return model.to(device).eval()
+    return model.requires_grad_(False).to(device).eval()
 
 
 def init_params(generator: torch.Generator, model: LabelerNet | None = None) -> LabelerNet:
     """Fill `model` (default: the full-width 80-class net) with seeded
     weights, drawn on the CPU from `generator`: flax's initializers
     (LeCun normal kernels, unit GroupNorm scales, zero biases), without
-    truncation. Returns the model, in eval mode."""
+    truncation. Returns the model, frozen and in eval mode."""
     model = model if model is not None else LabelerNet()
+    _fill(model, lambda shape, fan_in: torch.randn(shape, generator=generator) * fan_in ** -0.5)
+    return model.requires_grad_(False).eval()
+
+
+def _fill(model: LabelerNet, kernel: Callable[[torch.Size, int], torch.Tensor]) -> None:
+    """flax's initial values: unit GroupNorm scales, zero biases, and each
+    kernel drawn by `kernel(shape, fan_in)`."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("scale"):
@@ -214,9 +248,61 @@ def init_params(generator: torch.Generator, model: LabelerNet | None = None) -> 
             elif p.dim() == 1:
                 p.zero_()
             else:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
-    return model.eval()
+                p.copy_(kernel(p.shape, p[0].numel()))
+
+
+# flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
+# a standard normal cut at ±2 and divided by its own standard deviation
+# there, so the kernel's deviation is sqrt(1 / fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_truncated(shape: torch.Size, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """Samples of flax's `lecun_normal()`, drawn on the CPU by the inverse
+    normal CDF of uniforms between Φ(-2) and Φ(2)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (1.0 - 2.0 * lo) + lo
+    x = (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return (x * (fan_in ** -0.5 / _TRUNC_STD)).float()
+
+
+def create_train_state(generator: torch.Generator, image_size: int = DEFAULT_IMAGE_SIZE,
+                       learning_rate: float = 1e-3, model: LabelerNet | None = None
+                       ) -> tuple[LabelerNet, torch.optim.AdamW]:
+    """(model, optimizer) for the labeler's training loop, as the JAX
+    `create_train_state` makes (params, opt_state, tx): `model` (default:
+    the full-width 80-class net, on whatever device it lives) trainable,
+    filled with flax's initial values drawn on the CPU from `generator`
+    (truncated LeCun normal kernels, unit GroupNorm scales, zero biases),
+    and `torch.optim.AdamW` with `optax.adamw(learning_rate)`'s values:
+    b1 0.9, b2 0.999, eps 1e-8 outside the square root, weight decay 1e-4
+    on every parameter. `image_size` is the input the JAX init traces
+    with; no parameter's shape depends on it."""
+    del image_size
+    model = model if model is not None else LabelerNet()
+    _fill(model, lambda shape, fan_in: _lecun_truncated(shape, fan_in, generator))
+    model.requires_grad_(True).train()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                  eps=1e-8, weight_decay=1e-4)
+    return model, optimizer
+
+
+def loss_fn(model: LabelerNet, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Multi-label sigmoid BCE (labels: float[B, C] in {0, 1}), the mean
+    over [B, C], as `optax.sigmoid_binary_cross_entropy(...).mean()`."""
+    return F.binary_cross_entropy_with_logits(model(images), labels)
+
+
+def train_step(model: LabelerNet, optimizer: torch.optim.Optimizer, images: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """One optimizer step on a batch on the model's device: forward,
+    backward and the AdamW update. Returns the batch's loss as a 0-d
+    tensor on the device, without waiting for it."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(model, images, labels)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
 
 
 def conv_flops(model: LabelerNet, image_size: int) -> int:

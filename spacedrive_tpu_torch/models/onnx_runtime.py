@@ -26,16 +26,15 @@ an op does not model raise when it runs.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
-import threading
 from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import strict_fp32
 from . import onnx_proto as proto
 
 
@@ -76,28 +75,6 @@ _TORCH_DTYPES = {
     np.dtype(np.uint32): torch.uint32, np.dtype(np.int64): torch.int64,
     np.dtype(np.uint64): torch.uint64, np.dtype(np.bool_): torch.bool,
 }
-
-_FP32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def strict_fp32(device: torch.device):
-    """Full-precision float32 products on `device`: on CUDA, TF32 off for
-    cuBLAS and cuDNN for the duration, the caller's flags restored after.
-    The flags are process-wide, so the section holds a lock."""
-    if device.type != "cuda":
-        yield
-        return
-    with _FP32_LOCK:
-        matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = matmul
-            torch.backends.cudnn.allow_tf32 = cudnn
-
 
 class _TorchNS:
     """The numpy functions the ops call, on torch tensors."""

@@ -63,6 +63,7 @@ def score_top_k(matrix: torch.Tensor, probe: torch.Tensor,
     """Cosine scores of the k best rows of `matrix` [N, D] against
     `probe` [D] (both normalized, float32, on one device) and their row
     indices, best first; equal scores keep the lower row first."""
+    # a product and a sum, not a matmul: TF32 globals never reach it
     scores = (matrix * probe).sum(dim=1)
     rows = torch.sort(scores, descending=True, stable=True).indices[:k]
     return scores[rows], rows

@@ -3,7 +3,8 @@
 Counterpart of `spacedrive_tpu/ops/embed_jax.py`: one forward per call,
 the batch padded to a power of two (the JAX package bounds its compiled
 shapes that way; here it keeps the device batch on a few sizes), the
-output shape checked before it is returned.
+products at full float32 (`strict_fp32`, whatever the caller's TF32
+flags), the output shape checked before it is returned.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ..models import embedder as _embedder
+from ..utils.precision import strict_fp32
 
 
 def embed_batch(
@@ -33,7 +35,7 @@ def embed_batch(
     bpad = 1 << max(0, (n - 1).bit_length())
     batch = torch.zeros((bpad, s, s, 3), dtype=torch.float32, device=device)
     batch[:n] = torch.from_numpy(np.asarray(images, np.float32)).to(device)
-    with torch.no_grad():
+    with torch.no_grad(), strict_fp32(batch.device):
         out = model(batch)
     if tuple(out.shape) != (bpad, _embedder.EMBED_DIM):
         raise ValueError(

@@ -15,8 +15,8 @@ weight matrices (built as in jax/_src/image/scale.py compute_weight_mat:
 kernel widened by 1/scale when downsampling, half-pixel sample centres,
 columns normalised to sum 1, samples outside the input zeroed) feed two
 batched float32 matmuls, then round half to even, clip, and cast to
-uint8. TF32 stays off (`torch.backends.cuda.matmul.allow_tf32` is False
-by default and is not touched), so the products are full float32.
+uint8. The matmuls run inside `utils/precision.strict_fp32`, so they are
+full float32 even where the caller turned TF32 on.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..utils.precision import strict_fp32
 
 TARGET_PX = 262144  # ref:core/src/object/media/thumbnail/mod.rs:45
 WEBP_QUALITY = 30  # ref:thumbnail/mod.rs:49
@@ -113,8 +115,9 @@ def _resize_canvases(
         wy = weight_matrix(bh, th, scales[sl, 0])  # [k, th, bh]
         wx = weight_matrix(bw, tw, scales[sl, 1])  # [k, tw, bw]
         x = canvases[sl].to(torch.float32).reshape(-1, bh, bw * ch)
-        rows = torch.bmm(wy, x).reshape(-1, th, bw, ch)  # [k, th, bw, c]
-        res = torch.einsum("kow,khwc->khoc", wx, rows)  # [k, th, tw, c]
+        with strict_fp32(canvases.device):
+            rows = torch.bmm(wy, x).reshape(-1, th, bw, ch)  # [k, th, bw, c]
+            res = torch.einsum("kow,khwc->khoc", wx, rows)  # [k, th, tw, c]
         out[sl] = torch.round(res).clamp_(0, 255).to(torch.uint8)
     return out
 

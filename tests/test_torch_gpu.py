@@ -412,3 +412,104 @@ def test_labeler_actor_on_cuda_matches_cpu(tmp_path):
                 out.append(actor._infer_chunk(images))
             probs[device] = np.concatenate(out)
         agree(probs["cuda"], probs["cpu"])
+
+
+# ---- training (slice 6) ----------------------------------------------------
+#
+# One full-width training step on the card against the CPU, both bf16
+# (cuDNN's weight gradients against oneDNN's, sums in another order and
+# not bitwise reproducible run to run): the loss within 0.015, each
+# parameter's gradient within 0.25 relative L2 and cosine ≥ 0.97, and
+# the parameters after the step within one AdamW step each way (2·lr),
+# the bounds `tests/test_torch_train.py` states against the JAX step.
+
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_COS, TRAIN_LR = 0.015, 0.25, 0.97, 1e-3
+
+
+def test_train_step_on_cuda_matches_cpu():
+    from spacedrive_tpu_torch.models import labeler
+
+    cpu, cpu_opt = labeler.create_train_state(torch.Generator().manual_seed(0))
+    gpu, gpu_opt = labeler.create_train_state(torch.Generator().manual_seed(0),
+                                              model=labeler.LabelerNet().to("cuda"))
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.random((8, 96, 96, 3), dtype=np.float32))
+    y = torch.zeros((8, labeler.NUM_CLASSES))
+    y[torch.arange(8), torch.from_numpy(rng.integers(0, labeler.NUM_CLASSES, 8))] = 1.0
+    want = labeler.train_step(cpu, cpu_opt, x, y)
+    got = labeler.train_step(gpu, gpu_opt, x.cuda(), y.cuda())
+    assert got.device.type == "cuda" and got.dim() == 0
+    assert abs(float(got) - float(want)) <= TRAIN_LOSS_ATOL
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        g, w = q.grad.cpu().double().ravel(), p.grad.double().ravel()
+        rel = float((g - w).norm() / w.norm())
+        cos = float(g @ w / (g.norm() * w.norm()))
+        assert rel <= TRAIN_GRAD_RTOL and cos >= TRAIN_GRAD_COS, (name, rel, cos)
+        assert float((q.detach().cpu() - p.detach()).abs().max()) <= 2 * TRAIN_LR * 1.001 + 1e-6
+
+
+def test_train_on_cuda_and_reload_on_cpu(tmp_path):
+    """A few steps of `train` on the scene corpus with use_device=True;
+    its checkpoint, reloaded on the CPU, labels as the card's model does
+    (probabilities within 0.05, decisions equal outside 0.35 ± 0.05)."""
+    from spacedrive_tpu_torch.models import checkpoint, labeler, train
+
+    cfg = train.TrainConfig(image_size=32, batch_size=16, steps=30, use_device=True)
+    x, y = train.scene_dataset(32, per_class=20, seed=4)
+    tree, model, metrics = train.train(train.array_batches(x, y, cfg.batch_size),
+                                       train.SCENE_CLASSES, cfg, eval_set=(x[:40], y[:40]))
+    assert next(model.parameters()).device.type == "cuda"
+    assert np.isfinite(metrics["final_loss"]) and 0.0 <= metrics["eval_top1"] <= 1.0
+    path = tmp_path / "weights.npz"
+    checkpoint.save(path, tree, classes=train.SCENE_CLASSES, image_size=cfg.image_size,
+                    widths=cfg.widths, depths=cfg.depths)
+    loaded, meta = checkpoint.load(path)
+    cpu = labeler.from_flax(loaded, len(meta["classes"]), meta["widths"], meta["depths"], "cpu")
+    probe = torch.from_numpy(x[::7].copy())
+    want = labeler.infer_step(cpu, probe)[0].numpy()
+    got = labeler.infer_step(model, probe.cuda())[0].cpu().numpy()
+    _assert_labels_agree(got, want)
+
+
+def test_float32_paths_hold_their_tolerances_with_tf32_on():
+    """The resize (±1 level), the embedder (1e-5) and the scorer (1e-5,
+    ties in row order) on the card against the CPU with the TF32 globals
+    on and `set_float32_matmul_precision("high")`: each path computes at
+    full float32 whatever the caller set, and leaves the caller's setting
+    as it found it."""
+    import types
+
+    from spacedrive_tpu_torch.object.search import index as search_index
+
+    rng = np.random.default_rng(14)
+    shapes = [(900, 600), (600, 900), (2000, 1500), (300, 200)]
+    images = [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for h, w in shapes]
+    targets = [tt.scale_dimensions(w, h)[::-1] for h, w in shapes]
+    x = rng.random((20, 32, 32, 3), dtype=np.float32)
+    m = rng.normal(size=(5000, 128)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    m[[10, 999, 4000]] = m[3]
+    idx = search_index.LibraryIndex(types.SimpleNamespace(node=None))
+    idx._matrix, idx._ids, idx._loaded = m, list(range(5000)), True
+    want_resize = tt.resize_batch(images, targets, device="cpu")
+    want_embed = embed_torch.embed_batch(x, "cpu")
+    probes = (m[3], rng.normal(size=128))
+    want_query = [idx.query(p, k=50, device="cpu") for p in probes]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        for g, w in zip(tt.resize_batch(images, targets, device="cuda"), want_resize):
+            assert g.shape == w.shape
+            assert int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max()) <= 1
+        np.testing.assert_allclose(embed_torch.embed_batch(x, "cuda"), want_embed,
+                                   atol=1e-5, rtol=1e-5)
+        for probe, want in zip(probes, want_query):
+            got = idx.query(probe, k=50, device="cuda")
+            assert [i for i, _ in got] == [i for i, _ in want]
+            np.testing.assert_allclose([s for _, s in got], [s for _, s in want],
+                                       atol=1e-5, rtol=1e-5)
+        assert [i for i, _ in idx.query(m[3], k=4, device="cuda")] == [3, 10, 999, 4000]
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

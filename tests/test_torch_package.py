@@ -44,6 +44,30 @@ def test_no_jax_or_jax_package_imports(path):
         assert top not in FORBIDDEN, f"{os.path.relpath(path, ROOT)} imports {mod}"
 
 
+def test_sklearn_only_inside_digits_demo_dataset():
+    """scikit-learn, which the card's machine lacks, is imported by one
+    function of the port, lazily: `models/train.py`'s
+    `digits_demo_dataset`, as in the JAX module."""
+    def sklearn_imports(node):
+        return [n for n in ast.walk(node)
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                and any(m.split(".")[0] == "sklearn" for m in (
+                    [a.name for a in n.names] if isinstance(n, ast.Import) else [n.module or ""]))]
+
+    found = {}
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        rel = os.path.relpath(path, ROOT)
+        total = len(sklearn_imports(tree))
+        inside = {fn.name: len(sklearn_imports(fn)) for fn in ast.walk(tree)
+                  if isinstance(fn, ast.FunctionDef) and sklearn_imports(fn)}
+        if total:
+            found[rel] = (total, inside)
+    train = os.path.join("spacedrive_tpu_torch", "models", "train.py")
+    assert found == {train: (1, {"digits_demo_dataset": 1})}
+
+
 def test_import_builds_nothing_and_needs_no_cuda():
     """Import every module of the port in a fresh interpreter with CUDA
     hidden: no jax module loads, no kernel builds, nothing compiles."""
@@ -60,6 +84,7 @@ def test_import_builds_nothing_and_needs_no_cuda():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        "assert 'sklearn' not in sys.modules\n"
         "assert blake3_cuda._built == []\n"
         "assert 'torch.utils.cpp_extension' not in sys.modules\n"
         "print('ok', len(sys.modules))\n"
