@@ -519,6 +519,7 @@ def phase_pass(rng, tmp: str) -> dict:
     print(json.dumps({"pass": stages}), flush=True)
     return {"launches": launches, "corpus": corpus, "data_dir": data_dir,
             "cas_ids": result.cas_ids, "images": images, "embeddings": result.embeddings,
+            "resized": result.resized,
             "large": [p for p, s in files if s > cas.MINIMUM_FILE_SIZE]}
 
 
@@ -889,7 +890,7 @@ def phase_library(rng, tmp: str, p3: dict) -> dict:
     return {"launches": {name: run["launches"] for name, run in
                          (("library_cold", cold), ("library_warm", warm),
                           ("library_incremental", inc))},
-            "corpus": corpus, "data_dir": data_dir,
+            "corpus": corpus, "data_dir": data_dir, "rewritten": rewritten,
             "images": [p for p, *_ in p3["images"]] + [p for p, *_ in added_images]}
 
 
@@ -2018,6 +2019,367 @@ def phase_training(rng, tmp: str) -> dict:
     return {"launches": {"training_index": run["k1_launches"]}}
 
 
+# --- phase 8: the device seam and the fault plane ---------------------------
+
+# slot lists [cuda:0] * k on the one card: the split's overhead, not scaling
+SEAM_SLOTS = (1, 2, 3, 4)
+SEAM_ROWS_PER_SLOT = 1024  # the production dispatch: 1024 x 57 chunks per slot
+SEAM_PAD_ROWS = (5, 33, 1031)
+N_SEAM_REF = 64  # rows held against blake3_ref (pure Python, ~0.5 MB/s)
+N_SEAM_IMAGES = 32
+N_SEAM_HASHES = 4096
+N_SEAM_ACTOR = 8
+N_SEAM_PROFILE = 64
+# every pipeline fault family once, on the main path
+SEAM_FAULTS = ("device.blake3:xla:times=1;device.thumbnail:raise:times=1;"
+               "embed.forward:xla:times=1;feeder.fetch:crash:times=1")
+# where a one-slot ladder ends after a failure and a re-armed probe: the
+# "one_device" script of tests/test_torch_mesh.py (the JAX transitions),
+# and tests/test_torch_chaos.py's pass under SEAM_FAULTS at k = 1
+ONE_DEVICE_END_LEVEL = 1
+K1_KERNEL = "blake3_chunk_cvs_kernel"
+
+
+def degradation() -> dict:
+    """Every degradation counter the port keeps (all zero in a healthy
+    process)."""
+    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.telemetry import metrics as tm
+    from spacedrive_tpu_torch.telemetry.events import RESILIENCE_EVENTS
+
+    return {
+        "demotion_level": mesh.LADDER.level,
+        "demotion_gauge": tm.DEVICE_DEMOTION.value(),
+        "cas_fallbacks": tm.CAS_BACKEND_FALLBACK.value(),
+        "host_queries": tm.SEARCH_QUERIES.value(path="host"),
+        "thumbnail_cpu_fallbacks": sum(e["type"] == "thumbnail_cpu_fallback"
+                                       for e in RESILIENCE_EVENTS.snapshot()),
+        "feeder_restarts": tm.FEEDER_RESTARTS.value(),
+        "fault_activations": tm.FAULTS_INJECTED.value(),
+    }
+
+
+def check_healthy(phase: str) -> None:
+    """Phases 2-7 run with no fault plan: a demotion, a cas fallback, a
+    host-ranked query, a CPU-resized chunk, a feeder restart or a fault
+    activation means a degraded run, which must not pass as healthy."""
+    from spacedrive_tpu_torch.utils import faults
+
+    got = degradation()
+    check(faults.active_plan() is None and not any(got.values()),
+          f"phase {phase} degraded: {got}")
+
+
+def snapshot_corpus(corpus: str, root: str) -> str:
+    """Hard links to phase 3's files, taken before phase 4 adds, rewrites
+    and deletes files in the corpus (its 32 in-place rewrites reach the
+    links too; phase 8 holds those to the plain path)."""
+    for dirpath, _dirs, files in os.walk(corpus):
+        dst = os.path.join(root, os.path.relpath(dirpath, corpus))
+        os.makedirs(dst, exist_ok=True)
+        for f in files:
+            os.link(os.path.join(dirpath, f), os.path.join(dst, f))
+    return root
+
+
+def k1_ms_by_slots(msgs: list[bytes], dev: torch.device) -> dict[int, float]:
+    """K1 alone on one SEAM_ROWS_PER_SLOT x 57 share per slot, each slot on its own
+    stream of the one card, for every slot count: median ms."""
+    from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, cas
+
+    arr, lens = cas.pack_canonical_batch(msgs, cas.LARGE_CHUNKS)
+    lanes, _ = blake3_torch.chunk_lanes(blake3_torch.host_words(arr).to(dev),
+                                        torch.from_numpy(lens).to(dev), cas.LARGE_CHUNKS)
+    streams = [torch.cuda.Stream(dev) for _ in SEAM_SLOTS]
+
+    def k1_on(k: int) -> None:
+        cur = torch.cuda.current_stream()
+        for st in streams[:k]:
+            st.wait_stream(cur)
+            with torch.cuda.stream(st):
+                blake3_cuda.chunk_cvs(*lanes)
+        for st in streams[:k]:
+            cur.wait_stream(st)
+
+    return {k: cuda_ms(lambda k=k: k1_on(k), reps=20) for k in SEAM_SLOTS}
+
+
+def check_sharded(rng, p3: dict) -> dict:
+    """(a) cas, resize, embed and the Hamming matrix over [cuda:0] * k
+    against the single-device path; K1 timed per slot count."""
+    from spacedrive_tpu_torch.models import embedder
+    from spacedrive_tpu_torch.object.media.thumbnail import process
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas, embed_torch, phash_torch, thumbnail_torch
+    from spacedrive_tpu_torch.ops.blake3_ref import StreamingBlake3
+
+    dev = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    hot = [rng.bytes(cas.LARGE_MSG_LEN) for _ in range(SEAM_ROWS_PER_SLOT * max(SEAM_SLOTS))]
+    single = cas.cas_ids(hot, DEVICE)
+    for i in rng.choice(len(hot), N_SEAM_REF, replace=False):
+        check(single[i] == StreamingBlake3().update(hot[i]).hexdigest()[:16],
+              f"cas_id of hot row {i} differs from blake3_ref")
+    blake3_cuda.chunk_cvs.launches = 0
+    for k in SEAM_SLOTS:
+        for rows in (SEAM_ROWS_PER_SLOT * k, *SEAM_PAD_ROWS):
+            got = cas.cas_ids_begin(hot[:rows], devices=[dev] * k)()
+            check(got == single[:rows], f"{k}-slot cas_ids of {rows} rows differ")
+    launches = blake3_cuda.chunk_cvs.launches
+
+    k1_ms = k1_ms_by_slots(hot[:SEAM_ROWS_PER_SLOT], dev)
+
+    imgs = sorted((im for im in p3["images"] if max(im[1], im[2]) <= 4 * min(im[1], im[2])),
+                  key=lambda im: im[1] * im[2])[:N_SEAM_IMAGES]
+    decoded = [process.decode_image(p) for p, *_ in imgs]
+    arrays, targets = [d.array for d in decoded], [d.target for d in decoded]
+    one = thumbnail_torch.resize_batch(arrays, targets, devices=[dev])
+    planes = np.stack([embedder.decode_image(p) for p, *_ in imgs])
+    vec_one = embed_torch.embed_batch(planes, devices=[dev])
+    resize_diff, embed_diff = {}, {}
+    for k in (2, 4):
+        got = thumbnail_torch.resize_batch(arrays, targets, devices=[dev] * k)
+        check(all(g.shape == o.shape for g, o in zip(got, one)), f"{k}-slot resize shapes")
+        resize_diff[k] = max(int(np.abs(g.astype(int) - o.astype(int)).max())
+                             for g, o in zip(got, one))
+        check(resize_diff[k] <= 1, f"{k}-slot resize differs by {resize_diff[k]} levels")
+        vec = embed_torch.embed_batch(planes, devices=[dev] * k)
+        embed_diff[k] = float(np.abs(vec - vec_one).max())
+        check(np.allclose(vec, vec_one, atol=1e-5, rtol=1e-5),
+              f"{k}-slot embeddings differ by {embed_diff[k]}")
+
+    hashes = [rng.bytes(8) for _ in range(N_SEAM_HASHES)]
+    want = phash_torch.hamming_matrix(hashes, DEVICE)
+    for slots in (None, [dev] * 4):
+        got = phash_torch.hamming_matrix_sharded(hashes, DEVICE, devices=slots)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"hamming_matrix_sharded over {slots} != hamming_matrix")
+    print(f"phase 8: sharded cas == single device at k = {SEAM_SLOTS} "
+          f"({SEAM_ROWS_PER_SLOT} x 57 per slot and "
+          f"{SEAM_PAD_ROWS} rows), {N_SEAM_REF} == blake3_ref; resize max |d| {resize_diff}, "
+          f"embed max |d| {embed_diff} vs k = 1; hamming_matrix_sharded == hamming_matrix at "
+          f"{N_SEAM_HASHES}; K1 ms by slot count {k1_ms}", flush=True)
+    return {"launches": launches, "k1_ms_by_slots": k1_ms, "resize_max_diff": resize_diff,
+            "embed_max_diff": embed_diff}
+
+
+def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
+    """(b) `index_pass` over phase 3's files under SEAM_FAULTS: the
+    results of phase 3, the planned activations, one feeder restart, a
+    cas fallback, and the one-device ladder's end level."""
+    from spacedrive_tpu_torch.index_pass import index_pass
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas
+    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.utils import faults
+
+    before = degradation()
+    mesh.LADDER.reset_timeout = 0.0
+    plan = faults.FaultPlan.parse(SEAM_FAULTS, seed=1)
+    blake3_cuda.chunk_cvs.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with faults.active(plan):
+            result = index_pass(snapshot, os.path.join(tmp, "seam_data"), device=DEVICE,
+                                keep_pixels=True)
+    finally:
+        mesh.LADDER.reset_timeout = 30.0
+    seconds = time.perf_counter() - t0
+    launches = blake3_cuda.chunk_cvs.launches
+    after = degradation()
+    end_level = mesh.LADDER.level
+    mesh.LADDER.reset()
+
+    rewritten = {os.path.relpath(p, p3["corpus"]) for p in p4["rewritten"]}
+    changed = []
+    for path, want in p3["cas_ids"].items():
+        rel = os.path.relpath(path, p3["corpus"])
+        got = result.cas_ids[os.path.join(snapshot, rel)]
+        if rel in rewritten:
+            changed.append((got, os.path.join(snapshot, rel)))
+        else:
+            check(got == want, f"cas_id of {rel} under faults differs from phase 3")
+    plain = plain_cas_ids([cas.read_message(p) for _, p in changed])
+    check([g for g, _ in changed] == plain, "a rewritten file's cas_id differs from the plain path")
+    check(result.resized.keys() == p3["resized"].keys(), "thumbnails under faults")
+    for c, arr in p3["resized"].items():
+        check(np.array_equal(result.resized[c], arr), f"thumbnail pixels of {c} changed")
+    worst = max(float(np.abs(result.embeddings[c] - v).max()) for c, v in p3["embeddings"].items())
+    check(worst <= 1e-5, f"embeddings under faults differ by {worst}")
+    delta = {k: after[k] - before[k] for k in after}
+    check(sum(plan.activations().values()) == 4 and delta["fault_activations"] == 4,
+          f"activations {plan.activations()}")
+    check(delta["feeder_restarts"] == 1, f"feeder restarts {delta['feeder_restarts']}")
+    check(delta["cas_fallbacks"] >= 1, "no cas fallback under device.blake3")
+    check(end_level == ONE_DEVICE_END_LEVEL,
+          f"the ladder ended at level {end_level}, want {ONE_DEVICE_END_LEVEL}")
+    print(f"phase 8: index_pass under {SEAM_FAULTS} in {seconds:.1f} s: {len(p3['cas_ids'])} "
+          f"cas_ids == phase 3 ({len(changed)} rewritten == plain path), {len(p3['resized'])} "
+          f"thumbnails' pixels == phase 3, embeddings within {worst:.3g}; activations "
+          f"{plan.activations()}, ladder ended at level {end_level}", flush=True)
+    return {"launches": launches, "seconds": seconds, "end_level": end_level,
+            "activations": plan.activations(), "counter_deltas": delta,
+            "embed_max_diff": worst}
+
+
+def check_host_query(p4: dict, rng) -> dict:
+    """`search.query:raise` on phase 5's index: the host ranks as the
+    device does, and `sd_search_queries_total{path="host"}` moves by 1."""
+    from spacedrive_tpu_torch.object.search import index as search_index
+    from spacedrive_tpu_torch.telemetry import metrics as tm
+    from spacedrive_tpu_torch.utils import faults
+
+    lib = _open_library(p4["data_dir"])
+    try:
+        idx = search_index.get_index(lib)
+        idx.refresh()
+        _ids, vecs = idx.vectors()
+        probe = vecs[int(rng.integers(len(vecs)))]
+        device_hits = idx.query(probe, k=20, device=DEVICE)
+        host0 = tm.SEARCH_QUERIES.value(path="host")
+        with faults.active(faults.FaultPlan.parse("search.query:raise:times=1")):
+            host_hits = idx.query(probe, k=20, device=DEVICE)
+    finally:
+        lib.close()
+    check(tm.SEARCH_QUERIES.value(path="host") == host0 + 1, "the host query was not counted")
+    check([h[0] for h in host_hits] == [h[0] for h in device_hits],
+          "the host ranking differs from the device ranking")
+    diff = max(abs(a[1] - b[1]) for a, b in zip(host_hits, device_hits))
+    check(diff <= 1e-5, f"host scores differ by {diff}")
+    print(f"phase 8: search.query fault: host ranking == device ranking over {len(vecs)} vectors "
+          f"(scores within {diff:.3g})", flush=True)
+    return {"host_score_max_diff": diff}
+
+
+def check_actor_fallback(p3: dict, snapshot: str, tmp: str) -> dict:
+    """A thumbnailer chunk whose device resize fails at every rung takes
+    the CPU resize: `thumbnail_cpu_fallback` on the ring, every
+    thumbnail written, pixels within one level of phase 3's."""
+    import asyncio
+
+    from spacedrive_tpu_torch.object.media.thumbnail import actor as actor_mod
+    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.telemetry.events import RESILIENCE_EVENTS
+    from spacedrive_tpu_torch.utils import faults
+
+    imgs = sorted((im for im in p3["images"] if max(im[1], im[2]) <= 4 * min(im[1], im[2])),
+                  key=lambda im: im[1] * im[2])[:N_SEAM_ACTOR]
+    entries = []
+    for path, *_ in imgs:
+        snap = os.path.join(snapshot, os.path.relpath(path, p3["corpus"]))
+        entries.append((p3["cas_ids"][path], snap, snap.rsplit(".", 1)[1]))
+    cas_of = {snap: c for c, snap, _ in entries}
+    by_obj, host_out = {}, []
+    real_decode, real_host = actor_mod.decode, actor_mod.resize_decoded_host
+
+    def decode(path, ext):
+        d = real_decode(path, ext)
+        by_obj[id(d)] = cas_of[path]
+        return d
+
+    def host(ds):
+        out = real_host(ds)
+        host_out.extend((by_obj[id(d)], a) for d, a in zip(ds, out))
+        return out
+
+    async def run() -> tuple[int, int]:
+        th = actor_mod.Thumbnailer(os.path.join(tmp, "seam_actor"), device=DEVICE)
+        th.chunk_rows = N_SEAM_ACTOR
+        try:
+            await th.wait_batch(th.new_indexed_thumbnails_batch("seam", entries))
+            return th.generated, th.errors
+        finally:
+            await th.shutdown()
+
+    RESILIENCE_EVENTS.clear()
+    actor_mod.decode, actor_mod.resize_decoded_host = decode, host
+    try:
+        with faults.active(faults.FaultPlan.parse("device.thumbnail:raise:times=inf")):
+            generated, errors = asyncio.run(run())
+    finally:
+        actor_mod.decode, actor_mod.resize_decoded_host = real_decode, real_host
+        mesh.LADDER.reset()
+    events = [e for e in RESILIENCE_EVENTS.snapshot() if e["type"] == "thumbnail_cpu_fallback"]
+    check(len(events) == 1 and events[0]["fields"]["entries"] == len(entries),
+          f"thumbnail_cpu_fallback events: {events}")
+    check((generated, errors) == (len(entries), 0), f"actor wrote {generated}, errors {errors}")
+    check(len(host_out) == len(entries), "not every image took the CPU resize")
+    worst = 0
+    for c, arr in host_out:
+        want = p3["resized"][c]
+        check(arr.shape == want.shape, f"CPU-resized {c}: {arr.shape} vs {want.shape}")
+        worst = max(worst, int(np.abs(arr.astype(int) - want.astype(int)).max()))
+    check(worst <= 1, f"the CPU fallback differs from phase 3 by {worst} levels")
+    print(f"phase 8: a chunk of {len(entries)} past the ladder took the CPU resize "
+          f"(thumbnail_cpu_fallback emitted; pixels within {worst} of phase 3)", flush=True)
+    RESILIENCE_EVENTS.clear()
+    return {"cpu_fallback_max_diff": worst}
+
+
+def check_inventory_and_profile(name_power: str, snapshot: str, tmp: str) -> dict:
+    """(c) `accelerators()` names the card nvidia-smi names; with
+    SD_TORCH_PROFILE set one identify job writes a trace holding K1."""
+    import asyncio
+    import glob
+
+    from spacedrive_tpu_torch.cli import index_library
+    from spacedrive_tpu_torch.node.hardware import accelerators
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.telemetry import profiler
+
+    acc = accelerators()
+    smi_name = name_power.split(",")[0].strip()
+    check(bool(acc) and len(acc) == torch.cuda.device_count() and acc[0]["kind"] == smi_name
+          and acc[0]["platform"] == "gpu", f"accelerators() {acc} vs nvidia-smi {smi_name!r}")
+
+    corpus = os.path.join(tmp, "seam_profile_corpus")
+    os.makedirs(corpus)
+    large = sorted(glob.glob(os.path.join(snapshot, "d*", "*.bin")),
+                   key=os.path.getsize)[-N_SEAM_PROFILE:]
+    for p in large:
+        os.link(p, os.path.join(corpus, os.path.basename(p)))
+    logdir = os.path.join(tmp, "seam_profile")
+    os.environ[profiler.ENV_VAR] = logdir
+    blake3_cuda.chunk_cvs.launches = 0
+    try:
+        asyncio.run(index_library(corpus, os.path.join(tmp, "seam_profile_data"), "prof", DEVICE))
+    finally:
+        del os.environ[profiler.ENV_VAR]
+    launches = blake3_cuda.chunk_cvs.launches
+    traces = glob.glob(os.path.join(logdir, "identify", "*.pt.trace.json"))
+    check(len(traces) == 1, f"profile traces: {traces}")
+    with open(traces[0], encoding="utf-8") as f:
+        text = f.read()
+    check(K1_KERNEL in text, f"the identify trace has no {K1_KERNEL}")
+    check(launches > 0 and not profiler.profiling_active(), "the profiled identify job")
+    print(f"phase 8: accelerators() = {acc}; the profiled identify job wrote "
+          f"{os.path.basename(traces[0])} ({len(text)} bytes) naming {K1_KERNEL}", flush=True)
+    return {"launches": launches, "accelerators": acc, "trace_bytes": len(text)}
+
+
+def phase_device_seam(rng, tmp: str, p3: dict, p4: dict, snapshot: str, name_power: str) -> dict:
+    t_phase = time.perf_counter()
+    steps_s: dict[str, float] = {}
+
+    def step(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps_s[name] = time.perf_counter() - t0
+        return out
+
+    sharded = step("sharded", check_sharded, rng, p3)
+    faulted = step("faults_pass", check_faults_pass, p3, p4, snapshot, tmp)
+    query = step("host_query", check_host_query, p4, rng)
+    actor = step("actor_fallback", check_actor_fallback, p3, snapshot, tmp)
+    inventory = step("inventory_profile", check_inventory_and_profile, name_power, snapshot, tmp)
+    out = {"sharded": {k: v for k, v in sharded.items() if k != "launches"},
+           "faults_pass": {k: v for k, v in faulted.items() if k != "launches"},
+           "host_query": query, "actor_fallback": actor,
+           "inventory": {k: v for k, v in inventory.items() if k != "launches"},
+           "steps_s": steps_s, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"device_seam": out}), flush=True)
+    return {"launches": {"seam_sharded_cas": sharded["launches"],
+                         "seam_index_pass_faults": faulted["launches"],
+                         "seam_profiled_identify": inventory["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2039,16 +2401,24 @@ def main() -> int:
     print(f"phase 1: K1 built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel = phase_kernel(rng, sm_clock_hz)
+    check_healthy("2")
     with tempfile.TemporaryDirectory(prefix="sd_chip_smoke_") as tmp:
         got = phase_pass(rng, tmp)
+        check_healthy("3")
+        snapshot = snapshot_corpus(got["corpus"], os.path.join(tmp, "corpus_p3"))
         lib = phase_library(rng, tmp, got)
+        check_healthy("4")
         read = phase_read_side(rng, lib)
+        check_healthy("5")
         labels = phase_labeler(rng, tmp, lib)
+        check_healthy("6")
         training = phase_training(rng, tmp)
+        check_healthy("7")
+        seam = phase_device_seam(rng, tmp, got, lib, snapshot, name_power)
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"],
                                   **read["launches"], **labels["launches"],
-                                  **training["launches"]}
+                                  **training["launches"], **seam["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(name_power, flush=True)

@@ -13,6 +13,11 @@
     python -m spacedrive_tpu_torch labeler train-demo --data-dir D [--out F] [--steps 300]
         [--device ...]
 
+Before the command, `--faults PLAN [--fault-seed N]` arms the fault
+plane for the invocation (chaos testing, utils/faults.py: e.g.
+`--faults "device.blake3:xla:times=1"`); without it, `SD_FAULTS` and
+`SD_FAULT_SEED` do.
+
 Without `--library`: walks <path>, computes every file's cas_id, writes
 thumbnails under `D/thumbnails/` and embeds the images, then prints one
 JSON line: files, objects (distinct cas_ids), bytes, thumbnails,
@@ -280,6 +285,14 @@ def _train(args: argparse.Namespace, labeler_dir: str) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m spacedrive_tpu_torch")
+    parser.add_argument(
+        "--faults", metavar="PLAN", default=None,
+        help="arm the fault-injection plane for this invocation (chaos testing): "
+             "\"point:mode[:k=v,...][;...]\" (utils/faults.py); SD_FAULTS and "
+             "SD_FAULT_SEED are the env equivalents",
+    )
+    parser.add_argument("--fault-seed", type=int, default=0,
+                        help="deterministic seed for --faults probabilities")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("index", help="index a directory: cas_ids, thumbnails, embeddings")
     p.add_argument("path")
@@ -347,6 +360,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils import faults as _faults
+
+    if args.faults:
+        _faults.install(_faults.FaultPlan.parse(args.faults, seed=args.fault_seed))
+    else:
+        _faults.install_from_env()
     return args.func(args)
 
 

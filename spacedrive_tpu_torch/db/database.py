@@ -1,6 +1,7 @@
 """LibraryDb — thread-safe SQLite access for one library.
 
-Counterpart of `spacedrive_tpu/db/database.py`, without its fault hook.
+Counterpart of `spacedrive_tpu/db/database.py`, with its `db.slow`
+fault point on the read path.
 
 The reference connects one SQLite file per library through a typed
 Prisma client (ref:core/src/library/manager/mod.rs library load). Here:
@@ -16,9 +17,11 @@ import datetime as _dt
 import os
 import sqlite3
 import threading
+import time
 import uuid
 from typing import Any, Iterable, Iterator, Sequence
 
+from ..utils import faults as _faults
 from .schema import MIGRATIONS
 
 
@@ -105,11 +108,22 @@ class LibraryDb:
             with self._conn:
                 self._conn.executemany(sql, seq)
 
+    @staticmethod
+    def _maybe_slow() -> None:
+        """`db.slow` fault point: one `is None` check in production; an
+        armed `stall` spec sleeps delay_s per read, the stand-in for a
+        slow or contended disk under the whole read surface."""
+        spec = _faults.hit("db.slow")
+        if spec is not None:
+            time.sleep(spec.delay_s)
+
     def query(self, sql: str, params: Sequence | dict = ()) -> list[dict[str, Any]]:
+        self._maybe_slow()
         with self._lock:
             return self._conn.execute(sql, params).fetchall()
 
     def query_one(self, sql: str, params: Sequence | dict = ()) -> dict[str, Any] | None:
+        self._maybe_slow()
         with self._lock:
             return self._conn.execute(sql, params).fetchone()
 

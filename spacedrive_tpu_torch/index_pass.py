@@ -6,16 +6,21 @@ object/file_identifier/job.py → object/media/job.py), without the
 library DB, the job system, object linking, the index journal or sync:
 
 1. walk the location with its default rules (location/indexer/walker);
-2. identify: windows of IDENTIFY_DEVICE_WINDOW files flow through
-   `WindowPipeline`, whose producer reads each window's sampled
+2. identify: windows of IDENTIFY_DEVICE_WINDOW files per card flow
+   through `WindowPipeline`, whose producer reads each window's sampled
    messages and dispatches them (`cas.cas_ids_begin`, which enqueues the
    copy and the hash on a side stream) while the consumer finishes the
    windows before it;
 3. thumbnails: one per distinct cas_id among decodable images, decoded
-   on the host, resized in device batches of THUMB_DEVICE_BATCH, then
-   oriented, encoded to webp and written to the thumbnail store;
+   on the host, resized in device batches of THUMB_DEVICE_BATCH per
+   card, then oriented, encoded to webp and written to the thumbnail
+   store;
 4. embed: the same images decode to the embedder's input plane and
-   embed in device batches of EMBED_DEVICE_BATCH.
+   embed in device batches of EMBED_DEVICE_BATCH per card.
+
+On "cuda" every device call rides the degradation ladder
+(parallel/mesh.py): a failed batch re-runs at the demoted rung, so a
+transient fault changes no result.
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ from .models import embedder as _embedder
 from .object.media.thumbnail import process
 from .object.media.thumbnail.store import ThumbnailStore
 from .ops import cas, embed_torch
-from .parallel.autotune import EMBED_DEVICE_BATCH, IDENTIFY_DEVICE_WINDOW, THUMB_DEVICE_BATCH
-from .parallel.feeder import WindowPipeline
+from .parallel import autotune as _autotune
+from .parallel.feeder import WindowPipeline, pipeline_depth
+from .parallel.mesh import device_scale
 
 
 @dataclass
@@ -59,6 +65,8 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
     into `timings`."""
     out: list[str | None] = [None] * len(paths_sizes)
     read_s = dispatch_s = 0.0
+    cards = device_scale(device)
+    window_rows = _autotune.identify_window_rows(cards)
 
     def fetch(cursor: int):
         nonlocal read_s, dispatch_s
@@ -67,7 +75,7 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
         t0 = time.perf_counter()
         idx: list[int] = []
         msgs: list[bytes] = []
-        for i in range(cursor, min(cursor + IDENTIFY_DEVICE_WINDOW, len(paths_sizes))):
+        for i in range(cursor, min(cursor + window_rows, len(paths_sizes))):
             path, size = paths_sizes[i]
             if size == 0:
                 continue
@@ -80,10 +88,10 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
         fin = cas.cas_ids_begin(msgs, device)
         read_s += t1 - t0
         dispatch_s += time.perf_counter() - t1
-        return cursor + IDENTIFY_DEVICE_WINDOW, (idx, fin)
+        return cursor + window_rows, (idx, fin)
 
     wait_s = 0.0
-    pipe = WindowPipeline(fetch, 0)  # FEEDER_BASE_DEPTH windows ahead
+    pipe = WindowPipeline(fetch, 0, depth=pipeline_depth(cards))
     try:
         while (window := pipe.take()) is not None:
             idx, fin = window
@@ -111,7 +119,7 @@ def thumbnail(
     Undecodable images are skipped. `resized`, when given, receives each
     device-resized array before orientation and encode."""
     written: dict[str, str] = {}
-    for batch in _chunks(items, THUMB_DEVICE_BATCH):
+    for batch in _chunks(items, _autotune.thumb_chunk_rows(device_scale(device))):
         on_device: list[tuple[str, process.Decoded]] = []
         for cas_id, path in batch:
             try:
@@ -137,7 +145,7 @@ def embed(items: list[tuple[str, str]], device) -> dict[str, np.ndarray]:
     skipped."""
     model = _embedder.PatchPoolEmbedder(device)
     vectors: dict[str, np.ndarray] = {}
-    for batch in _chunks(items, EMBED_DEVICE_BATCH):
+    for batch in _chunks(items, _autotune.embed_chunk_rows(device_scale(device))):
         keys, planes = [], []
         for cas_id, path in batch:
             plane = _embedder.decode_image(path)

@@ -13,11 +13,15 @@ kernel, ops/csrc/blake3_chunk.cu) — the batch dim replaces task-level
 concurrency.
 
 Counterpart of `spacedrive_tpu/object/file_identifier/job.py`, without
-its telemetry, its autotuned window sizing and its host fallback. The
-backend is "cuda" (default) or "cpu" and nothing else: a device window
-is IDENTIFY_DEVICE_WINDOW rows with FEEDER_BASE_DEPTH windows in flight,
-a CPU window the reference's IDENTIFY_CPU_WINDOW. A CUDA failure in
-dispatch or finish fails the step; nothing re-hashes on the host.
+its telemetry and its live autotuned window sizing. The backend is
+"cuda" (default) or "cpu" and nothing else: a device window is
+IDENTIFY_DEVICE_WINDOW rows per card with `pipeline_depth(cards)`
+windows in flight, a CPU window the reference's IDENTIFY_CPU_WINDOW.
+Each window's hash rides the device ladder (ops/cas.cas_ids_begin): a
+CUDA failure in dispatch or finish re-runs the window at the demoted
+rung, down to the host. With `SD_TORCH_PROFILE` set, a torch.profiler
+session covers the pipeline (telemetry/profiler.py), as the JAX job
+arms `jax.profiler`.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from ...jobs.manager import register_job
 from ...location.indexer import journal as _journal
 from ...ops import cas
 from ...parallel import autotune as _autotune
-from ...parallel.feeder import WindowPipeline
+from ...parallel.feeder import WindowPipeline, pipeline_depth
+from ...parallel.mesh import device_scale
+from ...telemetry import profiler as _profiler
 from .link import kind_for_row as _kind_for_row
 
 logger = logging.getLogger(__name__)
@@ -65,6 +71,7 @@ class FileIdentifierJob(StatefulJob):
     NAME = "file_identifier"
     IS_BATCHED = True
     _pipeline = None  # runtime-only window pipeline (never serialized)
+    _profiling = False  # holds one profiler refcount while running
 
     async def init_job(self, ctx: JobContext) -> None:
         library = ctx.library
@@ -77,7 +84,7 @@ class FileIdentifierJob(StatefulJob):
         if backend not in BACKENDS:
             raise JobError(f"backend must be one of {BACKENDS}, got {backend!r}")
         chunk = (
-            _autotune.IDENTIFY_DEVICE_WINDOW if backend == "cuda"
+            _autotune.identify_window_rows(device_scale(backend)) if backend == "cuda"
             else _autotune.IDENTIFY_CPU_WINDOW
         )
 
@@ -216,10 +223,15 @@ class FileIdentifierJob(StatefulJob):
     async def execute_step(self, ctx: JobContext, step: dict, step_number: int) -> StepResult:
         library = ctx.library
         d = self.data
+        if not self._profiling:
+            # optional device profile around the identify pipeline, armed
+            # lazily like the pipeline, so a pause (whose cleanup
+            # released the hold) re-arms on resume
+            self._profiling = _profiler.profile_start("identify")
         if self._pipeline is None:
             # The producer chains cursor windows back-to-back: window
             # N+1's disk reads and device dispatch start as soon as N's
-            # reads finish, so up to FEEDER_BASE_DEPTH transfers are in
+            # reads finish, so up to pipeline_depth transfers are in
             # flight while this step's hashes complete and its DB writes
             # run. Fetches are side-effect-free, so a pause/resume
             # simply re-reads in-flight windows.
@@ -232,7 +244,9 @@ class FileIdentifierJob(StatefulJob):
                     return None
                 return rows[-1]["id"], window
 
-            self._pipeline = WindowPipeline(fetch, d["cursor"])
+            self._pipeline = WindowPipeline(
+                fetch, d["cursor"],
+                depth=pipeline_depth(device_scale(device)))
 
         t0 = time.perf_counter()
         window = await asyncio.to_thread(self._pipeline.take)
@@ -372,7 +386,10 @@ class FileIdentifierJob(StatefulJob):
 
     def cleanup(self) -> None:
         """Every exit path (done/pause/cancel/fail) stops the window
-        pipeline."""
+        pipeline and releases the profiler hold."""
+        if self._profiling:
+            self._profiling = False
+            _profiler.profile_stop()
         if self._pipeline is not None:
             self._pipeline.close()
             self._pipeline = None

@@ -40,6 +40,7 @@ from ...location.indexer import journal as _journal
 from ...models import embedder as _embedder
 from ...ops import embed_torch
 from ...parallel import autotune as _autotune
+from ...parallel.mesh import device_scale
 from ..file_identifier.job import BACKENDS
 from ..search import index as _search_index
 from .media_data import ImageMetadata
@@ -179,7 +180,7 @@ class MediaProcessorJob(StatefulJob):
                     skip(r)  # unchanged bytes are never re-read or re-embedded
                     continue
                 embed_rows.append(r)
-            chunk_rows = _autotune.embed_chunk_rows()
+            chunk_rows = _autotune.embed_chunk_rows(device_scale(backend))
             for i in range(0, len(embed_rows), chunk_rows):
                 chunk = embed_rows[i:i + chunk_rows]
                 self.steps.append({"kind": "embed",
@@ -323,8 +324,9 @@ class MediaProcessorJob(StatefulJob):
 
     async def _wait_thumbnails(self, ctx: JobContext, step: dict) -> StepResult:
         """Rendezvous with the thumbnailer actor for this job's batch
-        (ref:job.rs:83-88 WaitThumbnails). A failed device resize
-        raises here and fails the job. After a resume the id is from a
+        (ref:job.rs:83-88 WaitThumbnails). A batch that failed on a
+        pinned device raises here and fails the job (on an auto device a
+        failed chunk degrades to the CPU resize in the actor). After a resume the id is from a
         dead process; `wait_batch` treats unknown ids as done (the actor
         re-queues persisted work on its own).
 

@@ -9,20 +9,29 @@ batches a FIFO queue (state.rs:23-32); background work is throttled to
 each decode gets a 30 s timeout (process.rs:172); queues persist across
 crashes (state.rs); `NewThumbnail` events go to the node's event bus.
 
-A batch is processed in chunks of `chunk_rows` images as a 3-deep
-pipeline: host decode on threads → one resize call per chunk on the
-actor's `device` (object/media/thumbnail/process.resize_decoded) → webp
-encode and store on threads. Images beyond a 4:1 aspect resize on the
-host (`process.needs_cpu_fallback`), as in the JAX actor. A failed
-device resize is not redone on the host: the actor records it against
-the batch, and the first waiter that sees it (`wait_batch` for that
-batch, or `wait_library_batch` for its namespace) raises
-`ThumbnailerError` and clears it, so later batches report only their
-own failures. A file that fails to decode only counts in `errors`.
+A batch is processed in chunks of `chunk_rows` images (the per-device
+chunk times the accelerator count) as a 3-deep pipeline: host decode on
+threads → one resize call per chunk on the actor's `device`
+(object/media/thumbnail/process.resize_decoded) → webp encode and store
+on threads. Images beyond a 4:1 aspect resize on the host
+(`process.needs_cpu_fallback`), as in the JAX actor.
 
-Not ported: the process-pool leg, telemetry and trace context, fault
-points. `stage_seconds` keeps the decode / device / encode totals the
-JAX actor observes into its stage histogram, and the batches' wall time.
+On a device that rides the degradation ladder ("cuda", parallel/mesh)
+a chunk whose device resize failed past the ladder degrades, as in the
+JAX actor: it takes the same resize on the CPU
+(`process.resize_decoded_host`, within one level of the device's
+pixels; the JAX actor uses PIL there), emits `thumbnail_cpu_fallback`
+on the resilience ring and logs a WARNING. On a pinned device the
+failure is the batch's: the actor records it, and the first waiter
+that sees it (`wait_batch` for that batch, or `wait_library_batch` for
+its namespace) raises `ThumbnailerError` and clears it, so later
+batches report only their own failures. A file that fails to decode
+only counts in `errors`. The `thumbnail.persist` fault point sits in
+the window between a chunk's store and its accounting.
+
+Not ported: the process-pool leg, telemetry and trace context.
+`stage_seconds` keeps the decode / device / encode totals the JAX actor
+observes into its stage histogram, and the batches' wall time.
 """
 
 from __future__ import annotations
@@ -39,6 +48,9 @@ from typing import Any, Sequence
 import torch
 
 from ....parallel import autotune as _autotune
+from ....parallel import mesh as _mesh
+from ....telemetry.events import RESILIENCE_EVENTS
+from ....utils import faults as _faults
 from .process import (
     Decoded,
     can_generate,
@@ -47,6 +59,7 @@ from .process import (
     needs_cpu_fallback,
     resize_cpu,
     resize_decoded,
+    resize_decoded_host,
 )
 from .state import Batch, load_state, save_state
 from .store import ThumbnailStore, get_shard_hex
@@ -80,8 +93,9 @@ class Thumbnailer:
         cores = os.cpu_count() or 1
         self._fg_parallelism = cores
         self._bg_parallelism = max(1, cores * BACKGROUND_PERCENTAGE // 100)
-        #: images per device resize call
-        self.chunk_rows = _autotune.thumb_chunk_rows()
+        #: images per device resize call: the per-device chunk times the
+        #: card count, so a sharded resize gives each card a full chunk
+        self.chunk_rows = _autotune.thumb_chunk_rows(_mesh.device_scale(self.device))
         self._fg: collections.deque[Batch] = collections.deque()  # LIFO
         self._bg: collections.deque[Batch] = collections.deque()  # FIFO
         self._current: Batch | None = None  # in flight (for persistence)
@@ -378,6 +392,12 @@ class Thumbnailer:
                     self._stored(batch.library_id, chunk[i][0])
             self.errors += len(chunk) - sum(ok)
             self.stage_seconds["encode"] += time.perf_counter() - t0
+            if _faults.hit("thumbnail.persist") is not None:
+                # simulated process death between "chunk stored" and
+                # "accounted": a BaseException no recovery path absorbs;
+                # a fresh actor resumes and must skip the stored prefix
+                raise _faults.InjectedCrash(
+                    "injected crash between chunk store and journal write")
             done += len(chunk)
             # only now may the resume state drop this chunk
             batch.entries = entries[done:]
@@ -403,8 +423,7 @@ class Thumbnailer:
                 resized = []
                 if device_idx:
                     t0 = time.perf_counter()
-                    resized = await asyncio.to_thread(
-                        resize_decoded, [decoded[i] for i in device_idx], self.device)
+                    resized = await self._resize_chunk([decoded[i] for i in device_idx])
                     self.stage_seconds["device"] += time.perf_counter() - t0
                 if encode_task is not None:
                     await encode_task  # chunk N-1 finishes storing first
@@ -431,6 +450,20 @@ class Thumbnailer:
                 except Exception:  # noqa: BLE001 - the failure in flight propagates
                     logger.exception("thumbnail encode chunk failed")
                     break
+
+    async def _resize_chunk(self, ds: list[Decoded]) -> list:
+        """One chunk's device resize; past the ladder, the CPU resize."""
+        try:
+            return await asyncio.to_thread(resize_decoded, ds, self.device)
+        except Exception as exc:
+            if not _mesh.auto_slots(self.device):
+                raise  # a pinned device: the batch fails
+            # the device resize failed past the degradation ladder: the
+            # chunk degrades to the CPU resize instead of erroring
+            RESILIENCE_EVENTS.emit("thumbnail_cpu_fallback", entries=len(ds))
+            logger.warning("device resize failed past the ladder (%r); %d images "
+                           "resize on the CPU", exc, len(ds))
+            return await asyncio.to_thread(resize_decoded_host, ds)
 
     def _stored(self, library_id: str | None, cas_id: str) -> None:
         self.generated += 1

@@ -121,6 +121,13 @@ def resize_decoded(batch: list[Decoded], device: str | torch.device = "cuda") ->
     return tt.resize_batch([d.array for d in batch], [d.target for d in batch], device=device)
 
 
+def resize_decoded_host(batch: list[Decoded]) -> list[np.ndarray]:
+    """`resize_decoded`'s plain CPU version, within one level of the
+    device's pixels: the thumbnailer's fallback for a chunk whose device
+    resize failed past the ladder."""
+    return tt.resize_batch([d.array for d in batch], [d.target for d in batch], host=True)
+
+
 def resize_cpu(d: Decoded) -> bytes:
     """Host path for extreme aspect ratios: PIL resize with the
     Triangle (bilinear) filter, then the same orientation and encode."""

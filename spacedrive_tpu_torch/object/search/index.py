@@ -24,8 +24,11 @@ no TF32 setting touches) and ranks it by a stable descending sort, so
 equal scores keep the lower row first, as `lax.top_k` orders them in
 the JAX package. The matrix stays on the device until a refresh changes
 it. The query's device is the caller's, else the library's node's, else
-"cuda". Unlike the JAX index, a device failure raises: there is no host
-fallback and no `search.query` fault point.
+"cuda". As in the JAX index, a device failure (or the `search.query`
+fault) degrades the query to the host: a stable descending sort of the
+numpy product, ties by the lower row, the same ranking; each such query
+is counted in `sd_search_queries_total{path="host"}`, logged and put on
+the resilience ring. A missing CUDA device is not a failure: it raises.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ import numpy as np
 import torch
 
 from ...models import embedder as _embedder
+from ...telemetry import metrics as _tm
+from ...telemetry.events import RESILIENCE_EVENTS
+from ...utils import faults as _faults
 
 logger = logging.getLogger(__name__)
 
@@ -196,22 +202,45 @@ class LibraryIndex:
     def query(self, probe: np.ndarray, k: int = 10,
               device: str | torch.device | None = None) -> list[tuple[int, float]]:
         """Top-k (object_id, cosine) for a probe vector, scored on
-        `device` (see `device_of`)."""
+        `device` (see `device_of`); a device failure ranks on the host
+        instead, identically."""
         device = device_of(self._library, device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("search query on cuda, but no CUDA device is available")
         with self._lock:
-            ids = list(self._ids)
-            if not ids:
-                return []
-            if self._on_device is None or self._on_device[0] != str(device):
-                self._on_device = (str(device), torch.from_numpy(
-                    np.array(self._matrix, np.float32)).to(device))
-            matrix = self._on_device[1]
-        probe = _normalize(np.asarray(probe, np.float32))
-        k = min(int(k), len(ids))
+            n = len(self._ids)
+        k = min(int(k), n)
         if k <= 0:
             return []
-        scores, rows = score_top_k(matrix, torch.from_numpy(probe).to(device), k)
-        return [(ids[i], v) for i, v in zip(rows.tolist(), scores.tolist())]
+        probe = _normalize(np.asarray(probe, np.float32))
+        try:
+            spec = _faults.hit("search.query")
+            if spec is not None:
+                if spec.mode == "raise":
+                    raise _faults.InjectedFault("injected device failure (search)")
+                if spec.mode == "xla":
+                    raise _faults.device_error("search.query")
+            with self._lock:
+                ids = list(self._ids)
+                if self._on_device is None or self._on_device[0] != str(device):
+                    self._on_device = (str(device), torch.from_numpy(
+                        np.array(self._matrix, np.float32)).to(device))
+                matrix = self._on_device[1]
+            scores, rows = score_top_k(matrix, torch.from_numpy(probe).to(device), k)
+            hits = [(ids[i], v) for i, v in zip(rows.tolist(), scores.tolist())]
+        except Exception as exc:  # noqa: BLE001 - the host ranks identically
+            with self._lock:
+                ids, matrix = list(self._ids), np.array(self._matrix, np.float32)
+            s = matrix @ probe
+            # a stable sort on -s keeps ties in row order, as the device
+            # query does
+            rows = np.argsort(-s, kind="stable")[:k]
+            _tm.SEARCH_QUERIES.inc(path="host")
+            RESILIENCE_EVENTS.emit("search_host_rank", error=repr(exc)[:200])
+            logger.warning("device search query failed (%r); ranked on the host", exc)
+            return [(ids[int(i)], float(s[i])) for i in rows]
+        _tm.SEARCH_QUERIES.inc(path="device")
+        return hits
 
     def vectors(self) -> tuple[list[int], np.ndarray]:
         """(object ids, their normalized vectors [N, EMBED_DIM]), a copy."""

@@ -13,13 +13,25 @@ The device carries the uint32 words as int32 (torch's uint32 lacks most
 operations). The torch compression works on int64 holding values in
 [0, 2**32), masked after every add and shift: on int32, torch's `>>` is
 arithmetic and would smear the sign bit into a rotate.
+
+`hash_batch_begin` is the multi-device dispatch of the JAX package's
+`hash_batch(devices=...)`: the rows split into one equal share per slot
+of a slot list (parallel/mesh.py), each share hashed on its slot's
+device on a side stream of its own, the roots gathered in row order.
+The hash of a row never needs another row, so every share is
+bit-identical to the single-device hash. The `device.blake3` fault
+point sits at the start of every dispatch.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Sequence
+
 import numpy as np
 import torch
 
+from ..telemetry import metrics as _tm
+from ..utils import faults as _faults
 from . import blake3_cuda
 from .blake3_ref import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, PARENT, ROOT
 
@@ -225,8 +237,42 @@ def host_words(msgs) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int32))
 
 
+def _device_fault() -> bool:
+    """The `device.blake3` fault point: raises for the `raise` and `xla`
+    modes; True for `wrong_shape`, whose result the caller truncates to
+    exercise the digest-shape check of ops/cas."""
+    spec = _faults.hit("device.blake3")
+    if spec is None:
+        return False
+    if spec.mode == "raise":
+        raise _faults.InjectedFault("injected device failure (blake3)")
+    if spec.mode == "xla":
+        raise _faults.device_error("device.blake3")
+    return True
+
+
+def _words_lens(msgs, lengths, max_chunks: int | None):
+    words = host_words(msgs)
+    if words.dtype != torch.int32:
+        raise ValueError(f"message words must be int32, got {words.dtype}")
+    if max_chunks is None:
+        max_chunks = words.shape[1] // 256
+    return words, torch.as_tensor(lengths, dtype=torch.int32), max_chunks
+
+
+def _hash_on(words: torch.Tensor, lens: torch.Tensor, max_chunks: int, device,
+             chunk_stage) -> torch.Tensor:
+    words = words.to(device, non_blocking=True)
+    lens = lens.to(device, non_blocking=True)
+    lanes, n_chunks = chunk_lanes(words, lens, max_chunks)
+    cv8 = (chunk_stage or blake3_cuda.chunk_cvs)(*lanes)  # [8, N]
+    cvs = _as_u32(cv8).T.reshape(words.shape[0], max_chunks, 8)
+    return _to_int32(_tree_reduce(cvs, n_chunks))
+
+
 def hash_batch(
-    msgs, lengths, max_chunks: int | None = None, device="cuda", chunk_stage=None
+    msgs, lengths, max_chunks: int | None = None, device="cuda", chunk_stage=None,
+    devices: Sequence[torch.device] | None = None,
 ) -> torch.Tensor:
     """Hash B messages. msgs: uint8 [B, C*1024] (zero-padded) or its
     uint32/int32 [B, C*256] word view, numpy or torch; lengths: int32
@@ -237,18 +283,86 @@ def hash_batch(
     the CUDA kernel on a CUDA device, the plain torch version on the
     CPU; parity checks pass `chunk_cvs_plain` to run the plain version
     on the card). Inputs already on `device` are used in place; host
-    inputs are copied (non-blocking from pinned memory)."""
-    words = host_words(msgs)
-    if words.dtype != torch.int32:
-        raise ValueError(f"message words must be int32, got {words.dtype}")
-    if max_chunks is None:
-        max_chunks = words.shape[1] // 256
-    words = words.to(device, non_blocking=True)
-    lens = torch.as_tensor(lengths, dtype=torch.int32).to(device, non_blocking=True)
-    lanes, n_chunks = chunk_lanes(words, lens, max_chunks)
-    cv8 = (chunk_stage or blake3_cuda.chunk_cvs)(*lanes)  # [8, N]
-    cvs = _as_u32(cv8).T.reshape(words.shape[0], max_chunks, 8)
-    return _to_int32(_tree_reduce(cvs, n_chunks))
+    inputs are copied (non-blocking from pinned memory).
+
+    `devices`: a slot list of one pins the hash to that device; two or
+    more split the rows over the slots (`hash_batch_begin`, B must
+    divide) and return the roots on the host."""
+    if devices is not None and len(devices) > 1:
+        return hash_batch_begin(msgs, lengths, max_chunks, devices, chunk_stage)()
+    wrong_shape = _device_fault()
+    words, lens, max_chunks = _words_lens(msgs, lengths, max_chunks)
+    out = _hash_on(words, lens, max_chunks, devices[0] if devices else device, chunk_stage)
+    return out[:, :4] if wrong_shape else out
+
+
+def _slot_begin(words: torch.Tensor, lens: torch.Tensor, max_chunks: int,
+                dev: torch.device, chunk_stage) -> Callable[[], torch.Tensor]:
+    """Start one slot's share of host rows on `dev` and return the wait
+    that gives its int32 [rows, 8] roots on the host.
+
+    On CUDA: pin the share, copy it in non-blocking on a side stream of
+    `dev` (entered with `dev` current, so the launch lands there), hash
+    there, copy the roots back into pinned memory on the same stream and
+    record an event; the wait synchronizes on the event, which is where
+    a kernel fault surfaces."""
+    if dev.type != "cuda":
+        out = _hash_on(words, lens, max_chunks, dev, chunk_stage).cpu()
+        return lambda: out
+    stream = torch.cuda.Stream(dev)
+    # pinned blocks are not reused before the copies recorded on them
+    # complete (the caching host allocator records the stream), and
+    # device blocks allocated under the side stream are reused only in
+    # its order
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        d_words = words.pin_memory().to(dev, non_blocking=True)
+        d_lens = lens.pin_memory().to(dev, non_blocking=True)
+        roots = _hash_on(d_words, d_lens, max_chunks, dev, chunk_stage)
+        host = torch.empty(roots.shape, dtype=roots.dtype, pin_memory=True)
+        host.copy_(roots, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+
+    def wait() -> torch.Tensor:
+        done.synchronize()
+        return host
+
+    return wait
+
+
+def hash_batch_begin(
+    msgs, lengths, max_chunks: int | None, devices: Sequence[torch.device], chunk_stage=None,
+    fault_point: bool = True,
+) -> Callable[[], torch.Tensor]:
+    """Start hashing B host messages over the slot list `devices` and
+    return the wait that gives their int32 [B, 8] roots on the host, in
+    row order. Slot s hashes rows [s*B/k, (s+1)*B/k) of the k slots; B
+    must divide by k (callers pad through cas.pack_canonical_batch).
+    Nothing here blocks the caller on a CUDA slot. `fault_point=False`
+    skips `device.blake3` (the cas ladder's host rung)."""
+    wrong_shape = _device_fault() if fault_point else False
+    words, lens, max_chunks = _words_lens(msgs, lengths, max_chunks)
+    devices = [torch.device(d) for d in devices]
+    k, rows = len(devices), words.shape[0]
+    if not k or rows % k:
+        raise ValueError(
+            f"batch of {rows} rows does not divide over {k} devices — "
+            f"pad through pack_canonical_batch"
+        )
+    r = rows // k
+    if k > 1:
+        _tm.SHARD_BATCH_ROWS.observe(r, op="blake3")
+    waits = [
+        _slot_begin(words[s * r:(s + 1) * r], lens[s * r:(s + 1) * r], max_chunks, dev,
+                    chunk_stage)
+        for s, dev in enumerate(devices)
+    ]
+
+    def wait() -> torch.Tensor:
+        out = waits[0]() if k == 1 else torch.cat([w() for w in waits])
+        return out[:, :4] if wrong_shape else out
+
+    return wait
 
 
 def words_to_digests(words, out_len: int = 32) -> list[bytes]:

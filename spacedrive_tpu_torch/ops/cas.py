@@ -15,12 +15,14 @@ the hot bucket. Small files bucket by chunk count (ragged lengths are
 masked per lane).
 
 The host halves (sampling, reads, the dirty-range chunk cache) are owned
-copies of the JAX package's; `cas_ids_begin` is the device dispatch.
+copies of the JAX package's; `cas_ids_begin` is the device dispatch,
+over one device or a slot list, through the degradation ladder.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import struct
 from dataclasses import dataclass
@@ -29,8 +31,11 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh as _mesh
 from ..parallel.autotune import BATCH_LADDER
-from . import blake3_torch
+from ..telemetry import events as _events
+from ..telemetry import metrics as _tm
+from . import blake3_cuda, blake3_torch
 from .blake3_ref import (
     CHUNK_LEN,
     StreamingBlake3,
@@ -50,7 +55,9 @@ MAX_SMALL_MSG_LEN = 8 + MINIMUM_FILE_SIZE  # 102,408
 # Small-file buckets by chunk count.
 SMALL_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 101)
 
-DEVICE_BATCH = BATCH_LADDER[-1]  # max rows per dispatch
+DEVICE_BATCH = BATCH_LADDER[-1]  # max rows per dispatch PER DEVICE
+
+logger = logging.getLogger(__name__)
 
 
 def sample_ranges(size: int) -> list[tuple[int, int]]:
@@ -264,24 +271,36 @@ def cas_id_cpu(path: str | os.PathLike, size: int | None = None) -> str:
 # --- batched device hashing -------------------------------------------------
 
 
-def batch_ladder() -> tuple[int, ...]:
-    """Pad ladder of a single-device dispatch."""
-    return BATCH_LADDER
+def batch_ladder(n_devices: int = 1) -> tuple[int, ...]:
+    """Global pad ladder of an n-device dp dispatch: every rung is the
+    per-device rung × device count, so each slot always sees one of the
+    same three shapes (32/256/1024 rows) however many slots share the
+    batch."""
+    n = max(1, n_devices)
+    return BATCH_LADDER if n == 1 else tuple(r * n for r in BATCH_LADDER)
+
+
+def device_batch(n_devices: int = 1) -> int:
+    """Max rows per dispatch: DEVICE_BATCH per participating device."""
+    return DEVICE_BATCH * max(1, n_devices)
 
 
 def pack_canonical_batch(
-    messages: Sequence[bytes], max_chunks: int
+    messages: Sequence[bytes], max_chunks: int, n_devices: int = 1
 ) -> tuple[np.ndarray, np.ndarray]:
     """The one batch-shape policy for device hashing: at most
-    DEVICE_BATCH messages pack into a `(ladder_size, max_chunks*1024)`
-    uint8 array plus int32 lengths. Pad rows hash one zero byte and are
-    sliced off by the caller. The array starts uninitialized and each
-    row writes its message plus an explicit zero tail: one pass over
-    the buffer."""
+    device_batch(n_devices) messages pack into a `(ladder_size,
+    max_chunks*1024)` uint8 array plus int32 lengths, the ladder scaled
+    by `n_devices` (batch_ladder) so a dp-sharded dispatch divides
+    evenly with per-device rung shapes. Pad rows hash one zero byte and
+    are sliced off by the caller. The array starts uninitialized and
+    each row writes its message plus an explicit zero tail: one pass
+    over the buffer."""
     n = len(messages)
-    if n > DEVICE_BATCH:
-        raise ValueError(f"pack at most {DEVICE_BATCH} messages, got {n}")
-    n_pad = next(s for s in BATCH_LADDER if s >= n)
+    cap = device_batch(n_devices)
+    if n > cap:
+        raise ValueError(f"pack at most {cap} messages, got {n}")
+    n_pad = next(s for s in batch_ladder(n_devices) if s >= n)
     arr = np.empty((n_pad, max_chunks * 1024), np.uint8)
     lens = np.ones((n_pad,), np.int32)
     for j, msg in enumerate(messages):
@@ -301,40 +320,26 @@ def _bucket_for(msg_len: int) -> int:
     raise ValueError(f"message too large for small buckets: {msg_len}")
 
 
-def _dispatch(arr: np.ndarray, lens: np.ndarray, chunks: int, device: torch.device):
-    """Start one packed batch on `device` and return a callable that
-    waits for it and gives the int32 [rows, 8] root words on the host.
+def shard_occupancy(n_real: int, n_pad: int, n_dev: int) -> list[float]:
+    """Per-device real-row fraction of one sharded dispatch (device d
+    owns rows [d*r, (d+1)*r) of the contiguously packed batch)."""
+    r = n_pad // n_dev
+    return [min(max(n_real - d * r, 0), r) / r for d in range(n_dev)]
 
-    On CUDA: pin the host words, copy them in non_blocking on a side
-    stream, hash there, copy the digests back into pinned memory on the
-    same stream and record an event. Nothing here blocks the caller;
-    the returned callable waits on the event."""
-    words = blake3_torch.host_words(arr)
-    if device.type != "cuda":
-        out = blake3_torch.hash_batch(words, lens, chunks, device)
-        return lambda: out
-    stream = torch.cuda.Stream(device)
-    # pinned blocks are not reused before the copies recorded on them
-    # complete (PyTorch's host allocator records the stream), and device
-    # blocks allocated under the side stream are reused only in its order
-    with torch.cuda.stream(stream):
-        d_words = words.pin_memory().to(device, non_blocking=True)
-        d_lens = torch.from_numpy(lens).pin_memory().to(device, non_blocking=True)
-        roots = blake3_torch.hash_batch(d_words, d_lens, chunks, device)
-        host = torch.empty(roots.shape, dtype=roots.dtype, pin_memory=True)
-        host.copy_(roots, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
 
-    def wait() -> torch.Tensor:
-        done.synchronize()
-        return host
-
-    return wait
+def _host_rung(messages: Sequence[bytes]) -> Callable[[], list[str]]:
+    """The ladder's last cas rung: the same hash on the host. Counted,
+    logged and put on the resilience ring every time it runs."""
+    _tm.CAS_BACKEND_FALLBACK.inc()
+    _events.RESILIENCE_EVENTS.emit("cas_host_rung", messages=len(messages))
+    logger.warning("device ladder at the host rung: hashing %d cas messages on the CPU",
+                   len(messages))
+    return cas_ids_begin(messages, "cpu", _host=True)
 
 
 def cas_ids_begin(
-    messages: Sequence[bytes], device: str | torch.device = "cuda"
+    messages: Sequence[bytes], device: str | torch.device = "cuda",
+    devices: Sequence[torch.device] | None = None, _depth: int = 0, _host: bool = False,
 ) -> Callable[[], list[str]]:
     """Dispatch device hashing without blocking and return the finisher
     that waits and makes the hex ids. Splitting dispatch from completion
@@ -342,33 +347,115 @@ def cas_ids_begin(
     is still in flight (parallel/feeder.WindowPipeline).
 
     Messages group by chunk bucket (the 57-chunk hot bucket, else the
-    smallest small bucket that holds them), each part of at most
-    DEVICE_BATCH rows packs through `pack_canonical_batch`. A failure to
-    build, copy or launch raises: there is no host fallback."""
+    smallest small bucket that holds them); each part of at most
+    device_batch(n) rows packs through `pack_canonical_batch` and goes
+    to `blake3_torch.hash_batch_begin` on a slot list:
+
+    - explicit `devices` always shard over that list, strict: a failure
+      raises;
+    - `device` naming a type ("cuda") rides the degradation ladder over
+      that type's dispatch devices (parallel/mesh): a part shards when
+      it fills half the smallest sharded rung or exceeds DEVICE_BATCH,
+      an unsharded part runs on `device` (or, at the subset rung, on the
+      first surviving slot), and a dispatch or finish that fails demotes
+      the ladder and re-runs the whole call at the demoted rung inside
+      the same `finish()` — all slots → surviving slots → the host rung,
+      the same hash on the CPU, bit-identical;
+    - a pinned device ("cuda:0", or a type with no dispatch device) runs
+      strict on it, as does every call where the K1 build fails or no
+      CUDA device exists: those raise and never enter the ladder.
+
+    `_host` is the host rung itself: strict on the CPU, and, like the
+    JAX package's host backend, past the `device.blake3` fault point."""
     device = torch.device(device)
+    level: int | None = None
+    if _host:
+        devs, explicit = [torch.device("cpu")], True
+    elif devices is not None:
+        devs, explicit = [torch.device(d) for d in devices], True
+    elif (got := _mesh.ladder_devices(device)) is None:
+        devs, explicit = [device], True
+    else:
+        explicit = False
+        if _depth >= 3:
+            # recursion cap: straight to the host rung WITHOUT consulting
+            # the ladder, which could hand this doomed call the probe
+            return _host_rung(messages)
+        if any(d.type == "cuda" for d in got[0] + [device]):
+            blake3_cuda.build()  # a failed build raises, outside the ladder
+        devs, level = got
+        if level == _mesh.LEVEL_HOST:
+            return _host_rung(messages)
+    n_dev = len(devs)
+
+    def _retry_demoted(exc: Exception) -> Callable[[], list[str]]:
+        _mesh.LADDER.record_failure(level, devs)
+        _tm.CAS_BACKEND_FALLBACK.inc()
+        _events.record_error("cas.ladder", exc)
+        # bounded re-dispatch at the demoted rung
+        return cas_ids_begin(messages, device, _depth=_depth + 1)
+
     buckets: dict[int, list[int]] = {}
     for i, msg in enumerate(messages):
         c = LARGE_CHUNKS if len(msg) == LARGE_MSG_LEN else _bucket_for(len(msg))
         buckets.setdefault(c, []).append(i)
 
+    step = device_batch(n_dev)
     in_flight: list[tuple[list[int], Callable[[], torch.Tensor]]] = []
-    for c, indices in sorted(buckets.items()):
-        for off in range(0, len(indices), DEVICE_BATCH):
-            part = indices[off:off + DEVICE_BATCH]
-            arr, lens = pack_canonical_batch([messages[i] for i in part], c)
-            in_flight.append((part, _dispatch(arr, lens, c, device)))
+    used_devices = False  # did any part run on the rung's slots?
+    try:
+        for c, indices in sorted(buckets.items()):
+            for off in range(0, len(indices), step):
+                part = indices[off:off + step]
+                # a shard-declined part must fit the single-device cap,
+                # so anything over it shards regardless of occupancy
+                shard = n_dev > 1 and (
+                    explicit
+                    or len(part) * 2 >= n_dev * BATCH_LADDER[0]
+                    or len(part) > DEVICE_BATCH
+                )
+                # at the subset rung an unsharded part still lands on a
+                # surviving slot; elsewhere it runs on the default device
+                on_default = not shard and not explicit and level != _mesh.LEVEL_SUBSET
+                slots = [device] if on_default else (devs if shard else devs[:1])
+                used_devices = used_devices or not on_default
+                arr, lens = pack_canonical_batch(
+                    [messages[i] for i in part], c, n_devices=n_dev if shard else 1
+                )
+                if shard:
+                    for frac in shard_occupancy(len(part), arr.shape[0], n_dev):
+                        _tm.DEVICE_DISPATCH_OCCUPANCY.observe(frac, op="blake3")
+                in_flight.append((part, blake3_torch.hash_batch_begin(
+                    arr, lens, c, slots, fault_point=not _host)))
+    except Exception as exc:  # noqa: BLE001 - a dispatch failure demotes
+        if explicit:
+            raise
+        return _retry_demoted(exc)
 
     def finish() -> list[str]:
         out: list[str | None] = [None] * len(messages)
-        for part, wait in in_flight:
-            words = wait()
-            if words.dim() != 2 or words.shape[1] != 8 or words.shape[0] < len(part):
-                raise ValueError(
-                    f"device returned wrong-shaped digest batch "
-                    f"{tuple(words.shape)} for {len(part)} rows"
-                )
-            for i, hx in zip(part, blake3_torch.words_to_hex(words[: len(part)], 16)):
-                out[i] = hx
+        try:
+            for part, wait in in_flight:
+                words = wait()
+                if words.dim() != 2 or words.shape[1] != 8 or words.shape[0] < len(part):
+                    raise ValueError(
+                        f"device returned wrong-shaped digest batch "
+                        f"{tuple(words.shape)} for {len(part)} rows"
+                    )
+                for i, hx in zip(part, blake3_torch.words_to_hex(words[: len(part)], 16)):
+                    out[i] = hx
+        except Exception as exc:  # noqa: BLE001 - CUDA faults surface here
+            if explicit:
+                raise
+            return _retry_demoted(exc)()
+        if not explicit:
+            if used_devices:
+                _mesh.LADDER.record_success(level)
+            else:
+                # the whole call ran unsharded on the default device: it
+                # proved nothing about the rung's slots, so a held
+                # half-open probe is released, never promoted
+                _mesh.LADDER.probe_inconclusive(level)
         return out  # type: ignore[return-value]
 
     return finish
@@ -376,7 +463,8 @@ def cas_ids_begin(
 
 def cas_ids(messages: Sequence[bytes], device: str | torch.device = "cuda") -> list[str]:
     """cas_ids for pre-assembled messages, batched per chunk bucket and
-    hashed on `device`. Order-preserving."""
+    hashed on `device` (through the ladder, see `cas_ids_begin`).
+    Order-preserving."""
     if not messages:
         return []
     return cas_ids_begin(messages, device)()

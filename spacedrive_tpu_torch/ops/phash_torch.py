@@ -31,10 +31,12 @@ from __future__ import annotations
 
 import functools
 from collections.abc import Iterator
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as _mesh
 
 HASH_BITS = 64
 DCT_SIZE = 32
@@ -129,6 +131,29 @@ def hamming_matrix(hashes: list[bytes], device: str | torch.device = "cuda") -> 
     pm = _plus_minus(torch.from_numpy(unpack_hashes(hashes)).to(device))
     gram = (pm @ pm.T).to(torch.int32)  # agreements − disagreements
     return ((HASH_BITS - gram) // 2).to(torch.uint8).cpu().numpy()
+
+
+def hamming_matrix_sharded(hashes: list[bytes], device: str | torch.device = "cuda",
+                           devices: Sequence[torch.device] | None = None) -> np.ndarray:
+    """`hamming_matrix` with its rows split over a slot list (`devices`,
+    else the dispatch devices of `device`'s type, else `device` alone):
+    the rows pad to a multiple of the slot count, each slot holds the
+    full ±1 column matrix (64 wide, tiny) and computes its share of rows;
+    the shares come back in row order. Exactly `hamming_matrix`."""
+    if not hashes:
+        return np.zeros((0, 0), np.uint8)
+    slots = [torch.device(d) for d in devices] if devices is not None else (
+        _mesh.auto_slots(device) or [torch.device(device)])
+    bits = unpack_hashes(hashes)
+    n = bits.shape[0]
+    bits, _pad = _mesh.pad_to_multiple(bits, len(slots))
+    r = bits.shape[0] // len(slots)
+    shares = []
+    for s, dev in enumerate(slots):
+        pm = _plus_minus(torch.from_numpy(bits).to(dev))
+        gram = (pm[s * r:(s + 1) * r] @ pm.T).to(torch.int32)
+        shares.append(((HASH_BITS - gram) // 2).to(torch.uint8))
+    return np.concatenate([share.cpu().numpy() for share in shares])[:n, :n]
 
 
 def match_bitmap(rows: torch.Tensor, cols: torch.Tensor, threshold: int) -> torch.Tensor:

@@ -16,7 +16,9 @@ kernel widened by 1/scale when downsampling, half-pixel sample centres,
 columns normalised to sum 1, samples outside the input zeroed) feed two
 batched float32 matmuls, then round half to even, clip, and cast to
 uint8. The matmuls run inside `utils/precision.strict_fp32`, so they are
-full float32 even where the caller turned TF32 on.
+full float32 even where the caller turned TF32 on. A bucket's batch can
+split over a slot list and rides the device ladder (`resize_batch`);
+the `device.thumbnail` fault point sits before every bucket's dispatch.
 """
 
 from __future__ import annotations
@@ -27,7 +29,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh as _mesh
+from ..telemetry import metrics as _tm
+from ..utils import faults as _faults
 from ..utils.precision import strict_fp32
+from .cas import shard_occupancy
 
 TARGET_PX = 262144  # ref:core/src/object/media/thumbnail/mod.rs:45
 WEBP_QUALITY = 30  # ref:thumbnail/mod.rs:49
@@ -122,22 +128,98 @@ def _resize_canvases(
     return out
 
 
+def _resize_bucket(
+    images, targets, flip, idxs, bh: int, bw: int, slots: list[torch.device],
+    fault_point: bool = True,
+) -> np.ndarray:
+    """Pack one bucket's canvases on the host and resample them over the
+    slot list `slots` (one equal share of the padded batch per slot,
+    launched on every slot before any is read back); returns the
+    [bpad, th_max, tw_max, 4] uint8 result, validated: a device that
+    returns the wrong shape is an error the caller can demote on, never
+    a silent corruption."""
+    n_dev = len(slots)
+    # pad the batch to a power of two (a few shapes, not one per group
+    # size); a sharded call also rounds up to the slot count so rows
+    # divide evenly
+    bpad = 1 << max(0, (len(idxs) - 1).bit_length())
+    if n_dev > 1:
+        bpad = max(bpad, n_dev)
+        bpad += (-bpad) % n_dev
+    canv = np.zeros((bpad, bh, bw, 4), np.uint8)
+    scales = np.ones((bpad, 2), np.float32)
+    th_max = tw_max = 1
+    for j, i in enumerate(idxs):
+        img = images[i]
+        th, tw = targets[i]
+        if flip[i]:
+            img = np.transpose(img, (1, 0, 2))
+            th, tw = tw, th
+        h, w = img.shape[:2]
+        # edge-replicate into the padding so the antialias window
+        # clamps at the image boundary instead of pulling in zeros
+        canv[j, :h, :w] = img
+        canv[j, h:, :w] = img[h - 1:h, :]
+        canv[j, :h, w:] = img[:, w - 1:w]
+        canv[j, h:, w:] = img[h - 1, w - 1]
+        scales[j] = (th / h, tw / w)
+        th_max, tw_max = max(th_max, th), max(tw_max, tw)
+    spec = _faults.hit("device.thumbnail") if fault_point else None
+    if spec is not None:
+        if spec.mode == "raise":
+            raise _faults.InjectedFault("injected device failure (thumbnail)")
+        if spec.mode == "xla":
+            raise _faults.device_error("device.thumbnail")
+    r = bpad // n_dev
+    if n_dev > 1:
+        _tm.SHARD_BATCH_ROWS.observe(r, op="thumbnail")
+        for frac in shard_occupancy(len(idxs), bpad, n_dev):
+            _tm.DEVICE_DISPATCH_OCCUPANCY.observe(frac, op="thumbnail")
+    shares = [
+        _resize_canvases(
+            torch.from_numpy(canv[s * r:(s + 1) * r]).to(dev),
+            torch.from_numpy(scales[s * r:(s + 1) * r]).to(dev),
+            th_max, tw_max,
+        )
+        for s, dev in enumerate(slots)
+    ]
+    out = np.concatenate([share.cpu().numpy() for share in shares])
+    if spec is not None and spec.mode == "wrong_shape":
+        out = out[:, : th_max // 2]
+    if out.shape != (bpad, th_max, tw_max, 4):
+        raise ValueError(
+            f"device resize returned shape {out.shape}, "
+            f"expected {(bpad, th_max, tw_max, 4)}"
+        )
+    return out
+
+
 def resize_batch(
     images: Sequence[np.ndarray],
     targets: Sequence[tuple[int, int]],
     out_size: int = OUT_CANVAS,
     device: str | torch.device = "cuda",
+    devices: Sequence[torch.device] | None = None,
+    host: bool = False,
 ) -> list[np.ndarray]:
     """Resize a batch of HxWx4 uint8 RGBA images to per-image (th, tw).
 
     Groups by input bucket, packs each bucket's canvases on the host
     (portraits transposed into the landscape half, edges replicated into
-    the padding, the batch padded to a power of two), copies them to
-    `device` and resamples them in one batched call per bucket. Returns
-    the resized uint8 arrays in input order. Images larger than the last
-    bucket, or targets beyond `out_size`, must be filtered by the caller
-    (process.needs_cpu_fallback)."""
-    device = torch.device(device)
+    the padding, the batch padded to a power of two), copies them to the
+    device and resamples them in one batched call per bucket and slot.
+    Returns the resized uint8 arrays in input order. Images larger than
+    the last bucket, or targets beyond `out_size`, must be filtered by
+    the caller (process.needs_cpu_fallback).
+
+    Explicit `devices` split every bucket's batch over that slot list,
+    strict. Otherwise a bucket rides the degradation ladder on `device`
+    (parallel/mesh.run_on_ladder): sharded over the dispatch devices
+    when each gets a real image, re-run at the demoted rung when it
+    fails. The per-image math is the same at every rung and share, so
+    pixels never change. `host` is the thumbnailer's CPU fallback: the
+    same resize on the CPU, strict and past the `device.thumbnail` fault
+    point."""
     results: list[np.ndarray | None] = [None] * len(images)
     by_bucket: dict[tuple[int, int], list[int]] = {}
     flip = [False] * len(images)
@@ -154,35 +236,16 @@ def resize_batch(
         by_bucket.setdefault(b, []).append(i)
 
     for (bh, bw), idxs in by_bucket.items():
-        bpad = 1 << max(0, (len(idxs) - 1).bit_length())
-        canv = np.zeros((bpad, bh, bw, 4), np.uint8)
-        scales = np.ones((bpad, 2), np.float32)
-        th_max = tw_max = 1
-        for j, i in enumerate(idxs):
-            img = images[i]
-            th, tw = targets[i]
-            if flip[i]:
-                img = np.transpose(img, (1, 0, 2))
-                th, tw = tw, th
-            h, w = img.shape[:2]
-            # edge-replicate into the padding so the antialias window
-            # clamps at the image boundary instead of pulling in zeros
-            canv[j, :h, :w] = img
-            canv[j, h:, :w] = img[h - 1:h, :]
-            canv[j, :h, w:] = img[:, w - 1:w]
-            canv[j, h:, w:] = img[h - 1, w - 1]
-            scales[j] = (th / h, tw / w)
-            th_max, tw_max = max(th_max, th), max(tw_max, tw)
-        out = _resize_canvases(
-            torch.from_numpy(canv).to(device),
-            torch.from_numpy(scales).to(device),
-            th_max, tw_max,
-        ).cpu().numpy()
-        if out.shape != (bpad, th_max, tw_max, 4):
-            raise ValueError(
-                f"device resize returned shape {out.shape}, "
-                f"expected {(bpad, th_max, tw_max, 4)}"
-            )
+        def call(slots, idxs=idxs, bh=bh, bw=bw):
+            return _resize_bucket(images, targets, flip, idxs, bh, bw, slots,
+                                  fault_point=not host)
+
+        if host:
+            out = call([torch.device("cpu")])
+        elif devices is not None:
+            out = call([torch.device(d) for d in devices])
+        else:
+            out = _mesh.run_on_ladder(device, len(idxs), call, "thumbnail.ladder")
         for j, i in enumerate(idxs):
             th, tw = targets[i]
             if flip[i]:

@@ -3,8 +3,9 @@
 Counterpart of the constants in `spacedrive_tpu/parallel/autotune.py`
 (the one home for pipeline sizing there too). The live controller that
 retunes them is not ported; these are its static top rungs, and the
-chunk-size functions return the single-device values its policy starts
-from.
+size functions return what its policy starts from: the per-device base
+times the accelerator count (`parallel/mesh.accelerator_count`), so one
+host window or chunk feeds every card of a sharded dispatch.
 """
 
 from __future__ import annotations
@@ -32,12 +33,18 @@ EMBED_DEVICE_BATCH = 32
 FEEDER_BASE_DEPTH = 3
 
 
-def thumb_chunk_rows() -> int:
+def identify_window_rows(n_accel: int = 1) -> int:
+    """Identifier cursor-window rows on a device backend: the host
+    window that becomes one feeder fetch."""
+    return IDENTIFY_DEVICE_WINDOW * max(1, n_accel)
+
+
+def thumb_chunk_rows(n_accel: int = 1) -> int:
     """Thumbnailer images per device resize chunk (the actor pipeline's
     quantum)."""
-    return THUMB_DEVICE_BATCH
+    return THUMB_DEVICE_BATCH * max(1, n_accel)
 
 
-def embed_chunk_rows() -> int:
+def embed_chunk_rows(n_accel: int = 1) -> int:
     """Images per embed step of the media job (one device forward)."""
-    return EMBED_DEVICE_BATCH
+    return EMBED_DEVICE_BATCH * max(1, n_accel)

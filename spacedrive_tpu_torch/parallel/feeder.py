@@ -1,7 +1,8 @@
 """Host→device feeding: overlap disk reads with device compute.
 
-Counterpart of `spacedrive_tpu/parallel/feeder.py`, without its
-telemetry, fault hooks and producer restart. On a large library the
+Counterpart of `spacedrive_tpu/parallel/feeder.py`, with its
+`feeder.fetch` fault point and its one producer restart, without its
+fetch-time and prefetch telemetry. On a large library the
 sampled reads (~56 KiB a file) dominate wall-clock, so the host must
 read window N+1 while the device hashes window N. `WindowPipeline` does
 that: a producer thread chains a cursor fetch function back to back
@@ -14,12 +15,28 @@ are in flight while the consumer finishes earlier windows.
 from __future__ import annotations
 
 import collections
+import logging
 import threading
+import time
 from typing import Any, Callable, Generic, TypeVar
 
+from ..telemetry import metrics as _tm
+from ..telemetry.events import RESILIENCE_EVENTS
+from ..utils import faults as _faults
 from .autotune import FEEDER_BASE_DEPTH
 
+logger = logging.getLogger(__name__)
+
 T = TypeVar("T")
+
+
+def pipeline_depth(n_devices: int, base: int = FEEDER_BASE_DEPTH, cap: int = 8) -> int:
+    """Prefetch depth that keeps an n-device dp dispatch fed: one extra
+    in-flight window per doubling of the device count (each window
+    drains n× faster, so the producer needs more read-ahead to hide the
+    same disk latency), capped so host memory stays bounded. 1→3, 2→4,
+    4→5, 8→6."""
+    return min(cap, base + max(0, int(n_devices).bit_length() - 1))
 
 
 class WindowPipeline(Generic[T]):
@@ -29,8 +46,10 @@ class WindowPipeline(Generic[T]):
     is exhausted. A daemon producer thread chains fetches back to back
     and parks up to `depth` ready windows; `take()` hands them to the
     consumer in order (`None` = end of stream). `close()` stops the
-    producer promptly. An exception in `fetch` ends the stream and is
-    raised to the consumer by `take()`."""
+    producer promptly. A producer that crashes (an exception in `fetch`,
+    or the `feeder.fetch` fault) is restarted once, resuming at the key
+    whose fetch failed (fetches are side-effect-free); a second crash
+    ends the stream and is raised to the consumer by `take()`."""
 
     def __init__(
         self,
@@ -48,6 +67,7 @@ class WindowPipeline(Generic[T]):
         self._done = False
         self._fetch = fetch
         self._error: BaseException | None = None
+        self._restarts_left = 1
         self._thread = threading.Thread(
             target=self._run, args=(start_key,), name="sd-window-pipeline",
             daemon=True,
@@ -57,6 +77,12 @@ class WindowPipeline(Generic[T]):
     def _run(self, key: Any) -> None:
         try:
             while not self._stop.is_set():
+                spec = _faults.hit("feeder.fetch")
+                if spec is not None:
+                    if spec.mode == "stall":
+                        time.sleep(spec.delay_s)
+                    elif spec.mode == "crash":
+                        raise _faults.InjectedFault("injected feeder producer crash")
                 item = self._fetch(key)
                 if item is None:
                     self._put(None)
@@ -64,12 +90,35 @@ class WindowPipeline(Generic[T]):
                 key, window = item
                 if not self._put(window):
                     return
-        except BaseException as e:  # surfaced to the consumer, never lost
+        except BaseException as e:
+            if self._restart(key, e):
+                return
+            # restart budget spent: surfaced to the consumer on take(),
             # published under the condition BEFORE the sentinel is
             # parked, so the consumer that pops the sentinel sees it
             with self._cond:
                 self._error = e
             self._put(None)
+
+    def _restart(self, key: Any, exc: BaseException) -> bool:
+        """Re-spawn the producer once after a crash, resuming at the
+        window whose fetch failed. Returns False when the budget is
+        spent — the caller then surfaces the error."""
+        if self._stop.is_set() or self._restarts_left <= 0:
+            return False
+        self._restarts_left -= 1
+        _tm.FEEDER_RESTARTS.inc()
+        RESILIENCE_EVENTS.emit("feeder_restart", error=str(exc)[:200])
+        logger.warning("window pipeline producer crashed (%r); restarting it once", exc)
+        replacement = threading.Thread(
+            target=self._run, args=(key,), name="sd-window-pipeline", daemon=True,
+        )
+        # the handle swap races close()'s join of the old thread: both
+        # sides go through the condition, so close() joins the live one
+        with self._cond:
+            self._thread = replacement
+        replacement.start()
+        return True
 
     def _put(self, item) -> bool:
         """Park one window (or the end-of-stream sentinel); blocks while
@@ -119,4 +168,7 @@ class WindowPipeline(Generic[T]):
             # one notify wakes both sides: a producer blocked on a full
             # buffer and a consumer blocked on an empty one
             self._cond.notify_all()
-        self._thread.join(timeout=5)
+            # the live producer: _restart swaps the handle under the
+            # same condition
+            producer = self._thread
+        producer.join(timeout=5)

@@ -513,3 +513,64 @@ def test_float32_paths_hold_their_tolerances_with_tf32_on():
     finally:
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+# ---- the device seam (slot lists on the one card) -------------------------------
+
+
+def test_sharded_cas_on_cuda_slots_equals_single_device():
+    """[cuda:0] * 2: each slot hashes its share on a side stream of its
+    own; the ids equal the single-device path's at the production shape
+    and at row counts that leave pad rows."""
+    rng = np.random.default_rng(21)
+    msgs = [rng.bytes(cas.LARGE_MSG_LEN) for _ in range(2048)] + [
+        rng.bytes(int(n)) for n in rng.integers(1, 40_000, 37)]
+    single = cas.cas_ids(msgs, "cuda")
+    for rows in (len(msgs), 2048, 33, 5):
+        assert cas.cas_ids_begin(msgs[:rows], devices=[torch.device("cuda", 0)] * 2)() \
+            == single[:rows]
+    for i in (0, 2047, len(msgs) - 1):
+        assert single[i] == blake3_ref.blake3_hex(msgs[i])[:16]
+
+
+def test_injected_cuda_fault_retries_inside_finish_with_equal_ids():
+    """`device.blake3:xla` on the auto path: the dispatch raises a
+    CUDA-shaped error, the ladder demotes (one card: to the host rung)
+    and the batch re-runs inside `finish()`; the ids do not change."""
+    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.telemetry import metrics as tm
+    from spacedrive_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(22)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(1, cas.MAX_SMALL_MSG_LEN, 200)] + [
+        rng.bytes(cas.LARGE_MSG_LEN) for _ in range(100)]
+    clean = cas.cas_ids(msgs, "cuda")
+    before = tm.CAS_BACKEND_FALLBACK.value()
+    mesh.LADDER.reset()
+    try:
+        with faults.active(faults.FaultPlan.parse("device.blake3:xla:times=1")) as plan:
+            assert cas.cas_ids(msgs, "cuda") == clean
+        assert plan.activations() == {"device.blake3": 1}
+        assert tm.CAS_BACKEND_FALLBACK.value() >= before + 1
+        assert mesh.LADDER.level == mesh.LEVEL_HOST
+    finally:
+        mesh.LADDER.reset()
+
+
+def test_strict_fp32_under_medium_precision_on_the_card():
+    """A caller on "medium": the embedder still computes at full float32
+    inside `strict_fp32`, and the caller gets "medium" back."""
+    from spacedrive_tpu_torch.utils.precision import precision_state
+
+    x = np.random.default_rng(23).random((20, 32, 32, 3), dtype=np.float32)
+    want = embed_torch.embed_batch(x, "cpu")
+    try:
+        torch.set_float32_matmul_precision("medium")
+        before = precision_state()
+        np.testing.assert_allclose(embed_torch.embed_batch(x, "cuda"), want,
+                                   atol=1e-5, rtol=1e-5)
+        assert precision_state() == before
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
