@@ -54,14 +54,27 @@ rendered scenes in a folder per kind, `labeler train` on the card at
 the TrainConfig defaults (600 steps), then `index --library` of 48
 held-out renders, whose labels must name their kind and equal a CPU
 forward of the saved checkpoint; (c) the resize, the embedder and the
-scorer with the TF32 globals on, against the CPU.
+scorer with the TF32 globals on, against the CPU. After each of phases
+2-7 no degradation counter may have moved (`check_healthy`): those
+phases run with no fault plan. Phase 8 is the device seam on the one
+card: (a) cas_ids over slot lists `[cuda:0] * k`, k = 1-4, at 1024 x 57
+rows per slot and at row counts that leave pad rows, against the
+single-device path and the reference, K1 timed per slot count, the
+resize and the embedder at k = 2 and 4 against k = 1, and the sharded
+Hamming matrix; (b) `index_pass` again over phase 3's files (hard links
+taken before phase 4) under four injected faults, whose results must
+be phase 3's, with the planned activations, one feeder restart, a cas
+fallback and the one-device ladder's end level; a host-ranked query on
+phase 5's index; a thumbnailer chunk forced past the ladder to the CPU
+resize; (c) the hardware inventory against `nvidia-smi` and a profiled
+identify job whose trace names K1.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
-table, the pass's stage times, the read side's, the labeler's and the
-training's numbers as JSON.
+table, the pass's stage times, the read side's, the labeler's, the
+training's and the device seam's numbers as JSON.
 """
 
 from __future__ import annotations

@@ -574,3 +574,84 @@ def test_strict_fp32_under_medium_precision_on_the_card():
     finally:
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+# ---- several cards (they skip on a one-card machine) -----------------------------
+
+
+def _cards() -> list:
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _k1_launches_by_card(fn) -> dict:
+    """K1 kernels per device index in a torch.profiler trace of `fn()`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for evt in prof.events():
+        if "blake3_chunk_cvs_kernel" in evt.name and evt.device_type == torch.autograd.DeviceType.CUDA:
+            counts[evt.device_index] = counts.get(evt.device_index, 0) + 1
+    return counts
+
+
+def test_sharded_dispatch_over_every_card_equals_one_card():
+    """Each card's share launches K1 on that card (never on cuda:0), and
+    the ids, pixels, vectors and Hamming matrix equal one card's."""
+    from spacedrive_tpu_torch.ops import phash_torch
+
+    cards = _cards()
+    rng = np.random.default_rng(31)
+    msgs = [rng.bytes(cas.LARGE_MSG_LEN) for _ in range(1024 * len(cards))] + [
+        rng.bytes(int(n)) for n in rng.integers(1, 40_000, 77)]
+    one = cas.cas_ids_begin(msgs, devices=cards[:1])()
+    counts = _k1_launches_by_card(lambda: cas.cas_ids_begin(msgs, devices=cards)())
+    assert sorted(counts) == list(range(len(cards)))
+    assert len(set(counts.values())) == 1
+    assert cas.cas_ids_begin(msgs, devices=cards)() == one
+    assert cas.cas_ids(msgs, "cuda") == one  # auto: every dispatch device
+    shapes = [(900, 600), (600, 900), (2000, 1500), (300, 200), (480, 640)] * 2
+    images = [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for h, w in shapes]
+    targets = [tt.scale_dimensions(w, h)[::-1] for h, w in shapes]
+    want = tt.resize_batch(images, targets, devices=cards[:1])
+    for g, w in zip(tt.resize_batch(images, targets, devices=cards), want):
+        assert g.shape == w.shape
+        assert int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max()) <= 1
+    x = rng.random((20, 32, 32, 3), dtype=np.float32)
+    np.testing.assert_allclose(embed_torch.embed_batch(x, devices=cards),
+                               embed_torch.embed_batch(x, devices=cards[:1]),
+                               atol=1e-5, rtol=1e-5)
+    hashes = [rng.bytes(8) for _ in range(1000)]
+    assert np.array_equal(phash_torch.hamming_matrix_sharded(hashes, "cuda"),
+                          phash_torch.hamming_matrix(hashes, "cuda"))
+
+
+def test_a_dead_card_leaves_the_ladder_on_the_survivors():
+    """A failed dispatch over every card probes each one; with card 1
+    reading as dead the ladder keeps the others, the batch re-runs over
+    them inside `finish()`, and the ids do not change."""
+    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.utils import faults
+
+    cards = _cards()
+    rng = np.random.default_rng(32)
+    msgs = [rng.bytes(cas.LARGE_MSG_LEN) for _ in range(512 * len(cards))]
+    clean = cas.cas_ids(msgs, "cuda")
+    mesh.LADDER.reset()
+    try:
+        plan = "device.blake3:xla:times=1;device.probe:dead:arg=1,times=inf"
+        with faults.active(faults.FaultPlan.parse(plan)):
+            assert cas.cas_ids(msgs, "cuda") == clean
+            assert mesh.LADDER.level == mesh.LEVEL_SUBSET
+            survivors, level = mesh.LADDER.filter(cards)
+            assert level == mesh.LEVEL_SUBSET
+            assert survivors == [c for i, c in enumerate(cards) if i != 1]
+            counts = _k1_launches_by_card(lambda: cas.cas_ids(msgs, "cuda"))
+        assert 1 not in counts and len(counts) == len(cards) - 1
+    finally:
+        mesh.LADDER.reset()
