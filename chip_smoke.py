@@ -64,8 +64,10 @@ resize and the embedder at k = 2 and 4 against k = 1, and the sharded
 Hamming matrix; (b) `index_pass` again over phase 3's files (hard links
 taken before phase 4) under four injected faults, whose results must
 be phase 3's, with the planned activations, one feeder restart, a cas
-fallback and the one-device ladder's end level; a host-ranked query on
-phase 5's index; a thumbnailer chunk forced past the ladder to the CPU
+fallback and the one-device ladder's end level; one more injected K1
+failure at the shipped reset_timeout, after which the retry and the
+next call must hash on the card at the ladder's last rung, never on the
+CPU; a host-ranked query on phase 5's index; a thumbnailer chunk forced past the ladder to the CPU
 resize; (c) the hardware inventory against `nvidia-smi` and a profiled
 identify job whose trace names K1.
 
@@ -2043,6 +2045,7 @@ N_SEAM_IMAGES = 32
 N_SEAM_HASHES = 4096
 N_SEAM_ACTOR = 8
 N_SEAM_PROFILE = 64
+N_LAST_RUNG = 256  # hot and small messages each, through the cas last rung
 # every pipeline fault family once, on the main path
 SEAM_FAULTS = ("device.blake3:xla:times=1;device.thumbnail:raise:times=1;"
                "embed.forward:xla:times=1;feeder.fetch:crash:times=1")
@@ -2232,6 +2235,63 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
             "embed_max_diff": worst}
 
 
+def check_last_rung(rng) -> dict:
+    """The cas ladder at the shipped reset_timeout, as users get it: one
+    `device.blake3:xla` demotes the one card to the last rung, where the
+    batch re-runs inside `finish()` on the card (K1 launches, every
+    slot a CUDA device) and so does the next call: ids == the clean
+    run's, and nothing hashes on the CPU."""
+    from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, cas
+    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.telemetry.events import RESILIENCE_EVENTS
+    from spacedrive_tpu_torch.utils import faults
+
+    check(mesh.LADDER.reset_timeout == mesh.DeviceLadder().reset_timeout,
+          f"reset_timeout {mesh.LADDER.reset_timeout} is not the shipped default")
+    msgs = [rng.bytes(cas.LARGE_MSG_LEN) for _ in range(N_LAST_RUNG)] + [
+        rng.bytes(int(n)) for n in rng.integers(1, cas.MAX_SMALL_MSG_LEN, N_LAST_RUNG)]
+    clean = cas.cas_ids(msgs, DEVICE)
+    before = degradation()
+    RESILIENCE_EVENTS.clear()
+    slots, real = [], blake3_torch.hash_batch_begin
+
+    def spy(arr, lens, c, devices):
+        slots.extend(devices)
+        return real(arr, lens, c, devices)
+
+    plan = faults.FaultPlan.parse("device.blake3:xla:times=1")
+    blake3_torch.hash_batch_begin = spy
+    try:
+        blake3_cuda.chunk_cvs.launches = 0
+        with faults.active(plan):
+            retried = cas.cas_ids(msgs, DEVICE)
+        retry_launches, level = blake3_cuda.chunk_cvs.launches, mesh.LADDER.level
+        blake3_cuda.chunk_cvs.launches = 0
+        later = cas.cas_ids(msgs, DEVICE)
+        later_launches = blake3_cuda.chunk_cvs.launches
+    finally:
+        blake3_torch.hash_batch_begin = real
+        mesh.LADDER.reset()
+    rung_events = sum(e["type"] == "cas_last_rung" for e in RESILIENCE_EVENTS.snapshot())
+    RESILIENCE_EVENTS.clear()
+    delta = {k: v - before[k] for k, v in degradation().items()}
+    check(retried == clean and later == clean, "cas_ids at the last rung differ from the clean run")
+    check(plan.activations() == {"device.blake3": 1}, f"activations {plan.activations()}")
+    check(level == mesh.LEVEL_HOST, f"one failure on one card left the ladder at {level}")
+    check(retry_launches > 0 and later_launches > 0,
+          f"K1 launches at the last rung: {retry_launches} / {later_launches}")
+    check(bool(slots) and all(d.type == "cuda" for d in slots),
+          f"a last-rung share ran off the card: {sorted({str(d) for d in slots})}")
+    check(rung_events == 2 and delta["cas_fallbacks"] == 3,
+          f"last-rung events {rung_events}, cas fallbacks {delta['cas_fallbacks']}")
+    print(f"phase 8: device.blake3:xla at reset_timeout {mesh.LADDER.reset_timeout:g} s: the "
+          f"ladder fell to level {level}, the retry and the next call hashed {len(msgs)} "
+          f"messages on the card ({retry_launches} / {later_launches} K1 launches), ids == clean",
+          flush=True)
+    return {"launches": retry_launches + later_launches, "level": level,
+            "k1_launches": [retry_launches, later_launches]}
+
+
 def check_host_query(p4: dict, rng) -> dict:
     """`search.query:raise` on phase 5's index: the host ranks as the
     device does, and `sd_search_queries_total{path="host"}` moves by 1."""
@@ -2280,16 +2340,17 @@ def check_actor_fallback(p3: dict, snapshot: str, tmp: str) -> dict:
         entries.append((p3["cas_ids"][path], snap, snap.rsplit(".", 1)[1]))
     cas_of = {snap: c for c, snap, _ in entries}
     by_obj, host_out = {}, []
-    real_decode, real_host = actor_mod.decode, actor_mod.resize_decoded_host
+    real_decode, real_resize = actor_mod.decode, actor_mod.resize_decoded
 
     def decode(path, ext):
         d = real_decode(path, ext)
         by_obj[id(d)] = cas_of[path]
         return d
 
-    def host(ds):
-        out = real_host(ds)
-        host_out.extend((by_obj[id(d)], a) for d, a in zip(ds, out))
+    def resize(ds, device="cuda", devices=None):
+        out = real_resize(ds, device, devices)
+        if devices is not None:  # the actor's CPU fallback
+            host_out.extend((by_obj[id(d)], a) for d, a in zip(ds, out))
         return out
 
     async def run() -> tuple[int, int]:
@@ -2302,12 +2363,12 @@ def check_actor_fallback(p3: dict, snapshot: str, tmp: str) -> dict:
             await th.shutdown()
 
     RESILIENCE_EVENTS.clear()
-    actor_mod.decode, actor_mod.resize_decoded_host = decode, host
+    actor_mod.decode, actor_mod.resize_decoded = decode, resize
     try:
         with faults.active(faults.FaultPlan.parse("device.thumbnail:raise:times=inf")):
             generated, errors = asyncio.run(run())
     finally:
-        actor_mod.decode, actor_mod.resize_decoded_host = real_decode, real_host
+        actor_mod.decode, actor_mod.resize_decoded = real_decode, real_resize
         mesh.LADDER.reset()
     events = [e for e in RESILIENCE_EVENTS.snapshot() if e["type"] == "thumbnail_cpu_fallback"]
     check(len(events) == 1 and events[0]["fields"]["entries"] == len(entries),
@@ -2379,23 +2440,29 @@ def phase_device_seam(rng, tmp: str, p3: dict, p4: dict, snapshot: str, name_pow
 
     sharded = step("sharded", check_sharded, rng, p3)
     faulted = step("faults_pass", check_faults_pass, p3, p4, snapshot, tmp)
+    last_rung = step("last_rung", check_last_rung, rng)
     query = step("host_query", check_host_query, p4, rng)
     actor = step("actor_fallback", check_actor_fallback, p3, snapshot, tmp)
     inventory = step("inventory_profile", check_inventory_and_profile, name_power, snapshot, tmp)
     out = {"sharded": {k: v for k, v in sharded.items() if k != "launches"},
            "faults_pass": {k: v for k, v in faulted.items() if k != "launches"},
+           "last_rung": {k: v for k, v in last_rung.items() if k != "launches"},
            "host_query": query, "actor_fallback": actor,
            "inventory": {k: v for k, v in inventory.items() if k != "launches"},
            "steps_s": steps_s, "seconds": time.perf_counter() - t_phase}
     print(json.dumps({"device_seam": out}), flush=True)
     return {"launches": {"seam_sharded_cas": sharded["launches"],
                          "seam_index_pass_faults": faulted["launches"],
+                         "seam_last_rung": last_rung["launches"],
                          "seam_profiled_identify": inventory["launches"]}}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--stop-after", type=int, default=8, choices=range(3, 9),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 8: all); "
+                        "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2408,31 +2475,42 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     name_power = smi("name,power.limit")
     sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-    print(f"phase 1: {name_power}, max SM clock {sm_clock_hz / 1e6:.0f} MHz", flush=True)
+    print(f"phase 1: {name_power}, max SM clock {sm_clock_hz / 1e6:.0f} MHz, "
+          f"{torch.cuda.device_count()} card(s)", flush=True)
     t0 = time.perf_counter()
     blake3_cuda.build()
     print(f"phase 1: K1 built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel = phase_kernel(rng, sm_clock_hz)
     check_healthy("2")
+    launches: dict[str, int] = {}
     with tempfile.TemporaryDirectory(prefix="sd_chip_smoke_") as tmp:
         got = phase_pass(rng, tmp)
         check_healthy("3")
-        snapshot = snapshot_corpus(got["corpus"], os.path.join(tmp, "corpus_p3"))
-        lib = phase_library(rng, tmp, got)
-        check_healthy("4")
-        read = phase_read_side(rng, lib)
-        check_healthy("5")
-        labels = phase_labeler(rng, tmp, lib)
-        check_healthy("6")
-        training = phase_training(rng, tmp)
-        check_healthy("7")
-        seam = phase_device_seam(rng, tmp, got, lib, snapshot, name_power)
+        launches["index_pass"] = got["launches"]
+        if args.stop_after >= 4:
+            snapshot = snapshot_corpus(got["corpus"], os.path.join(tmp, "corpus_p3"))
+            lib = phase_library(rng, tmp, got)
+            check_healthy("4")
+            launches.update(lib["launches"])
+        if args.stop_after >= 5:
+            read = phase_read_side(rng, lib)
+            check_healthy("5")
+            launches.update(read["launches"])
+        if args.stop_after >= 6:
+            labels = phase_labeler(rng, tmp, lib)
+            check_healthy("6")
+            launches.update(labels["launches"])
+        if args.stop_after >= 7:
+            training = phase_training(rng, tmp)
+            check_healthy("7")
+            launches.update(training["launches"])
+        if args.stop_after >= 8:
+            seam = phase_device_seam(rng, tmp, got, lib, snapshot, name_power)
+            launches.update(seam["launches"])
     # launches on the main paths, each counted from 0 just before it
-    kernel["launches_by_path"] = {"index_pass": got["launches"], **lib["launches"],
-                                  **read["launches"], **labels["launches"],
-                                  **training["launches"], **seam["launches"]}
-    kernel["launches"] = sum(kernel["launches_by_path"].values())
+    kernel["launches_by_path"] = launches
+    kernel["launches"] = sum(launches.values())
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

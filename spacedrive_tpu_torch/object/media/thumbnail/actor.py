@@ -19,9 +19,9 @@ on threads. Images beyond a 4:1 aspect resize on the host
 On a device that rides the degradation ladder ("cuda", parallel/mesh)
 a chunk whose device resize failed past the ladder degrades, as in the
 JAX actor: it takes the same resize on the CPU
-(`process.resize_decoded_host`, within one level of the device's
-pixels; the JAX actor uses PIL there), emits `thumbnail_cpu_fallback`
-on the resilience ring and logs a WARNING. On a pinned device the
+(`process.resize_decoded` on a `[cpu]` slot list, within one level of
+the device's pixels; the JAX actor uses PIL there), emits
+`thumbnail_cpu_fallback` on the resilience ring and logs a WARNING. On a pinned device the
 failure is the batch's: the actor records it, and the first waiter
 that sees it (`wait_batch` for that batch, or `wait_library_batch` for
 its namespace) raises `ThumbnailerError` and clears it, so later
@@ -59,7 +59,6 @@ from .process import (
     needs_cpu_fallback,
     resize_cpu,
     resize_decoded,
-    resize_decoded_host,
 )
 from .state import Batch, load_state, save_state
 from .store import ThumbnailStore, get_shard_hex
@@ -463,7 +462,7 @@ class Thumbnailer:
             RESILIENCE_EVENTS.emit("thumbnail_cpu_fallback", entries=len(ds))
             logger.warning("device resize failed past the ladder (%r); %d images "
                            "resize on the CPU", exc, len(ds))
-            return await asyncio.to_thread(resize_decoded_host, ds)
+            return await asyncio.to_thread(resize_decoded, ds, devices=[torch.device("cpu")])
 
     def _stored(self, library_id: str | None, cas_id: str) -> None:
         self.generated += 1

@@ -116,16 +116,12 @@ def finish(decoded: Decoded, resized: np.ndarray) -> bytes:
     return encode_webp(np.ascontiguousarray(arr))
 
 
-def resize_decoded(batch: list[Decoded], device: str | torch.device = "cuda") -> list[np.ndarray]:
-    """One device call per bucket for a whole decoded batch."""
-    return tt.resize_batch([d.array for d in batch], [d.target for d in batch], device=device)
-
-
-def resize_decoded_host(batch: list[Decoded]) -> list[np.ndarray]:
-    """`resize_decoded`'s plain CPU version, within one level of the
-    device's pixels: the thumbnailer's fallback for a chunk whose device
-    resize failed past the ladder."""
-    return tt.resize_batch([d.array for d in batch], [d.target for d in batch], host=True)
+def resize_decoded(batch: list[Decoded], device: str | torch.device = "cuda",
+                   devices: list[torch.device] | None = None) -> list[np.ndarray]:
+    """One device call per bucket for a whole decoded batch (on the slot
+    list `devices` when given, see `resize_batch`)."""
+    return tt.resize_batch([d.array for d in batch], [d.target for d in batch], device=device,
+                           devices=devices)
 
 
 def resize_cpu(d: Decoded) -> bytes:

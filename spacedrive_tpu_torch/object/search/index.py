@@ -25,10 +25,13 @@ equal scores keep the lower row first, as `lax.top_k` orders them in
 the JAX package. The matrix stays on the device until a refresh changes
 it. The query's device is the caller's, else the library's node's, else
 "cuda". As in the JAX index, a device failure (or the `search.query`
-fault) degrades the query to the host: a stable descending sort of the
-numpy product, ties by the lower row, the same ranking; each such query
-is counted in `sd_search_queries_total{path="host"}`, logged and put on
-the resilience ring. A missing CUDA device is not a failure: it raises.
+fault) on a device that rides the degradation ladder (a device type
+with dispatch devices, parallel/mesh) degrades the query to the host: a
+stable descending sort of the numpy product, ties by the lower row, the
+same ranking; each such query is counted in
+`sd_search_queries_total{path="host"}`, logged and put on the
+resilience ring. On a pinned device ("cuda:0", "cpu") the failure
+raises, and a missing CUDA device is not a failure: it raises too.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from ...models import embedder as _embedder
+from ...parallel import mesh as _mesh
 from ...telemetry import metrics as _tm
 from ...telemetry.events import RESILIENCE_EVENTS
 from ...utils import faults as _faults
@@ -202,8 +206,8 @@ class LibraryIndex:
     def query(self, probe: np.ndarray, k: int = 10,
               device: str | torch.device | None = None) -> list[tuple[int, float]]:
         """Top-k (object_id, cosine) for a probe vector, scored on
-        `device` (see `device_of`); a device failure ranks on the host
-        instead, identically."""
+        `device` (see `device_of`); a device failure on a device that
+        rides the ladder ranks on the host instead, identically."""
         device = device_of(self._library, device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("search query on cuda, but no CUDA device is available")
@@ -229,6 +233,8 @@ class LibraryIndex:
             scores, rows = score_top_k(matrix, torch.from_numpy(probe).to(device), k)
             hits = [(ids[i], v) for i, v in zip(rows.tolist(), scores.tolist())]
         except Exception as exc:  # noqa: BLE001 - the host ranks identically
+            if not _mesh.auto_slots(device):
+                raise  # a pinned device never degrades
             with self._lock:
                 ids, matrix = list(self._ids), np.array(self._matrix, np.float32)
             s = matrix @ probe

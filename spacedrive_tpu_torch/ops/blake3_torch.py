@@ -332,15 +332,13 @@ def _slot_begin(words: torch.Tensor, lens: torch.Tensor, max_chunks: int,
 
 def hash_batch_begin(
     msgs, lengths, max_chunks: int | None, devices: Sequence[torch.device], chunk_stage=None,
-    fault_point: bool = True,
 ) -> Callable[[], torch.Tensor]:
     """Start hashing B host messages over the slot list `devices` and
     return the wait that gives their int32 [B, 8] roots on the host, in
     row order. Slot s hashes rows [s*B/k, (s+1)*B/k) of the k slots; B
     must divide by k (callers pad through cas.pack_canonical_batch).
-    Nothing here blocks the caller on a CUDA slot. `fault_point=False`
-    skips `device.blake3` (the cas ladder's host rung)."""
-    wrong_shape = _device_fault() if fault_point else False
+    Nothing here blocks the caller on a CUDA slot."""
+    wrong_shape = _device_fault()
     words, lens, max_chunks = _words_lens(msgs, lengths, max_chunks)
     devices = [torch.device(d) for d in devices]
     k, rows = len(devices), words.shape[0]

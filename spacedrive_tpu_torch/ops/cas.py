@@ -327,19 +327,22 @@ def shard_occupancy(n_real: int, n_pad: int, n_dev: int) -> list[float]:
     return [min(max(n_real - d * r, 0), r) / r for d in range(n_dev)]
 
 
-def _host_rung(messages: Sequence[bytes]) -> Callable[[], list[str]]:
-    """The ladder's last cas rung: the same hash on the host. Counted,
-    logged and put on the resilience ring every time it runs."""
+def _last_rung(messages: Sequence[bytes], device: torch.device) -> Callable[[], list[str]]:
+    """The ladder's last cas rung: the caller's default device, strict.
+    The JAX package ends on its host reference path; the port hashes on
+    the card it would have used unsharded and raises if that fails, so a
+    kernel failure never moves K1's work to the CPU. Counted, logged and
+    put on the resilience ring every time it runs."""
     _tm.CAS_BACKEND_FALLBACK.inc()
-    _events.RESILIENCE_EVENTS.emit("cas_host_rung", messages=len(messages))
-    logger.warning("device ladder at the host rung: hashing %d cas messages on the CPU",
-                   len(messages))
-    return cas_ids_begin(messages, "cpu", _host=True)
+    _events.RESILIENCE_EVENTS.emit("cas_last_rung", messages=len(messages))
+    logger.warning("device ladder at its last rung: hashing %d cas messages on %s alone",
+                   len(messages), device)
+    return cas_ids_begin(messages, device, devices=[device])
 
 
 def cas_ids_begin(
     messages: Sequence[bytes], device: str | torch.device = "cuda",
-    devices: Sequence[torch.device] | None = None, _depth: int = 0, _host: bool = False,
+    devices: Sequence[torch.device] | None = None, _depth: int = 0,
 ) -> Callable[[], list[str]]:
     """Dispatch device hashing without blocking and return the finisher
     that waits and makes the hex ids. Splitting dispatch from completion
@@ -359,33 +362,28 @@ def cas_ids_begin(
       an unsharded part runs on `device` (or, at the subset rung, on the
       first surviving slot), and a dispatch or finish that fails demotes
       the ladder and re-runs the whole call at the demoted rung inside
-      the same `finish()` — all slots → surviving slots → the host rung,
-      the same hash on the CPU, bit-identical;
+      the same `finish()` — all slots → surviving slots → the last rung,
+      `device` alone and strict (`_last_rung`), whose failure raises;
     - a pinned device ("cuda:0", or a type with no dispatch device) runs
       strict on it, as does every call where the K1 build fails or no
-      CUDA device exists: those raise and never enter the ladder.
-
-    `_host` is the host rung itself: strict on the CPU, and, like the
-    JAX package's host backend, past the `device.blake3` fault point."""
+      CUDA device exists: those raise and never enter the ladder."""
     device = torch.device(device)
     level: int | None = None
-    if _host:
-        devs, explicit = [torch.device("cpu")], True
-    elif devices is not None:
+    if devices is not None:
         devs, explicit = [torch.device(d) for d in devices], True
-    elif (got := _mesh.ladder_devices(device)) is None:
+    elif not (slots := _mesh.auto_slots(device)):
         devs, explicit = [device], True
+    elif _depth >= 3:
+        # recursion cap: straight to the last rung WITHOUT consulting the
+        # ladder, which could hand this doomed call the half-open probe
+        return _last_rung(messages, device)
     else:
         explicit = False
-        if _depth >= 3:
-            # recursion cap: straight to the host rung WITHOUT consulting
-            # the ladder, which could hand this doomed call the probe
-            return _host_rung(messages)
-        if any(d.type == "cuda" for d in got[0] + [device]):
+        if device.type == "cuda":
             blake3_cuda.build()  # a failed build raises, outside the ladder
-        devs, level = got
+        devs, level = _mesh.LADDER.filter(slots)
         if level == _mesh.LEVEL_HOST:
-            return _host_rung(messages)
+            return _last_rung(messages, device)
     n_dev = len(devs)
 
     def _retry_demoted(exc: Exception) -> Callable[[], list[str]]:
@@ -425,8 +423,7 @@ def cas_ids_begin(
                 if shard:
                     for frac in shard_occupancy(len(part), arr.shape[0], n_dev):
                         _tm.DEVICE_DISPATCH_OCCUPANCY.observe(frac, op="blake3")
-                in_flight.append((part, blake3_torch.hash_batch_begin(
-                    arr, lens, c, slots, fault_point=not _host)))
+                in_flight.append((part, blake3_torch.hash_batch_begin(arr, lens, c, slots)))
     except Exception as exc:  # noqa: BLE001 - a dispatch failure demotes
         if explicit:
             raise

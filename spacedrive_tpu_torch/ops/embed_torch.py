@@ -13,6 +13,7 @@ forward.
 from __future__ import annotations
 
 import copy
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -26,16 +27,24 @@ from ..utils.precision import strict_fp32
 from .cas import shard_occupancy
 
 
+# a given model's copies on the other slots' devices, made once each
+_COPIES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
 def _model_on(model: _embedder.PatchPoolEmbedder | None,
               dev: torch.device) -> _embedder.PatchPoolEmbedder:
-    """`model` where it lives on `dev`, else a copy there; the
+    """`model` where it lives on `dev`, else its copy there (made on
+    the first call that needs it and kept while the model lives); the
     seed-derived embedder when no model is given."""
     if model is None:
         return _embedder.PatchPoolEmbedder(dev)
     have = model.w1.device
     if have.type == dev.type and (dev.index is None or dev.index == have.index):
         return model
-    return copy.deepcopy(model).to(dev)
+    copies = _COPIES.setdefault(model, {})
+    if dev not in copies:
+        copies[dev] = copy.deepcopy(model).to(dev)
+    return copies[dev]
 
 
 def _embed_chunk(images: np.ndarray, slots: list[torch.device],
@@ -88,7 +97,8 @@ def embed_batch(
 ) -> np.ndarray:
     """Embed a [N, S, S, 3] float32 batch → [N, EMBED_DIM] float32.
     `model` defaults to the seed-derived embedder; a given model is used
-    on its device and copied to any other slot's.
+    on its device and copied once to any other slot's (its weights are
+    frozen, so the copy stays equal).
 
     Explicit `devices` split the batch over that slot list, strict.
     Otherwise the call rides the degradation ladder on `device`

@@ -18,7 +18,8 @@ batched float32 matmuls, then round half to even, clip, and cast to
 uint8. The matmuls run inside `utils/precision.strict_fp32`, so they are
 full float32 even where the caller turned TF32 on. A bucket's batch can
 split over a slot list and rides the device ladder (`resize_batch`);
-the `device.thumbnail` fault point sits before every bucket's dispatch.
+the `device.thumbnail` fault point sits before every bucket's dispatch
+on the ladder's path.
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ def _resize_canvases(
 
 def _resize_bucket(
     images, targets, flip, idxs, bh: int, bw: int, slots: list[torch.device],
-    fault_point: bool = True,
+    fault_point: bool,
 ) -> np.ndarray:
     """Pack one bucket's canvases on the host and resample them over the
     slot list `slots` (one equal share of the padded batch per slot,
@@ -200,7 +201,6 @@ def resize_batch(
     out_size: int = OUT_CANVAS,
     device: str | torch.device = "cuda",
     devices: Sequence[torch.device] | None = None,
-    host: bool = False,
 ) -> list[np.ndarray]:
     """Resize a batch of HxWx4 uint8 RGBA images to per-image (th, tw).
 
@@ -213,13 +213,12 @@ def resize_batch(
     the caller (process.needs_cpu_fallback).
 
     Explicit `devices` split every bucket's batch over that slot list,
-    strict. Otherwise a bucket rides the degradation ladder on `device`
-    (parallel/mesh.run_on_ladder): sharded over the dispatch devices
-    when each gets a real image, re-run at the demoted rung when it
-    fails. The per-image math is the same at every rung and share, so
-    pixels never change. `host` is the thumbnailer's CPU fallback: the
-    same resize on the CPU, strict and past the `device.thumbnail` fault
-    point."""
+    strict and past the `device.thumbnail` fault point (the thumbnailer's
+    CPU fallback is `devices=[cpu]`). Otherwise a bucket rides the
+    degradation ladder on `device` (parallel/mesh.run_on_ladder): sharded
+    over the dispatch devices when each gets a real image, re-run at the
+    demoted rung when it fails. The per-image math is the same at every
+    rung and share, so pixels never change."""
     results: list[np.ndarray | None] = [None] * len(images)
     by_bucket: dict[tuple[int, int], list[int]] = {}
     flip = [False] * len(images)
@@ -236,14 +235,11 @@ def resize_batch(
         by_bucket.setdefault(b, []).append(i)
 
     for (bh, bw), idxs in by_bucket.items():
-        def call(slots, idxs=idxs, bh=bh, bw=bw):
-            return _resize_bucket(images, targets, flip, idxs, bh, bw, slots,
-                                  fault_point=not host)
+        def call(slots, idxs=idxs, bh=bh, bw=bw, fault_point=True):
+            return _resize_bucket(images, targets, flip, idxs, bh, bw, slots, fault_point)
 
-        if host:
-            out = call([torch.device("cpu")])
-        elif devices is not None:
-            out = call([torch.device(d) for d in devices])
+        if devices is not None:
+            out = call([torch.device(d) for d in devices], fault_point=False)
         else:
             out = _mesh.run_on_ladder(device, len(idxs), call, "thumbnail.ladder")
         for j, i in enumerate(idxs):

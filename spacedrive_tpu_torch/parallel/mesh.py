@@ -16,6 +16,9 @@ by index ("cuda:1") or a type with no dispatch device (a CPU-only host
 asked for "cuda", where the op then raises) rides no ladder and runs
 strict, as do explicit `devices` lists. Only a dispatch that failed at
 run time demotes: a failed kernel build or a missing device raises.
+Every rung stays on the device type asked for: the last is the
+caller's default device alone, strict, and its failure raises (the JAX
+cas ladder ends on the host instead).
 
 `make_mesh`, `flat_mesh`, `batch_sharding` and `replicated` build JAX
 sharding objects and have no counterpart; `multihost_init` waits for
@@ -106,13 +109,14 @@ def auto_slots(device: str | torch.device) -> list[torch.device]:
 
 LEVEL_MESH = 0      # every slot
 LEVEL_SUBSET = 1    # the slots whose probe survived
-LEVEL_HOST = 2      # host reference path (cas) / the caller's default device
+LEVEL_HOST = 2      # the last rung: the caller's default device alone, strict
 
 
 class DeviceLadder:
     """Demotion ladder for device dispatch: all slots → surviving slot
-    subset → host rung — a failed batch degrades instead of failing the
-    job.
+    subset → the last rung (LEVEL_HOST, named after the JAX package's
+    host reference path; here the caller's default device alone) — a
+    failed batch degrades instead of failing the job.
 
     Callers take ``(devices, level)`` from :meth:`filter` and report
     the dispatch outcome back via :meth:`record_success` /
@@ -168,7 +172,7 @@ class DeviceLadder:
 
     def filter(self, devices: Sequence[torch.device]) -> tuple[list[torch.device], int]:
         """The slot list + ladder level for the next dispatch. An empty
-        list means the host rung. When a demoted ladder's reset timeout
+        list means the last rung. When a demoted ladder's reset timeout
         has elapsed, ONE caller gets the promoted level as a half-open
         probe (it must report the outcome)."""
         devices = list(devices)
@@ -269,7 +273,7 @@ LADDER = DeviceLadder()
 
 def ladder_devices(device: str | torch.device = "cuda") -> tuple[list[torch.device], int] | None:
     """`auto_slots(device)` filtered through the degradation ladder:
-    (devices, level), an empty list meaning the host rung; None when
+    (devices, level), an empty list meaning the last rung; None when
     `device` rides no ladder, so the caller runs strict on it. Callers
     MUST report the dispatch outcome back to ``LADDER``."""
     slots = auto_slots(device)

@@ -114,7 +114,7 @@ def clear_all() -> None:
 
 ERROR_EVENTS = ring("errors")      # caught and uncaught exceptions w/ tracebacks
 FAULT_EVENTS = ring("faults")      # injected-fault activations (utils/faults)
-RESILIENCE_EVENTS = ring("resilience")  # demotions, host rungs, feeder restarts
+RESILIENCE_EVENTS = ring("resilience")  # demotions, last rungs, feeder restarts
 
 
 def record_error(source: str, exc: BaseException | None,

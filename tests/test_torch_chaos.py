@@ -127,19 +127,37 @@ def test_blake3_fault_retries_inside_finish_and_ids_never_change(monkeypatch, mo
 
 
 def test_blake3_faults_at_every_rung_end_on_the_host_rung(monkeypatch):
+    """Two failures walk the ladder to its last rung, where the JAX
+    package hashes on the host: the port hashes on the caller's default
+    device alone, strict, counted every time, and a failure there
+    raises instead of moving the work to the CPU."""
     _slots(monkeypatch, 2)
     msgs = _msgs(40)
     clean = cas.cas_ids(msgs, "cpu")
     before = tm.CAS_BACKEND_FALLBACK.value()
     RESILIENCE_EVENTS.clear()
-    with faults.active(faults.FaultPlan.parse("device.blake3:xla:times=inf")):
-        assert cas.cas_ids(msgs, "cpu") == clean
-        # the host rung skips the device fault point, as the JAX host
-        # backend does, and is counted every time it runs
+    seen = []
+    real = cas.blake3_torch.hash_batch_begin
+
+    def spy(arr, lens, c, slots):
+        seen.append(list(slots))
+        return real(arr, lens, c, slots)
+
+    monkeypatch.setattr(cas.blake3_torch, "hash_batch_begin", spy)
+    with faults.active(faults.FaultPlan.parse("device.blake3:xla:times=2")):
         assert cas.cas_ids(msgs, "cpu") == clean
     assert mesh.LADDER.level == mesh.LEVEL_HOST
-    assert len(_events("cas_host_rung")) == 2
-    assert tm.CAS_BACKEND_FALLBACK.value() == before + 4  # 2 demotions + 2 host rungs
+    seen.clear()
+    # a later call at the last rung runs on the default device, counted
+    assert cas.cas_ids(msgs, "cpu") == clean
+    assert seen and all(s == [CPU] for s in seen)
+    with faults.active(faults.FaultPlan.parse("device.blake3:xla:times=inf")):
+        with pytest.raises(RuntimeError, match="injected CUDA failure"):
+            cas.cas_ids(msgs, "cpu")
+    assert mesh.LADDER.level == mesh.LEVEL_HOST
+    assert len(_events("cas_last_rung")) == 3
+    # 2 demotions and 3 last-rung calls
+    assert tm.CAS_BACKEND_FALLBACK.value() == before + 5
 
 
 def test_explicit_devices_and_pinned_devices_stay_strict(monkeypatch):
@@ -180,7 +198,8 @@ def _index(pkg, matrix):
 
 
 @pytest.mark.parametrize("mode", ["raise", "xla"])
-def test_search_query_fault_host_fallback_ranks_identically(mode):
+def test_search_query_fault_host_fallback_ranks_identically(monkeypatch, mode):
+    _slots(monkeypatch, 2)  # "cpu" rides the ladder, as "cuda" does on the card
     rng = np.random.default_rng(5)
     matrix = rng.standard_normal((300, 128)).astype(np.float32)
     matrix /= np.linalg.norm(matrix, axis=1, keepdims=True)
@@ -202,6 +221,17 @@ def test_search_query_fault_host_fallback_ranks_identically(mode):
                                    atol=1e-6)
         assert [h[1] for h in host_hits] == [h[1] for h in jax_host_hits]
     assert len(_events("search_host_rank")) == 3
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda:0"])
+def test_search_query_fault_on_a_pinned_device_raises(monkeypatch, device):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    idx = _index(pindex, np.eye(4, 128, dtype=np.float32))
+    host0 = tm.SEARCH_QUERIES.value(path="host")
+    with faults.active(faults.FaultPlan.parse("search.query:xla:times=1")):
+        with pytest.raises(RuntimeError, match="injected CUDA failure"):
+            idx.query(np.ones(128, np.float32), k=2, device=device)
+    assert tm.SEARCH_QUERIES.value(path="host") == host0
 
 
 def test_search_on_missing_cuda_raises_without_a_host_query(monkeypatch):

@@ -535,8 +535,10 @@ def test_sharded_cas_on_cuda_slots_equals_single_device():
 
 def test_injected_cuda_fault_retries_inside_finish_with_equal_ids():
     """`device.blake3:xla` on the auto path: the dispatch raises a
-    CUDA-shaped error, the ladder demotes (one card: to the host rung)
-    and the batch re-runs inside `finish()`; the ids do not change."""
+    CUDA-shaped error, the ladder demotes (one card: to its last rung)
+    and the batch re-runs inside `finish()` on the card, K1 launching;
+    the ids do not change, and a later call at the last rung hashes on
+    the card too, never on the CPU."""
     from spacedrive_tpu_torch.parallel import mesh
     from spacedrive_tpu_torch.telemetry import metrics as tm
     from spacedrive_tpu_torch.utils import faults
@@ -549,9 +551,15 @@ def test_injected_cuda_fault_retries_inside_finish_with_equal_ids():
     mesh.LADDER.reset()
     try:
         with faults.active(faults.FaultPlan.parse("device.blake3:xla:times=1")) as plan:
+            launches = blake3_cuda.chunk_cvs.launches
             assert cas.cas_ids(msgs, "cuda") == clean
+            assert blake3_cuda.chunk_cvs.launches > launches
         assert plan.activations() == {"device.blake3": 1}
         assert tm.CAS_BACKEND_FALLBACK.value() >= before + 1
+        assert mesh.LADDER.level == mesh.LEVEL_HOST
+        launches = blake3_cuda.chunk_cvs.launches
+        assert cas.cas_ids(msgs, "cuda") == clean
+        assert blake3_cuda.chunk_cvs.launches > launches
         assert mesh.LADDER.level == mesh.LEVEL_HOST
     finally:
         mesh.LADDER.reset()

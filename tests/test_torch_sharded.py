@@ -144,6 +144,20 @@ def test_sharded_embed_stays_within_tolerance():
     print(f"worst embedding difference across slot counts: {worst:.3g}")
 
 
+def test_a_given_embedder_is_copied_to_another_device_once():
+    """A model on one device serves a slot on another through one copy
+    per device, made on first use, not one per call."""
+    from spacedrive_tpu_torch.models.embedder import PatchPoolEmbedder
+
+    model = PatchPoolEmbedder("cpu")
+    assert embed_torch._model_on(model, CPU) is model
+    meta = torch.device("meta")
+    first = embed_torch._model_on(model, meta)
+    assert first is not model and first.w1.device == meta
+    assert embed_torch._model_on(model, meta) is first
+    assert embed_torch._model_on(PatchPoolEmbedder("cpu"), meta) is not first
+
+
 @pytest.mark.parametrize("n", [1, 37, 64])
 def test_hamming_matrix_sharded_equals_jax(n):
     rng = np.random.default_rng(n)
