@@ -55,8 +55,10 @@ the TrainConfig defaults (600 steps), then `index --library` of 48
 held-out renders, whose labels must name their kind and equal a CPU
 forward of the saved checkpoint; (c) the resize, the embedder and the
 scorer with the TF32 globals on, against the CPU. After each of phases
-2-7 no degradation counter may have moved (`check_healthy`): those
-phases run with no fault plan. Phase 8 is the device seam on the one
+2-7 no degradation counter may have moved (`check_healthy`; the
+process pool's errors, retries and restarts among them): those phases
+run with no fault plan, and the autotune controller is live in every
+Node they start. Phase 8 is the device seam on the one
 card: (a) cas_ids over slot lists `[cuda:0] * k`, k = 1-4, at 1024 x 57
 rows per slot and at row counts that leave pad rows, against the
 single-device path and the reference, K1 timed per slot count, the
@@ -69,14 +71,32 @@ failure at the shipped reset_timeout, after which the retry and the
 next call must hash on the card at the ladder's last rung, never on the
 CPU; a host-ranked query on phase 5's index; a thumbnailer chunk forced past the ladder to the CPU
 resize; (c) the hardware inventory against `nvidia-smi` and a profiled
-identify job whose trace names K1.
+identify job whose trace names K1; it prints the identify dispatch rows
+the autotune rung cap allows at the ladder's end level. Phase 9 is the
+host execution plane, with the ladder and the autotune controller
+reset first: (a) `index --library` then `duplicates` over phase 3's
+files (the hard links) and four near copies, on fresh data dirs, with
+`SD_PROCS=0` and with `SD_PROCS=min(8, cpu_count)` (the controller
+live in both): every planted pair in a near group; cas_ids, objects,
+media_data rows, pHash bits, duplicate groups and webp bytes equal,
+embeddings within 1e-5; the pool's worker gauge at N while it
+is up, at least one ok job per embed chunk and pHash row, and no pool
+error, retry or restart; (b) the pooled `duplicates` again, on a copy
+taken before it, under `procpool.worker:crash:times=1`: one restart, a
+retried job, the same groups and bits; (c) a FileIdentifierJob over
+the un-identified copy of (a)'s library, every fetch stalled past the
+controller's urgent wait, with a 0.2 s tick and the static window cut
+to 64 rows: at least 8 windows, the window widened, the depth
+deepened, decisions on the `autotune` ring and counter, the ids of
+(a); then `SD_AUTOTUNE=0`: the static sizes and the same ids.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
-training's and the device seam's numbers as JSON.
+training's, the device seam's and the execution plane's numbers as
+JSON.
 """
 
 from __future__ import annotations
@@ -2072,16 +2092,24 @@ def degradation() -> dict:
                                        for e in RESILIENCE_EVENTS.snapshot()),
         "feeder_restarts": tm.FEEDER_RESTARTS.value(),
         "fault_activations": tm.FAULTS_INJECTED.value(),
+        "pool_errors": tm.PROCPOOL_JOBS.value(result="error"),
+        "pool_retries": tm.PROCPOOL_JOBS.value(result="retried"),
+        "pool_restarts": tm.PROCPOOL_RESTARTS.value(),
     }
 
 
-def check_healthy(phase: str) -> None:
-    """Phases 2-7 run with no fault plan: a demotion, a cas fallback, a
-    host-ranked query, a CPU-resized chunk, a feeder restart or a fault
-    activation means a degraded run, which must not pass as healthy."""
+def check_healthy(phase: str, since: dict | None = None) -> None:
+    """Phases 2-7 and 9(a) run with no fault plan: a demotion, a cas
+    fallback, a host-ranked query, a CPU-resized chunk, a feeder
+    restart, a fault activation, or a process-pool error, retry or
+    restart means a degraded run, which must not pass as healthy. With
+    `since` (a `degradation()` taken before the phase) the counters are
+    read as the phase's deltas."""
     from spacedrive_tpu_torch.utils import faults
 
     got = degradation()
+    if since is not None:
+        got = {k: v if k.startswith("demotion") else v - since[k] for k, v in got.items()}
     check(faults.active_plan() is None and not any(got.values()),
           f"phase {phase} degraded: {got}")
 
@@ -2183,7 +2211,7 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
     cas fallback, and the one-device ladder's end level."""
     from spacedrive_tpu_torch.index_pass import index_pass
     from spacedrive_tpu_torch.ops import blake3_cuda, cas
-    from spacedrive_tpu_torch.parallel import mesh
+    from spacedrive_tpu_torch.parallel import autotune, mesh
     from spacedrive_tpu_torch.utils import faults
 
     before = degradation()
@@ -2201,6 +2229,9 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
     launches = blake3_cuda.chunk_cvs.launches
     after = degradation()
     end_level = mesh.LADDER.level
+    # what the autotune rung cap makes of that level (the JAX rule): the
+    # identify dispatch a one-card user gets until the process restarts
+    rows_at_end = autotune.policy("identify").dispatch_rows_per_device()
     mesh.LADDER.reset()
 
     rewritten = {os.path.relpath(p, p3["corpus"]) for p in p4["rewritten"]}
@@ -2230,7 +2261,10 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
           f"cas_ids == phase 3 ({len(changed)} rewritten == plain path), {len(p3['resized'])} "
           f"thumbnails' pixels == phase 3, embeddings within {worst:.3g}; activations "
           f"{plan.activations()}, ladder ended at level {end_level}", flush=True)
+    print(f"phase 8: policy('identify').dispatch_rows_per_device() at ladder level {end_level}: "
+          f"{rows_at_end}", flush=True)
     return {"launches": launches, "seconds": seconds, "end_level": end_level,
+            "dispatch_rows_at_end_level": rows_at_end,
             "activations": plan.activations(), "counter_deltas": delta,
             "embed_max_diff": worst}
 
@@ -2292,9 +2326,33 @@ def check_last_rung(rng) -> dict:
             "k1_launches": [retry_launches, later_launches]}
 
 
+#: the widest device-score gap across which the host may rank two hits
+#: the other way: 8 float32 ulp at a cosine of 1, fixed (the host's
+#: matrix-vector product and the device's product and sum round apart
+#: by about 1e-7); it does not grow with the gaps measured
+SWAP_EPS = 1e-6
+
+
+def ranking_swaps(device_hits: list, host_hits: list) -> list:
+    """Every place where the host's top-k ranks differently from the
+    device's: (x, y, device score of x - device score of y) for a pair
+    the host orders the other way, and (x, None, gap) / (None, y, gap)
+    for a hit one side has and the other has not, its gap to the other
+    side's k-th score. [] = the same ranking."""
+    dev, host = dict(device_hits), dict(host_hits)
+    pos = {i: r for r, (i, _) in enumerate(host_hits)}
+    out = [(x, y, sx - sy) for r, (x, sx) in enumerate(device_hits) for y, sy in device_hits[r + 1:]
+           if x in pos and y in pos and pos[x] > pos[y]]
+    out += [(i, None, s - host_hits[-1][1]) for i, s in device_hits if i not in host]
+    out += [(None, i, s - device_hits[-1][1]) for i, s in host_hits if i not in dev]
+    return out
+
+
 def check_host_query(p4: dict, rng) -> dict:
     """`search.query:raise` on phase 5's index: the host ranks as the
-    device does, and `sd_search_queries_total{path="host"}` moves by 1."""
+    device does but for hits whose device scores lie within SWAP_EPS of
+    each other (every such swap printed with its gap), the scores
+    within 1e-5, and `sd_search_queries_total{path="host"}` moves by 1."""
     from spacedrive_tpu_torch.object.search import index as search_index
     from spacedrive_tpu_torch.telemetry import metrics as tm
     from spacedrive_tpu_torch.utils import faults
@@ -2312,13 +2370,22 @@ def check_host_query(p4: dict, rng) -> dict:
     finally:
         lib.close()
     check(tm.SEARCH_QUERIES.value(path="host") == host0 + 1, "the host query was not counted")
-    check([h[0] for h in host_hits] == [h[0] for h in device_hits],
-          "the host ranking differs from the device ranking")
-    diff = max(abs(a[1] - b[1]) for a, b in zip(host_hits, device_hits))
+    host_of = dict(host_hits)
+    diff = max(abs(host_of[i] - s) for i, s in device_hits if i in host_of)
+    scores = [s for _, s in device_hits]
+    closest = min(a - b for a, b in zip(scores, scores[1:]))
+    swaps = ranking_swaps(device_hits, host_hits)
+    wide = [s for s in swaps if abs(s[2]) > SWAP_EPS]
+    check(not wide, f"the host ranking differs from the device ranking beyond {SWAP_EPS:g}: "
+          f"{wide} (all swaps {swaps}; host-device score diff {diff:.3g}); host {host_hits}, "
+          f"device {device_hits}")
     check(diff <= 1e-5, f"host scores differ by {diff}")
     print(f"phase 8: search.query fault: host ranking == device ranking over {len(vecs)} vectors "
-          f"(scores within {diff:.3g})", flush=True)
-    return {"host_score_max_diff": diff}
+          f"but for {len(swaps)} swaps within {SWAP_EPS:g} {[(x, y, f'{g:.3g}') for x, y, g in swaps]}"
+          f" (scores within {diff:.3g}; closest adjacent device scores {closest:.3g} apart)",
+          flush=True)
+    return {"host_score_max_diff": diff, "swaps": [list(s) for s in swaps],
+            "closest_gap": closest}
 
 
 def check_actor_fallback(p3: dict, snapshot: str, tmp: str) -> dict:
@@ -2456,12 +2523,407 @@ def phase_device_seam(rng, tmp: str, p3: dict, p4: dict, snapshot: str, name_pow
                          "seam_last_rung": last_rung["launches"],
                          "seam_profiled_identify": inventory["launches"]}}
 
+# --- phase 9: the host execution plane ------------------------------------
+
+# the process pool's size on the card's host: one worker a core, at most 8
+N_POOL = min(8, os.cpu_count() or 1)
+POOL_LIBRARY = "pool"
+# near copies added to phase 9's library (the first JPEGs and PNGs by
+# path), so the duplicate runs have near groups to find
+N_POOL_NEAR = 2
+# 9(c): every producer fetch stalls past URGENT_WAIT_S (0.5 s), and the
+# static identify window is cut from 1,024 to 64 rows a card so phase
+# 3's 4,096 rows make at least 8 windows while the controller widens them
+CONTROLLER_STALL = "feeder.fetch:stall:times=inf,delay_s=0.6"
+CONTROLLER_WINDOW = 64
+CONTROLLER_INTERVAL_S = 0.2
+
+
+def pool_counters() -> dict:
+    from spacedrive_tpu_torch.telemetry import metrics as tm
+
+    return {"ok": tm.PROCPOOL_JOBS.value(result="ok"),
+            "error": tm.PROCPOOL_JOBS.value(result="error"),
+            "retried": tm.PROCPOOL_JOBS.value(result="retried"),
+            "restarts": tm.PROCPOOL_RESTARTS.value(),
+            "workers": tm.PROCPOOL_WORKERS.value()}
+
+
+def file_cas(data_dir: str) -> dict:
+    """cas_id by file key (materialized path, name, extension)."""
+    lib = _open_library(data_dir)
+    try:
+        return {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"]
+                for r in lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")}
+    finally:
+        lib.close()
+
+
+def pool_library(data_dir: str) -> dict:
+    """What the pool must not change, by file key or cas_id: cas_ids,
+    the object count, media_data rows, pHash bits, embeddings and webp
+    bytes."""
+    lib = _open_library(data_dir)
+    try:
+        db = lib.db
+        cas_of = {r["id"]: r["cas_id"] for r in db.query(
+            "SELECT o.id, fp.cas_id FROM object o JOIN file_path fp ON fp.object_id = o.id")}
+        out = {
+            "objects": db.count("object"),
+            "media_data": {cas_of[r["object_id"]]: {k: r[k] for k in r.keys()
+                                                    if k not in ("id", "object_id")}
+                           for r in db.query("SELECT * FROM media_data")},
+            "phash": {cas_of[r["id"]]: bytes(r["phash"]) for r in db.query(
+                "SELECT id, phash FROM object WHERE phash IS NOT NULL")},
+            "vectors": {cas_of[r["object_id"]]: np.frombuffer(r["vector"], "<f4")
+                        for r in db.query("SELECT object_id, vector FROM object_embedding")},
+            "lib_id": str(lib.id),
+        }
+    finally:
+        lib.close()
+    out["cas"] = file_cas(data_dir)
+    out["thumbs"] = {}
+    for dirpath, _, files in os.walk(os.path.join(data_dir, "thumbnails")):
+        for f in files:
+            if f.endswith(".webp"):
+                with open(os.path.join(dirpath, f), "rb") as fh:
+                    out["thumbs"][f] = fh.read()
+    return out
+
+
+def _groups_by_cas(groups: list, data_dir: str) -> list:
+    cas_of = {}
+    lib = _open_library(data_dir)
+    try:
+        for r in lib.db.query("SELECT object_id, cas_id FROM file_path WHERE object_id IS NOT NULL"):
+            cas_of[r["object_id"]] = r["cas_id"]
+    finally:
+        lib.close()
+    return sorted((g["kind"], sorted({cas_of[o] for o in g["object_ids"]})) for g in groups)
+
+
+def _pool_duplicates(data_dir: str) -> tuple[list, float, float, dict]:
+    """`duplicates` on a Node the smoke reads: groups, wall seconds, the
+    decode leg's seconds and the job's metadata."""
+    import asyncio
+
+    from spacedrive_tpu_torch.cli import duplicates_library
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    node = Node(data_dir, device=DEVICE, with_labeler=False)
+    t0 = time.perf_counter()
+    groups = asyncio.run(duplicates_library(data_dir, POOL_LIBRARY, DUP_THRESHOLD, DEVICE,
+                                            node=node))
+    seconds = time.perf_counter() - t0
+    lib = _open_library(data_dir)
+    try:
+        row = lib.db.query_one("SELECT metadata FROM job WHERE name = 'duplicate_detector' "
+                               "ORDER BY date_created DESC, rowid DESC LIMIT 1")
+    finally:
+        lib.close()
+    return groups, seconds, node.stage_seconds.get("phash_decode", 0.0), unpackb(row["metadata"])
+
+
+def pool_leg(corpus: str, data_dir: str, procs: int, crash_copy: str | None = None) -> dict:
+    """`index --library` then `duplicates` with SD_PROCS=procs, fresh
+    data dir, the controller live; K1's launches counted from 0 over
+    both. With `crash_copy` the data dir is copied there between the
+    two (for 9(b))."""
+    import asyncio
+    import shutil
+    from datetime import datetime
+
+    from spacedrive_tpu_torch.cli import index_library
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    os.environ["SD_PROCS"] = str(procs)
+    node = Node(data_dir, device=DEVICE, with_labeler=False)
+    blake3_cuda.chunk_cvs.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(index_library(corpus, data_dir, POOL_LIBRARY, DEVICE, node=node))
+    index_s = time.perf_counter() - t0
+    lib = _open_library(data_dir)
+    try:
+        jobs = {j["name"]: j for j in lib.db.query("SELECT * FROM job")}
+    finally:
+        lib.close()
+    media = jobs["media_processor"]
+    media_s = (datetime.fromisoformat(media["date_completed"])
+               - datetime.fromisoformat(media["date_started"])).total_seconds()
+    embeds = unpackb(media["metadata"])["embeddings_written"]
+    if crash_copy is not None:
+        shutil.copytree(data_dir, crash_copy)
+    groups, dup_s, dup_decode_s, dup_meta = _pool_duplicates(data_dir)
+    launches = blake3_cuda.chunk_cvs.launches
+    out = pool_library(data_dir)
+    out.update(dir=data_dir, launches=launches, dup_meta=dup_meta, numbers={
+        "procs": procs, "index_s": index_s, "media_job_s": media_s,
+        "embed_decode_s": node.stage_seconds.get("embed_decode", 0.0),
+        "embed_forward_s": node.stage_seconds.get("embed_forward", 0.0),
+        "embed_chunks": -(-embeds // 32), "embeddings": embeds,
+        "duplicates_s": dup_s, "duplicates_decode_s": dup_decode_s,
+        "phash_hashed": dup_meta["hashed"], "k1_launches": launches})
+    out["groups"] = _groups_by_cas(groups, data_dir)
+    return out
+
+
+def check_pool_equal(got: dict, want: dict, what: str) -> float:
+    """Every result the pool must not change, exactly; the embeddings
+    within 1e-5. Returns the largest embedding difference."""
+    for key in ("cas", "objects", "media_data", "phash", "groups", "thumbs"):
+        check(got[key] == want[key], f"{what}: {key} differs from the inline run")
+    check(got["vectors"].keys() == want["vectors"].keys(), f"{what}: embedded objects differ")
+    worst = max((float(np.abs(v - want["vectors"][k]).max()) for k, v in got["vectors"].items()),
+                default=0.0)
+    check(worst <= 1e-5, f"{what}: embeddings differ by {worst}")
+    return worst
+
+
+def pool_corpus(snapshot: str, root: str) -> tuple[str, list]:
+    """Hard links to the snapshot plus N_POOL_NEAR re-encoded JPEGs and
+    N_POOL_NEAR resized PNGs under near/; returns the corpus and the
+    planted (original, copy) pairs as file keys."""
+    snapshot_corpus(snapshot, root)
+    images = sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
+                    for f in fs if f.endswith((".jpg", ".png")))
+    os.makedirs(os.path.join(root, "near"), exist_ok=True)
+    pairs = []
+    for ext in (".jpg", ".png"):
+        # the first that decode (phase 4 rewrote some files in place)
+        for p in (p for p in images if p.endswith(ext)):
+            if sum(a.endswith(ext) for a, _ in pairs) == N_POOL_NEAR:
+                break
+            copy = os.path.join("near", "n_" + os.path.basename(p))
+            try:
+                _near_copy((os.path.join(root, p), os.path.join(root, copy)))
+            except OSError:
+                continue
+            pairs.append((p, copy))
+
+    def key(rel: str) -> tuple:
+        d, f = os.path.split(rel)
+        name, ext = os.path.splitext(f)
+        return (f"/{d}/" if d else "/", name, ext[1:])
+
+    return root, [(key(a), key(b)) for a, b in pairs]
+
+
+def check_pool(snapshot: str, tmp: str) -> dict:
+    """(a) the pool against inline; (b) a worker crash in the pooled
+    duplicates run."""
+    from spacedrive_tpu_torch.parallel import procpool
+    from spacedrive_tpu_torch.utils import faults
+
+    clean = degradation()
+    snapshot, planted = pool_corpus(snapshot, os.path.join(tmp, "corpus_p9"))
+    inline = pool_leg(snapshot, os.path.join(tmp, "pool0"), 0)
+    check(all(f in inline["cas"] for pair in planted for f in pair),
+          f"planted files missing from the library: {planted}")
+    near = [set(ids) for kind, ids in inline["groups"] if kind == "near"]
+    missing = [(a, b) for a, b in planted
+               if not any({inline["cas"][a], inline["cas"][b]} <= g for g in near)]
+    check(not missing, f"planted pairs in no near group: {missing}")
+    check(not procpool.POOL.running() and pool_counters()["workers"] == 0,
+          "SD_PROCS=0 started the pool")
+    before = pool_counters()
+    os.environ["SD_PROCS"] = str(N_POOL)
+    check(procpool.POOL.start(), "the pool did not start")  # the smoke's own hold
+    try:
+        procpool.POOL.warm(timeout=60)
+        up = pool_counters()["workers"], procpool.POOL.worker_count()
+        crash_dir = os.path.join(tmp, "pool_crash")
+        pooled = pool_leg(snapshot, os.path.join(tmp, f"pool{N_POOL}"), N_POOL, crash_copy=crash_dir)
+        after = pool_counters()
+        check(up == (N_POOL, N_POOL) and after["workers"] == N_POOL,
+              f"workers while the pool is up: {up}, after the runs {after['workers']}")
+        worst = check_pool_equal(pooled, inline, "SD_PROCS=%d" % N_POOL)
+        check(pooled["launches"] > 0 and inline["launches"] > 0, "phase 9 launched K1 no time")
+        want_jobs = pooled["numbers"]["embed_chunks"] + pooled["numbers"]["phash_hashed"]
+        jobs_ok = after["ok"] - before["ok"]
+        check(jobs_ok >= want_jobs, f"{jobs_ok} pool jobs ok, want >= {want_jobs}")
+        check(after["error"] == before["error"] and after["retried"] == before["retried"]
+              and after["restarts"] == before["restarts"], f"pool failures: {before} -> {after}")
+        check_healthy("9a", since=clean)
+
+        # (b) one worker killed mid-job in the pooled duplicates run
+        plan = faults.FaultPlan.parse("procpool.worker:crash:times=1", seed=1)
+        with faults.active(plan):
+            groups, crash_s, _, _ = _pool_duplicates(crash_dir)
+        crashed = pool_counters()
+        crash_groups = _groups_by_cas(groups, crash_dir)
+        crash_phash = pool_library(crash_dir)["phash"]
+    finally:
+        procpool.POOL.stop()
+        os.environ.pop("SD_PROCS", None)
+    check(plan.activations() == {"procpool.worker": 1}, f"activations {plan.activations()}")
+    check(crashed["restarts"] - after["restarts"] == 1,
+          f"restarts under one crash: {crashed['restarts'] - after['restarts']}")
+    check(crashed["retried"] - after["retried"] >= 1, "the killed worker's job was not retried")
+    check(crash_groups == inline["groups"] and crash_phash == inline["phash"],
+          "the crashed duplicates run found other groups or bits")
+    check(pool_counters()["workers"] == 0, "the pool's workers outlived its last hold")
+    numbers = {"inline": inline["numbers"], "pooled": pooled["numbers"],
+               "n_pool": N_POOL, "cpu_count": os.cpu_count(), "embed_max_diff": worst,
+               "pool_jobs_ok": jobs_ok, "crash": {
+                   "seconds": crash_s, "restarts": crashed["restarts"] - after["restarts"],
+                   "retried": crashed["retried"] - after["retried"]}}
+    print(f"phase 9: SD_PROCS={N_POOL} (cpu_count {os.cpu_count()}) == SD_PROCS=0: "
+          f"{len(inline['cas'])} cas_ids, {inline['objects']} objects, "
+          f"{len(inline['media_data'])} media_data rows, {len(inline['phash'])} pHashes, "
+          f"{len(inline['groups'])} groups (the {len(planted)} planted pairs in near groups), "
+          f"{len(inline['thumbs'])} webps exact, embeddings "
+          f"within {worst:.3g}; {jobs_ok:g} pool jobs, 0 errors / retries / restarts; embed "
+          f"decode {inline['numbers']['embed_decode_s']:.2f} -> "
+          f"{pooled['numbers']['embed_decode_s']:.2f} s, duplicates decode "
+          f"{inline['numbers']['duplicates_decode_s']:.2f} -> "
+          f"{pooled['numbers']['duplicates_decode_s']:.2f} s; a worker crash: "
+          f"{numbers['crash']['restarts']:g} restart, {numbers['crash']['retried']:g} retried, "
+          f"same groups", flush=True)
+    return {"inline": inline, "launches": inline["launches"] + pooled["launches"],
+            "numbers": numbers}
+
+
+def _identify_again(src: str, dst: str, plan: str | None) -> dict:
+    """A copy of `src`'s data dir with every file un-identified, then one
+    FileIdentifierJob on the card (under `plan`); its cas_ids, the
+    controller's decisions and knobs, the windows fetched."""
+    import asyncio
+    import shutil
+
+    from spacedrive_tpu_torch.cli import _open
+    from spacedrive_tpu_torch.jobs import JobBuilder
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.object.file_identifier.job import FileIdentifierJob
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.parallel import autotune
+    from spacedrive_tpu_torch.telemetry import metrics as tm
+    from spacedrive_tpu_torch.telemetry.events import AUTOTUNE_EVENTS
+    from spacedrive_tpu_torch.utils import faults
+
+    shutil.copytree(src, dst)
+    lib = _open_library(dst)
+    try:
+        lib.db.execute("UPDATE file_path SET cas_id = NULL, object_id = NULL")
+        lib.db.execute("DELETE FROM index_journal")
+    finally:
+        lib.close()
+
+    async def run() -> None:
+        node = Node(dst, device=DEVICE, with_labeler=False)
+        try:
+            lib = await _open(node, POOL_LIBRARY)
+            loc = lib.db.query("SELECT id FROM location")[0]
+            await JobBuilder(FileIdentifierJob({"location_id": loc["id"], "backend": DEVICE})
+                             ).spawn(node.jobs, lib)
+            await node.jobs.wait_idle()
+        finally:
+            await node.shutdown()
+
+    AUTOTUNE_EVENTS.clear()
+    decisions0 = {(w, a): tm.AUTOTUNE_DECISIONS.value(workload=w, action=a)
+                  for w in autotune.WORKLOADS for a in ("promote", "demote")}
+    fetches0 = tm.FEEDER_FETCH_SECONDS.stats()["count"]
+    blake3_cuda.chunk_cvs.launches = 0
+    t0 = time.perf_counter()
+    with faults.active(faults.FaultPlan.parse(plan, seed=1) if plan else None):
+        asyncio.run(run())
+    seconds = time.perf_counter() - t0
+    counted = {f"{w}.{a}": tm.AUTOTUNE_DECISIONS.value(workload=w, action=a) - v
+               for (w, a), v in decisions0.items()}
+    return {"cas": file_cas(dst), "seconds": seconds, "launches": blake3_cuda.chunk_cvs.launches,
+            "windows": int(tm.FEEDER_FETCH_SECONDS.stats()["count"] - fetches0) - 1,
+            "decisions": [e["fields"] for e in AUTOTUNE_EVENTS.snapshot()
+                          if e["type"] == "decision"],
+            "decisions_counted": {k: v for k, v in counted.items() if v},
+            "knobs": autotune.policy("identify").snapshot()}
+
+
+def check_controller(inline: dict, tmp: str) -> dict:
+    """(c) the live controller on the card: a FileIdentifierJob whose
+    every fetch stalls past URGENT_WAIT_S widens its windows and deepens
+    its feeder, the decisions land on the ring and the counter, and the
+    ids equal the run without faults; then SD_AUTOTUNE=0 reads the
+    static sizes and gives the same ids."""
+    from spacedrive_tpu_torch.parallel import autotune, feeder, mesh
+
+    base = autotune.IDENTIFY_DEVICE_WINDOW
+    autotune.reset()
+    mesh.LADDER.reset()
+    autotune.CONTROLLER.interval = CONTROLLER_INTERVAL_S
+    autotune.IDENTIFY_DEVICE_WINDOW = CONTROLLER_WINDOW
+    try:
+        stalled = _identify_again(inline["dir"], os.path.join(tmp, "ctl_stall"), CONTROLLER_STALL)
+    finally:
+        autotune.IDENTIFY_DEVICE_WINDOW = base
+        autotune.CONTROLLER.interval = 1.0
+    knobs = stalled["knobs"]
+    check(stalled["cas"] == inline["cas"], "cas_ids under the stalled feeder differ")
+    check(stalled["windows"] >= 8, f"the stalled job fetched {stalled['windows']} windows")
+    # the depth is shed again while the loop lags (DB linking runs on the
+    # loop), so the check is that it was deepened, not where it ended
+    deepened = max((d["new"] for d in stalled["decisions"] if d["knob"] == "depth_extra"),
+                   default=0)
+    check(knobs["window_scale"] >= 2 and deepened >= 1,
+          f"the controller did not widen and deepen: {knobs}, depth reached {deepened}")
+    check(stalled["decisions"] and sum(stalled["decisions_counted"].values())
+          == len(stalled["decisions"]), f"decisions: ring {len(stalled['decisions'])}, "
+          f"counter {stalled['decisions_counted']}")
+    check(stalled["launches"] > 0, "the stalled identify launched K1 no time")
+
+    autotune.reset()
+    os.environ["SD_AUTOTUNE"] = "0"
+    try:
+        pol = autotune.policy("identify")
+        static = (pol.identify_window_rows(1), pol.feeder_depth(1), pol.dispatch_rows_per_device(),
+                  autotune.policy("embed").embed_chunk_rows(1),
+                  autotune.policy("thumbnail").thumb_chunk_rows(1))
+        check(static == (1024, feeder.pipeline_depth(1), 1024, 32, 32),
+              f"SD_AUTOTUNE=0 sizes {static}")
+        off = _identify_again(inline["dir"], os.path.join(tmp, "ctl_off"), None)
+    finally:
+        os.environ.pop("SD_AUTOTUNE", None)
+    check(off["cas"] == inline["cas"], "cas_ids under SD_AUTOTUNE=0 differ")
+    check(off["decisions"] == [] and off["windows"] == -(-len(inline["cas"]) // 1024),
+          f"SD_AUTOTUNE=0 made decisions or other windows: {off['windows']}")
+    autotune.reset()
+    print(f"phase 9: controller under {CONTROLLER_STALL} (window {CONTROLLER_WINDOW} rows, tick "
+          f"{CONTROLLER_INTERVAL_S} s): {stalled['windows']} windows in {stalled['seconds']:.1f} s, "
+          f"{len(stalled['decisions'])} decisions, final knobs {knobs}; ids == the clean run; "
+          f"SD_AUTOTUNE=0: {off['windows']} windows of 1024, ids equal", flush=True)
+    print(json.dumps({"controller_decisions": stalled["decisions"]}), flush=True)
+    return {"launches": stalled["launches"] + off["launches"], "numbers": {
+        "stalled": {k: stalled[k] for k in ("seconds", "windows", "knobs", "decisions_counted")},
+        "static": {k: off[k] for k in ("seconds", "windows")}}}
+
+
+def phase_execution_plane(tmp: str, snapshot: str) -> dict:
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    steps_s: dict[str, float] = {}
+    t0 = time.perf_counter()
+    pool = check_pool(snapshot, tmp)
+    steps_s["pool"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctl = check_controller(pool["inline"], tmp)
+    steps_s["controller"] = time.perf_counter() - t0
+    out = {"pool": pool["numbers"], "controller": ctl["numbers"], "steps_s": steps_s,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"execution_plane": out}), flush=True)
+    return {"launches": {"plane_pool_passes": pool["launches"],
+                         "plane_controller_identify": ctl["launches"]}}
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=8, choices=range(3, 9),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 8: all); "
+    parser.add_argument("--stop-after", type=int, default=9, choices=range(3, 10),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 9: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -2508,6 +2970,9 @@ def main() -> int:
         if args.stop_after >= 8:
             seam = phase_device_seam(rng, tmp, got, lib, snapshot, name_power)
             launches.update(seam["launches"])
+        if args.stop_after >= 9:
+            plane = phase_execution_plane(tmp, snapshot)
+            launches.update(plane["launches"])
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

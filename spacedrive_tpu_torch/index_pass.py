@@ -6,17 +6,22 @@ object/file_identifier/job.py → object/media/job.py), without the
 library DB, the job system, object linking, the index journal or sync:
 
 1. walk the location with its default rules (location/indexer/walker);
-2. identify: windows of IDENTIFY_DEVICE_WINDOW files per card flow
-   through `WindowPipeline`, whose producer reads each window's sampled
-   messages and dispatches them (`cas.cas_ids_begin`, which enqueues the
-   copy and the hash on a side stream) while the consumer finishes the
-   windows before it;
+2. identify: windows of files flow through `WindowPipeline`, whose
+   producer reads each window's sampled messages and dispatches them
+   (`cas.cas_ids_begin`, which enqueues the copy and the hash on a side
+   stream) while the consumer finishes the windows before it;
 3. thumbnails: one per distinct cas_id among decodable images, decoded
-   on the host, resized in device batches of THUMB_DEVICE_BATCH per
-   card, then oriented, encoded to webp and written to the thumbnail
-   store;
+   on the host, resized in device batches, then oriented, encoded to
+   webp and written to the thumbnail store;
 4. embed: the same images decode to the embedder's input plane and
-   embed in device batches of EMBED_DEVICE_BATCH per card.
+   embed in device batches.
+
+Every size comes from the autotune seam (parallel/autotune.py), as in
+FileIdentifierJob, so the library-less pass and the job size their
+windows the same way: the identify window (IDENTIFY_DEVICE_WINDOW per
+card while static) and the feeder depth are read per fetch, the
+thumbnail and embed chunks (THUMB_DEVICE_BATCH and EMBED_DEVICE_BATCH
+per card) per stage.
 
 On "cuda" every device call rides the degradation ladder
 (parallel/mesh.py): a failed batch re-runs at the demoted rung, so a
@@ -38,7 +43,7 @@ from .object.media.thumbnail import process
 from .object.media.thumbnail.store import ThumbnailStore
 from .ops import cas, embed_torch
 from .parallel import autotune as _autotune
-from .parallel.feeder import WindowPipeline, pipeline_depth
+from .parallel.feeder import WindowPipeline
 from .parallel.mesh import device_scale
 
 
@@ -66,12 +71,13 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
     out: list[str | None] = [None] * len(paths_sizes)
     read_s = dispatch_s = 0.0
     cards = device_scale(device)
-    window_rows = _autotune.identify_window_rows(cards)
+    pol = _autotune.policy("identify")
 
     def fetch(cursor: int):
         nonlocal read_s, dispatch_s
         if cursor >= len(paths_sizes):
             return None
+        window_rows = pol.identify_window_rows(cards)
         t0 = time.perf_counter()
         idx: list[int] = []
         msgs: list[bytes] = []
@@ -88,13 +94,14 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
         fin = cas.cas_ids_begin(msgs, device)
         read_s += t1 - t0
         dispatch_s += time.perf_counter() - t1
-        return cursor + window_rows, (idx, fin)
+        return cursor + window_rows, (idx, fin, msgs)
 
     wait_s = 0.0
-    pipe = WindowPipeline(fetch, 0, depth=pipeline_depth(cards))
+    pipe = WindowPipeline(fetch, 0, depth=lambda: pol.feeder_depth(cards),
+                          measure=lambda w: sum(len(m) for m in w[2]))
     try:
         while (window := pipe.take()) is not None:
-            idx, fin = window
+            idx, fin, _msgs = window
             t0 = time.perf_counter()
             ids = fin()
             wait_s += time.perf_counter() - t0
@@ -119,7 +126,7 @@ def thumbnail(
     Undecodable images are skipped. `resized`, when given, receives each
     device-resized array before orientation and encode."""
     written: dict[str, str] = {}
-    for batch in _chunks(items, _autotune.thumb_chunk_rows(device_scale(device))):
+    for batch in _chunks(items, _autotune.policy("thumbnail").thumb_chunk_rows(device_scale(device))):
         on_device: list[tuple[str, process.Decoded]] = []
         for cas_id, path in batch:
             try:
@@ -145,7 +152,7 @@ def embed(items: list[tuple[str, str]], device) -> dict[str, np.ndarray]:
     skipped."""
     model = _embedder.PatchPoolEmbedder(device)
     vectors: dict[str, np.ndarray] = {}
-    for batch in _chunks(items, _autotune.embed_chunk_rows(device_scale(device))):
+    for batch in _chunks(items, _autotune.policy("embed").embed_chunk_rows(device_scale(device))):
         keys, planes = [], []
         for cas_id, path in batch:
             plane = _embedder.decode_image(path)

@@ -17,9 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from .embed_decode import IMAGE_SIZE, decode_image  # noqa: F401 - re-exported
+
 #: fixed model vocabulary (vector width on the wire and in the DB)
 EMBED_DIM = 128
-IMAGE_SIZE = 32
 PATCH = 4  # mean-pool patch edge → (IMAGE_SIZE/PATCH)² · 3 features
 HIDDEN = 128
 MODEL_NAME = "patchpool-v1"
@@ -86,22 +87,6 @@ def load_jax_params(module: PatchPoolEmbedder, params: dict[str, np.ndarray]) ->
             raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
         dst.copy_(src)
     return module
-
-
-def decode_image(path: str, image_size: int = IMAGE_SIZE) -> np.ndarray | None:
-    """Decode one image to the embedder's input plane, [S, S, 3] float32
-    in [0, 1] (the JAX package's decode: RGBA → RGB → PIL resize);
-    None when undecodable."""
-    from PIL import Image
-
-    from ..object.media.images import ImageHandlerError, format_image
-
-    try:
-        rgba = format_image(path)
-    except (OSError, ValueError, ImageHandlerError):
-        return None
-    img = Image.fromarray(rgba).convert("RGB").resize((image_size, image_size))
-    return np.asarray(img, np.float32) / 255.0
 
 
 def vector_to_blob(vec: np.ndarray) -> bytes:

@@ -7,14 +7,19 @@ the node-wide thumbnailer actor on the node's explicit device, which is
 also the default device of the read-side jobs and of the semantic
 search, and unless `with_labeler=False` the image-labeler actor on the
 same device (ref:lib.rs:142, the reference's `ai` feature gate).
-`start` binds the thumbnailer to the running loop, loads the libraries
-(each registers with the labeler, which re-queues its persisted
-batches) and cold-resumes their jobs; `shutdown` persists both actors'
-queues and stops the task system. A Node lives within one event loop
-(one `asyncio.run`).
+`start` starts the loop-lag monitor, the process-wide autotune
+controller (parallel/autotune.py; SD_AUTOTUNE=0 starts nothing) and
+the process pool (parallel/procpool.py; SD_PROCS=0, the default,
+spawns nothing), binds the thumbnailer to the running loop, loads the
+libraries (each registers with the labeler, which re-queues its
+persisted batches) and cold-resumes their jobs; `shutdown` stops them,
+persists both actors' queues and stops the task system. The
+controller and the pool are refcounted, so two nodes in one process
+share one controller and one worker set. A Node lives within one event
+loop (one `asyncio.run`).
 
 Not ported: config and identity (so no `image_labeler_version`), P2P,
-the API server, location watchers, telemetry.
+the API server, location watchers, the rest of the telemetry plane.
 """
 
 from __future__ import annotations
@@ -36,7 +41,10 @@ from ..object.media import job as _media_job  # noqa: F401
 from ..object.validation import job as _validator_job  # noqa: F401
 
 from ..object.media.thumbnail.actor import Thumbnailer
+from ..parallel import autotune as _autotune
+from ..parallel import procpool as _procpool
 from ..tasks import TaskSystem
+from ..telemetry.events import LoopLagMonitor
 from ..utils.events import EventBus
 from .library import Libraries
 
@@ -57,10 +65,15 @@ class Node:
         if with_labeler:
             self.image_labeler = ImageLabeler(os.path.join(self.data_dir, "image_labeler"),
                                               device=self.device)
-        #: seconds per media stage of the jobs (media_data, embed_decode,
-        #: embed_forward, embed_write); the thumbnailer keeps its own
+        #: seconds per stage of the jobs (media_data, embed_decode,
+        #: embed_forward, embed_write, phash_decode); the thumbnailer
+        #: keeps its own
         self.stage_seconds: collections.Counter[str] = collections.Counter()
         self._stage_lock = threading.Lock()
+        self.loop_monitor = LoopLagMonitor()
+        self.autotuner = _autotune.CONTROLLER
+        self.procpool = _procpool.POOL
+        self._procpool_started = False
         self._started = False
 
     def add_stage_seconds(self, stage: str, seconds: float) -> None:
@@ -74,6 +87,11 @@ class Node:
         if self._started:
             return
         self._started = True
+        self.loop_monitor.start()
+        self.autotuner.start()
+        # workers up before any job runs, so the first batch never pays
+        # the spawn inside a measured pass
+        self._procpool_started = self.procpool.start()
         self.thumbnailer._ensure_started()
         for lib in self.libraries.load_all():
             if self.image_labeler is not None:
@@ -81,8 +99,14 @@ class Node:
             await self.jobs.cold_resume(lib)
 
     async def shutdown(self) -> None:
-        """Persist the actors' queues, stop the task system and close the
-        libraries (ref:lib.rs:240-250)."""
+        """Stop the loop-lag monitor, the controller and the pool (each
+        releases its hold), persist the actors' queues, stop the task
+        system and close the libraries (ref:lib.rs:240-250)."""
+        await self.loop_monitor.stop()
+        await self.autotuner.stop()
+        if self._procpool_started:
+            self.procpool.stop()
+            self._procpool_started = False
         await self.thumbnailer.shutdown()
         if self.image_labeler is not None:
             await self.image_labeler.shutdown()

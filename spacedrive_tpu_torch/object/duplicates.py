@@ -10,8 +10,11 @@ hashes them on the job's device (`ops/phash_torch.py`).
 blocks, beside the exact-duplicate groups by cas_id.
 
 The job's device is `init["backend"]` ("cuda" or "cpu"), else the
-node's device. Not ported: the process-pool decode leg (the port
-decodes inline, as the JAX job does without a pool) and
+node's device. The gray-plane decode rides the process pool
+(`phash.gray`, parallel/procpool.py) when the pool is up, one file a
+job, else runs inline; both run `ops/phash_gray.decode_gray`, so the
+planes are bit-identical, and a pool failure decodes that row inline.
+The device pHash and the DB update stay on the owner. Not ported:
 `distribute_phash`.
 """
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import time
 from typing import Any
 
 import numpy as np
@@ -32,6 +36,8 @@ from ..jobs.job import JobContext, JobError, StepResult
 from ..jobs.manager import register_job
 from ..location.indexer import journal as _journal
 from ..ops import phash_torch
+from ..ops.phash_gray import decode_gray
+from ..parallel import procpool as _procpool
 from .file_identifier.job import BACKENDS
 from .search.index import device_of
 
@@ -89,27 +95,54 @@ class DuplicateDetectorJob(StatefulJob):
         of re-hashing webp-q30 (possibly upscaled) thumbnails; the
         thumbnail is the fallback when the original is gone or
         undecodable."""
-        from PIL import Image
-
         loc = self._location(ctx, row["location_id"])
         if loc is not None:
             try:
-                with Image.open(full_path_from_db_row(loc["path"], row)) as img:
-                    if img.format == "JPEG":
-                        img.draft("RGB", (phash_torch.DCT_SIZE, phash_torch.DCT_SIZE))
-                    return phash_torch.to_gray32(np.asarray(img.convert("RGBA")))
+                return decode_gray(full_path_from_db_row(loc["path"], row), draft=True)
             except Exception:  # noqa: BLE001 - any decode failure: try the thumbnail
                 pass
-        node = getattr(ctx.library, "node", None)
-        if node is not None:
-            thumb = node.thumbnailer.store.path_for(str(ctx.library.id), row["cas_id"])
-            if os.path.exists(thumb):
-                try:
-                    with Image.open(thumb) as img:
-                        return phash_torch.to_gray32(np.asarray(img.convert("RGBA")))
-                except Exception:  # noqa: BLE001 - undecodable: the row is skipped
-                    pass
+        thumb = self._thumb_path(ctx, row)
+        if thumb is not None and os.path.exists(thumb):
+            try:
+                return decode_gray(thumb, draft=False)
+            except Exception:  # noqa: BLE001 - undecodable: the row is skipped
+                pass
         return None
+
+    @staticmethod
+    def _thumb_path(ctx: JobContext, row: dict) -> str | None:
+        node = getattr(ctx.library, "node", None)
+        if node is None:
+            return None
+        return node.thumbnailer.store.path_for(str(ctx.library.id), row["cas_id"])
+
+    def _pool_decode(self, ctx: JobContext, pool: Any, pending: list[tuple[int, dict]],
+                     grays: list) -> None:
+        """Ship the undecoded rows' gray-plane decode to the process pool,
+        one job a row (the original first, the thumbnail as fallback, as
+        `_decode_gray`); a row whose job fails decodes inline."""
+        futs = []
+        for _idx, r in pending:
+            loc = self._location(ctx, r["location_id"])
+            path = full_path_from_db_row(loc["path"], r) if loc is not None else None
+            try:
+                futs.append(pool.submit("phash.gray",
+                                        {"path": path, "thumb_path": self._thumb_path(ctx, r)}))
+            except _procpool.ProcPoolError:
+                futs.append(None)
+        for (idx, r), fut in zip(pending, futs):
+            gray = None
+            if fut is not None:
+                try:
+                    blob = fut.result(_procpool.REQUEST_TIMEOUT_S)["gray"]
+                    if blob is not None:
+                        gray = np.frombuffer(blob, np.float32).reshape(
+                            phash_torch.DCT_SIZE, phash_torch.DCT_SIZE).copy()
+                except (_procpool.ProcPoolError, TimeoutError, KeyError, TypeError, ValueError):
+                    gray = self._decode_gray(ctx, r)  # a torn round trip: decode inline
+            else:
+                gray = self._decode_gray(ctx, r)
+            grays[idx] = gray
 
     async def execute_step(self, ctx: JobContext, step: dict, step_number: int) -> StepResult:
         rows = step["rows"]
@@ -135,12 +168,26 @@ class DuplicateDetectorJob(StatefulJob):
             return None
 
         def decode_all() -> tuple[list, list]:
+            pool = _procpool.get()
             cached = [consult(r) for r in rows]
-            grays = [None if ph is not None else self._decode_gray(ctx, r)
-                     for r, ph in zip(rows, cached)]
+            grays: list = []
+            pending: list[tuple[int, dict]] = []  # undecoded (index, row)
+            for r, ph in zip(rows, cached):
+                if ph is not None or pool is None:
+                    grays.append(None if ph is not None else self._decode_gray(ctx, r))
+                else:
+                    grays.append(None)
+                    pending.append((len(grays) - 1, r))
+            if pending:
+                self._pool_decode(ctx, pool, pending, grays)
             return cached, grays
 
+        t0 = time.perf_counter()
         cached, grays = await asyncio.to_thread(decode_all)
+        # the decode leg's wall seconds into the node's stage totals
+        add = getattr(getattr(ctx.library, "node", None), "add_stage_seconds", None)
+        if add is not None:
+            add("phash_decode", time.perf_counter() - t0)
         ok = [(r, g) for r, g, c in zip(rows, grays, cached) if g is not None and c is None]
         reused = [(r, c) for r, c in zip(rows, cached) if c is not None]
         skipped = len(rows) - len(ok) - len(reused)

@@ -13,10 +13,16 @@ kernel, ops/csrc/blake3_chunk.cu) — the batch dim replaces task-level
 concurrency.
 
 Counterpart of `spacedrive_tpu/object/file_identifier/job.py`, without
-its telemetry and its live autotuned window sizing. The backend is
-"cuda" (default) or "cpu" and nothing else: a device window is
-IDENTIFY_DEVICE_WINDOW rows per card with `pipeline_depth(cards)`
-windows in flight, a CPU window the reference's IDENTIFY_CPU_WINDOW.
+its spans and stage histograms. The backend is "cuda" (default) or
+"cpu" and nothing else. Window sizes come from the autotune seam
+(parallel/autotune.py) on every fetch: a device window is the
+"identify" policy's `identify_window_rows(cards)` (IDENTIFY_DEVICE_WINDOW
+rows per card while the controller holds the static size), a CPU window
+the reference's IDENTIFY_CPU_WINDOW; the feeder depth is the policy's
+`feeder_depth(cards)`, read for every parked window. The step count is
+estimated from the static window at init: windows the controller widens
+leave extra steps that no-op, and narrowed ones drain through
+`more_steps`.
 Each window's hash rides the device ladder (ops/cas.cas_ids_begin): a
 CUDA failure in dispatch or finish re-runs the window at the demoted
 rung, down to the host. With `SD_TORCH_PROFILE` set, a torch.profiler
@@ -42,7 +48,7 @@ from ...jobs.manager import register_job
 from ...location.indexer import journal as _journal
 from ...ops import cas
 from ...parallel import autotune as _autotune
-from ...parallel.feeder import WindowPipeline, pipeline_depth
+from ...parallel.feeder import WindowPipeline
 from ...parallel.mesh import device_scale
 from ...telemetry import profiler as _profiler
 from .link import kind_for_row as _kind_for_row
@@ -83,6 +89,8 @@ class FileIdentifierJob(StatefulJob):
         backend = self.init.get("backend", "cuda")
         if backend not in BACKENDS:
             raise JobError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        # the STATIC base sizes the step estimate; live windows are read
+        # from the policy per fetch (_window_limit)
         chunk = (
             _autotune.identify_window_rows(device_scale(backend)) if backend == "cuda"
             else _autotune.IDENTIFY_CPU_WINDOW
@@ -135,7 +143,7 @@ class FileIdentifierJob(StatefulJob):
         where = orphan_where_clause(self.init.get("sub_path"))
         if self.init.get("sub_path"):
             params.append(escape_like(materialized_prefix(self.init['sub_path'])) + "%")
-        limit = d["chunk_size"]
+        limit = self._window_limit()
         # cursor pagination by id (ref:file_identifier_job.rs:126-165)
         rows = library.db.query(
             f"SELECT * FROM file_path WHERE {where} AND id > ? ORDER BY id LIMIT ?",
@@ -220,6 +228,15 @@ class FileIdentifierJob(StatefulJob):
         return (rows, metas, messages, msg_rows, finisher, resolved,
                 to_record, jstats, times)
 
+    def _window_limit(self) -> int:
+        """Rows of the next cursor window: the live "identify" policy on
+        the device backend (each fetch sees the current sizing), the
+        reference's parity chunk recorded at init on the CPU."""
+        d = self.data
+        if d["backend"] == "cuda":
+            return _autotune.policy("identify").identify_window_rows(device_scale(d["backend"]))
+        return d["chunk_size"]
+
     async def execute_step(self, ctx: JobContext, step: dict, step_number: int) -> StepResult:
         library = ctx.library
         d = self.data
@@ -244,9 +261,12 @@ class FileIdentifierJob(StatefulJob):
                     return None
                 return rows[-1]["id"], window
 
+            cards = device_scale(device)
             self._pipeline = WindowPipeline(
                 fetch, d["cursor"],
-                depth=pipeline_depth(device_scale(device)))
+                depth=lambda: _autotune.policy("identify").feeder_depth(cards),
+                # window[2] = the sampled messages bound for the device
+                measure=lambda w: sum(len(m) for m in w[2]))
 
         t0 = time.perf_counter()
         window = await asyncio.to_thread(self._pipeline.take)
@@ -281,9 +301,11 @@ class FileIdentifierJob(StatefulJob):
 
         errors = [f"unreadable file_path {r['id']}" for m, r in zip(metas, rows) if m is None]
         md = self.run_metadata
-        # the step count was estimated at init; should more orphan rows
-        # remain than steps, keep draining until the cursor is exhausted
-        # (an extra step against a dry pipeline no-ops)
+        # the step count was estimated from the static window at init;
+        # if the controller narrowed windows mid-job more orphan rows
+        # remain than steps, so the last step keeps draining until the
+        # cursor is exhausted (an extra step against a dry pipeline
+        # no-ops, as do the extras left when windows widened)
         more_steps = [] if self.steps else [{"kind": "identify"}]
         return StepResult(
             errors=errors,

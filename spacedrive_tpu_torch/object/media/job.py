@@ -12,12 +12,19 @@ row and embedding is vouched in the index journal after it is durable,
 so a warm rescan redoes none of it; labels have no vouch, so every scan
 relabels every image row, as in the JAX job.
 
+The embed chunk is the "embed" policy's `embed_chunk_rows(cards)`
+(parallel/autotune.py). An embed step's decode rides the process pool
+(`embed.decode`, parallel/procpool.py), split one job a worker, when
+the pool is up and the chunk holds more than one file, else runs
+inline; both run `models/embed_decode.decode_image`, so the planes are
+bit-identical, and a pool failure decodes inline.
+
 The port decodes still images only: rows whose extension it cannot
 process yet (video, documents, HEIF) get no step and no journal vouch,
-so a later pass picks them up, and get no labels. Not ported: the
-process-pool decode leg, telemetry. The stage seconds the JAX job
-observes into its histograms are added to the node's totals
-(`Node.add_stage_seconds`) when the library has a node.
+so a later pass picks them up, and get no labels. Not ported:
+telemetry. The stage seconds the JAX job observes into its histograms
+are added to the node's totals (`Node.add_stage_seconds`) when the
+library has a node.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ...location.indexer import journal as _journal
 from ...models import embedder as _embedder
 from ...ops import embed_torch
 from ...parallel import autotune as _autotune
+from ...parallel import procpool as _procpool
 from ...parallel.mesh import device_scale
 from ..file_identifier.job import BACKENDS
 from ..search import index as _search_index
@@ -49,6 +57,10 @@ from .thumbnail.process import IMAGE_EXTENSIONS
 BATCH_SIZE = 10  # ref:media_processor/job.rs:50
 
 EXIF_EXTENSIONS = ("jpg", "jpeg", "png", "tiff", "webp")
+
+#: most files in one `embed.decode` job: 64 float32 planes of 224x224x3
+#: are 38.5 MB, inside the worker's 64 MiB frame
+EMBED_DECODE_JOB_MAX = 64
 
 
 def _media_digest(cols: dict) -> str:
@@ -61,6 +73,30 @@ def _add_seconds(library: Any, stage: str, seconds: float) -> None:
     add = getattr(getattr(library, "node", None), "add_stage_seconds", None)
     if add is not None:
         add(stage, seconds)
+
+
+def _embed_planes(paths: list[str], fut: Any) -> list[np.ndarray | None]:
+    """One `embed.decode` job's planes, or `paths` decoded inline when
+    the job could not be shipped (`fut` None) or its round trip tore."""
+    if fut is not None:
+        try:
+            planes = fut.result(_procpool.REQUEST_TIMEOUT_S)["planes"]
+            if len(planes) != len(paths):
+                raise ValueError("plane count mismatch")
+            shape = (_embedder.IMAGE_SIZE, _embedder.IMAGE_SIZE, 3)
+            out: list[np.ndarray | None] = []
+            for raw in planes:
+                if raw is None:
+                    out.append(None)
+                    continue
+                arr = np.frombuffer(raw, np.float32)
+                if arr.size != int(np.prod(shape)):
+                    raise ValueError("plane size mismatch")
+                out.append(arr.reshape(shape))
+            return out
+        except (_procpool.ProcPoolError, TimeoutError, KeyError, TypeError, ValueError):
+            pass  # a torn round trip: the inline leg decodes
+    return [_embedder.decode_image(p) for p in paths]
 
 
 @register_job
@@ -180,7 +216,7 @@ class MediaProcessorJob(StatefulJob):
                     skip(r)  # unchanged bytes are never re-read or re-embedded
                     continue
                 embed_rows.append(r)
-            chunk_rows = _autotune.embed_chunk_rows(device_scale(backend))
+            chunk_rows = _autotune.policy("embed").embed_chunk_rows(device_scale(backend))
             for i in range(0, len(embed_rows), chunk_rows):
                 chunk = embed_rows[i:i + chunk_rows]
                 self.steps.append({"kind": "embed",
@@ -261,13 +297,15 @@ class MediaProcessorJob(StatefulJob):
         loc_id = self.data["location_id"]
 
         t0 = time.perf_counter()
-        batch_rows: list[tuple[dict, int]] = []
-        batch_imgs: list[np.ndarray] = []
+        found: list[tuple[dict, int]] = []
         for fp_id, object_id in step["ids"]:
             row = library.db.find_one("file_path", id=fp_id)
-            if row is None or object_id is None:
-                continue
-            img = _embedder.decode_image(_full_path(loc_path, row))
+            if row is not None and object_id is not None:
+                found.append((row, object_id))
+        planes = self._decode_for_embed([_full_path(loc_path, row) for row, _ in found])
+        batch_rows: list[tuple[dict, int]] = []
+        batch_imgs: list[np.ndarray] = []
+        for (row, object_id), img in zip(found, planes):
             if img is not None:
                 batch_rows.append((row, object_id))
                 batch_imgs.append(img)
@@ -321,6 +359,32 @@ class MediaProcessorJob(StatefulJob):
         return StepResult(metadata={
             "embeddings_written": self.run_metadata.get("embeddings_written", 0) + len(writes),
         })
+
+    @staticmethod
+    def _decode_for_embed(paths: list[str]) -> list[np.ndarray | None]:
+        """The embed decode leg: pooled when the process pool is up and
+        there is more than one path (stage `embed.decode`), else inline;
+        both run `decode_image`, so the planes are bit-identical. The
+        chunk is split into one job per worker, each of at most the
+        embed policy's pool quantum and EMBED_DECODE_JOB_MAX files, so
+        the workers decode it side by side. A job whose round trip tears
+        decodes its files inline (the pool counts the failure)."""
+        pool = _procpool.get()
+        if pool is None or len(paths) <= 1:
+            return [_embedder.decode_image(p) for p in paths]
+        per = min(-(-len(paths) // max(1, pool.worker_count())),
+                  _autotune.policy("embed").procpool_batch_rows(), EMBED_DECODE_JOB_MAX)
+        parts = [paths[i:i + per] for i in range(0, len(paths), per)]
+        futs = []
+        for part in parts:
+            try:
+                futs.append(pool.submit("embed.decode", {"paths": part}, rows=len(part)))
+            except _procpool.ProcPoolError:
+                futs.append(None)
+        out: list[np.ndarray | None] = []
+        for part, fut in zip(parts, futs):
+            out.extend(_embed_planes(part, fut))
+        return out
 
     async def _wait_thumbnails(self, ctx: JobContext, step: dict) -> StepResult:
         """Rendezvous with the thumbnailer actor for this job's batch

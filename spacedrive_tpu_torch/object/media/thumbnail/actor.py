@@ -9,8 +9,10 @@ batches a FIFO queue (state.rs:23-32); background work is throttled to
 each decode gets a 30 s timeout (process.rs:172); queues persist across
 crashes (state.rs); `NewThumbnail` events go to the node's event bus.
 
-A batch is processed in chunks of `chunk_rows` images (the per-device
-chunk times the accelerator count) as a 3-deep pipeline: host decode on
+A batch is processed in chunks of `_device_chunk()` images (the
+"thumbnail" policy's `thumb_chunk_rows(cards)`, parallel/autotune.py,
+read once per batch; an explicit `chunk_rows` wins) as a 3-deep
+pipeline: host decode on
 threads → one resize call per chunk on the actor's `device`
 (object/media/thumbnail/process.resize_decoded) → webp encode and store
 on threads. Images beyond a 4:1 aspect resize on the host
@@ -29,7 +31,8 @@ batches report only their own failures. A file that fails to decode
 only counts in `errors`. The `thumbnail.persist` fault point sits in
 the window between a chunk's store and its accounting.
 
-Not ported: the process-pool leg, telemetry and trace context.
+Not ported: the process-pool leg (`thumb.cpu`, which waits for the
+other decoders), telemetry and trace context.
 `stage_seconds` keeps the decode / device / encode totals the JAX actor
 observes into its stage histogram, and the batches' wall time.
 """
@@ -92,9 +95,9 @@ class Thumbnailer:
         cores = os.cpu_count() or 1
         self._fg_parallelism = cores
         self._bg_parallelism = max(1, cores * BACKGROUND_PERCENTAGE // 100)
-        #: images per device resize call: the per-device chunk times the
-        #: card count, so a sharded resize gives each card a full chunk
-        self.chunk_rows = _autotune.thumb_chunk_rows(_mesh.device_scale(self.device))
+        #: an explicit images-per-resize-call override; None reads the
+        #: live "thumbnail" policy per batch (`_device_chunk`)
+        self.chunk_rows: int | None = None
         self._fg: collections.deque[Batch] = collections.deque()  # LIFO
         self._bg: collections.deque[Batch] = collections.deque()  # FIFO
         self._current: Batch | None = None  # in flight (for persistence)
@@ -342,7 +345,7 @@ class Thumbnailer:
         order and the persisted remainder only ever loses a prefix whose
         thumbnails are on disk."""
         sem = asyncio.Semaphore(self._bg_parallelism if batch.background else self._fg_parallelism)
-        chunk_rows = self.chunk_rows
+        chunk_rows = self._device_chunk()
         entries = list(batch.entries)
         done = 0  # entries stored and accounted (a prefix of `entries`)
 
@@ -449,6 +452,15 @@ class Thumbnailer:
                 except Exception:  # noqa: BLE001 - the failure in flight propagates
                     logger.exception("thumbnail encode chunk failed")
                     break
+
+    def _device_chunk(self) -> int:
+        """Images per device resize call: the live "thumbnail" policy
+        scaled by the card count (a sharded resize gives each card a full
+        chunk), read per batch so an autotuner step lands on the next
+        one; an explicit `chunk_rows` always wins."""
+        if self.chunk_rows is not None:
+            return self.chunk_rows
+        return _autotune.policy("thumbnail").thumb_chunk_rows(_mesh.device_scale(self.device))
 
     async def _resize_chunk(self, ds: list[Decoded]) -> list:
         """One chunk's device resize; past the ladder, the CPU resize."""

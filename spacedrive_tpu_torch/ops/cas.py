@@ -31,6 +31,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..parallel import autotune as _autotune
 from ..parallel import mesh as _mesh
 from ..parallel.autotune import BATCH_LADDER
 from ..telemetry import events as _events
@@ -351,8 +352,10 @@ def cas_ids_begin(
 
     Messages group by chunk bucket (the 57-chunk hot bucket, else the
     smallest small bucket that holds them); each part of at most
-    device_batch(n) rows packs through `pack_canonical_batch` and goes
-    to `blake3_torch.hash_batch_begin` on a slot list:
+    min(device_batch(n), the identify policy's dispatch rung × n) rows
+    (parallel/autotune.py: 32, 256 or 1024 rows per slot) packs through
+    `pack_canonical_batch` and goes to `blake3_torch.hash_batch_begin`
+    on a slot list, so the rung changes the launches, never the ids:
 
     - explicit `devices` always shard over that list, strict: a failure
       raises;
@@ -398,7 +401,10 @@ def cas_ids_begin(
         c = LARGE_CHUNKS if len(msg) == LARGE_MSG_LEN else _bucket_for(len(msg))
         buckets.setdefault(c, []).append(i)
 
-    step = device_batch(n_dev)
+    # the autotuner's current per-device rung × the slot count (the
+    # static top rung is device_batch, as before the controller)
+    step = min(device_batch(n_dev),
+               _autotune.policy("identify").dispatch_rows_per_device() * max(1, n_dev))
     in_flight: list[tuple[list[int], Callable[[], torch.Tensor]]] = []
     used_devices = False  # did any part run on the rung's slots?
     try:

@@ -37,9 +37,9 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as _mesh
+from .phash_gray import DCT_SIZE, to_gray32  # noqa: F401 - re-exported
 
 HASH_BITS = 64
-DCT_SIZE = 32
 LOW_FREQ = 8
 #: rows of one `near_pairs` block; a multiple of 8, so one padded
 #: array serves as the block's rows and as every column
@@ -56,16 +56,6 @@ def _dct_basis(n: int = DCT_SIZE) -> np.ndarray:
     c = np.sqrt(2.0 / n) * np.cos(np.pi * (2 * i + 1) * k / (2 * n))
     c[0] /= np.sqrt(2.0)
     return c.astype(np.float32)
-
-
-def to_gray32(rgba: np.ndarray) -> np.ndarray:
-    """HxWx4 uint8 → 32×32 float32 grayscale in 0..1 (PIL bilinear)."""
-    from PIL import Image
-
-    img = Image.fromarray(rgba[..., :3]).convert("L").resize(
-        (DCT_SIZE, DCT_SIZE), Image.BILINEAR
-    )
-    return np.asarray(img, np.float32) / 255.0
 
 
 def dct_low(gray: torch.Tensor) -> torch.Tensor:

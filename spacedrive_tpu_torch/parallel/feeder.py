@@ -1,15 +1,18 @@
 """Host→device feeding: overlap disk reads with device compute.
 
 Counterpart of `spacedrive_tpu/parallel/feeder.py`, with its
-`feeder.fetch` fault point and its one producer restart, without its
-fetch-time and prefetch telemetry. On a large library the
-sampled reads (~56 KiB a file) dominate wall-clock, so the host must
-read window N+1 while the device hashes window N. `WindowPipeline` does
-that: a producer thread chains a cursor fetch function back to back
-into a bounded buffer of `depth` windows. Each window's fetch also
-dispatches its device batch (ops/cas.cas_ids_begin enqueues on a side
-stream and returns a finisher), so up to `depth` transfers and kernels
-are in flight while the consumer finishes earlier windows.
+`feeder.fetch` fault point, its one producer restart, its callable
+depth and its five series (fetch and wait seconds, H2D bytes, in-flight
+depth, prefetch hits), without its spans and trace propagation. On a
+large library the sampled reads (~56 KiB a file) dominate wall-clock,
+so the host must read window N+1 while the device hashes window N.
+`WindowPipeline` does that: a producer thread chains a cursor fetch
+function back to back into a bounded buffer of `depth` windows. Each
+window's fetch also dispatches its device batch (ops/cas.cas_ids_begin
+enqueues on a side stream and returns a finisher), so up to `depth`
+transfers and kernels are in flight while the consumer finishes
+earlier windows. The autotune controller reads the series and sizes
+`depth` (parallel/autotune.py).
 """
 
 from __future__ import annotations
@@ -49,20 +52,28 @@ class WindowPipeline(Generic[T]):
     producer promptly. A producer that crashes (an exception in `fetch`,
     or the `feeder.fetch` fault) is restarted once, resuming at the key
     whose fetch failed (fetches are side-effect-free); a second crash
-    ends the stream and is raised to the consumer by `take()`."""
+    ends the stream and is raised to the consumer by `take()`.
+
+    `depth` may be a callable (the autotune policy's live read): it is
+    re-read for every parked window, so a mid-job change takes effect on
+    the next fetch. `measure(window) -> bytes` attributes each fetched
+    window's host→device payload to `sd_feeder_h2d_bytes_total`."""
 
     def __init__(
         self,
         fetch: Callable[[Any], "tuple[Any, T] | None"],
         start_key: Any,
-        depth: int = FEEDER_BASE_DEPTH,
+        depth: "int | Callable[[], int]" = FEEDER_BASE_DEPTH,
+        measure: Callable[[T], int] | None = None,
     ):
         # unbounded deque + condition (not a bounded Queue): close()
         # must wake a blocked consumer at once; `depth` only throttles
         # the producer
         self._buf: collections.deque = collections.deque()
         self._cond = threading.Condition()
-        self._depth = max(1, depth)
+        self._depth_fn = depth if callable(depth) else None
+        self._depth = 1 if callable(depth) else max(1, depth)
+        self._measure = measure
         self._stop = threading.Event()
         self._done = False
         self._fetch = fetch
@@ -83,11 +94,18 @@ class WindowPipeline(Generic[T]):
                         time.sleep(spec.delay_s)
                     elif spec.mode == "crash":
                         raise _faults.InjectedFault("injected feeder producer crash")
+                t0 = time.perf_counter()
                 item = self._fetch(key)
+                _tm.FEEDER_FETCH_SECONDS.observe(time.perf_counter() - t0)
                 if item is None:
                     self._put(None)
                     return
                 key, window = item
+                if self._measure is not None:
+                    try:
+                        _tm.FEEDER_H2D_BYTES.inc(self._measure(window))
+                    except Exception:  # noqa: BLE001 - measurement must never kill reads
+                        pass
                 if not self._put(window):
                     return
         except BaseException as e:
@@ -120,6 +138,16 @@ class WindowPipeline(Generic[T]):
         replacement.start()
         return True
 
+    def _depth_now(self) -> int:
+        """Current read-ahead bound; a broken policy callable degrades
+        to depth 1 (throttled, never wedged or unbounded)."""
+        if self._depth_fn is None:
+            return self._depth
+        try:
+            return max(1, int(self._depth_fn()))
+        except Exception:  # noqa: BLE001 - policy reads must never kill reads
+            return 1
+
     def _put(self, item) -> bool:
         """Park one window (or the end-of-stream sentinel); blocks while
         `depth` windows are parked, aborts when close() is called. The
@@ -127,26 +155,30 @@ class WindowPipeline(Generic[T]):
         with self._cond:
             while (
                 item is not None
-                and len(self._buf) >= self._depth
+                and len(self._buf) >= self._depth_now()
                 and not self._stop.is_set()
             ):
                 self._cond.wait()
             if self._stop.is_set():
                 return False
             self._buf.append(item)
+            _tm.FEEDER_INFLIGHT.set(len(self._buf))
             self._cond.notify_all()
             return True
 
     def take(self) -> T | None:
         """Next window in order; None at end of stream (raises if the
-        producer died) or after close(). Once the end-of-stream sentinel
-        has been consumed every further take() returns None at once."""
+        producer died) or after close(). The time the consumer spent
+        blocked is observed as feeder wait; a handoff under 2 ms counts
+        as a prefetch hit. Once the end-of-stream sentinel has been
+        consumed every further take() returns None at once."""
         if self._done:
             with self._cond:
                 err = self._error
             if err is not None:
                 raise err
             return None
+        t0 = time.perf_counter()
         with self._cond:
             while not self._buf and not self._stop.is_set():
                 self._cond.wait()
@@ -155,7 +187,12 @@ class WindowPipeline(Generic[T]):
                 self._cond.notify_all()  # free the producer's slot
             else:  # closed
                 window = None
+            inflight = len(self._buf)
             err = self._error
+        waited = time.perf_counter() - t0
+        _tm.FEEDER_WAIT_SECONDS.observe(waited)
+        _tm.FEEDER_PREFETCH.inc(result="hit" if waited < 0.002 else "miss")
+        _tm.FEEDER_INFLIGHT.set(inflight)
         if window is None:
             self._done = True
             if err is not None:

@@ -8,8 +8,10 @@ shutdown contract that returns unfinished tasks to the caller
 are concurrent coroutines, which matches this framework's workload
 (batch assembly + device-step awaiting + async IO).
 
-Counterpart of `spacedrive_tpu/tasks/system.py`, without its metrics,
-trace propagation and process-pool hold.
+Counterpart of `spacedrive_tpu/tasks/system.py`, without its metrics
+and trace propagation. `start` takes a refcounted hold on the process
+pool (parallel/procpool.py; a no-op under SD_PROCS=0) and `shutdown`
+releases it, so task bodies can ship host decodes to it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import logging
 import os
 from typing import Iterable
 
+from ..parallel import procpool as _procpool
 from .task import (
     ExecStatus,
     Interrupter,
@@ -155,6 +158,7 @@ class TaskSystem:
         self._shutdown_leftover: list[Task] = []
         self._shutting_down = False
         self._started = False
+        self._procpool_held = False
 
     # -- lifecycle --
 
@@ -162,6 +166,10 @@ class TaskSystem:
         if self._started:
             return
         self._started = True
+        # the pool's lifecycle rides this system's: a bare TaskSystem gets
+        # workers under SD_PROCS>0 without a Node, and a Node's own hold
+        # stacks on it
+        self._procpool_held = _procpool.POOL.start()
         for w in self.workers:
             w.runner = asyncio.ensure_future(w.run_loop())
 
@@ -169,6 +177,9 @@ class TaskSystem:
         """Stop workers; returns queued/paused/suspended tasks
         (ref:system.rs:224-258)."""
         self._shutting_down = True
+        if self._procpool_held:
+            _procpool.POOL.stop()
+            self._procpool_held = False
         for w in self.workers:
             if w.current_interrupter is not None:
                 w.current_interrupter.interrupt(InterruptionKind.PAUSE)

@@ -2,9 +2,10 @@
 
 An owned copy of `spacedrive_tpu/telemetry/events.py` without the
 pieces that lean on planes the port does not have yet: events carry no
-`trace_id` (there is no trace context), the slow-op watchdog and
-`LoopLagMonitor` wait for the telemetry plane, and only the rings the
-port writes are predeclared.
+`trace_id` (there is no trace context), the slow-op watchdog waits for
+the telemetry plane, `LoopLagMonitor` opens no profiler capture (the
+port has no sampler), and only the rings the port writes are
+predeclared.
 
 Metrics answer "how much"; the flight recorder answers "what happened
 just before it went wrong". Each subsystem gets a small always-on ring
@@ -115,6 +116,8 @@ def clear_all() -> None:
 ERROR_EVENTS = ring("errors")      # caught and uncaught exceptions w/ tracebacks
 FAULT_EVENTS = ring("faults")      # injected-fault activations (utils/faults)
 RESILIENCE_EVENTS = ring("resilience")  # demotions, last rungs, feeder restarts
+LOOP_EVENTS = ring("loop")         # event-loop-lag samples over threshold
+AUTOTUNE_EVENTS = ring("autotune")  # closed-loop tuning decisions
 
 
 def record_error(source: str, exc: BaseException | None,
@@ -135,3 +138,53 @@ def record_error(source: str, exc: BaseException | None,
         traceback=tb_text,
     )
 
+
+
+class LoopLagMonitor:
+    """Samples event-loop scheduling lag: sleeps ``interval`` and
+    measures how late the wakeup lands. Every sample updates the
+    ``sd_event_loop_lag_seconds`` gauge (the autotune controller's lag
+    signal); samples past ``warn_s`` also land in the loop ring."""
+
+    def __init__(self, interval: float = 0.5, warn_s: float = 0.2):
+        self.interval = interval
+        self.warn_s = warn_s
+        self._task: Any = None
+        self._tasks: set = set()
+        self._stopped = False
+
+    def start(self) -> None:
+        import asyncio
+        import logging
+
+        from ..utils.tasks import supervise
+
+        if self._task is not None and not self._task.done():
+            return
+        self._stopped = False
+        self._task = supervise(
+            asyncio.get_running_loop().create_task(self._run()),
+            self._tasks, logging.getLogger(__name__), "loop-lag monitor",
+        )
+
+    async def stop(self) -> None:
+        self._stopped = True
+        task = self._task
+        self._task = None
+        if task is not None and not task.done():
+            task.cancel()
+            try:
+                await task
+            except BaseException:  # noqa: BLE001 - cancellation cleanup
+                pass
+
+    async def _run(self) -> None:
+        import asyncio
+
+        while not self._stopped:
+            t0 = time.monotonic()
+            await asyncio.sleep(self.interval)
+            lag = max(0.0, (time.monotonic() - t0) - self.interval)
+            metrics.EVENT_LOOP_LAG.set(lag)
+            if lag >= self.warn_s:
+                LOOP_EVENTS.emit("lag", seconds=round(lag, 4))

@@ -1,9 +1,11 @@
-"""Metric families of the port's device seam and fault plane.
+"""Metric families of the port's device seam, fault plane and host
+execution plane.
 
 The subset of `spacedrive_tpu/telemetry/metrics.py` that the port
 writes so far, with the JAX package's names, help, labels and buckets,
 so a scrape of either package reads the same series. The rest of the
-catalog comes with the telemetry plane.
+catalog comes with the telemetry plane. This module imports no torch:
+process-pool workers import it to ship their telemetry deltas.
 """
 
 from __future__ import annotations
@@ -57,6 +59,107 @@ DEVICE_DEMOTION = REGISTRY.gauge(
 FEEDER_RESTARTS = REGISTRY.counter(
     "sd_feeder_restarts_total",
     "window-pipeline producer threads restarted after a crash",
+)
+
+# --- host→device feeder (parallel/feeder.py) --------------------------------
+
+FEEDER_H2D_BYTES = REGISTRY.counter(
+    "sd_feeder_h2d_bytes_total",
+    "bytes staged for host→device transfer by the window pipeline",
+)
+FEEDER_FETCH_SECONDS = REGISTRY.histogram(
+    "sd_feeder_fetch_seconds",
+    "producer-side time to read+dispatch one window",
+)
+FEEDER_WAIT_SECONDS = REGISTRY.histogram(
+    "sd_feeder_wait_seconds",
+    "consumer-side time blocked waiting for the next window",
+)
+FEEDER_INFLIGHT = REGISTRY.gauge(
+    "sd_feeder_inflight_depth",
+    "ready windows parked in the pipeline queue",
+)
+FEEDER_PREFETCH = REGISTRY.counter(
+    "sd_feeder_prefetch_total",
+    "window handoffs by outcome",
+    labels=("result",),  # hit | miss
+)
+
+# --- multi-process execution plane (parallel/procpool.py) -------------------
+# Counters/histograms here are OWNER-side series. Workers accumulate
+# into their own per-process registry and ship additive deltas back
+# with each batch result (registry.merge_delta) — gauges never merge.
+
+PROCPOOL_WORKERS = REGISTRY.gauge(
+    "sd_procpool_workers",
+    "worker processes currently alive in the multi-process execution "
+    "plane (0 = SD_PROCS disabled or pool stopped)",
+)
+PROCPOOL_JOBS = REGISTRY.counter(
+    "sd_procpool_jobs_total",
+    "pool batches by outcome: ok (result + telemetry delta merged), "
+    "error (worker raised — the call site falls back to its inline "
+    "path), retried (re-dispatched after a worker died mid-batch)",
+    labels=("result",),  # ok | error | retried
+)
+PROCPOOL_DISPATCH_SECONDS = REGISTRY.histogram(
+    "sd_procpool_dispatch_seconds",
+    "owner-side submit cost per batch (msgpack serialization + queue "
+    "put — the IPC tax the PipelinePolicy batch quantum amortizes)",
+)
+PROCPOOL_ROUNDTRIP_SECONDS = REGISTRY.histogram(
+    "sd_procpool_roundtrip_seconds",
+    "submit-to-result wall time per pool batch",
+)
+PROCPOOL_BATCH_ROWS = REGISTRY.histogram(
+    "sd_procpool_batch_rows",
+    "rows per shipped pool batch (sized by the per-workload "
+    "PipelinePolicy procpool quantum)",
+    buckets=ROW_BUCKETS,
+)
+PROCPOOL_RESTARTS = REGISTRY.counter(
+    "sd_procpool_restarts_total",
+    "worker processes restarted after dying mid-batch (each dead "
+    "worker's in-flight batches are re-dispatched exactly once)",
+)
+
+# --- closed-loop autotuner (parallel/autotune.py) ---------------------------
+
+AUTOTUNE_DECISIONS = REGISTRY.counter(
+    "sd_autotune_decisions_total",
+    "autotuner knob adjustments, by workload and direction",
+    labels=("workload", "action"),  # identify|thumbnail × promote|demote
+)
+AUTOTUNE_WINDOW_SCALE = REGISTRY.gauge(
+    "sd_autotune_window_scale",
+    "current multiplier on the static host window / chunk rows",
+    labels=("workload",),
+)
+AUTOTUNE_RUNG = REGISTRY.gauge(
+    "sd_autotune_batch_rung",
+    "current per-device dispatch rung index into the batch ladder "
+    "(0 = smallest, never above the DeviceLadder demotion cap)",
+    labels=("workload",),
+)
+AUTOTUNE_DEPTH_EXTRA = REGISTRY.gauge(
+    "sd_autotune_depth_extra",
+    "additive adjustment the autotuner applies to the feeder depth",
+    labels=("workload",),
+)
+AUTOTUNE_POOL_SCALE = REGISTRY.gauge(
+    "sd_autotune_pool_scale",
+    "current multiplier on the static procpool batch quantum (the "
+    "Controller grows it when the per-batch dispatch share says the "
+    "IPC tax dominates, shrinks it on long roundtrips or underfilled "
+    "batches)",
+    labels=("workload",),
+)
+
+# --- event loop health (telemetry/events.py LoopLagMonitor) -----------------
+
+EVENT_LOOP_LAG = REGISTRY.gauge(
+    "sd_event_loop_lag_seconds",
+    "latest sampled event-loop scheduling lag",
 )
 
 # --- flight recorder (telemetry/events.py) ---------------------------------

@@ -663,3 +663,56 @@ def test_a_dead_card_leaves_the_ladder_on_the_survivors():
         assert 1 not in counts and len(counts) == len(cards) - 1
     finally:
         mesh.LADDER.reset()
+
+
+def test_media_chain_on_cuda_pooled_equals_inline(tmp_path, monkeypatch):
+    """The chain on "cuda" with SD_PROCS=2 (the embed decode in workers)
+    against SD_PROCS=0: the same webp pixels and media_data rows, the
+    embeddings within 1e-5; the pool answered and nothing failed."""
+    from spacedrive_tpu_torch.parallel import procpool
+    from spacedrive_tpu_torch.telemetry import metrics as tm
+
+    loc = tmp_path / "loc"
+    _media_tree(loc)
+    monkeypatch.setenv("SD_PROCS", "0")
+    inline = _media_chain(tmp_path / "inline", loc, "cuda")
+    monkeypatch.setenv("SD_PROCS", "2")
+    before = {k: tm.PROCPOOL_JOBS.value(result=k) for k in ("ok", "error", "retried")}
+    restarts = tm.PROCPOOL_RESTARTS.value()
+    pooled = _media_chain(tmp_path / "pooled", loc, "cuda")
+    assert not procpool.POOL.running()
+    assert tm.PROCPOOL_JOBS.value(result="ok") > before["ok"]
+    assert tm.PROCPOOL_JOBS.value(result="error") == before["error"]
+    assert tm.PROCPOOL_JOBS.value(result="retried") == before["retried"]
+    assert tm.PROCPOOL_RESTARTS.value() == restarts
+    assert pooled[0]["thumbnails"] == inline[0]["thumbnails"]
+    assert pooled[1].keys() == inline[1].keys()
+    for cas_id, got in pooled[1].items():
+        assert np.array_equal(got, inline[1][cas_id])
+    assert pooled[2] == inline[2]
+    assert pooled[3].keys() == inline[3].keys() and len(pooled[3]) == 6
+    for cas_id, vec in pooled[3].items():
+        np.testing.assert_allclose(vec, inline[3][cas_id], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rung", [0, 1, 2])
+def test_cas_ids_on_cuda_at_every_forced_rung(rung):
+    """The identify policy's rung sets the dispatch step (32, 256 or 1024
+    rows per part); the ids are the same at each and equal blake3_ref."""
+    from spacedrive_tpu_torch.parallel import autotune
+
+    rng = np.random.default_rng(17)
+    msgs = [rng.bytes(cas.LARGE_MSG_LEN) for _ in range(40)] + [
+        rng.bytes(int(n)) for n in rng.integers(1, cas.MAX_SMALL_MSG_LEN, 24)]
+    want = [blake3_ref.blake3_hex(m)[:16] for m in msgs]
+    pol = autotune.policy("identify")
+    try:
+        pol.rung = rung
+        assert pol.dispatch_rows_per_device() == autotune.BATCH_LADDER[rung]
+        before = blake3_cuda.chunk_cvs.launches
+        assert cas.cas_ids(msgs, "cuda") == want
+        launches = blake3_cuda.chunk_cvs.launches - before
+    finally:
+        autotune.reset()
+    hot_parts = -(-40 // autotune.BATCH_LADDER[rung])
+    assert launches >= hot_parts

@@ -109,3 +109,96 @@ def test_record_error_lands_on_the_error_ring():
     assert e["fields"]["exc_type"] == "RuntimeError"
     assert e["fields"]["message"] == "device lost"
     assert "RuntimeError: device lost" in e["fields"]["traceback"]
+
+
+#: the families the host execution plane (feeder, pool, controller, loop lag) writes or reads
+PLANE_FAMILIES = (
+    "sd_feeder_h2d_bytes_total", "sd_feeder_fetch_seconds", "sd_feeder_wait_seconds",
+    "sd_feeder_inflight_depth", "sd_feeder_prefetch_total",
+    "sd_procpool_workers", "sd_procpool_jobs_total", "sd_procpool_dispatch_seconds",
+    "sd_procpool_roundtrip_seconds", "sd_procpool_batch_rows", "sd_procpool_restarts_total",
+    "sd_autotune_decisions_total", "sd_autotune_window_scale", "sd_autotune_batch_rung",
+    "sd_autotune_depth_extra", "sd_autotune_pool_scale", "sd_event_loop_lag_seconds",
+)
+
+
+def _plane_render(reg_mod, metrics_mod):
+    """Each package's plane families copied onto a fresh registry of its
+    own, driven by the same operations, rendered."""
+    reg = reg_mod.MetricsRegistry()
+    fams = {}
+    for name in PLANE_FAMILIES:
+        src = metrics_mod.REGISTRY.get(name)
+        make = getattr(reg, src.kind)
+        kw = {"buckets": src.buckets} if src.kind == "histogram" else {}
+        fams[name] = make(name, src.help, labels=src.label_names, **kw)
+    for name, fam in fams.items():
+        labels = {n: v for n, v in zip(fam.label_names, ("identify", "promote"))}
+        if fam.kind == "counter":
+            fam.inc(3, **labels)
+        elif fam.kind == "gauge":
+            fam.set(2.5, **labels)
+        else:
+            for v in (0.001, 0.04, 3.0, 48.0, 700.0):
+                fam.observe(v, **labels)
+    fams["sd_feeder_prefetch_total"].inc(result="miss")
+    fams["sd_procpool_jobs_total"].inc(2, result="retried")
+    return reg.render()
+
+
+def test_plane_families_render_as_jax():
+    for name in PLANE_FAMILIES:
+        assert metrics.REGISTRY.get(name) is not None, name
+    got, want = _plane_render(registry, metrics), _plane_render(jregistry, jmetrics)
+    assert got == want
+    assert "sd_procpool_batch_rows_bucket" in got
+
+
+def test_snapshot_point_reads():
+    import importlib
+
+    from spacedrive_tpu_torch.telemetry import snapshot
+
+    # the JAX package's telemetry/__init__ exports a function of this name
+    jsnapshot = importlib.import_module("spacedrive_tpu.telemetry.snapshot")
+
+    for mod in (snapshot, jsnapshot):
+        assert mod.gauge_value("sd_no_such_family", default=1.5) == 1.5
+    metrics.PROCPOOL_WORKERS.set(3)
+    assert snapshot.gauge_value("sd_procpool_workers") == 3.0
+    metrics.PROCPOOL_WORKERS.set(0)
+    before = snapshot.counter_value("sd_procpool_restarts_total")
+    metrics.PROCPOOL_RESTARTS.inc()
+    assert snapshot.counter_value("sd_procpool_restarts_total") == before + 1
+
+
+async def test_loop_lag_monitor_sets_the_gauge(monkeypatch):
+    """A loop blocked for 0.3 s shows as lag past the 0.2 s warning: the
+    gauge takes every sample, that one included, and the loop ring
+    records it, as JAX's monitor does."""
+    import asyncio
+    import time
+
+    seen = []
+    real_set = metrics.EVENT_LOOP_LAG.set
+    monkeypatch.setattr(metrics.EVENT_LOOP_LAG, "set",
+                        lambda v, **kw: (seen.append(v), real_set(v, **kw)))
+    events.LOOP_EVENTS.clear()
+    monitor = events.LoopLagMonitor(interval=0.02, warn_s=0.2)
+    monitor.start()
+    monitor.start()  # idempotent while running
+    try:
+        await asyncio.sleep(0.05)
+        time.sleep(0.3)  # block the loop
+        await asyncio.sleep(0.05)
+        deadline = time.monotonic() + 5
+        while not events.LOOP_EVENTS.snapshot() and time.monotonic() < deadline:
+            await asyncio.sleep(0.02)
+    finally:
+        await monitor.stop()
+    (ev,) = [e for e in events.LOOP_EVENTS.snapshot() if e["fields"]["seconds"] >= 0.25]
+    assert ev["type"] == "lag"
+    assert max(seen) >= 0.25 and ev["fields"]["seconds"] == round(max(seen), 4)
+    assert metrics.EVENT_LOOP_LAG.value() == seen[-1]
+    assert events.ring("autotune") is events.AUTOTUNE_EVENTS
+    assert events.ring("loop") is events.LOOP_EVENTS
