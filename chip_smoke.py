@@ -88,27 +88,47 @@ the un-identified copy of (a)'s library, every fetch stalled past the
 controller's urgent wait, with a 0.2 s tick and the static window cut
 to 64 rows: at least 8 windows, the window widened, the depth
 deepened, decisions on the `autotune` ring and counter, the ids of
-(a); then `SD_AUTOTUNE=0`: the static sizes and the same ids.
+(a); then `SD_AUTOTUNE=0`: the static sizes and the same ids. Phase 10
+is the other decoders, with the ladder and the controller reset first:
+it prints which kinds this host decodes (`{"decoders": ...}`: PDF
+always; SVG, HEIF and video where librsvg, libheif and libav or cv2 are
+found; a kind found but not decoded fails), builds a seeded corpus of
+each available kind (64 PDFs of six layouts, 32 SVG/SVGZ, 32 AVIFs
+written by PIL, the committed clip, its tkhd-rotated copy and 14
+cover-art MPEG audio files, 32 JPEGs), decodes it on the host per kind
+(seconds printed), times the card resize of every frame, and runs
+`index --library` on the card over it: cas_ids against the plain path
+(K1 launched), a webp per file at its dims, each card frame within 1
+level of the `[cpu]` resize and stored as its encode, film strips on
+clips and none on cover art, video media_data rows equal to
+`VideoMetadata.to_row`, vectors for the image rows only (HEIF's within
+1e-5 of a CPU embed) and the journal's vouches; then a warm rescan
+with 0 K1 launches, 0 thumbnails and 0 media work, and `check_healthy`
+by delta. It prints `{"other_decoders": ...}`.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
-training's, the device seam's and the execution plane's numbers as
-JSON.
+training's, the device seam's, the execution plane's and the other
+decoders' numbers as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import gzip
+import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2919,11 +2939,541 @@ def phase_execution_plane(tmp: str, snapshot: str) -> dict:
                          "plane_controller_identify": ctl["launches"]}}
 
 
+# --- phase 10: the other decoders ------------------------------------------
+
+# the seeded corpus of the other kinds, at the shapes users keep: scanned
+# and typeset PDF pages, vector art, phone-size AVIF photos (cut to
+# 640-1280 px on the long side: PIL's AVIF encoder takes ~1.5 s for
+# 1280x960 on one core), the committed clip and cover-art audio
+PDF_KINDS = (["image"] * 16 + ["vector"] * 16 + ["text"] * 16 + ["xref"] * 8 + ["rotate"] * 4
+             + ["thumb"] * 4)  # 64 documents
+N_P10_SVG = 32  # 16 .svg, 16 .svgz
+N_P10_AVIF = 32
+N_P10_COVER = 14
+N_P10_JPEG = 32
+P10_CLIP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                        "torch_clip_128x96.mp4")
+P10_CUT = ("AVIF photos 640-1280 px on the long side (PIL's encoder speed), "
+           "one clip and its rotated copy (no video encoder on the card's host)")
+
+
+def decoders_available() -> dict:
+    """What this host decodes: PDF always, SVG where librsvg loads, HEIF
+    where libheif does, video through the native frontend (libav found;
+    a failed build raises), else cv2, else none; and whether PIL writes
+    AVIF (the corpus's HEIF files)."""
+    from PIL import features
+
+    from spacedrive_tpu_torch.native import video
+    from spacedrive_tpu_torch.object.media.images import heif_available
+    from spacedrive_tpu_torch.object.media.svg import svg_available
+
+    if video.video_available():
+        vid = "native"
+    else:
+        try:
+            import cv2  # noqa: F401
+            vid = "cv2"
+        except ImportError:
+            vid = "none"
+    return {"pdf": True, "svg": svg_available(), "heif": heif_available(), "video": vid,
+            "avif_writer": bool(features.check("avif"))}
+
+
+def _pdf(objs: list[bytes], version: bytes = b"1.4") -> bytes:
+    """A classic-xref PDF of `objs` (object i+1 = objs[i], 1 the catalog)."""
+    out = bytearray(b"%PDF-" + version + b"\n")
+    offsets = []
+    for i, o in enumerate(objs, 1):
+        offsets.append(len(out))
+        out += str(i).encode() + b" 0 obj\n" + o + b"\nendobj\n"
+    xref = len(out)
+    out += b"xref\n0 " + str(len(objs) + 1).encode() + b"\n0000000000 65535 f \n"
+    out += b"".join(f"{off:010d} 00000 n \n".encode() for off in offsets)
+    out += (b"trailer\n<< /Size " + str(len(objs) + 1).encode() + b" /Root 1 0 R >>\nstartxref\n"
+            + str(xref).encode() + b"\n%%EOF\n")
+    return bytes(out)
+
+
+def _stream(data: bytes, extra: bytes = b"", flate: bool = True) -> bytes:
+    body = zlib.compress(data) if flate else data
+    return (b"<< /Length " + str(len(body)).encode() + (b" /Filter /FlateDecode" if flate else b"")
+            + extra + b" >>\nstream\n" + body + b"\nendstream")
+
+
+WORDS = ("storage", "index", "library", "object", "thumbnail", "peer", "sync", "volume",
+         "journal", "device", "tag", "label", "search", "album", "photo", "document")
+
+
+def _text_content(rng, lines: int, size: int = 14) -> bytes:
+    out = [b"BT /F1 %d Tf 72 720 Td %d TL" % (size, size + 4)]
+    for _ in range(lines):
+        words = " ".join(WORDS[int(i)] for i in rng.integers(0, len(WORDS), 8))
+        out.append(b"(" + words.encode() + b") Tj T*")
+    return b" ".join(out) + b" ET"
+
+
+def _page_pdf(content: bytes, box=(612, 792), page_extra: bytes = b"",
+              extra_objs: list[bytes] = ()) -> bytes:
+    return _pdf([
+        b"<< /Type /Catalog /Pages 2 0 R >>",
+        b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+        b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 %d %d] /Contents 4 0 R "
+        b"/Resources << /Font << /F1 5 0 R >> >>" % box + page_extra + b" >>",
+        _stream(content),
+        b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+        *extra_objs,
+    ])
+
+
+def _vector_content(rng) -> bytes:
+    ops = []
+    for _ in range(int(rng.integers(6, 16))):
+        r, g, b = (rng.uniform(0, 1, 3)).round(2)
+        x, y = rng.integers(20, 560), rng.integers(20, 740)
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            ops.append(b"%.2f %.2f %.2f rg %d %d %d %d re f" % (r, g, b, x, y, rng.integers(10, 200),
+                                                                 rng.integers(10, 200)))
+        elif kind == 1:
+            ops.append(b"%.2f %.2f %.2f rg %d %d m %d %d l %d %d l h f" % (
+                r, g, b, x, y, x + rng.integers(-150, 150), y + rng.integers(10, 200),
+                x + rng.integers(-150, 150), y - rng.integers(10, 200)))
+        else:
+            ops.append(b"%.2f %.2f %.2f RG %d w %d %d m %d %d l S" % (
+                r, g, b, rng.integers(1, 12), x, y, rng.integers(20, 590), rng.integers(20, 770)))
+    return b"\n".join(ops) + b"\nBT /F1 28 Tf 1 0 0 1 72 60 Tm 0 0 0 rg (vector page) Tj ET"
+
+
+def _xref_stream_pdf(rng) -> bytes:
+    """Catalog, pages and page in an object stream, a stream xref (W [1 4 2])."""
+    content = _text_content(rng, 6, 12)
+    inner = {1: b"<< /Type /Catalog /Pages 2 0 R >>",
+             2: b"<< /Type /Pages /Kids [3 0 R] /Count 1 /MediaBox [0 0 420 595] >>",
+             3: b"<< /Type /Page /Parent 2 0 R /Contents 4 0 R >>"}
+    body, pairs = b"", []
+    for n, payload in inner.items():
+        pairs.append((n, len(body)))
+        body += payload + b" "
+    header = " ".join(f"{n} {o}" for n, o in pairs).encode()
+    comp = zlib.compress(header + b"\n" + body)
+    out = bytearray(b"%PDF-1.5\n")
+    offsets = {6: len(out)}
+    out += (b"6 0 obj\n<< /Type /ObjStm /N 3 /First " + str(len(header) + 1).encode()
+            + b" /Length " + str(len(comp)).encode() + b" /Filter /FlateDecode >>\nstream\n"
+            + comp + b"\nendstream\nendobj\n")
+    offsets[4] = len(out)
+    out += b"4 0 obj\n" + _stream(content, flate=False) + b"\nendobj\n"
+    xref_off = len(out)
+    entries = {0: (0, 0, 0xFFFF), 1: (2, 6, 0), 2: (2, 6, 1), 3: (2, 6, 2),
+               4: (1, offsets[4], 0), 5: (1, xref_off, 0), 6: (1, offsets[6], 0)}
+    rows = b"".join(bytes([t]) + f2.to_bytes(4, "big") + f3.to_bytes(2, "big")
+                    for t, f2, f3 in (entries[n] for n in range(7)))
+    comp_x = zlib.compress(rows)
+    out += (b"5 0 obj\n<< /Type /XRef /Size 7 /W [1 4 2] /Root 1 0 R /Length "
+            + str(len(comp_x)).encode() + b" /Filter /FlateDecode >>\nstream\n" + comp_x
+            + b"\nendstream\nendobj\nstartxref\n" + str(xref_off).encode() + b"\n%%EOF")
+    return bytes(out)
+
+
+def _smooth(rng, w: int, h: int):
+    from PIL import Image
+
+    coarse = rng.integers(0, 256, (6, 6, 3), dtype=np.uint8)
+    return Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+
+
+def _jpeg_bytes(img, quality: int = 85) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def build_pdfs(root: str, rng) -> list[str]:
+    paths = []
+    for i, kind in enumerate(PDF_KINDS):
+        if kind == "image":  # a scanned page or a slide, as PIL writes it
+            w, h = ((1275, 1650), (1650, 1275), (1600, 900), (850, 1100))[i % 4]
+            buf = io.BytesIO()
+            _smooth(rng, w, h).save(buf, "PDF", resolution=150.0)
+            data = buf.getvalue()
+        elif kind == "vector":
+            data = _page_pdf(_vector_content(rng))
+        elif kind == "text":
+            data = _page_pdf(_text_content(rng, int(rng.integers(8, 30))),
+                             box=((612, 792), (595, 842))[i % 2])
+        elif kind == "xref":
+            data = _xref_stream_pdf(rng)
+        elif kind == "rotate":
+            data = _page_pdf(_text_content(rng, 12), page_extra=b" /Rotate %d" % (90 * (1 + i % 3)))
+        else:  # the page's own /Thumb (a DCT image XObject)
+            thumb = _jpeg_bytes(_smooth(rng, 106, 137))
+            data = _page_pdf(_vector_content(rng), page_extra=b" /Thumb 6 0 R", extra_objs=[
+                _stream(thumb, b" /Type /XObject /Subtype /Image /Width 106 /Height 137 "
+                               b"/ColorSpace /DeviceRGB /BitsPerComponent 8 /Filter /DCTDecode",
+                        flate=False)])
+        path = os.path.join(root, "docs", f"{kind}_{i:02d}.pdf")
+        with open(path, "wb") as f:
+            f.write(data)
+        paths.append(path)
+    return paths
+
+
+def build_svgs(root: str, rng) -> list[str]:
+    paths = []
+    for i in range(N_P10_SVG):
+        w, h = int(rng.integers(64, 2000)), int(rng.integers(64, 2000))
+        shapes = []
+        for _ in range(int(rng.integers(5, 40))):
+            r, g, b = rng.integers(0, 256, 3)
+            shapes.append(
+                f'<circle cx="{rng.integers(0, w)}" cy="{rng.integers(0, h)}" '
+                f'r="{rng.integers(4, max(5, min(w, h) // 3))}" fill="rgb({r},{g},{b})" '
+                f'fill-opacity="{rng.uniform(0.3, 1):.2f}"/>' if rng.random() < 0.5 else
+                f'<rect x="{rng.integers(0, w)}" y="{rng.integers(0, h)}" '
+                f'width="{rng.integers(4, w)}" height="{rng.integers(4, h)}" '
+                f'fill="rgb({r},{g},{b})" stroke="black" stroke-width="{rng.integers(1, 6)}"/>')
+        doc = (f'<svg xmlns="http://www.w3.org/2000/svg" width="{w}" height="{h}" '
+               f'viewBox="0 0 {w} {h}">' + "".join(shapes) + "</svg>").encode()
+        path = os.path.join(root, "art", f"art_{i:02d}.svg" + ("z" if i % 2 else ""))
+        with open(path, "wb") as f:
+            f.write(gzip.compress(doc) if i % 2 else doc)
+        paths.append(path)
+    return paths
+
+
+def _write_avif(args) -> str:
+    path, seed, w, h = args
+    _smooth(np.random.default_rng(seed), w, h).save(path, "AVIF", quality=70)
+    return path
+
+
+def build_avifs(root: str, rng) -> list[str]:
+    sizes = [(1280, 960), (960, 1280), (1024, 768), (640, 480), (1200, 675), (800, 800)]
+    jobs = [(os.path.join(root, "photos", f"photo_{i:02d}.avif"), int(rng.integers(1 << 31)),
+             *sizes[i % len(sizes)]) for i in range(N_P10_AVIF)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        return list(ex.map(_write_avif, jobs))
+
+
+def _rotate_tkhd_90(data: bytes) -> bytes:
+    """Rewrite the mp4 tkhd display matrix to a 90° clockwise rotation
+    (how phones mark portrait video)."""
+    i = data.find(b"tkhd")
+    check(i > 4, "the clip has no tkhd box")
+    moff = i + 4 + (40 if data[i + 4] == 0 else 52)
+
+    def fixed(v, shift=16):
+        return struct.pack(">i", int(v * (1 << shift)))
+
+    matrix = (fixed(0) + fixed(1) + fixed(0, 30) + fixed(-1) + fixed(0) + fixed(0, 30)
+              + fixed(0) + fixed(0) + fixed(1, 30))
+    return data[:moff] + matrix + data[moff + 36:]
+
+
+def _cover_audio(rng) -> bytes:
+    """MPEG-1 Layer III frames behind an ID3v2.3 tag whose APIC frame
+    holds seeded JPEG cover art (500-1000 px a side)."""
+    side = int(rng.integers(500, 1001))
+    apic = b"\x00image/jpeg\x00\x03cover\x00" + _jpeg_bytes(_smooth(rng, side, side))
+    n = len(apic) + 10
+    size = bytes([(n >> 21) & 0x7F, (n >> 14) & 0x7F, (n >> 7) & 0x7F, n & 0x7F])
+    tag = b"APIC" + struct.pack(">I", len(apic)) + b"\x00\x00" + apic
+    return b"ID3\x03\x00\x00" + size + tag + (b"\xff\xfb\x90\x00" + b"\x00" * 413) * 40
+
+
+def build_videos(root: str, rng, with_covers: bool) -> list[str]:
+    """The committed clip, its 90°-rotated copy, and (with the native
+    frontend) cover-art audio named .mpg: the taxonomy thumbnails video
+    extensions only, and libav finds the MPEG audio and its cover by
+    content."""
+    with open(P10_CLIP, "rb") as f:
+        clip = f.read()
+    files = {"clip.mp4": clip, "clip_rot90.mov": _rotate_tkhd_90(clip)}
+    if with_covers:
+        for i in range(N_P10_COVER):
+            files[f"song_{i:02d}.mpg"] = _cover_audio(rng)
+    paths = []
+    for name, data in files.items():
+        path = os.path.join(root, "video", name)
+        with open(path, "wb") as f:
+            f.write(data)
+        paths.append(path)
+    return paths
+
+
+def build_jpegs(root: str, rng) -> list[str]:
+    paths = []
+    for i in range(N_P10_JPEG):
+        long = int(rng.integers(640, 4033))
+        short = int(long * (0.75, 0.5625, 0.666)[i % 3])
+        w, h = (long, short) if i % 2 else (short, long)
+        path = os.path.join(root, "jpeg", f"img_{i:02d}.jpg")
+        _smooth(rng, w, h).save(path, "JPEG", quality=88)
+        paths.append(path)
+    return paths
+
+
+def build_decoder_corpus(root: str, rng, avail: dict) -> tuple[dict[str, list[str]], dict]:
+    """{kind: [paths]} (PDF, SVG, HEIF, video, JPEG) and {kind: why skipped}."""
+    for d in ("docs", "art", "photos", "video", "jpeg"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    kinds: dict[str, list[str]] = {"pdf": build_pdfs(root, rng)}
+    skipped = {}
+    if avail["svg"]:
+        kinds["svg"] = build_svgs(root, rng)
+    else:
+        skipped["svg"] = "librsvg not found on this host"
+    if avail["heif"] and avail["avif_writer"]:
+        kinds["heif"] = build_avifs(root, rng)
+    else:
+        skipped["heif"] = ("libheif not found on this host" if not avail["heif"]
+                           else "PIL on this host writes no AVIF")
+    if avail["video"] != "none":
+        kinds["video"] = build_videos(root, rng, avail["video"] == "native")
+        if avail["video"] != "native":
+            skipped["video_cover_art"] = "libav not found: cv2 reads no cover art"
+    else:
+        skipped["video"] = "neither libav nor cv2 found on this host"
+    kinds["jpeg"] = build_jpegs(root, rng)
+    return kinds, skipped
+
+
+def _host_decodes(kinds: dict[str, list[str]]) -> tuple[dict, dict]:
+    """Every file decoded on the host by the port's host half (the
+    actor's decode), serially: {path: Decoded} and seconds per kind."""
+    from spacedrive_tpu_torch.object.media.thumbnail import process
+
+    decoded, seconds = {}, {}
+    for kind, paths in kinds.items():
+        t0 = time.perf_counter()
+        for p in paths:
+            decoded[p] = process.decode(p, p.rsplit(".", 1)[1])
+        seconds[kind] = time.perf_counter() - t0
+    return decoded, seconds
+
+
+def _expected_target(kind: str, path: str, d) -> tuple[int, int]:
+    """(h, w) the JAX host half gives this file: video at
+    `video_dimensions` of the frame, JPEGs at `scale_dimensions` of the
+    header's size (a draft-mode decode comes out smaller), the rest at
+    `scale_dimensions` of the decoded frame."""
+    from PIL import Image
+
+    from spacedrive_tpu_torch.ops import thumbnail_dims
+
+    h, w = d.array.shape[:2]
+    if kind == "video":
+        return thumbnail_dims.video_dimensions(w, h)[::-1]
+    if kind == "jpeg":
+        with Image.open(path) as im:
+            return thumbnail_dims.scale_dimensions(*im.size)[::-1]
+    return thumbnail_dims.scale_dimensions(w, h)[::-1]
+
+
+def _recording_actor():
+    """Wrap the actor's decode and device resize to record, per file, the
+    Decoded it made and the frame the card returned for it. Returns
+    (records, restore)."""
+    from spacedrive_tpu_torch.object.media.thumbnail import actor
+
+    decode, resize = actor.decode, actor.resize_decoded
+    path_of: dict[int, str] = {}
+    records: dict[str, tuple] = {}
+
+    def rec_decode(path, ext):
+        d = decode(path, ext)
+        path_of[id(d)] = path
+        records[path] = (d, None)
+        return d
+
+    def rec_resize(ds, *args, **kwargs):
+        out = resize(ds, *args, **kwargs)
+        for d, o in zip(ds, out):
+            records[path_of[id(d)]] = (d, o)
+        return out
+
+    actor.decode, actor.resize_decoded = rec_decode, rec_resize
+
+    def restore():
+        actor.decode, actor.resize_decoded = decode, resize
+
+    return records, restore
+
+
+def check_decoder_library(root: str, kinds: dict, cold: dict, decoded: dict,
+                          records: dict) -> dict:
+    """The cold scan's rows against the host half and the plain path:
+    cas_ids; a webp per file at its dims, the card's frame within 1 level
+    of the [cpu] resize and stored as its encode, film strips on clips
+    and none on cover art; video media_data rows byte for byte; vectors
+    for the image rows only, HEIF's within 1e-5 of a CPU embed; the
+    journal's vouches."""
+    from PIL import Image
+
+    from spacedrive_tpu_torch.models import embedder
+    from spacedrive_tpu_torch.object.media.media_data import VideoMetadata
+    from spacedrive_tpu_torch.object.media.thumbnail import process
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
+    from spacedrive_tpu_torch.ops import cas, embed_torch
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    by_path = {_row_path(root, r): r for r in cold["rows"]}
+    files = [p for ps in kinds.values() for p in ps]
+    check(set(files) <= set(by_path), "a corpus file has no file_path row")
+    msgs = [cas.read_message(p, os.path.getsize(p)) for p in files]
+    plain = plain_cas_ids(msgs)
+    for p, want in zip(files, plain):
+        check(by_path[p]["cas_id"] == want, f"cas_id of {p} differs from the plain path")
+
+    store = ThumbnailStore(os.path.join(cold["data_dir"], "thumbnails"))
+    kind_of = {p: k for k, ps in kinds.items() for p in ps}
+    max_d, mean_d, stragglers, strips = 0, 0.0, 0, {"clip": 0, "cover": 0}
+    for p in files:
+        kind, d = kind_of[p], decoded[p]
+        webp = store.path_for(cold["lib_id"], by_path[p]["cas_id"])
+        check(os.path.exists(webp), f"no thumbnail for {p}")
+        th, tw = _expected_target(kind, p, d)
+        check(d.target == (th, tw), f"{p}: target {d.target}, want {(th, tw)}")
+        with Image.open(webp) as im:
+            check(im.size == (tw, th), f"thumbnail of {p} is {im.size}, want {(tw, th)}")
+            got = np.asarray(im.convert("RGB"), np.int16)
+        rd, out = records[p]
+        check(np.array_equal(rd.array, d.array)
+              and (rd.target, rd.is_video) == (d.target, d.is_video),
+              f"{p}: the actor decoded otherwise")
+        if out is None:
+            check(process.needs_cpu_fallback(d), f"{p} was neither resized on the card nor a straggler")
+            stragglers += 1
+            continue
+        (cpu,) = process.resize_decoded([d], devices=[torch.device("cpu")])
+        diff = np.abs(out.astype(np.int16) - cpu.astype(np.int16))
+        max_d, mean_d = max(max_d, int(diff.max())), max(mean_d, float(diff.mean()))
+        with open(webp, "rb") as f:
+            check(f.read() == process.finish(d, out), f"{p}: the stored webp is not its card frame's")
+        if kind == "video":
+            is_clip = p.endswith((".mp4", ".mov"))
+            check(d.is_video == is_clip, f"{p}: is_video {d.is_video}")
+            strip = max(4, min(tw // 10, 20))
+            edge, mid = got[:, :strip].mean(), got[:, strip:-strip].mean()
+            if is_clip:
+                check(edge < 0.75 * mid, f"{p}: no film strip ({edge:.1f} vs {mid:.1f})")
+                strips["clip"] += 1
+            else:
+                strips["cover"] += 1
+    check(max_d <= 1, f"card frames differ from the [cpu] resize by max |d| {max_d}, mean {mean_d}")
+    clip = next((p for p in kinds.get("video", []) if p.endswith("clip.mp4")), None)
+    if clip is not None:
+        rot = clip.replace("clip.mp4", "clip_rot90.mov")
+        check(decoded[clip].array.shape[:2] == (96, 128)
+              and decoded[rot].array.shape[:2] == (128, 96), "the tkhd rotation was not applied")
+
+    # media_data: every JPEG (EXIF extension) and video row; videos byte for byte
+    obj_of = {p: by_path[p]["object_id"] for p in files}
+    rows = {r["object_id"]: r for r in cold["media_data"]}
+    n_video = 0
+    for p in kinds.get("video", []):
+        want = VideoMetadata.from_path(p)
+        check(want is not None, f"{p}: no video facts")
+        cols = want.to_row(obj_of[p])
+        got = rows.get(obj_of[p])
+        check(got is not None and all(bytes(got[k]) == cols[k] for k in ("resolution", "camera_data")),
+              f"{p}: media_data row differs from VideoMetadata.to_row")
+        check(unpackb(got["camera_data"])["video"] is True, f"{p}: not a video row")
+        n_video += 1
+    n_jpeg = len(kinds["jpeg"])
+    check(len(rows) == n_jpeg + n_video, f"{len(rows)} media_data rows, want {n_jpeg + n_video}")
+
+    # embeddings: image rows only (JPEG and HEIF); HEIF vectors == a CPU embed
+    images = kinds["jpeg"] + kinds.get("heif", [])
+    vec_of = {r["object_id"]: embedder.blob_to_vector(r["vector"]) for r in cold["embeddings"]}
+    check(set(vec_of) == {obj_of[p] for p in images},
+          f"{len(vec_of)} embeddings, want the {len(images)} image objects")
+    heif_d = 0.0
+    if kinds.get("heif"):
+        host = embed_torch.embed_batch(
+            np.stack([embedder.decode_image(p) for p in kinds["heif"]]), "cpu")
+        for p, want in zip(kinds["heif"], host):
+            heif_d = max(heif_d, float(np.abs(vec_of[obj_of[p]] - want).max()))
+        check(heif_d <= 1e-5, f"a HEIF vector differs from the CPU embed by {heif_d}")
+    for p in files:
+        r = by_path[p]
+        key = (r["materialized_path"], r["name"], r["extension"])
+        payload = unpackb(cold["journal"][key]["payload"])
+        check(payload.get("thumb") is True, f"{p}: no thumb vouch")
+        check(bool(payload.get("embed")) == (p in images), f"{p}: embed vouch {payload.get('embed')}")
+    return {"card_vs_cpu_max_abs": max_d, "card_vs_cpu_mean_abs": mean_d, "stragglers": stragglers,
+            "film_strips": strips["clip"], "cover_art": strips["cover"], "video_rows": n_video,
+            "heif_vector_max_abs": heif_d, "cas_ids": len(files)}
+
+
+def phase_decoders(rng, tmp: str, name_power: str) -> dict:
+    """Phase 10: every kind this host decodes, thumbnailed on the card by
+    `index --library`, then a warm rescan that does nothing."""
+    from spacedrive_tpu_torch.object.media.thumbnail import process
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    since = degradation()
+    avail = decoders_available()
+    root = os.path.join(tmp, "p10_corpus")
+    kinds, skipped = build_decoder_corpus(root, rng, avail)
+    print(json.dumps({"decoders": {**avail, "counts": {k: len(v) for k, v in kinds.items()},
+                                   "skipped": skipped}}), flush=True)
+    decoded, decode_s = _host_decodes(kinds)
+    on_card = [d for d in decoded.values() if not process.needs_cpu_fallback(d)]
+    process.resize_decoded(on_card, DEVICE)  # warm: each bucket's first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    process.resize_decoded(on_card, DEVICE)
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+
+    data_dir = os.path.join(tmp, "p10_data")
+    records, restore = _recording_actor()
+    try:
+        cold = run_library_pass(root, data_dir)
+    finally:
+        restore()
+    cold["data_dir"] = data_dir
+    check(cold["launches"] > 0, "the decoders' scan launched K1 no time")
+    got = check_decoder_library(root, kinds, cold, decoded, records)
+    n_files = sum(len(v) for v in kinds.values())
+    media = cold["media"]
+    check(media["thumbnails_dispatched"] == n_files == cold["generated"],
+          f"{media['thumbnails_dispatched']} thumbnails dispatched, {cold['generated']} written, "
+          f"want {n_files}")
+
+    warm = run_library_pass(root, data_dir)
+    wm = warm["media"]
+    check(warm["launches"] == 0 and warm["generated"] == 0 and wm["thumbnails_dispatched"] == 0
+          and wm["media_data_extracted"] == 0 and wm["embeddings_written"] == 0,
+          f"the warm rescan did work: {warm['launches']} K1 launches, {warm['generated']} "
+          f"thumbnails, media {wm}")
+    check_healthy("10", since)
+    out = {
+        "decoders": avail, "skipped": skipped, "files": {k: len(v) for k, v in kinds.items()},
+        "cut": P10_CUT, "k1_launches_cold": cold["launches"], "k1_launches_warm": warm["launches"],
+        "decode_s_by_kind": decode_s, "decode_ms_per_file": {
+            k: 1e3 * decode_s[k] / len(kinds[k]) for k in kinds},
+        "card_resize_s": resize_s, "card_resize_frames": len(on_card),
+        "scan": cold["numbers"], "warm_scan_s": warm["numbers"]["seconds"], **got,
+        "card": name_power, "seconds": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({"other_decoders": out}), flush=True)
+    print(f"phase 10: {n_files} files of {len(kinds)} kinds thumbnailed on the card "
+          f"({got['stragglers']} host-path stragglers), K1 {cold['launches']} launches cold, "
+          f"0 warm; {name_power}", flush=True)
+    return {"launches": {"decoders_cold": cold["launches"], "decoders_warm": warm["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=9, choices=range(3, 10),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 9: all); "
+    parser.add_argument("--stop-after", type=int, default=10, choices=range(3, 11),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 10: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -2973,6 +3523,9 @@ def main() -> int:
         if args.stop_after >= 9:
             plane = phase_execution_plane(tmp, snapshot)
             launches.update(plane["launches"])
+        if args.stop_after >= 10:
+            other = phase_decoders(rng, tmp, name_power)
+            launches.update(other["launches"])
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

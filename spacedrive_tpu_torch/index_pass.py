@@ -10,11 +10,14 @@ library DB, the job system, object linking, the index journal or sync:
    producer reads each window's sampled messages and dispatches them
    (`cas.cas_ids_begin`, which enqueues the copy and the hash on a side
    stream) while the consumer finishes the windows before it;
-3. thumbnails: one per distinct cas_id among decodable images, decoded
-   on the host, resized in device batches, then oriented, encoded to
+3. thumbnails: one per distinct cas_id among the files the thumbnailer
+   decodes (still images, HEIF, video frames, PDF and SVG pages:
+   `process.decode` by extension), decoded on the host, resized in
+   device batches, then oriented, film-stripped (video), encoded to
    webp and written to the thumbnail store;
-4. embed: the same images decode to the embedder's input plane and
-   embed in device batches.
+4. embed: the images among them (IMAGE_EXTENSIONS, as the media job
+   selects) decode to the embedder's input plane and embed in device
+   batches.
 
 Every size comes from the autotune seam (parallel/autotune.py), as in
 FileIdentifierJob, so the library-less pass and the job size their
@@ -116,21 +119,21 @@ def identify(paths_sizes: list[tuple[str, int]], device, timings: dict[str, floa
 
 
 def thumbnail(
-    items: list[tuple[str, str]],
+    items: list[tuple[str, str, str]],
     store: ThumbnailStore,
     library_id: str | None,
     device,
     resized: dict[str, np.ndarray] | None = None,
 ) -> dict[str, str]:
-    """Thumbnails for (cas_id, path) pairs; returns cas_id → webp path.
-    Undecodable images are skipped. `resized`, when given, receives each
-    device-resized array before orientation and encode."""
+    """Thumbnails for (cas_id, path, extension) triples; returns cas_id →
+    webp path. Undecodable files are skipped. `resized`, when given,
+    receives each device-resized array before orientation and encode."""
     written: dict[str, str] = {}
     for batch in _chunks(items, _autotune.policy("thumbnail").thumb_chunk_rows(device_scale(device))):
         on_device: list[tuple[str, process.Decoded]] = []
-        for cas_id, path in batch:
+        for cas_id, path, ext in batch:
             try:
-                d = process.decode_image(path)
+                d = process.decode(path, ext)
             except (process.ThumbError, OSError, ValueError):
                 continue
             if process.needs_cpu_fallback(d):
@@ -192,22 +195,23 @@ def index_pass(
     timings["identify"] = time.perf_counter() - t0
     cas_ids = {p: c for (p, _, _), c in zip(files, ids)}
 
-    # one thumbnail and one vector per object (distinct cas_id)
-    images: dict[str, str] = {}
+    # one thumbnail per object (distinct cas_id), one vector per image object
+    thumbs: dict[str, tuple[str, str]] = {}
     for (p, _, ext), c in zip(files, ids):
         if c is not None and process.can_generate(ext):
-            images.setdefault(c, p)
-    items = list(images.items())
+            thumbs.setdefault(c, (p, ext))
+    images = [(c, p) for c, (p, ext) in thumbs.items()
+              if (ext or "").lower() in process.IMAGE_EXTENSIONS]
 
     result = IndexResult(summary={}, cas_ids=cas_ids, timings=timings)
     t0 = time.perf_counter()
     result.thumbnails = thumbnail(
-        items, ThumbnailStore(data_dir), library_id, device,
-        result.resized if keep_pixels else None,
+        [(c, p, ext) for c, (p, ext) in thumbs.items()], ThumbnailStore(data_dir), library_id,
+        device, result.resized if keep_pixels else None,
     )
     timings["thumbnail"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    result.embeddings = embed(items, device)
+    result.embeddings = embed(images, device)
     timings["embed"] = time.perf_counter() - t0
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -5,8 +5,11 @@ uses (ref:core/src/lib.rs:82-250): the event bus, the task system, the
 job manager, the libraries (each `Library.node` points back here) and
 the node-wide thumbnailer actor on the node's explicit device, which is
 also the default device of the read-side jobs and of the semantic
-search, and unless `with_labeler=False` the image-labeler actor on the
-same device (ref:lib.rs:142, the reference's `ai` feature gate).
+search (a node on "cpu" gives its thumbnailer `use_device=False`, the
+software path, as the JAX CLI's `--backend cpu` does,
+`spacedrive_tpu/cli.py:30`), and unless `with_labeler=False` the
+image-labeler actor on the same device (ref:lib.rs:142, the
+reference's `ai` feature gate).
 `start` starts the loop-lag monitor, the process-wide autotune
 controller (parallel/autotune.py; SD_AUTOTUNE=0 starts nothing) and
 the process pool (parallel/procpool.py; SD_PROCS=0, the default,
@@ -60,7 +63,8 @@ class Node:
         self.jobs = JobManager(self.task_system)
         self.libraries = Libraries(self.data_dir, node=self)
         self.thumbnailer = Thumbnailer(os.path.join(self.data_dir, "thumbnails"),
-                                       event_bus=self.event_bus, device=self.device)
+                                       event_bus=self.event_bus, device=self.device,
+                                       use_device=self.device.type != "cpu")
         self.image_labeler: ImageLabeler | None = None
         if with_labeler:
             self.image_labeler = ImageLabeler(os.path.join(self.data_dir, "image_labeler"),

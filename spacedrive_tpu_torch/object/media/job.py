@@ -19,12 +19,16 @@ the pool is up and the chunk holds more than one file, else runs
 inline; both run `models/embed_decode.decode_image`, so the planes are
 bit-identical, and a pool failure decodes inline.
 
-The port decodes still images only: rows whose extension it cannot
-process yet (video, documents, HEIF) get no step and no journal vouch,
-so a later pass picks them up, and get no labels. Not ported:
-telemetry. The stage seconds the JAX job observes into its histograms
-are added to the node's totals (`Node.add_stage_seconds`) when the
-library has a node.
+The job selects every row the thumbnailer can decode
+(THUMBNAILABLE_EXTENSIONS: still images, HEIF where libheif loads,
+videos, PDFs, SVGs where librsvg loads). EXIF-bearing images and videos
+get a media_data row (`ImageMetadata` or `VideoMetadata`,
+MEDIA_DATA_EXTENSIONS); only image rows (IMAGE_EXTENSIONS, HEIF among
+them) are embedded and labelled, as in the JAX job. A file that fails
+to decode is re-dispatched to the thumbnailer by every pass (no
+thumbnail, so no vouch), as in the JAX job. Not ported: telemetry. The
+stage seconds the JAX job observes into its histograms are added to the
+node's totals (`Node.add_stage_seconds`) when the library has a node.
 """
 
 from __future__ import annotations
@@ -51,12 +55,17 @@ from ...parallel import procpool as _procpool
 from ...parallel.mesh import device_scale
 from ..file_identifier.job import BACKENDS
 from ..search import index as _search_index
-from .media_data import ImageMetadata
-from .thumbnail.process import IMAGE_EXTENSIONS
+from .media_data import ImageMetadata, VideoMetadata
+from .thumbnail.host import DOC_EXTENSIONS, IMAGE_EXTENSIONS, VIDEO_EXTENSIONS
 
 BATCH_SIZE = 10  # ref:media_processor/job.rs:50
 
+# the decodable subset of the reference's FILTERED_{IMAGE,VIDEO}_
+# EXTENSIONS (videos get a keyframe thumbnail, ref:thumbnail/process.rs:463)
+THUMBNAILABLE_EXTENSIONS = IMAGE_EXTENSIONS + VIDEO_EXTENSIONS + DOC_EXTENSIONS
 EXIF_EXTENSIONS = ("jpg", "jpeg", "png", "tiff", "webp")
+# media_data rows: EXIF-bearing images and videos (ref:media_data_extractor.rs)
+MEDIA_DATA_EXTENSIONS = EXIF_EXTENSIONS + VIDEO_EXTENSIONS
 
 #: most files in one `embed.decode` job: 64 float32 planes of 224x224x3
 #: are 38.5 MB, inside the worker's 64 MiB frame
@@ -118,11 +127,9 @@ class MediaProcessorJob(StatefulJob):
             raise JobError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.data.update(location_id=loc_id, location_path=location["path"], backend=backend)
 
-        # the still images this package decodes (the JAX job also
-        # selects video and document rows)
-        qmarks = ",".join("?" for _ in IMAGE_EXTENSIONS)
+        qmarks = ",".join("?" for _ in THUMBNAILABLE_EXTENSIONS)
         sub_filter = ""
-        params: list[Any] = [loc_id, *IMAGE_EXTENSIONS]
+        params: list[Any] = [loc_id, *THUMBNAILABLE_EXTENSIONS]
         if self.init.get("sub_path"):
             sub_filter = " AND materialized_path LIKE ? ESCAPE '\\'"
             params.append(escape_like(materialized_prefix(self.init["sub_path"])) + "%")
@@ -184,7 +191,7 @@ class MediaProcessorJob(StatefulJob):
 
         exif_rows = []
         for r in rows:
-            if (r["extension"] or "").lower() not in EXIF_EXTENSIONS:
+            if (r["extension"] or "").lower() not in MEDIA_DATA_EXTENSIONS:
                 continue
             entry = vouched[r["id"]]
             if entry is not None and entry.media_digest is not None:
@@ -222,16 +229,16 @@ class MediaProcessorJob(StatefulJob):
                 self.steps.append({"kind": "embed",
                                    "ids": [(r["id"], r["object_id"]) for r in chunk]})
 
-        # every (still-image) row goes to the node's labeler actor on
-        # every scan (no journal vouch, as in the JAX job: the
-        # label_on_object upserts make a relabel idempotent); a step
-        # awaits the batch
+        # every image row goes to the node's labeler actor on every scan
+        # (no journal vouch, as in the JAX job: the label_on_object
+        # upserts make a relabel idempotent); a step awaits the batch
         labeler = getattr(getattr(library, "node", None), "image_labeler", None)
-        if labeler is not None and rows:
+        label_rows = [r for r in rows if (r["extension"] or "").lower() in IMAGE_EXTENSIONS]
+        if labeler is not None and label_rows:
             batch_id = labeler.new_batch(library, [
                 {"file_path_id": r["id"], "object_id": r["object_id"],
                  "path": _full_path(loc_path, r)}
-                for r in rows
+                for r in label_rows
             ])
             self.steps.append({"kind": "wait_labels", "batch_id": batch_id})
 
@@ -267,7 +274,11 @@ class MediaProcessorJob(StatefulJob):
             if row is None or object_id is None:
                 skipped += 1
                 continue
-            meta = ImageMetadata.from_path(_full_path(loc_path, row))
+            full = _full_path(loc_path, row)
+            if (row["extension"] or "").lower() in VIDEO_EXTENSIONS:
+                meta = VideoMetadata.from_path(full)
+            else:
+                meta = ImageMetadata.from_path(full)
             if meta is None:
                 skipped += 1
                 # still a vouch: "probed, nothing extractable" — stops

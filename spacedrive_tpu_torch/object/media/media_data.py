@@ -1,11 +1,13 @@
 """EXIF / media metadata extraction.
 
-Counterpart of the still-image half of `spacedrive_tpu/object/media/
-media_data.py` (ref:crates/media-metadata/src/image/mod.rs:27-47:
-ImageMetadata{resolution, date_taken, location, camera_data, artist,
-description, copyright, exif_version}), extracted with PIL. The packed
-columns come from the port's MessagePack codec and equal the JAX
-package's bytes. Video metadata is not part of this package yet.
+Counterpart of `spacedrive_tpu/object/media/media_data.py`:
+`ImageMetadata` (ref:crates/media-metadata/src/image/mod.rs:27-47:
+resolution, date_taken, location, camera_data, artist, description,
+copyright, exif_version), extracted with PIL, and `VideoMetadata`
+(ref:crates/media-metadata/src/video.rs; the reference ships a stub,
+this reads the stream's facts), probed through the native FFmpeg
+frontend (native/video.py) first and cv2 second. The packed columns come
+from the port's MessagePack codec and equal the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -128,6 +130,77 @@ class ImageMetadata:
             "copyright": self.copyright,
             "exif_version": self.exif_version,
             "epoch_time": self.epoch_time,
+            "object_id": object_id,
+        }
+
+
+@dataclass
+class VideoMetadata:
+    """A video's stream facts: resolution, duration, fps, frame count and
+    codec."""
+
+    resolution: tuple[int, int] = (0, 0)
+    duration_seconds: float | None = None
+    fps: float | None = None
+    frame_count: int | None = None
+    codec: str | None = None
+
+    @classmethod
+    def from_path(cls, path: str | os.PathLike) -> "VideoMetadata | None":
+        """The native probe first (real codec names and the container's
+        duration, ref:crates/ffmpeg), cv2 where it is unavailable or
+        cannot probe the file; None when neither reads a resolution (the
+        caller vouches "nothing extractable"). A failed frontend build
+        raises NativeBuildError."""
+        from ...native.video import video_meta
+
+        try:
+            meta = video_meta(os.fspath(path))
+        except ValueError:
+            meta = None
+        if meta is not None and meta["width"] and meta["height"]:
+            return cls(
+                resolution=(meta["width"], meta["height"]),
+                duration_seconds=meta["duration_seconds"] or None,
+                fps=meta["fps"] or None,
+                frame_count=meta["frame_count"] or None,
+                codec=meta["codec"] or None,
+            )
+        try:
+            import cv2
+        except ImportError:
+            return None
+        cap = cv2.VideoCapture(os.fspath(path))
+        try:
+            if not cap.isOpened():
+                return None
+            w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH) or 0)
+            h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT) or 0)
+            fps = float(cap.get(cv2.CAP_PROP_FPS) or 0) or None
+            frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT) or 0) or None
+            fourcc = int(cap.get(cv2.CAP_PROP_FOURCC) or 0)
+            codec = ("".join(chr((fourcc >> (8 * i)) & 0xFF) for i in range(4)).strip() or None
+                     if fourcc else None)
+            duration = (frames / fps) if frames and fps else None
+            if not (w and h):
+                return None
+            return cls(resolution=(w, h), duration_seconds=duration, fps=fps,
+                       frame_count=frames, codec=codec)
+        finally:
+            cap.release()
+
+    def to_row(self, object_id: int) -> dict[str, Any]:
+        """The media_data row: the resolution blob as for images; the
+        video facts ride the camera_data slot as a typed dict."""
+        return {
+            "resolution": packb(list(self.resolution)),
+            "camera_data": packb({
+                "video": True,
+                "duration_seconds": self.duration_seconds,
+                "fps": self.fps,
+                "frame_count": self.frame_count,
+                "codec": self.codec,
+            }),
             "object_id": object_id,
         }
 

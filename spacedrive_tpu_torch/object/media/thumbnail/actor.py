@@ -31,8 +31,21 @@ batches report only their own failures. A file that fails to decode
 only counts in `errors`. The `thumbnail.persist` fault point sits in
 the window between a chunk's store and its accounting.
 
-Not ported: the process-pool leg (`thumb.cpu`, which waits for the
-other decoders), telemetry and trace context.
+With `use_device=False` (the JAX actor's flag; default true; a Node on
+"cpu" sets it, node/node.py) every image takes the software path: decode, the host resize (`resize_cpu`)
+and the encode, inline, or as `thumb.cpu` jobs on the process pool
+(parallel/procpool.py) when one is up: `generate_one_cpu` in the worker,
+one job per image, so the stored bytes are the inline path's. A job
+the pool fails (a dead worker, a timeout) is retried inline once. A
+device actor never takes that leg: the pool never owns the card.
+
+Every kind the host half decodes (object/media/thumbnail/host.py:
+still images, HEIF, video frames, PDF and SVG pages) takes the same
+path; a video frame carries its film strip from `finish` and from
+`resize_cpu` alike. A failed build of the video frontend
+(NativeBuildError) fails the batch instead of counting as a bad file.
+
+Not ported: telemetry and trace context.
 `stage_seconds` keeps the decode / device / encode totals the JAX actor
 observes into its stage histogram, and the batches' wall time.
 """
@@ -50,8 +63,10 @@ from typing import Any, Sequence
 
 import torch
 
+from ....native.build import NativeBuildError
 from ....parallel import autotune as _autotune
 from ....parallel import mesh as _mesh
+from ....parallel import procpool as _procpool
 from ....telemetry.events import RESILIENCE_EVENTS
 from ....utils import faults as _faults
 from .process import (
@@ -59,6 +74,7 @@ from .process import (
     can_generate,
     decode,
     finish,
+    generate_one_cpu,
     needs_cpu_fallback,
     resize_cpu,
     resize_decoded,
@@ -75,7 +91,8 @@ BACKGROUND_PERCENTAGE = 50  # ref:actor.rs:98
 
 
 class ThumbnailerError(RuntimeError):
-    """A dispatched batch's device resize failed."""
+    """A dispatched batch failed (its device resize on a pinned device,
+    or the video frontend's build)."""
 
 
 class Thumbnailer:
@@ -86,12 +103,15 @@ class Thumbnailer:
         data_dir: str | os.PathLike,
         event_bus: Any = None,
         device: str | torch.device = "cuda",
+        use_device: bool = True,
     ):
         self.data_dir = os.fspath(data_dir)
         os.makedirs(self.data_dir, exist_ok=True)
         self.store = ThumbnailStore(self.data_dir)
         self.event_bus = event_bus
         self.device = torch.device(device)
+        #: False: the software path for every image (module docstring)
+        self.use_device = use_device
         cores = os.cpu_count() or 1
         self._fg_parallelism = cores
         self._bg_parallelism = max(1, cores * BACKGROUND_PERCENTAGE // 100)
@@ -315,7 +335,7 @@ class Thumbnailer:
             except Exception as exc:  # noqa: BLE001 - the device stage failed; waiters see it
                 logger.exception("thumbnail batch failed")
                 self._failed[batch.id] = (self._ns(batch.library_id),
-                                          f"device resize failed: {exc!r}")
+                                          f"thumbnail batch failed: {exc!r}")
                 self.errors += len(batch.entries)
                 await self._account(batch, len(batch.entries))
                 batch.entries = []
@@ -338,6 +358,81 @@ class Thumbnailer:
             self._cond.notify_all()
 
     async def _process_batch(self, batch: Batch) -> None:
+        pool = self._pool()
+        if pool is not None:
+            await self._process_batch_pool(batch, pool)
+        else:
+            await self._process_batch_inline(batch)
+
+    def _pool(self) -> _procpool.ProcPool | None:
+        """The running process pool, for the software path only; None for
+        a device actor and with SD_PROCS=0."""
+        return None if self.use_device else _procpool.get()
+
+    async def _process_batch_pool(self, batch: Batch, pool: _procpool.ProcPool) -> None:
+        """The software path on the pool: one `thumb.cpu` job per image,
+        at most two in flight per worker (a background batch no more than
+        its share of the cores); store, events and accounting stay here,
+        and entries are consumed strictly in order, as inline."""
+        entries = list(batch.entries)
+        done = 0
+        chunk_rows = self._device_chunk()
+        width = 2 * pool.worker_count()
+        if batch.background:
+            width = min(width, self._bg_parallelism)
+        sem = asyncio.Semaphore(max(1, width))
+
+        async def one(entry: tuple[str, str, str]) -> bytes | None:
+            _cas_id, path, ext = entry
+            async with sem:
+                try:
+                    reply = await asyncio.wait_for(
+                        pool.run("thumb.cpu", {"path": path, "ext": ext}),
+                        timeout=GENERATION_TIMEOUT_S)
+                except (_procpool.ProcPoolError, asyncio.TimeoutError):
+                    # a pool failure is no evidence against the file:
+                    # one inline retry
+                    try:
+                        return await asyncio.wait_for(
+                            asyncio.to_thread(generate_one_cpu, path, ext),
+                            timeout=GENERATION_TIMEOUT_S)
+                    except NativeBuildError:
+                        raise
+                    except Exception as e:  # noqa: BLE001 - one bad file never fails the batch
+                        logger.debug("thumb failed %s: %s", path, e)
+                        return None
+            if reply.get("webp") is None:
+                logger.debug("thumb failed %s: %s", path, reply.get("error"))
+            return reply.get("webp")
+
+        def store_chunk(chunk, webps) -> None:
+            for (cas_id, _path, _ext), webp in zip(chunk, webps):
+                if webp is not None:
+                    self.store.write(batch.library_id, cas_id, webp)
+
+        pos = 0
+        while pos < len(entries) and not self._stopped:
+            chunk = entries[pos:pos + chunk_rows]
+            pos += len(chunk)
+            t0 = time.perf_counter()
+            webps = await asyncio.gather(*(one(e) for e in chunk))
+            await asyncio.to_thread(store_chunk, chunk, webps)
+            self.stage_seconds["encode"] += time.perf_counter() - t0
+            for (cas_id, _path, _ext), webp in zip(chunk, webps):
+                if webp is None:
+                    self.errors += 1
+                else:
+                    self._stored(batch.library_id, cas_id)
+            if _faults.hit("thumbnail.persist") is not None:
+                # the inline pipeline's crash window: the chunk stored,
+                # not accounted; a fresh actor must skip the stored prefix
+                raise _faults.InjectedCrash(
+                    "injected crash between chunk store and journal write")
+            done += len(chunk)
+            batch.entries = entries[done:]
+            await self._account(batch, len(chunk))
+
+    async def _process_batch_inline(self, batch: Batch) -> None:
         """The chunk pipeline: while chunk N rides the device, chunk N+1
         decodes on the thread pool and chunk N-1 encodes and stores.
         Encode tasks are chained (at most one outstanding, awaited
@@ -355,6 +450,8 @@ class Thumbnailer:
                 try:
                     return await asyncio.wait_for(asyncio.to_thread(decode, path, ext),
                                                   timeout=GENERATION_TIMEOUT_S)
+                except NativeBuildError:
+                    raise  # the frontend, not the file: the batch fails
                 except Exception as e:  # noqa: BLE001 - one bad file never fails the batch
                     logger.debug("thumb decode failed %s: %s", path, e)
                     return None
@@ -420,8 +517,8 @@ class Thumbnailer:
                     # chunk N+1 decodes while chunk N rides the device
                     decode_task = asyncio.ensure_future(
                         decode_chunk(entries[pos:pos + chunk_rows]))
-                device_idx = [i for i, d in enumerate(decoded)
-                              if d is not None and not needs_cpu_fallback(d)]
+                device_idx = [i for i, d in enumerate(decoded) if d is not None
+                              and self.use_device and not needs_cpu_fallback(d)]
                 resized = []
                 if device_idx:
                     t0 = time.perf_counter()

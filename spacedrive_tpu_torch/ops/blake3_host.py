@@ -6,62 +6,39 @@ tests hold this against) runs at about half a megabyte a second, so the
 leg streams through `csrc/blake3_stream.c` instead, an owned copy of the
 streaming part of the JAX package's native hasher.
 
-The library is compiled with the system C compiler the first time a
-hasher is made (never at import), into `spacedrive_tpu_torch/_build/`
-(git-ignored), under a name that carries the source's digest, and
-loaded with ctypes. A failed build raises `NativeBuildError` with the
-compiler's output; there is no pure-Python fallback.
+The library is built by native/build.py (the system C compiler, the
+first time a hasher is made, never at import, into
+`spacedrive_tpu_torch/_build/` under a name that carries the source's
+digest) and loaded with ctypes. A failed build raises
+`NativeBuildError` with the compiler's output; there is no pure-Python
+fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 
+from ..native.build import COMPILERS, NativeBuildError, built_path, compile_shared
+
+__all__ = ["NativeBuildError", "StreamingHasher", "load"]
+
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "blake3_stream.c")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-COMPILERS = ("cc", "gcc", "clang")
 
 _lock = threading.Lock()
 _lib: list[ctypes.CDLL] = []  # the loaded library, once built
 
 
-class NativeBuildError(RuntimeError):
-    pass
-
-
 def _compile(out: str) -> None:
-    """Compile the source into `out` (through a temporary name, so a
-    process never loads another's half-written library)."""
-    tried = []
-    for cc in COMPILERS:
-        if shutil.which(cc) is None:
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([cc, "-O3", "-fPIC", "-shared", _SRC, "-o", tmp],
-                              capture_output=True, text=True, timeout=120)
-        if proc.returncode == 0:
-            os.replace(tmp, out)
-            return
-        tried.append(f"{cc} exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    raise NativeBuildError(
-        "could not build the host BLAKE3 hasher from " + _SRC + ":\n"
-        + ("\n".join(tried) if tried else f"no C compiler found (tried {', '.join(COMPILERS)})")
-    )
+    compile_shared(_SRC, out, compilers=COMPILERS)
 
 
 def load() -> ctypes.CDLL:
     """The built library (compiled on first use)."""
     with _lock:
         if not _lib:
-            with open(_SRC, "rb") as f:
-                digest = hashlib.sha256(f.read()).hexdigest()[:16]
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            so = os.path.join(BUILD_DIR, f"blake3_stream_{digest}.so")
+            so = built_path(_SRC, "blake3_stream")
             if not os.path.exists(so):
                 _compile(so)
             lib = ctypes.CDLL(so)

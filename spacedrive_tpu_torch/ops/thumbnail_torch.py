@@ -19,12 +19,13 @@ uint8. The matmuls run inside `utils/precision.strict_fp32`, so they are
 full float32 even where the caller turned TF32 on. A bucket's batch can
 split over a slot list and rides the device ladder (`resize_batch`);
 the `device.thumbnail` fault point sits before every bucket's dispatch
-on the ladder's path.
+on the ladder's path. The target dims and the orientation live in
+`thumbnail_dims.py`, which imports no torch (the process pool's
+thumbnail stage runs them), and are re-exported here.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import numpy as np
@@ -35,10 +36,15 @@ from ..telemetry import metrics as _tm
 from ..utils import faults as _faults
 from ..utils.precision import strict_fp32
 from .cas import shard_occupancy
+from .thumbnail_dims import (  # noqa: F401 - re-exported: the dims live torch-free
+    TARGET_PX,
+    VIDEO_MAX_DIM,
+    apply_orientation,
+    scale_dimensions,
+    video_dimensions,
+)
 
-TARGET_PX = 262144  # ref:core/src/object/media/thumbnail/mod.rs:45
 WEBP_QUALITY = 30  # ref:thumbnail/mod.rs:49
-VIDEO_MAX_DIM = 256  # ref:thumbnail/process.rs:470
 
 # Square input buckets; 4096 is the reference's max decodable dimension
 # (ref:crates/images/src/consts.rs:33).
@@ -51,23 +57,6 @@ MAX_ASPECT = (OUT_CANVAS * OUT_CANVAS) / TARGET_PX  # 4.0
 # float32 working set of one resize slice: canvases convert from uint8 a
 # slice at a time, so 32 canvases of the 4096 bucket never need 8.6 GB
 _SLICE_BYTES = 1 << 30
-
-
-def scale_dimensions(w: int, h: int, target_px: int = TARGET_PX) -> tuple[int, int]:
-    """Aspect-preserving dims with w*h ≈ target_px; never upscales
-    (ref:crates/images/src/lib.rs:89)."""
-    if w * h <= target_px:
-        return w, h
-    ratio = math.sqrt(target_px / (w * h))
-    return max(1, round(w * ratio)), max(1, round(h * ratio))
-
-
-def video_dimensions(w: int, h: int, max_dim: int = VIDEO_MAX_DIM) -> tuple[int, int]:
-    """Bound the max dimension (video thumbs, ref:sd_ffmpeg size=256)."""
-    if max(w, h) <= max_dim:
-        return w, h
-    ratio = max_dim / max(w, h)
-    return max(1, round(w * ratio)), max(1, round(h * ratio))
 
 
 def bucket_for(h: int, w: int) -> tuple[int, int] | None:
@@ -249,24 +238,3 @@ def resize_batch(
             else:
                 results[i] = out[j, :th, :tw]
     return results  # type: ignore[return-value]
-
-
-def apply_orientation(arr: np.ndarray, orientation: int) -> np.ndarray:
-    """EXIF orientation 1-8 → corrected array (host views where
-    possible). Parity: ref:crates/media-metadata/src/image/orientation.rs
-    applied after the resize (process.rs:421-428)."""
-    if orientation == 2:
-        return arr[:, ::-1]
-    if orientation == 3:
-        return arr[::-1, ::-1]
-    if orientation == 4:
-        return arr[::-1]
-    if orientation == 5:
-        return np.transpose(arr, (1, 0, 2))
-    if orientation == 6:
-        return np.transpose(arr[::-1], (1, 0, 2))
-    if orientation == 7:
-        return np.transpose(arr[::-1, ::-1], (1, 0, 2))
-    if orientation == 8:
-        return np.transpose(arr[:, ::-1], (1, 0, 2))
-    return arr

@@ -11,8 +11,8 @@ corrupt the framing. The contract:
 
 - **import-light**: no torch, no jax, no Node, no event loop. The
   module-level imports are stdlib; a stage imports the torch-free
-  modules it needs (`models/embed_decode.py`, `ops/phash_gray.py`) on
-  its first call;
+  modules it needs (`models/embed_decode.py`, `ops/phash_gray.py`,
+  `object/media/thumbnail/host.py`) on its first call;
 - **shared-nothing**: payloads and results are MessagePack-plain
   (dicts, lists, str, bytes, numbers, None); no DB connection or device
   tensor crosses the boundary, and every device op and SQLite write
@@ -25,8 +25,7 @@ corrupt the framing. The contract:
 Stages run the same functions as the inline paths, so ``SD_PROCS=0``
 and the pool give identical output. The stages of the JAX worker that
 serve the mesh identify (`identify.hash_entries`, `journal.match`,
-`link.prep`) and the thumbnailer's software path (`thumb.cpu`) are not
-ported.
+`link.prep`) are not ported.
 
 Wire frames (owner → worker): ``[job_id, stage, payload_blob,
 stall_s]``; (worker → owner): ``[job_id, ok, body_blob, delta_blob]``.
@@ -120,10 +119,30 @@ def _stage_embed_decode(payload: dict) -> dict:
     return {"planes": planes}
 
 
+def _stage_thumb_cpu(payload: dict) -> dict:
+    """The thumbnailer's software path for one file: decode by kind, the
+    host resize, orientation and film strip, webp
+    (object/media/thumbnail/host.generate_one_cpu, the function the
+    inline path runs, so the bytes are identical). A file that fails to
+    decode returns ``{"webp": None, "error": ...}`` instead of raising:
+    the actor counts it without a second, equally doomed, inline decode.
+
+    payload: {"path": str, "ext": str}
+    result:  {"webp": bytes | None, "error": str | None}
+    """
+    from ..object.media.thumbnail.host import ThumbError, generate_one_cpu
+
+    try:
+        return {"webp": generate_one_cpu(payload["path"], payload["ext"]), "error": None}
+    except (ThumbError, OSError) as exc:
+        return {"webp": None, "error": f"{type(exc).__name__}: {exc}"}
+
+
 STAGES = {
     "echo": _stage_echo,
     "phash.gray": _stage_phash_gray,
     "embed.decode": _stage_embed_decode,
+    "thumb.cpu": _stage_thumb_cpu,
 }
 
 

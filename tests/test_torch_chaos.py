@@ -327,6 +327,34 @@ async def test_actor_degrades_a_chunk_past_the_ladder_to_the_cpu_resize(tmp_path
     assert chaos == clean
 
 
+async def test_video_frames_keep_their_film_strip_past_the_ladder(tmp_path, monkeypatch):
+    """A clip, its rotated copy, cover art and a PDF page through a chunk
+    forced past the ladder: the `[cpu]` resize stores the clean run's
+    bytes, each the encode of its frame with the film strip on the clips
+    only."""
+    from test_torch_decoders import _kinds
+
+    from spacedrive_tpu_torch.object.media.thumbnail import process
+
+    _slots(monkeypatch, 2)
+    kinds = _kinds(tmp_path)
+    names = [n for n in ("clip.mp4", "rot90.mov", "song.mpg", "vector.pdf") if n in kinds]
+    entries = [(f"{i:03x}cas{i:09x}", *kinds[n]) for i, n in enumerate(names)]
+    clean, _ = await _thumbs(tmp_path / "clean", entries)
+    RESILIENCE_EVENTS.clear()
+    plan = faults.FaultPlan.parse("device.thumbnail:raise:times=inf")
+    chaos, (generated, errors) = await _thumbs(tmp_path / "chaos", entries, plan)
+    assert (generated, errors) == (len(entries), 0) and _events("thumbnail_cpu_fallback")
+    assert chaos == clean
+    for (cas_id, path, ext), name in zip(entries, names):
+        d = process.decode(path, ext)
+        assert d.is_video == name.endswith((".mp4", ".mov"))
+        (frame,) = process.resize_decoded([d], devices=[CPU])
+        assert chaos[cas_id] == process.finish(d, frame)
+        if d.is_video:
+            assert chaos[cas_id] != process.encode_webp(np.ascontiguousarray(frame))
+
+
 async def test_actor_on_a_pinned_device_still_fails_the_batch(tmp_path):
     entries = _make_images(tmp_path, 2)
     th = Thumbnailer(tmp_path / "data", device="cpu")

@@ -167,16 +167,20 @@ def _media_tree(root):
 
 
 def _media_chain(data_dir, loc, device):
-    """The three-job chain (`cli.index_library`) on `device`; returns the
-    summary and, by cas_id, each webp's pixels, each media_data row and
-    each embedding vector."""
+    """The three-job chain (`cli.index_library`) on `device`, the
+    thumbnailer on its device path there (a Node on "cpu" would take the
+    software path); returns the summary and, by cas_id, each webp's
+    pixels, each media_data row and each embedding vector."""
     from PIL import Image
 
     from spacedrive_tpu_torch.cli import index_library
     from spacedrive_tpu_torch.node.library import Libraries
+    from spacedrive_tpu_torch.node.node import Node
     from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
 
-    summary = asyncio.run(index_library(str(loc), str(data_dir), "gpu-media", device))
+    node = Node(str(data_dir), device=device)
+    node.thumbnailer.use_device = True
+    summary = asyncio.run(index_library(str(loc), str(data_dir), "gpu-media", device, node=node))
     (lib,) = Libraries(data_dir).load_all()
     try:
         store = ThumbnailStore(os.path.join(data_dir, "thumbnails"))
@@ -716,3 +720,59 @@ def test_cas_ids_on_cuda_at_every_forced_rung(rung):
         autotune.reset()
     hot_parts = -(-40 // autotune.BATCH_LADDER[rung])
     assert launches >= hot_parts
+
+
+def _pdf_page_bytes() -> bytes:
+    """A one-page PDF of vector art and a line of text: the cairo
+    rasterizer draws it where cairo is found, the reader's typeset-text
+    strategy anywhere else."""
+    import zlib
+
+    content = zlib.compress(b"0.9 0.1 0.1 rg 50 50 m 250 50 l 150 250 l h f "
+                            b"0.1 0.2 0.9 rg 300 500 200 150 re f "
+                            b"BT /F1 24 Tf 72 700 Td (a page on the card) Tj ET")
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>", b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+            b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 612 792] /Contents 4 0 R "
+            b"/Resources << /Font << /F1 5 0 R >> >> >>",
+            b"<< /Length " + str(len(content)).encode() + b" /Filter /FlateDecode >>\nstream\n"
+            + content + b"\nendstream",
+            b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>"]
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = []
+    for i, o in enumerate(objs, 1):
+        offsets.append(len(out))
+        out += str(i).encode() + b" 0 obj\n" + o + b"\nendobj\n"
+    xref = len(out)
+    out += b"xref\n0 6\n0000000000 65535 f \n" + b"".join(f"{o:010d} 00000 n \n".encode()
+                                                         for o in offsets)
+    out += b"trailer\n<< /Size 6 /Root 1 0 R >>\nstartxref\n" + str(xref).encode() + b"\n%%EOF\n"
+    return bytes(out)
+
+
+def test_pdf_page_and_video_frame_resize_on_cuda_within_one_level_of_cpu(tmp_path):
+    """The other decoders' frames on the card: a decoded PDF page (always
+    decodable) and a frame of the committed clip (native frontend or
+    cv2) resize on cuda within 1 uint8 level of the CPU, at the dims the
+    host half chose (video: longest side 256 at most)."""
+    from spacedrive_tpu_torch.native import video
+    from spacedrive_tpu_torch.object.media.thumbnail import process
+
+    pdf = tmp_path / "page.pdf"
+    pdf.write_bytes(_pdf_page_bytes())
+    decoded = [process.decode(str(pdf), "pdf")]
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    if video.video_available() or have_cv2:
+        clip = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                            "torch_clip_128x96.mp4")
+        decoded.append(process.decode(clip, "mp4"))
+        assert decoded[-1].is_video and decoded[-1].target == (96, 128)
+    got = process.resize_decoded(decoded, "cuda")
+    want = process.resize_decoded(decoded, "cpu")
+    for d, g, w in zip(decoded, got, want):
+        assert g.shape == w.shape == d.target + (4,)
+        assert int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max()) <= 1
+        assert process.finish(d, g)[:4] == b"RIFF"

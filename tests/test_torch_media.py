@@ -20,8 +20,9 @@ does. Required, cold and after each rescan:
 - the search sidecar's vectors equal per object (allclose 1e-5).
 
 Object pub_ids are random in both packages, so rows join through
-cas_id. The tree holds no video, PDF, SVG or HEIF file: the port does
-not process those yet (ROADMAP queue 3).
+cas_id. The tree holds still images only; tests/test_torch_media_kinds.py
+holds the chain to the JAX package's on a tree of every kind (video,
+PDF, SVG, AVIF).
 """
 
 import asyncio

@@ -44,6 +44,18 @@ def test_no_jax_or_jax_package_imports(path):
         assert top not in FORBIDDEN, f"{os.path.relpath(path, ROOT)} imports {mod}"
 
 
+def test_the_scan_covers_the_decoders():
+    """The other decoders (owned copies of the JAX modules and the video
+    loader) are among the scanned sources, so the import checks above
+    and the fresh-interpreter import below hold them too."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    media = os.path.join("object", "media")
+    assert {os.path.join(media, f) for f in ("images.py", "svg.py", "pdf.py", "pdf_raster.py",
+                                            "pdf_fonts.py")} <= rel
+    assert {os.path.join("native", "video.py"), os.path.join(media, "thumbnail", "host.py"),
+            os.path.join("ops", "thumbnail_dims.py")} <= rel
+
+
 def test_sklearn_only_inside_digits_demo_dataset():
     """scikit-learn, which the card's machine lacks, is imported by one
     function of the port, lazily: `models/train.py`'s

@@ -9,6 +9,12 @@
 - the `embed.decode` and `phash.gray` planes are bit-identical to the
   JAX worker's `_stage_embed_decode` and `_stage_phash_gray` on seeded
   JPEG and PNG images, inline and through the pool;
+- the `thumb.cpu` webp of every decodable kind (image, HEIF, video,
+  PDF, SVG) equals inline `generate_one_cpu` and the JAX worker's stage,
+  and a software-path actor (`use_device=False`) stores the same bytes
+  with `SD_PROCS=0`, with `SD_PROCS=2`, with every pool job failing
+  (the inline retry) and as the JAX actor; a Node on "cpu" takes that
+  path in `index --library`, inline and on the pool;
 - a media job and a duplicates job on `device="cpu"` with `SD_PROCS=2`
   equal `SD_PROCS=0` (cas_ids, media_data rows, pHash bits, groups and
   webp bytes exact, embeddings within 1e-5), also under
@@ -19,6 +25,7 @@ Every test runs `SD_PROCS=2` (or 1), stops the pool in teardown and
 waits with a timeout of a few seconds.
 """
 
+import asyncio
 import os
 import subprocess
 import sys
@@ -28,9 +35,15 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from test_pdf_svg import vector_pdf_bytes
+from test_torch_decoders import CLIP, KINDS, _kinds
+
+from spacedrive_tpu.object.media.thumbnail import Thumbnailer as JaxThumbnailer
 from spacedrive_tpu.parallel import procworker as jworker
 from spacedrive_tpu_torch import cli
 from spacedrive_tpu_torch.node.library import Libraries
+from spacedrive_tpu_torch.object.media.thumbnail import host as thumb_host
+from spacedrive_tpu_torch.object.media.thumbnail.actor import Thumbnailer
 from spacedrive_tpu_torch.parallel import procpool, procworker
 from spacedrive_tpu_torch.telemetry.registry import MetricsRegistry
 from spacedrive_tpu_torch.telemetry.snapshot import counter_value, gauge_value
@@ -308,15 +321,28 @@ def test_codec_packs_a_32_path_embed_reply_in_milliseconds():
 def test_worker_and_its_stages_import_no_torch_or_jax(tmp_path):
     img = tmp_path / "a.png"
     Image.fromarray(np.zeros((40, 30, 3), np.uint8)).save(img)
+    pdf = tmp_path / "v.pdf"
+    pdf.write_bytes(vector_pdf_bytes())
+    clip = CLIP
     code = (
         "import sys\n"
         "from spacedrive_tpu_torch.parallel import procworker\n"
         "import spacedrive_tpu_torch.models.embed_decode, spacedrive_tpu_torch.ops.phash_gray\n"
         "import spacedrive_tpu_torch.telemetry.metrics, spacedrive_tpu_torch.utils.faults\n"
+        "import spacedrive_tpu_torch.object.media.thumbnail.host, spacedrive_tpu_torch.native.video\n"
+        "import spacedrive_tpu_torch.object.media.pdf, spacedrive_tpu_torch.object.media.pdf_raster\n"
+        "import spacedrive_tpu_torch.object.media.pdf_fonts, spacedrive_tpu_torch.object.media.svg\n"
+        "import spacedrive_tpu_torch.ops.thumbnail_dims\n"
         f"r = procworker._stage_embed_decode({{'paths': [{str(img)!r}]}})\n"
         "assert r['planes'][0] is not None\n"
         f"r = procworker._stage_phash_gray({{'path': {str(img)!r}, 'thumb_path': None}})\n"
         "assert r['gray'] is not None\n"
+        f"r = procworker._stage_thumb_cpu({{'path': {str(img)!r}, 'ext': 'png'}})\n"
+        "assert r['webp'][:4] == b'RIFF' and r['error'] is None\n"
+        f"r = procworker._stage_thumb_cpu({{'path': {str(pdf)!r}, 'ext': 'pdf'}})\n"
+        "assert r['webp'][:4] == b'RIFF' and r['error'] is None\n"
+        f"r = procworker._stage_thumb_cpu({{'path': {str(clip)!r}, 'ext': 'mp4'}})\n"
+        "assert r['webp'][:4] == b'RIFF' and r['error'] is None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'jaxlib'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -378,6 +404,144 @@ def test_stage_planes_equal_jax_inline_and_pooled(tmp_path, pool):
         want = jworker._stage_phash_gray(payload)
         assert procworker._stage_phash_gray(payload) == want
         assert pool.request("phash.gray", payload, timeout=WAIT_S) == want
+
+
+@pytest.mark.parametrize("name", KINDS)
+def test_thumb_cpu_equals_inline_and_jax(tmp_path, pool, name):
+    kinds = _kinds(tmp_path)
+    if name not in kinds:
+        pytest.skip(f"{name}: its decoder's library is unavailable here")
+    path, ext = kinds[name]
+    payload = {"path": path, "ext": ext}
+    inline = thumb_host.generate_one_cpu(path, ext)
+    assert procworker._stage_thumb_cpu(payload) == {"webp": inline, "error": None}
+    assert pool.request("thumb.cpu", payload, timeout=WAIT_S) == {"webp": inline, "error": None}
+    assert jworker._stage_thumb_cpu(payload)["webp"] == inline
+
+
+def test_thumb_cpu_reports_an_undecodable_file(tmp_path, pool):
+    bad = tmp_path / "broken.pdf"
+    bad.write_bytes(b"%PDF-1.4 nothing")
+    got = pool.request("thumb.cpu", {"path": str(bad), "ext": "pdf"}, timeout=WAIT_S)
+    assert got["webp"] is None and got["error"].startswith("ThumbError")
+
+
+async def _software_thumbs(actor, entries):
+    batch_id = actor.new_indexed_thumbnails_batch("lib", entries)
+    await asyncio.wait_for(actor.wait_batch(batch_id), 120)
+    out = {}
+    for cas_id, _path, _ext in entries:
+        p = actor.store.path_for("lib", cas_id)
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[cas_id] = f.read()
+    return out
+
+
+async def _jax_software_thumbs(data_dir, entries):
+    actor = JaxThumbnailer(data_dir, use_device=False)
+    try:
+        await asyncio.wait_for(actor.wait_batch(
+            actor.new_indexed_thumbnails_batch("lib", entries)), 120)
+    finally:
+        await actor.shutdown()
+    out = {}
+    for cas_id, _path, _ext in entries:
+        p = actor.store.path_for("lib", cas_id)
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[cas_id] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("leg", ["pool", "pool_failing"])
+async def test_software_actor_stores_the_same_bytes_inline_and_pooled(tmp_path, monkeypatch, leg):
+    """`use_device=False`: every kind takes the software path; the bytes
+    stored with SD_PROCS=0, with SD_PROCS=2 (`thumb.cpu`, one job per
+    file) and with every pool job failing (the inline retry) are equal,
+    and equal the JAX actor's with use_device=False."""
+    (tmp_path / "in").mkdir()
+    kinds = _kinds(tmp_path / "in")
+    (tmp_path / "in" / "broken.pdf").write_bytes(b"%PDF-1.4 nothing")
+    kinds["broken.pdf"] = (str(tmp_path / "in" / "broken.pdf"), "pdf")
+    entries = [(f"{i:016x}", path, ext) for i, (path, ext) in enumerate(kinds.values(), 1)]
+
+    monkeypatch.setenv("SD_PROCS", "0")
+    inline_actor = Thumbnailer(tmp_path / "inline", device="cpu", use_device=False)
+    try:
+        inline = await _software_thumbs(inline_actor, entries)
+    finally:
+        await inline_actor.shutdown()
+    assert len(inline) == len(entries) - 1 and inline_actor.errors == 1
+    for cas_id, path, ext in entries[:-1]:
+        assert inline[cas_id] == thumb_host.generate_one_cpu(path, ext)
+
+    monkeypatch.setenv("SD_PROCS", "2")
+    assert procpool.POOL.start()
+    try:
+        procpool.POOL.warm(timeout=WAIT_S)
+        if leg == "pool_failing":
+            async def fail(*a, **k):
+                raise procpool.ProcPoolError("injected")
+
+            monkeypatch.setattr(procpool.POOL, "run", fail)
+        ok0 = counter_value("sd_procpool_jobs_total", result="ok")
+        pooled_actor = Thumbnailer(tmp_path / "pooled", device="cpu", use_device=False)
+        assert pooled_actor._pool() is procpool.POOL
+        assert Thumbnailer(tmp_path / "card", device="cpu")._pool() is None
+        try:
+            pooled = await _software_thumbs(pooled_actor, entries)
+        finally:
+            await pooled_actor.shutdown()
+        jobs = counter_value("sd_procpool_jobs_total", result="ok") - ok0
+    finally:
+        procpool.POOL.stop()
+    assert pooled == inline and pooled_actor.errors == 1
+    assert jobs == (len(entries) if leg == "pool" else 0)
+    assert await _jax_software_thumbs(str(tmp_path / "jax"), entries) == inline
+
+
+@pytest.mark.parametrize("procs", ["0", "2"])
+async def test_a_cpu_node_thumbnails_through_the_software_path(tmp_path, monkeypatch, procs):
+    """A Node on "cpu" gives its thumbnailer `use_device=False`, as the
+    JAX CLI's `--backend cpu` does, and a Node on "cuda" keeps the device
+    path. `index --library` on the CPU then stores, for every decodable
+    kind, the bytes of `generate_one_cpu` (the JAX software path's):
+    inline with `SD_PROCS=0`, one `thumb.cpu` job a file with 2."""
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
+
+    assert Node(tmp_path / "c", device="cpu", with_labeler=False).thumbnailer.use_device is False
+    assert Node(tmp_path / "g", device="cuda", with_labeler=False).thumbnailer.use_device is True
+    (tmp_path / "in").mkdir()
+    kinds = _kinds(tmp_path / "in")
+    monkeypatch.setenv("SD_PROCS", procs)
+    stages = []
+    run = procpool.POOL.run
+
+    async def recording_run(stage, payload, *args, **kwargs):
+        stages.append(stage)
+        return await run(stage, payload, *args, **kwargs)
+
+    monkeypatch.setattr(procpool.POOL, "run", recording_run)
+    data = tmp_path / "data"
+    summary = await cli.index_library(str(tmp_path / "in"), str(data), "sw", "cpu")
+    # the tree also holds files no kind decodes (a truncated clip)
+    dispatched = sum(thumb_host.can_generate(f.rsplit(".", 1)[-1])
+                     for f in os.listdir(tmp_path / "in"))
+    assert summary["thumbnails"] == len(kinds) < dispatched
+    assert stages.count("thumb.cpu") == (dispatched if procs == "2" else 0)
+    (lib,) = Libraries(str(data)).load_all()
+    try:
+        cas_of = {os.path.join(str(tmp_path / "in"), r["name"] + "." + r["extension"]): r["cas_id"]
+                  for r in lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")}
+        lib_id = str(lib.id)
+    finally:
+        lib.close()
+    store = ThumbnailStore(str(data / "thumbnails"))
+    for path, ext in kinds.values():
+        with open(store.path_for(lib_id, cas_of[path]), "rb") as f:
+            assert f.read() == thumb_host.generate_one_cpu(path, ext), path
 
 
 # --- the media job and the duplicates job, pooled against inline ----------

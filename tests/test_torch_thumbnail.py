@@ -139,10 +139,17 @@ def test_decode_and_finish_match_jax(tmp_path):
 
 
 def test_can_generate_matches():
-    for ext in ("jpg", "JPEG", "png", "gif", "webp", "heic", "svg", "pdf", "mp4", "txt", None):
-        assert process.can_generate(ext) == (
-            jprocess.can_generate(ext) and (ext or "").lower() in process.IMAGE_EXTENSIONS)
-    assert set(process.IMAGE_EXTENSIONS) <= set(jprocess.IMAGE_EXTENSIONS)
+    """Equal to JAX's for every extension of the taxonomy (upper case
+    too), and the extension sets equal in order."""
+    from spacedrive_tpu_torch.files.extensions import CATEGORIES
+
+    exts = {e for es in CATEGORIES.values() for e in es}
+    for ext in sorted(exts) + [e.upper() for e in sorted(exts)] + ["", "txt", None]:
+        assert process.can_generate(ext) == jprocess.can_generate(ext), ext
+        assert process.is_video(ext) == jprocess.is_video(ext), ext
+    for name in ("IMAGE_EXTENSIONS", "VIDEO_EXTENSIONS", "SVG_EXTENSIONS", "PDF_EXTENSIONS",
+                 "DOC_EXTENSIONS"):
+        assert tuple(getattr(process, name)) == tuple(getattr(jprocess, name)), name
 
 
 def test_store_layout_matches_jax(tmp_path):

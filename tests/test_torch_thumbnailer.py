@@ -585,10 +585,11 @@ def test_lookup_counts_and_bytes_saved(tmp_path):
 def test_decode_dispatch_and_can_generate(tmp_path):
     path = tmp_path / "a.png"
     Image.new("RGB", (30, 20), (1, 2, 3)).save(path)
-    assert process.can_generate("PNG") and not process.can_generate("mp4")
+    assert process.can_generate("PNG") and process.can_generate("mp4")
+    assert not process.can_generate("txt")
     assert process.decode(str(path), "png").array.shape == (20, 30, 4)
     with pytest.raises(process.ThumbError):
-        process.decode(str(path), "mp4")
+        process.decode(str(path), "txt")
 
 
 async def test_rows_of_one_cas_in_one_chunk_store_once_each(tmp_path):
