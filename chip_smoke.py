@@ -105,14 +105,35 @@ clips and none on cover art, video media_data rows equal to
 1e-5 of a CPU embed) and the journal's vouches; then a warm rescan
 with 0 K1 launches, 0 thumbnails and 0 media work, and `check_healthy`
 by delta. It prints `{"other_decoders": ...}`.
+Phase 11 is the node's control plane and its rspc API, with the ladder
+and the controller reset first: a Node on the card over phase 4's data
+dir (20,496 rows with vectors and labels after phases 5-6), driven
+through `node.router`: `nodeState` names the card and the provisioned
+labeler; `search.paths` paged in full by name and by size (each row
+once, in order), `library.statistics` and `kindStatistics` against
+COUNT(*), `search.semantic` of a phase-3 image (itself first, cosine
+>= 0.9999), `search.duplicates` against `find_duplicates` and
+`labels.list` against the label table (a page by size costs a pass
+over every row: the size key has no index, as in JAX); then
+`library.create` and
+`locations.create` over a new ~512-file location (phase 3's size mix,
+32 JPEGs, 4 near copies), waited on through `jobs.isActive` with a
+bound: K1 launched, cas_ids against the plain path on the CPU,
+JobProgress events, invalidations of `search.paths`, `locations.list`
+and `labels.list` and a completion notification on the node bus; a
+`locations.fullRescan` with 0 K1 launches; `files.validate` against
+the host hasher; round trips of `preferences.update/get`,
+`toggleFeatureFlag`, `tags.create/assign` and `backups.backup/getAll`;
+`check_healthy` by delta. It prints `{"api": ...}` with its seconds by
+step.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
-training's, the device seam's, the execution plane's and the other
-decoders' numbers as JSON.
+training's, the device seam's, the execution plane's, the other
+decoders' and the API's numbers as JSON.
 """
 
 from __future__ import annotations
@@ -3469,11 +3490,302 @@ def phase_decoders(rng, tmp: str, name_power: str) -> dict:
     return {"launches": {"decoders_cold": cold["launches"], "decoders_warm": warm["launches"]}}
 
 
+# --- phase 11: the node's control plane and its rspc API on the card -----------
+
+# the API's own scan: ~512 files in phase 3's size mix (a new location
+# of a new library beside phase 4's), 32 of them JPEGs and 4 near copies
+N_API_LARGE, N_API_SMALL, N_API_JPEG, N_API_NEAR = 380, 96, 32, 4
+API_WAIT_S = 120  # the bound on a scan's `jobs.isActive` wait
+API_TAKE = 100  # search.paths' largest page (api/search.py MAX_TAKE)
+
+
+def build_api_corpus(root: str, rng) -> list[str]:
+    """N_API_LARGE files of 101 KiB-512 KiB (log-uniform sizes), N_API_SMALL
+    over the small buckets, N_API_JPEG JPEGs of phase 3's aspects and
+    orientations and N_API_NEAR re-encoded copies of them; returns every
+    path."""
+    from spacedrive_tpu_torch.ops import cas
+
+    large = np.exp(rng.uniform(np.log(101 * 1024), np.log(512 * 1024), N_API_LARGE)).astype(int)
+    small = rng.integers(0, cas.MINIMUM_FILE_SIZE + 1, N_API_SMALL)
+    paths = []
+    for i, size in enumerate(list(large) + list(small)):
+        path = os.path.join(root, f"d{i % 8}", f"f{i:04d}.bin")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(rng.bytes(int(size)))
+        paths.append(path)
+    jobs = []
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i in range(N_API_JPEG):
+        aw, ah = ASPECTS[i % 4]
+        long_side = int(np.exp(rng.uniform(np.log(LONG_SIDE[0]), np.log(LONG_SIDE[1]))))
+        w, h = long_side, max(1, long_side * ah // aw)
+        if i % 2:
+            w, h = h, w
+        jobs.append((os.path.join(root, "images", f"api{i:02d}.jpg"), w, h,
+                     int(rng.integers(1 << 30)), "jpg", (1, 6, 8, 3)[i % 4]))
+    near = [(p, os.path.join(root, "near", "n_" + os.path.basename(p)))
+            for p, *_ in jobs[:N_API_NEAR]]
+    os.makedirs(os.path.join(root, "near"), exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        paths += [p for p, *_ in pool.map(_image, jobs)]
+        list(pool.map(_near_copy, near))
+    return paths + [dst for _, dst in near]
+
+
+async def _until_idle(r, node, lid: str) -> float:
+    """Poll `jobs.isActive` until the library's jobs are done; fails past
+    API_WAIT_S. Returns the seconds waited."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while await r.exec(node, "jobs.isActive", library_id=lid):
+        check(time.perf_counter() - t0 < API_WAIT_S, f"jobs still active after {API_WAIT_S} s")
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def _page_all(r, node, lid: str, order: str) -> tuple[list, list]:
+    """Every row of `search.paths` in `order`, page by page; the ids and
+    the order values."""
+    seen, vals, cursor = [], [], None
+    while True:
+        page = await r.exec(node, "search.paths",
+                            {"take": API_TAKE, "orderBy": order, "cursor": cursor}, library_id=lid)
+        seen += [n["__id"] for n in page["items"]]
+        vals += [n["name" if order == "name" else "size_in_bytes"] for n in page["nodes"]]
+        cursor = page["cursor"]
+        if cursor is None:
+            return seen, vals
+
+
+def check_walk(walk: tuple[list, list], order: str, n_rows: int) -> None:
+    seen, vals = walk
+    check(len(seen) == len(set(seen)) == n_rows,
+          f"search.paths by {order}: {len(seen)} rows ({len(set(seen))} distinct) of {n_rows}")
+    check(vals == sorted(vals), f"search.paths by {order} is out of order")
+
+
+async def api_read_side(r, node, lib, images: list[str], rng, steps: dict) -> None:
+    """11.3: the read procedures on phase 4's library (phases 5-6 extended
+    it) against the DB and the port's own calls."""
+    import asyncio
+
+    from spacedrive_tpu_torch.api.cache import normalise
+    from spacedrive_tpu_torch.db.database import blob_u64
+    from spacedrive_tpu_torch.object.duplicates import find_duplicates
+
+    lid = str(lib.id)
+    n_rows = lib.db.count("file_path")
+    for order, step in (("name", "paths_by_name_s"), ("sizeInBytes", "paths_by_size_s")):
+        t0 = time.perf_counter()
+        check_walk(await _page_all(r, node, lid, order), order, n_rows)
+        steps[step] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    stats = await r.exec(node, "library.statistics", library_id=lid)
+    sizes = [blob_u64(x["size_in_bytes_bytes"]) or 0
+             for x in lib.db.query("SELECT size_in_bytes_bytes FROM file_path")]
+    check(stats["total_object_count"] == lib.db.count("object")
+          and int(stats["total_bytes_used"]) == sum(sizes), f"library.statistics: {stats}")
+    ks = await r.exec(node, "library.kindStatistics", library_id=lid)
+    want = {x["kind"]: x["n"] for x in lib.db.query(
+        "SELECT kind, COUNT(*) AS n FROM object WHERE kind IS NOT NULL GROUP BY kind")}
+    check({s["kind"]: s["count"] for s in ks["statistics"]} == want,
+          f"kindStatistics {ks} != the DB's {want}")
+    steps["statistics_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    probe = images[int(rng.integers(len(images)))]
+    sem = await r.exec(node, "search.semantic", {"query": probe, "take": 5}, library_id=lid)
+    first = sem["nodes"][0] if sem["nodes"] else {}
+    check(sem["resolved"] and f"{first.get('name')}.{first.get('extension')}"
+          == os.path.basename(probe) and first["score"] >= 0.9999,
+          f"search.semantic of {probe} ranked {first.get('name')} first ({first.get('score')})")
+    steps["semantic_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    dups = await r.exec(node, "search.duplicates", {}, library_id=lid)
+    want_dups = await asyncio.to_thread(find_duplicates, lib, DUP_THRESHOLD, DEVICE)
+    check(dups == want_dups and any(g["kind"] == "near" for g in dups),
+          f"search.duplicates ({len(dups)} groups) != find_duplicates ({len(want_dups)})")
+    steps["duplicates_s"] = time.perf_counter() - t0
+
+    labels = await r.exec(node, "labels.list", library_id=lid)
+    check(labels == normalise("label", lib.db.find("label")) and labels["items"]
+          and lib.db.count("label_on_object") > 0, "labels.list != the label table")
+    print(f"phase 11: {n_rows} rows paged by name and by size, each once; statistics and "
+          f"{len(want)} kinds == COUNT(*); {os.path.basename(probe)} ranks itself first "
+          f"(cosine {first['score']:.7f}); {len(dups)} duplicate groups == find_duplicates; "
+          f"{len(labels['items'])} labels == the label table", flush=True)
+
+
+async def api_scan(r, node, root: str, paths: list[str], steps: dict) -> dict:
+    """11.4-11.6: a new library, a new location through `locations.create`
+    (K1 launched, cas_ids against the plain path on the CPU, progress,
+    invalidations and the completion notification on the node bus), a
+    `locations.fullRescan` that launches K1 no time, and `files.validate`
+    against the host hasher. Returns K1's launches by step."""
+    from spacedrive_tpu_torch.api import CoreEventKind
+    from spacedrive_tpu_torch.object.validation import file_checksum
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas
+
+    t0 = time.perf_counter()
+    sub = node.event_bus.subscribe()
+    lid = (await r.exec(node, "library.create", {"name": "api"}))["uuid"]
+    lib = next(x for x in node.libraries.libraries.values() if str(x.id) == lid)
+    blake3_cuda.chunk_cvs.launches = 0
+    loc_id = await r.exec(node, "locations.create", {"path": root}, library_id=lid)
+    await _until_idle(r, node, lid)
+    create_launches = blake3_cuda.chunk_cvs.launches
+    await node.thumbnailer.wait_library_batch(lib.id)
+    steps["create_scan_s"] = time.perf_counter() - t0
+    events = sub.poll()
+    sub.close()
+    progress = [e[1] for e in events if isinstance(e, tuple) and e[0] == "JobProgress"]
+    keys = {e[1].key for e in events
+            if isinstance(e, tuple) and e[0] == CoreEventKind.INVALIDATE_OPERATION
+            and e[1].library_id == lid}
+    check(create_launches > 0, "locations.create launched K1 no time")
+    check({p.name for p in progress} >= {"indexer", "file_identifier", "media_processor"},
+          f"JobProgress on the node bus: {sorted({p.name for p in progress})}")
+    check(keys >= {"search.paths", "locations.list", "labels.list"},
+          f"invalidations on the node bus: {sorted(keys)}")
+    reports = await r.exec(node, "jobs.reports", library_id=lid)
+    check(len(reports) == 3 and all(x["status"] == "COMPLETED" for x in reports),
+          f"the scan's jobs: {[(x['name'], x['status'], x['errors']) for x in reports]}")
+    notes = [n for n in await r.exec(node, "notifications.get")
+             if n["id"]["library_id"] == lid and n["data"].get("job") == "media_processor"]
+    check(len(notes) == 1 and notes[0]["data"]["kind"] == "ok",
+          f"completion notifications: {notes}")
+
+    t0 = time.perf_counter()
+    rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")
+    by_path = {_row_path(root, x): x for x in rows}
+    check(set(paths) <= set(by_path) and len(rows) == len(paths) + 1,  # + the .spacedrive marker
+          f"{len(rows)} file rows for {len(paths)} files and the marker")
+    hashed = [p for p in by_path if os.path.getsize(p) > 0]
+    plain = cas.cas_ids([cas.read_message(p, os.path.getsize(p)) for p in hashed], "cpu")
+    for p, want in zip(hashed, plain):
+        check(by_path[p]["cas_id"] == want, f"cas_id of {p} != the plain path on the CPU")
+    steps["check_cas_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    blake3_cuda.chunk_cvs.launches = 0
+    await r.exec(node, "locations.fullRescan", {"location_id": loc_id}, library_id=lid)
+    await _until_idle(r, node, lid)
+    rescan_launches = blake3_cuda.chunk_cvs.launches
+    check(rescan_launches == 0, f"the fullRescan of the unchanged tree launched K1 "
+          f"{rescan_launches} times")
+    steps["full_rescan_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    blake3_cuda.chunk_cvs.launches = 0
+    await r.exec(node, "files.validate", {"location_id": loc_id}, library_id=lid)
+    await _until_idle(r, node, lid)
+    validate_launches = blake3_cuda.chunk_cvs.launches
+    steps["validate_s"] = time.perf_counter() - t0
+    rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")
+    with ThreadPoolExecutor(8) as pool:
+        want = list(pool.map(file_checksum, [_row_path(root, x) for x in rows]))
+    for x, w in zip(rows, want):
+        check(x["integrity_checksum"] == w, f"integrity_checksum of {x['name']} != the host "
+              f"hasher's")
+    check(validate_launches > 0, "files.validate launched K1 no time")
+    print(f"phase 11: locations.create: {len(rows)} files, K1 {create_launches} launches, "
+          f"{len(hashed)} cas_ids == the plain path on the CPU, {len(progress)} JobProgress "
+          f"events, invalidated {sorted(keys)}, a completion notification; fullRescan 0 K1 "
+          f"launches; files.validate: {len(rows)} checksums == the host hasher, K1 "
+          f"{validate_launches} launches", flush=True)
+    return {"lib": lib, "launches": {"api_create": create_launches,
+                                     "api_full_rescan": rescan_launches,
+                                     "api_validate": validate_launches}}
+
+
+async def api_round_trips(r, node, lib, steps: dict) -> None:
+    """11.7: preferences, a feature flag, tags and backups through the
+    router."""
+    t0 = time.perf_counter()
+    lid = str(lib.id)
+    doc = {"explorer": {"layout": "grid", "size": 3}, "theme": "dark"}
+    await r.exec(node, "preferences.update", doc, library_id=lid)
+    check(await r.exec(node, "preferences.get", library_id=lid) == doc, "preferences round trip")
+    for on in (True, False):
+        got = await r.exec(node, "toggleFeatureFlag", {"feature": "filesOverP2P", "enabled": on})
+        state = await r.exec(node, "nodeState")
+        check(got is on and ("filesOverP2P" in state["features"]) is on, "toggleFeatureFlag")
+    tag_id = await r.exec(node, "tags.create", {"name": "smoke-tag", "color": "#0af"},
+                          library_id=lid)
+    objs = [x["id"] for x in lib.db.query("SELECT id FROM object ORDER BY id LIMIT 3")]
+    await r.exec(node, "tags.assign", {"tag_id": tag_id, "object_ids": objs}, library_id=lid)
+    tagged = await r.exec(node, "search.paths", {"filter": {"tags": [tag_id]}}, library_id=lid)
+    for_obj = await r.exec(node, "tags.getForObject", objs[0], library_id=lid)
+    check({n["object_id"] for n in tagged["nodes"]} == set(objs)
+          and [n["name"] for n in for_obj["nodes"]] == ["smoke-tag"], "tags round trip")
+    backup_id = await r.exec(node, "backups.backup", library_id=lid)
+    backups = await r.exec(node, "backups.getAll")
+    check(any(b["id"] == backup_id and b["library_id"] == lid for b in backups),
+          "backups.getAll lacks the backup")
+    steps["round_trips_s"] = time.perf_counter() - t0
+
+
+def phase_api(rng, tmp: str, p4: dict) -> dict:
+    """Phase 11: a Node on the card over phase 4's data dir, driven
+    through its router."""
+    import asyncio
+
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    since = degradation()
+    steps: dict[str, float] = {}
+    root = os.path.join(tmp, "p11_corpus")
+    t0 = time.perf_counter()
+    paths = build_api_corpus(root, rng)
+    steps["corpus_s"] = time.perf_counter() - t0
+
+    async def run() -> dict:
+        t0 = time.perf_counter()
+        node = Node(p4["data_dir"], device=DEVICE)
+        await node.start()
+        steps["boot_s"] = time.perf_counter() - t0
+        try:
+            r = node.router
+            state = await r.exec(node, "nodeState")
+            check(state["device_model"] == torch.cuda.get_device_name(0)
+                  and len(state["accelerators"]) == torch.cuda.device_count(),
+                  f"nodeState's card: {state['device_model']}, {state['accelerators']}")
+            check(state["image_labeler_version"] not in (None, "none"),
+                  f"image_labeler_version {state['image_labeler_version']!r}")
+            (lib,) = node.libraries.libraries.values()
+            await api_read_side(r, node, lib, p4["images"], rng, steps)
+            scan = await api_scan(r, node, root, paths, steps)
+            await api_round_trips(r, node, scan["lib"], steps)
+            return {"state": state, **scan}
+        finally:
+            await node.shutdown()
+
+    got = asyncio.run(run())
+    check_healthy("11", since)
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"api": {"steps_s": steps, "seconds": seconds, "files": len(paths),
+                              "k1_launches": got["launches"],
+                              "device_model": got["state"]["device_model"],
+                              "image_labeler_version": got["state"]["image_labeler_version"]}}),
+          flush=True)
+    print(f"phase 11: the router on the card in {seconds:.1f} s", flush=True)
+    return {"launches": got["launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=10, choices=range(3, 11),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 10: all); "
+    parser.add_argument("--stop-after", type=int, default=11, choices=range(3, 12),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 11: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -3526,6 +3838,9 @@ def main() -> int:
         if args.stop_after >= 10:
             other = phase_decoders(rng, tmp, name_power)
             launches.update(other["launches"])
+        if args.stop_after >= 11:
+            api = phase_api(rng, tmp, {**lib, "images": lib["images"][:N_IMAGES]})
+            launches.update(api["launches"])
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

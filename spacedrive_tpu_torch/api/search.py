@@ -7,53 +7,19 @@ string, extension, kinds, tags, labels, hidden, favorite...), an
 ordering and cursor pagination (`take` + an opaque cursor, the last
 row's order value and id) compiled into one SQL query; `search_semantic`
 scores the library's vector index. Results come back normalised, as the
-JAX package's sd-cache does: `items` hold references, `nodes` the rows.
-
-Owned copies of the two pieces of the JAX API layer these need:
-`normalise` (api/cache.py) and `RspcError` (api/router.py). The router
-itself is not ported.
+JAX package's sd-cache does (api/cache.py): `items` hold references,
+`nodes` the rows.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+from typing import Any
 
 from ..db.database import blob_u64, escape_like
+from .cache import normalise
+from .router import RspcError
 
 MAX_TAKE = 100  # ref:api/search/mod.rs take.clamp
-
-
-class RspcError(Exception):
-    """An error with the code the client sees (ref:rspc::Error)."""
-
-    def __init__(self, code: int, message: str):
-        super().__init__(message)
-        self.code = code
-        self.message = message
-
-    @classmethod
-    def bad_request(cls, message: str) -> "RspcError":
-        return cls(400, message)
-
-
-def _node_id(row: dict[str, Any]) -> Any:
-    nid = row["id"]
-    return nid.hex() if isinstance(nid, bytes) else nid
-
-
-def normalise(model: str, rows: Iterable[dict[str, Any]]) -> dict[str, Any]:
-    """`NormalisedResults` of a list of rows of one model: a reference
-    `{__type, __id}` per row, and the rows themselves (bytes as hex)
-    keyed the same way (ref:crates/cache/src/lib.rs:31-40)."""
-    rows = list(rows)
-    return {
-        "items": [{"__type": model, "__id": _node_id(r)} for r in rows],
-        "nodes": [
-            {"__type": model, "__id": _node_id(r),
-             **{k: v.hex() if isinstance(v, bytes) else v for k, v in r.items()}}
-            for r in rows
-        ],
-    }
 
 
 # sizes are LE u64 blobs (reference parity); bytewise blob order is not

@@ -5,6 +5,7 @@
     python -m spacedrive_tpu_torch duplicates --data-dir D --library NAME [--threshold 8] [--device ...]
     python -m spacedrive_tpu_torch search QUERY --data-dir D --library NAME [--semantic] [--take 10]
         [--device ...]
+    python -m spacedrive_tpu_torch status --data-dir D [--device ...]
     python -m spacedrive_tpu_torch labeler provision --data-dir D
         [--bundled | --from FILE [--classes FILE] [--sha256 HEX] | --url URL] [--device ...]
     python -m spacedrive_tpu_torch labeler status --data-dir D
@@ -46,6 +47,11 @@ library's files, or with `--semantic` the cosine top-k of the vector
 index: QUERY is an image path to embed or a stored label name; a query
 that resolves to neither exits 1. Both build their node without the
 labeler.
+
+`status` (counterpart of `sdx status`) starts a Node on the device
+(without the labeler), and prints the router's `nodeState` (the card in
+`device_model` and `accelerators`) with, for each library, its
+file_path and object counts and its five newest `jobs.reports`.
 
 `labeler provision` (counterpart of `sdx labeler provision`) installs
 the labeler's model under `D/image_labeler/`: `--bundled` the
@@ -92,7 +98,7 @@ async def _open(node, library: str):
     absent)."""
     await node.start()
     lib = next((lib for lib in node.libraries.libraries.values() if lib.name == library), None)
-    return lib if lib is not None else node.libraries.create(library)
+    return lib if lib is not None else await node.create_library(library)
 
 
 async def index_library(path: str, data_dir: str, library: str, backend: str = "cuda",
@@ -188,6 +194,35 @@ async def search_library(query: str, data_dir: str, library: str, semantic: bool
                                        {"filter": {"search": query}, "take": take})
     finally:
         await node.shutdown()
+
+
+async def node_status(data_dir: str, backend: str = "cuda") -> dict:
+    """`nodeState` of a Node on `backend` over `data_dir`, and each
+    library's counts and five newest job reports, through the router."""
+    from .node.node import Node
+
+    node = Node(data_dir, device=backend, with_labeler=False)
+    await node.start()
+    try:
+        out = await node.router.exec(node, "nodeState")
+        out["libraries"] = []
+        for lib in node.libraries.libraries.values():
+            reports = await node.router.exec(node, "jobs.reports", library_id=str(lib.id))
+            out["libraries"].append({
+                "id": str(lib.id),
+                "name": lib.name,
+                "file_paths": lib.db.count("file_path"),
+                "objects": lib.db.count("object"),
+                "recent_jobs": reports[:5],
+            })
+        return out
+    finally:
+        await node.shutdown()
+
+
+def cmd_status(args: argparse.Namespace) -> int:
+    print(json.dumps(asyncio.run(node_status(args.data_dir, args.device)), indent=2))
+    return 0
 
 
 def cmd_duplicates(args: argparse.Namespace) -> int:
@@ -320,6 +355,11 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--take", type=int, default=10)
     se.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     se.set_defaults(func=cmd_search)
+
+    su = sub.add_parser("status", help="node state and each library's recent jobs")
+    su.add_argument("--data-dir", required=True)
+    su.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    su.set_defaults(func=cmd_status)
 
     lb = sub.add_parser("labeler", help="image-labeler model artifacts")
     lbs = lb.add_subparsers(dest="labeler_cmd", required=True)

@@ -6,9 +6,11 @@ resume,cancel,cold_resume}) + JobBuilder chaining
 MediaProcessor chains). Reports persist in the library's `job` table;
 progress streams over the library event bus as JobProgressEvent.
 
-Counterpart of `spacedrive_tpu/jobs/manager.py`, without job events,
-trace context, outcome notifications and query invalidation (the port
-has no node or API to receive them).
+Counterpart of `spacedrive_tpu/jobs/manager.py`, without the
+telemetry plane's job events and trace context: progress also reaches
+the node's bus (what `jobs.progress` reads), a settled job notifies its
+outcome (`_notify_outcome`) and a completed one invalidates the queries
+its class names in INVALIDATES (`_invalidate_on_complete`).
 """
 
 from __future__ import annotations
@@ -115,10 +117,71 @@ class JobManager:
         self._active.pop(job.id, None)
         logger.info("job %s -> %s", job.NAME, report.status.name)
 
+        self._notify_outcome(job, library, report)
+
         # chain: spawn queued next jobs on success (ref:mod.rs:213-231)
         if report.status in (JobStatus.COMPLETED, JobStatus.COMPLETED_WITH_ERRORS):
+            self._invalidate_on_complete(job, library)
             for next_job in job.next_jobs:
                 await self.ingest(next_job, library, parent=report)
+
+    @staticmethod
+    def _notify_outcome(job: StatefulJob, library: Any, report: JobReport) -> None:
+        """Persisted library notification for job outcomes the user
+        should see (ref:lib.rs:267-278 emit_notification): failures,
+        and the completion of a chain's last job. NOT notified:
+        user-initiated cancels (the user already knows), intermediate
+        chain stages (one toast per chain, not per stage), and jobs
+        flagged `notify_outcome=False` (watcher-triggered rescans fire
+        on every filesystem flush — toasting those would spam and grow
+        the notification table without bound)."""
+        if not getattr(job, "notify_outcome", True):
+            return
+        node = getattr(library, "node", None)
+        if node is None or getattr(node, "notifications", None) is None:
+            return
+        failed = report.status == JobStatus.FAILED
+        partial = report.status == JobStatus.COMPLETED_WITH_ERRORS
+        # chain terminus: the last job of a chain (no queued successors)
+        chain_done = (
+            not job.next_jobs
+            and report.status in (JobStatus.COMPLETED,
+                                  JobStatus.COMPLETED_WITH_ERRORS)
+        )
+        if not (failed or chain_done):
+            return
+        message = None
+        if failed and report.errors_text:
+            message = report.errors_text[-1][:200]
+        elif partial:
+            n = len(report.errors_text) or len(job.errors)
+            message = f"{n or 'some'} items failed"
+            if report.errors_text:
+                message += f"; last: {report.errors_text[-1][:150]}"
+        try:
+            node.notifications.emit_library(library.db, str(library.id), {
+                "kind": "error" if failed else ("warning" if partial else "ok"),
+                "job": job.NAME,
+                "status": report.status.name,
+                "message": message,
+            })
+        except Exception:  # noqa: BLE001 - notifying must never kill a job
+            logger.debug("job outcome notification failed", exc_info=True)
+
+    @staticmethod
+    def _invalidate_on_complete(job: StatefulJob, library: Any) -> None:
+        """Completed jobs invalidate the queries they changed so live
+        frontends refetch (the reference's jobs call invalidate_query!
+        in finalize, e.g. ref:indexer/indexer_job.rs); keys come from
+        the job class's INVALIDATES tuple."""
+        keys = getattr(job, "INVALIDATES", ())
+        node = getattr(library, "node", None)
+        if node is None or getattr(node, "event_bus", None) is None or not keys:
+            return
+        from ..api.invalidate import invalidate_query
+
+        for key in keys:
+            invalidate_query(node, key, library)
 
     # --- control (ref:manager.rs:222-267) ---
 
@@ -222,6 +285,12 @@ class JobManager:
         bus = getattr(library, "event_bus", None)
         if bus is not None:
             bus.emit(("JobProgress", event))
+        # the jobs.progress subscription listens on the NODE bus
+        # (CoreEvent::JobProgress, ref:api/mod.rs:54-58); each library
+        # has its own private bus, so emit there too
+        node_bus = getattr(getattr(library, "node", None), "event_bus", None)
+        if node_bus is not None and node_bus is not bus:
+            node_bus.emit(("JobProgress", event))
 
     @staticmethod
     def _action_string(job: StatefulJob) -> str:
@@ -233,3 +302,10 @@ class JobManager:
             tail = tail[-1].next_jobs
         return "-".join(parts)
 
+
+async def shutdown_jobs(manager: JobManager, library: Any) -> None:
+    """Node shutdown: pause all running jobs so their state persists
+    (the reference pauses via WorkerCommand::Shutdown)."""
+    for job_id in list(manager._active):
+        await manager.pause(job_id)
+    await manager.wait_idle()

@@ -82,6 +82,7 @@ class IndexerJob(StatefulJob):
     """init: {location_id, sub_path?, shallow?}"""
 
     NAME = "indexer"
+    INVALIDATES = ("search.paths", "locations.list", "library.statistics")
 
     async def init_job(self, ctx: JobContext) -> None:
         t0 = time.perf_counter()

@@ -5,9 +5,10 @@ Parity: ref:core/src/location/mod.rs — LocationCreateArgs::create
 and `.spacedrive` metadata markers (location/metadata.rs).
 
 Counterpart of `spacedrive_tpu/location/locations.py`. The chain is
-Indexer → FileIdentifier → MediaProcessor, as there; the watcher-driven
-rescans (sub-path, shallow) and relinking a moved location are not
-ported.
+Indexer → FileIdentifier → MediaProcessor, as there, with the
+identifier and the media job on an explicit backend ("cuda" or "cpu");
+`deep_rescan_sub_path` and `light_scan_location` spawn it over one
+subtree. Relinking a moved location waits for the location manager.
 """
 
 from __future__ import annotations
@@ -32,14 +33,18 @@ SPACEDRIVE_LOCATION_METADATA_FILE = ".spacedrive"
 class LocationCreateArgs:
     path: str
     name: str | None = None
+    dry_run: bool = False
+    indexer_rules_ids: list[int] | None = None
 
-    def create(self, library: Library) -> dict[str, Any]:
+    def create(self, library: Library) -> dict[str, Any] | None:
         path = os.path.abspath(self.path)
         if not os.path.isdir(path):
             raise NotADirectoryError(path)
         existing = library.db.find_one("location", path=path)
         if existing is not None:
             raise FileExistsError(f"location already exists for {path}")
+        if self.dry_run:
+            return None
 
         pub_id = new_pub_id()
         name = self.name or os.path.basename(path.rstrip(os.sep)) or path
@@ -53,8 +58,11 @@ class LocationCreateArgs:
             instance_id=library.config.instance_id,
         )
         # default rules attach (ref:location/mod.rs create flow)
-        for rid in (r["id"] for r in library.db.query(
-                'SELECT id FROM indexer_rule WHERE "default" = 1')):
+        rule_ids = self.indexer_rules_ids
+        if rule_ids is None:
+            rule_ids = [r["id"] for r in library.db.query(
+                'SELECT id FROM indexer_rule WHERE "default" = 1')]
+        for rid in rule_ids:
             library.db.insert(
                 "indexer_rule_in_location", location_id=loc_id, indexer_rule_id=rid
             )
@@ -84,10 +92,13 @@ async def _spawn_scan_chain(
     sub_path: str | None = None,
     shallow: bool = False,
     backend: str = "cuda",
+    notify: bool = True,
 ) -> uuid.UUID:
     """The one Indexer → FileIdentifier → MediaProcessor chain every
     scan variant spawns (ref:location/mod.rs:443-475 JobBuilder chain);
-    the identifier and the media job run on `backend`."""
+    the identifier and the media job run on `backend`. `notify=False`
+    (the watcher-driven rescans) suppresses the chain's outcome
+    notification: those fire per filesystem flush."""
     from ..object.file_identifier.job import FileIdentifierJob
     from ..object.media.job import MediaProcessorJob
     from .indexer.job import IndexerJob
@@ -96,11 +107,14 @@ async def _spawn_scan_chain(
     if sub_path is not None:
         init["sub_path"] = sub_path
     indexer_init = {**init, "shallow": True} if shallow else dict(init)
-    builder = (
-        JobBuilder(IndexerJob(indexer_init))
-        .queue_next(FileIdentifierJob({**init, "backend": backend}))
-        .queue_next(MediaProcessorJob({**init, "backend": backend}))
-    )
+    jobs = [
+        IndexerJob(indexer_init),
+        FileIdentifierJob({**init, "backend": backend}),
+        MediaProcessorJob({**init, "backend": backend}),
+    ]
+    for j in jobs:
+        j.notify_outcome = notify
+    builder = JobBuilder(jobs[0]).queue_next(jobs[1]).queue_next(jobs[2])
     return await builder.spawn(job_manager, library)
 
 
@@ -114,6 +128,38 @@ async def scan_location(
     """Full scan job chain (ref:location/mod.rs:443-475) on `backend`
     ("cuda" or "cpu")."""
     return await _spawn_scan_chain(library, location, job_manager, backend=backend)
+
+
+async def deep_rescan_sub_path(
+    library: Library,
+    location: dict[str, Any],
+    sub_path: str,
+    job_manager: JobManager,
+    *,
+    backend: str = "cuda",
+) -> uuid.UUID:
+    """Full (recursive) rescan of one subtree — what a directory moved
+    into the location needs (a shallow scan of its parent would index
+    only the dir row, not its pre-existing contents)."""
+    return await _spawn_scan_chain(
+        library, location, job_manager, sub_path=sub_path, backend=backend,
+        notify=False,  # watcher-driven; see _spawn_scan_chain
+    )
+
+
+async def light_scan_location(
+    library: Library,
+    location: dict[str, Any],
+    sub_path: str,
+    job_manager: JobManager,
+    *,
+    backend: str = "cuda",
+) -> uuid.UUID:
+    """Shallow re-scan of one directory (ref:location/mod.rs:517)."""
+    return await _spawn_scan_chain(
+        library, location, job_manager, sub_path=sub_path, shallow=True, backend=backend,
+        notify=False,  # watcher-driven; see _spawn_scan_chain
+    )
 
 
 def update_location_size(library: Library, location_id: int) -> int:

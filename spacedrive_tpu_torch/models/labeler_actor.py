@@ -19,9 +19,10 @@ threshold becomes a text label. A failed forward (a CUDA error
 included) fails its batch: the entries count in `errors`, nothing is
 redone on another device.
 
-Not ported: the `labels.list` query invalidation and telemetry;
-`stage_seconds` keeps the decode / forward / write totals, and
-`forwards` counts the model calls.
+A batch that wrote labels invalidates `labels.list` on the library's
+node, as the JAX actor does. Not ported: its telemetry; `stage_seconds`
+keeps the decode / forward / write totals, and `forwards` counts the
+model calls.
 """
 
 from __future__ import annotations
@@ -340,6 +341,7 @@ class ImageLabeler:
             self.skipped += len(batch.entries)
             self._batch_pending[batch.id] = 0
             return
+        wrote = False
         for off in range(0, len(batch.entries), self.batch_size):
             chunk = batch.entries[off : off + self.batch_size]
             decoded = await asyncio.to_thread(self._timed, "decode", self._decode_chunk, chunk)
@@ -352,9 +354,17 @@ class ImageLabeler:
             await asyncio.to_thread(
                 self._timed, "write", self._write_labels, library, [e for e, _ in ok], probs
             )
+            wrote = True
             self._batch_pending[batch.id] = max(
                 0, self._batch_pending.get(batch.id, 0) - len(chunk)
             )
+        # fresh labels must reach live explorers (the sidebar Labels
+        # route listens on labels.list invalidations)
+        node = getattr(library, "node", None)
+        if wrote and node is not None:
+            from ..api.invalidate import invalidate_query
+
+            invalidate_query(node, "labels.list", library)
 
     def _timed(self, stage: str, fn: Callable, *args: Any) -> Any:
         t0 = time.perf_counter()

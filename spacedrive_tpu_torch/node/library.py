@@ -105,7 +105,7 @@ class Libraries:
             if fname.endswith(".sdlibrary"):
                 lib_id = uuid.UUID(fname[: -len(".sdlibrary")])
                 if lib_id not in self.libraries:
-                    self._load(lib_id)
+                    self.load(lib_id)
         return list(self.libraries.values())
 
     def _config_path(self, lib_id: uuid.UUID) -> str:
@@ -114,7 +114,8 @@ class Libraries:
     def _db_path(self, lib_id: uuid.UUID) -> str:
         return os.path.join(self.dir, f"{lib_id}.db")
 
-    def _load(self, lib_id: uuid.UUID) -> Library:
+    def load(self, lib_id: uuid.UUID) -> Library:
+        """(Re)load one library from disk (startup and the restore path)."""
         data = _config_vm.load(self._config_path(lib_id))
         config = LibraryConfig.from_dict(data)
         db = LibraryDb(self._db_path(lib_id))
@@ -125,7 +126,8 @@ class Libraries:
         self.libraries[lib_id] = lib
         return lib
 
-    def create(self, name: str) -> Library:
+    def create(self, name: str, description: str = "",
+               node_pub_id: bytes | None = None, node_name: str | None = None) -> Library:
         lib_id = uuid.uuid4()
         db = LibraryDb(self._db_path(lib_id))
         instance_pub = new_pub_id()
@@ -133,13 +135,13 @@ class Libraries:
             "instance",
             pub_id=instance_pub,
             identity=new_pub_id(),  # replaced by real keypair when p2p enabled
-            node_id=new_pub_id(),
-            node_name=platform.node(),
+            node_id=node_pub_id or new_pub_id(),
+            node_name=node_name or platform.node(),
             node_platform=_platform_int(),
             last_seen=now_iso(),
             date_created=now_iso(),
         )
-        config = LibraryConfig(name=name, instance_id=instance_id)
+        config = LibraryConfig(name=name, description=description, instance_id=instance_id)
         data = config.to_dict()
         _config_vm.save(self._config_path(lib_id), data)
         lib = Library(lib_id, config, db, uuid.UUID(bytes=instance_pub), node=self.node)
@@ -149,6 +151,22 @@ class Libraries:
 
         seed_rules(db)
         return lib
+
+    def save_config(self, lib: Library) -> None:
+        """Persist a library's (possibly edited) config file."""
+        _config_vm.save(self._config_path(lib.id), lib.config.to_dict())
+
+    def paths(self, lib_id: uuid.UUID) -> tuple[str, str]:
+        """(config_path, db_path) on disk — the backup/restore surface."""
+        return self._config_path(lib_id), self._db_path(lib_id)
+
+    def delete(self, lib_id: uuid.UUID) -> None:
+        lib = self.libraries.pop(lib_id, None)
+        if lib is not None:
+            lib.close()
+        for path in (self._config_path(lib_id), self._db_path(lib_id)):
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def _platform_int() -> int:

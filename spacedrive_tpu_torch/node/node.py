@@ -1,15 +1,18 @@
 """Node — the runtime object that owns the long-lived services.
 
-Counterpart of the part of `spacedrive_tpu/node/node.py` the scan chain
-uses (ref:core/src/lib.rs:82-250): the event bus, the task system, the
-job manager, the libraries (each `Library.node` points back here) and
-the node-wide thumbnailer actor on the node's explicit device, which is
-also the default device of the read-side jobs and of the semantic
-search (a node on "cpu" gives its thumbnailer `use_device=False`, the
-software path, as the JAX CLI's `--backend cpu` does,
-`spacedrive_tpu/cli.py:30`), and unless `with_labeler=False` the
-image-labeler actor on the same device (ref:lib.rs:142, the
-reference's `ai` feature gate).
+Counterpart of `spacedrive_tpu/node/node.py` (ref:core/src/lib.rs:82-250):
+the config manager (`node.json`: id, name, identity keypair, features,
+`image_labeler_version`), the event bus, notifications, the task system,
+the job manager, the libraries (each `Library.node` points back here),
+the named-actor registry, the rspc router (`mount()`, which the
+reference's `Node::new` returns beside the node) and the node-wide
+thumbnailer actor on the node's explicit device, which is also the
+default device of the read-side jobs and of the semantic search (a
+node on "cpu" gives its thumbnailer `use_device=False`, the software
+path, as the JAX CLI's `--backend cpu` does, `spacedrive_tpu/cli.py:30`),
+and unless `with_labeler=False` the image-labeler actor on the same
+device (ref:lib.rs:142, the reference's `ai` feature gate), whose
+resolved artifact names the config's `image_labeler_version`.
 `start` starts the loop-lag monitor, the process-wide autotune
 controller (parallel/autotune.py; SD_AUTOTUNE=0 starts nothing) and
 the process pool (parallel/procpool.py; SD_PROCS=0, the default,
@@ -21,19 +24,24 @@ controller and the pool are refcounted, so two nodes in one process
 share one controller and one worker set. A Node lives within one event
 loop (one `asyncio.run`).
 
-Not ported: config and identity (so no `image_labeler_version`), P2P,
-the API server, location watchers, the rest of the telemetry plane.
+Not ported: the telemetry history writer, the host sampler and the
+resource sampler (plane 6.2), the location manager and its watchers
+(6.3), the orphan remover (6.4), P2P and cloud sync (6.7, 6.8), and the
+serve runtime and the API server (6.9).
 """
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import os
 import threading
+import uuid
 
 import torch
 
 from ..jobs import JobManager
+from ..jobs.manager import shutdown_jobs
 from ..models.labeler_actor import ImageLabeler
 
 # each import registers its jobs, so that `start` can cold-resume them
@@ -49,7 +57,11 @@ from ..parallel import procpool as _procpool
 from ..tasks import TaskSystem
 from ..telemetry.events import LoopLagMonitor
 from ..utils.events import EventBus
-from .library import Libraries
+from ..utils.tracing import install_loop_excepthook
+from .actors import Actors
+from .config import BackendFeature, ConfigManager
+from .library import Libraries, Library
+from .notifications import Notifications
 
 
 class Node:
@@ -58,10 +70,13 @@ class Node:
         self.data_dir = os.fspath(data_dir)
         os.makedirs(self.data_dir, exist_ok=True)
         self.device = torch.device(device)
+        self.config = ConfigManager(self.data_dir)
         self.event_bus = EventBus()
+        self.notifications = Notifications(self.event_bus)
         self.task_system = TaskSystem(2)
         self.jobs = JobManager(self.task_system)
         self.libraries = Libraries(self.data_dir, node=self)
+        self.actors = Actors()
         self.thumbnailer = Thumbnailer(os.path.join(self.data_dir, "thumbnails"),
                                        event_bus=self.event_bus, device=self.device,
                                        use_device=self.device.type != "cpu")
@@ -69,6 +84,16 @@ class Node:
         if with_labeler:
             self.image_labeler = ImageLabeler(os.path.join(self.data_dir, "image_labeler"),
                                               device=self.device)
+            # the version names the provisioned artifact, as the
+            # reference's image_labeler_version (node/config.rs) does;
+            # "none" means no weights yet, so labeling is off
+            artifact = self.image_labeler.resolve_artifact()
+            version = f"{artifact[0]}:{os.path.basename(artifact[1])}" if artifact else "none"
+            if self.config.config.image_labeler_version != version:
+                self.config.update(image_labeler_version=version)
+        from ..api.namespaces import mount
+
+        self.router = mount()  # ref:lib.rs Node::new returns (node, router)
         #: seconds per stage of the jobs (media_data, embed_decode,
         #: embed_forward, embed_write, phash_decode); the thumbnailer
         #: keeps its own
@@ -84,6 +109,30 @@ class Node:
         with self._stage_lock:
             self.stage_seconds[stage] += seconds
 
+    # --- identity ------------------------------------------------------
+
+    @property
+    def id(self) -> uuid.UUID:
+        return self.config.config.id
+
+    @property
+    def identity(self):
+        return self.config.config.identity
+
+    def is_feature_enabled(self, feature: BackendFeature) -> bool:
+        return feature in self.config.config.features
+
+    def toggle_feature(self, feature: BackendFeature, enabled: bool) -> None:
+        """ref:core/src/api/mod.rs:66-81 `toggleFeatureFlag`."""
+        feats = self.config.config.features
+        if enabled and feature not in feats:
+            feats.append(feature)
+        if not enabled and feature in feats:
+            feats.remove(feature)
+        self.config.save()
+
+    # --- lifecycle -----------------------------------------------------
+
     async def start(self) -> None:
         """Bind the thumbnailer to this loop (enqueues from worker
         threads can only wake it once it knows its loop), then load the
@@ -91,6 +140,8 @@ class Node:
         if self._started:
             return
         self._started = True
+        # orphaned-task crashes reach the log and the error ring
+        install_loop_excepthook(asyncio.get_running_loop())
         self.loop_monitor.start()
         self.autotuner.start()
         # workers up before any job runs, so the first batch never pays
@@ -98,9 +149,36 @@ class Node:
         self._procpool_started = self.procpool.start()
         self.thumbnailer._ensure_started()
         for lib in self.libraries.load_all():
-            if self.image_labeler is not None:
-                self.image_labeler.register_library(lib)
-            await self.jobs.cold_resume(lib)
+            await self._init_library(lib)
+
+    async def _init_library(self, lib: Library) -> None:
+        """Per-library wiring at load (ref:library/manager/mod.rs:387-535):
+        register with the labeler, then cold-resume the library's jobs."""
+        lib.node = self
+        if self.image_labeler is not None:
+            self.image_labeler.register_library(lib)
+        await self.jobs.cold_resume(lib)
+
+    async def create_library(self, name: str, description: str = "") -> Library:
+        lib = self.libraries.create(
+            name,
+            description,
+            node_pub_id=self.id.bytes,
+            node_name=self.config.config.name,
+        )
+        await self._init_library(lib)
+        return lib
+
+    async def close_library(self, lib_id: uuid.UUID) -> None:
+        """Tear down one loaded library: persist and stop its jobs, close
+        the DB, drop it from the registry (the per-library half of
+        shutdown(); used by delete and restore)."""
+        lib = self.libraries.libraries.get(lib_id)
+        if lib is None:
+            return
+        await shutdown_jobs(self.jobs, lib)
+        lib.close()
+        self.libraries.libraries.pop(lib_id, None)
 
     async def shutdown(self) -> None:
         """Stop the loop-lag monitor, the controller and the pool (each
@@ -114,6 +192,7 @@ class Node:
         await self.thumbnailer.shutdown()
         if self.image_labeler is not None:
             await self.image_labeler.shutdown()
+        await self.actors.shutdown()
         await self.task_system.shutdown()
         for lib in list(self.libraries.libraries.values()):
             lib.close()

@@ -77,3 +77,6 @@ def update_statistics(
         db.insert("statistics", **stats)
     return stats
 
+
+def get_statistics(db: LibraryDb) -> dict[str, Any] | None:
+    return db.query_one("SELECT * FROM statistics ORDER BY id DESC LIMIT 1")

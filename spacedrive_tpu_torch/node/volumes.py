@@ -2,7 +2,8 @@
 
 Parity: ref:core/src/volume/mod.rs — `Volume{name, mount_points,
 total_capacity, available_capacity, disk_type, file_system,
-is_root_filesystem}` gathered via `sysinfo` (mod.rs:109,249). Here:
+is_root_filesystem}` gathered via `sysinfo` (mod.rs:109,249), persisted
+into the library `volume` table keyed (mount_point, name). Here:
 /proc/mounts + `shutil.disk_usage` on Linux, `psutil`-free; other
 platforms fall back to the root filesystem only. Pseudo-filesystems are
 filtered the way the reference skips zero-capacity disks.
@@ -16,6 +17,9 @@ import os
 import platform
 import shutil
 from dataclasses import dataclass
+from typing import Any
+
+from ..db.database import LibraryDb, now_iso
 
 _PSEUDO_FS = {
     "proc", "sysfs", "devtmpfs", "devpts", "tmpfs", "cgroup", "cgroup2",
@@ -34,6 +38,17 @@ class Volume:
     disk_type: str = "Unknown"  # SSD | HDD | Unknown (ref:volume/mod.rs DiskType)
     filesystem: str | None = None
     is_system: bool = False
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "mount_point": self.mount_point,
+            "total_bytes_capacity": self.total_bytes_capacity,
+            "total_bytes_available": self.total_bytes_available,
+            "disk_type": self.disk_type,
+            "filesystem": self.filesystem,
+            "is_system": self.is_system,
+        }
 
 
 def _disk_type(device: str) -> str:
@@ -102,3 +117,20 @@ def get_volumes() -> list[Volume]:
         )
     return vols
 
+
+def save_volumes(db: LibraryDb, vols: list[Volume] | None = None) -> int:
+    """Upsert volumes into the library DB (ref:volume/mod.rs
+    `save_volume` keyed on (mount_point, name))."""
+    vols = vols if vols is not None else get_volumes()
+    for v in vols:
+        db.upsert(
+            "volume",
+            {"mount_point": v.mount_point, "name": v.name},
+            total_bytes_capacity=str(v.total_bytes_capacity),
+            total_bytes_available=str(v.total_bytes_available),
+            disk_type=v.disk_type,
+            filesystem=v.filesystem,
+            is_system=int(v.is_system),
+            date_modified=now_iso(),
+        )
+    return len(vols)

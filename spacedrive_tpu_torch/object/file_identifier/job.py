@@ -75,6 +75,7 @@ class FileIdentifierJob(StatefulJob):
     """init: {location_id, sub_path?, backend?}"""
 
     NAME = "file_identifier"
+    INVALIDATES = ("search.paths", "search.objects")
     IS_BATCHED = True
     _pipeline = None  # runtime-only window pipeline (never serialized)
     _profiling = False  # holds one profiler refcount while running

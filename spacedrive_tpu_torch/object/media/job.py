@@ -113,6 +113,7 @@ class MediaProcessorJob(StatefulJob):
     """init: {location_id, sub_path?, backend?}"""
 
     NAME = "media_processor"
+    INVALIDATES = ("search.paths", "labels.list", "search.semantic")
     IS_BATCHED = True
     _model = None  # runtime-only embedder on the job's device (never serialized)
 

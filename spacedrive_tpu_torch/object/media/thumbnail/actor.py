@@ -5,7 +5,8 @@ Counterpart of `spacedrive_tpu/object/media/thumbnail/actor.py`
 a node-global actor outside the job system; jobs dispatch batches and
 only await them. Foreground batches are a LIFO stack, background
 batches a FIFO queue (state.rs:23-32); background work is throttled to
-`BACKGROUND_PERCENTAGE`% of the cores (process.rs:105-128);
+`background_percentage`% of the cores (process.rs:105-128; 50 unless
+the node sets it, `set_background_percentage`);
 each decode gets a 30 s timeout (process.rs:172); queues persist across
 crashes (state.rs); `NewThumbnail` events go to the node's event bus.
 
@@ -85,9 +86,6 @@ from .store import ThumbnailStore, get_shard_hex
 logger = logging.getLogger(__name__)
 
 GENERATION_TIMEOUT_S = 30  # ref:process.rs:172
-# share of the cores background batches may use; the JAX actor reads it
-# from the node's settings, which the port does not have yet
-BACKGROUND_PERCENTAGE = 50  # ref:actor.rs:98
 
 
 class ThumbnailerError(RuntimeError):
@@ -114,7 +112,8 @@ class Thumbnailer:
         self.use_device = use_device
         cores = os.cpu_count() or 1
         self._fg_parallelism = cores
-        self._bg_parallelism = max(1, cores * BACKGROUND_PERCENTAGE // 100)
+        self.background_percentage = 50  # ref:actor.rs:98
+        self._bg_parallelism = max(1, cores * self.background_percentage // 100)
         #: an explicit images-per-resize-call override; None reads the
         #: live "thumbnail" policy per batch (`_device_chunk`)
         self.chunk_rows: int | None = None
@@ -218,6 +217,13 @@ class Thumbnailer:
                 self._cond.notify_all()
 
     # ---- dispatch API (ref:actor.rs new_*_thumbnails_batch) ------------
+    def set_background_percentage(self, pct: int) -> None:
+        """Re-derive background parallelism from a percentage of cores
+        (ref:actor.rs:98 `background_processing_percentage` update)."""
+        cores = os.cpu_count() or 1
+        self.background_percentage = max(0, min(100, pct))
+        self._bg_parallelism = max(1, cores * self.background_percentage // 100)
+
     def new_indexed_thumbnails_batch(
         self,
         library_id: Any,

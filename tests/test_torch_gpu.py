@@ -19,6 +19,7 @@ chain test drives its event loop with asyncio.run itself.
 
 import asyncio
 import os
+import uuid
 
 import numpy as np
 import pytest
@@ -776,3 +777,59 @@ def test_pdf_page_and_video_frame_resize_on_cuda_within_one_level_of_cpu(tmp_pat
         assert g.shape == w.shape == d.target + (4,)
         assert int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max()) <= 1
         assert process.finish(d, g)[:4] == b"RIFF"
+
+
+async def _api_scan(data_dir, loc, device):
+    """`locations.create`, `files.validate` and `search.semantic` through
+    the router of a Node on `device`; returns cas_ids and checksums by
+    path, the ranking and K1's launches over the scan and the
+    validation."""
+    from spacedrive_tpu_torch.node.node import Node
+
+    node = Node(str(data_dir), device=device, with_labeler=False)
+    await node.start()
+    try:
+        r = node.router
+        lid = (await r.exec(node, "library.create", {"name": "gpu-api"}))["uuid"]
+        blake3_cuda.chunk_cvs.launches = 0
+        loc_id = await r.exec(node, "locations.create", {"path": str(loc)}, library_id=lid)
+        await node.jobs.wait_idle()
+        await r.exec(node, "files.validate", {"location_id": loc_id}, library_id=lid)
+        await node.jobs.wait_idle()
+        launches = blake3_cuda.chunk_cvs.launches
+        lib = node.libraries.libraries.get(uuid.UUID(lid))
+        # the location's `.spacedrive` marker holds random ids: left out
+        rows = {(row["materialized_path"], row["name"], row["extension"]):
+                (row["cas_id"], row["integrity_checksum"])
+                for row in lib.db.query("SELECT * FROM file_path WHERE is_dir = 0 "
+                                        "AND name != '.spacedrive'")}
+        sem = await r.exec(node, "search.semantic",
+                           {"query": str(loc / "i1.png"), "take": 10}, library_id=lid)
+        reports = await r.exec(node, "jobs.reports", library_id=lid)
+        assert all(rep["status"] == "COMPLETED" for rep in reports), reports
+        return rows, [(n["name"], n["score"]) for n in sem["nodes"]], launches
+    finally:
+        await node.shutdown()
+
+
+def test_router_scan_validate_and_semantic_on_cuda_match_cpu(tmp_path):
+    """A port Node on "cuda" through `locations.create`, `files.validate`
+    and `search.semantic` against a Node on "cpu": cas_ids and checksums
+    equal, the same ranking with scores within 1e-5, K1 launched on the
+    card only."""
+    loc = tmp_path / "loc"
+    _media_tree(loc)
+    rng = np.random.default_rng(6)
+    for i, size in enumerate([0, 1024, 102401, 300_000, 2_000_000]):
+        (loc / f"blob{i}.bin").write_bytes(rng.bytes(size))
+    cuda_rows, cuda_hits, cuda_launches = asyncio.run(_api_scan(tmp_path / "cuda", loc, "cuda"))
+    cpu_rows, cpu_hits, cpu_launches = asyncio.run(_api_scan(tmp_path / "cpu", loc, "cpu"))
+    assert cuda_rows == cpu_rows and len(cuda_rows) == 14
+    assert [k for k, (c, _) in cuda_rows.items() if c is None] == [("/", "blob0", "bin")]
+    assert all(chk for _, chk in cuda_rows.values())
+    assert cuda_launches > 0 and cpu_launches == 0
+    # i1.png and its byte copy dup.png are one object, named by its first row
+    assert [n for n, _ in cuda_hits] == [n for n, _ in cpu_hits]
+    assert cuda_hits[0][0] in ("i1", "dup")
+    np.testing.assert_allclose([s for _, s in cuda_hits], [s for _, s in cpu_hits],
+                               atol=1e-5, rtol=1e-5)
