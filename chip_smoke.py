@@ -113,8 +113,11 @@ labeler; `search.paths` paged in full by name and by size (each row
 once, in order), `library.statistics` and `kindStatistics` against
 COUNT(*), `search.semantic` of a phase-3 image (itself first, cosine
 >= 0.9999), `search.duplicates` against `find_duplicates` and
-`labels.list` against the label table (a page by size costs a pass
-over every row: the size key has no index, as in JAX); then
+`labels.list` against the label table (the size key has no index, as
+in JAX; the port pages by size at rest through an order cached per
+library DB, so only the first two pages cost a pass over every row);
+ten pages by size with a write to the library DB before each (each
+takes the SQL path, as a page does while a job writes), timed; then
 `library.create` and
 `locations.create` over a new ~512-file location (phase 3's size mix,
 32 JPEGs, 4 near copies), waited on through `jobs.isActive` with a
@@ -126,6 +129,25 @@ the host hasher; round trips of `preferences.update/get`,
 `toggleFeatureFlag`, `tags.create/assign` and `backups.backup/getAll`;
 `check_healthy` by delta. It prints `{"api": ...}` with its seconds by
 step.
+Phase 12 is the observability plane (trace context, spans, the host
+sampler), with the ladder, the controller and the port's telemetry
+reset first: a Node on the card with the sampler on (its default rate)
+creates a new library and a ~256-file location through the router
+(phase 3's size mix: 192 files of 101-512 KiB, 48 small, 16 JPEGs of
+640-4032 px): one trace id must hold `walk`, `identify.hash`,
+`identify.db`, `task.dispatch`, `feeder.fetch`, `thumbnail.decode`,
+`thumbnail.device` and `thumbnail.encode`; K1 launched; cas_ids against
+the plain path on the CPU (8 also against `blake3_ref`); the
+`identify.hash` spans no longer than the identifier's hash seconds;
+`telemetry.trace_export` Chrome-trace JSON with every `X` event's dur >=
+0; `telemetry.profile` with samples, `device_dispatch` among its frame
+groups, and the sampler's self-measured overhead under 0.05; the text of
+`telemetry.debug_bundle` without the node's identity hex or a planted
+secret `SD_*` value. Then the same corpus into a second data dir with
+`SD_PROFILE=0`: no sampler, equal cas_ids and webp bytes; `check_healthy`
+by delta. It prints `{"observability": ...}` with its seconds by step,
+span counts and seconds by stage, the sampler's samples, state and
+group shares and overhead.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -133,7 +155,7 @@ non-zero before any work. The last line of standard output is
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
-decoders' and the API's numbers as JSON.
+decoders', the API's and the observability plane's numbers as JSON.
 """
 
 from __future__ import annotations
@@ -3497,17 +3519,20 @@ def phase_decoders(rng, tmp: str, name_power: str) -> dict:
 N_API_LARGE, N_API_SMALL, N_API_JPEG, N_API_NEAR = 380, 96, 32, 4
 API_WAIT_S = 120  # the bound on a scan's `jobs.isActive` wait
 API_TAKE = 100  # search.paths' largest page (api/search.py MAX_TAKE)
+API_WRITE_PAGES = 10  # pages by size walked with a write before each
 
 
-def build_api_corpus(root: str, rng) -> list[str]:
-    """N_API_LARGE files of 101 KiB-512 KiB (log-uniform sizes), N_API_SMALL
-    over the small buckets, N_API_JPEG JPEGs of phase 3's aspects and
-    orientations and N_API_NEAR re-encoded copies of them; returns every
-    path."""
+def build_api_corpus(root: str, rng, sizes: tuple[int, int, int, int] | None = None) -> list[str]:
+    """`sizes` = (large, small, jpegs, near), default (N_API_LARGE,
+    N_API_SMALL, N_API_JPEG, N_API_NEAR): that many files of 101 KiB-512
+    KiB (log-uniform sizes), files over the small buckets, JPEGs of phase
+    3's aspects and orientations and re-encoded copies of them; returns
+    every path."""
     from spacedrive_tpu_torch.ops import cas
 
-    large = np.exp(rng.uniform(np.log(101 * 1024), np.log(512 * 1024), N_API_LARGE)).astype(int)
-    small = rng.integers(0, cas.MINIMUM_FILE_SIZE + 1, N_API_SMALL)
+    n_large, n_small, n_jpeg, n_near = sizes or (N_API_LARGE, N_API_SMALL, N_API_JPEG, N_API_NEAR)
+    large = np.exp(rng.uniform(np.log(101 * 1024), np.log(512 * 1024), n_large)).astype(int)
+    small = rng.integers(0, cas.MINIMUM_FILE_SIZE + 1, n_small)
     paths = []
     for i, size in enumerate(list(large) + list(small)):
         path = os.path.join(root, f"d{i % 8}", f"f{i:04d}.bin")
@@ -3517,7 +3542,7 @@ def build_api_corpus(root: str, rng) -> list[str]:
         paths.append(path)
     jobs = []
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
-    for i in range(N_API_JPEG):
+    for i in range(n_jpeg):
         aw, ah = ASPECTS[i % 4]
         long_side = int(np.exp(rng.uniform(np.log(LONG_SIDE[0]), np.log(LONG_SIDE[1]))))
         w, h = long_side, max(1, long_side * ah // aw)
@@ -3526,7 +3551,7 @@ def build_api_corpus(root: str, rng) -> list[str]:
         jobs.append((os.path.join(root, "images", f"api{i:02d}.jpg"), w, h,
                      int(rng.integers(1 << 30)), "jpg", (1, 6, 8, 3)[i % 4]))
     near = [(p, os.path.join(root, "near", "n_" + os.path.basename(p)))
-            for p, *_ in jobs[:N_API_NEAR]]
+            for p, *_ in jobs[:n_near]]
     os.makedirs(os.path.join(root, "near"), exist_ok=True)
     with ThreadPoolExecutor(8) as pool:
         paths += [p for p, *_ in pool.map(_image, jobs)]
@@ -3567,6 +3592,27 @@ def check_walk(walk: tuple[list, list], order: str, n_rows: int) -> None:
     check(vals == sorted(vals), f"search.paths by {order} is out of order")
 
 
+async def _walk_by_size_under_writes(r, node, lid: str, steps: dict) -> None:
+    """The first API_WRITE_PAGES pages by size with a write to the library
+    DB before each (as a running job makes): each such page takes the SQL
+    path. Times the pages alone, beside the walk at rest."""
+    vals, cursor, paged = [], None, 0.0
+    for i in range(API_WRITE_PAGES):
+        await r.exec(node, "preferences.update", {"smoke": {"page": i}}, library_id=lid)
+        t0 = time.perf_counter()
+        page = await r.exec(node, "search.paths",
+                            {"take": API_TAKE, "orderBy": "sizeInBytes", "cursor": cursor},
+                            library_id=lid)
+        paged += time.perf_counter() - t0
+        vals += [n["size_in_bytes"] for n in page["nodes"]]
+        cursor = page["cursor"]
+    check(len(vals) == API_WRITE_PAGES * API_TAKE and vals == sorted(vals),
+          f"search.paths by size under writes: {len(vals)} rows, in order: {vals == sorted(vals)}")
+    steps["paths_by_size_under_writes_s"] = paged
+    print(f"phase 11: search.paths by size, {API_WRITE_PAGES} pages with a write before each: "
+          f"{1e3 * paged / API_WRITE_PAGES:.1f} ms a page", flush=True)
+
+
 async def api_read_side(r, node, lib, images: list[str], rng, steps: dict) -> None:
     """11.3: the read procedures on phase 4's library (phases 5-6 extended
     it) against the DB and the port's own calls."""
@@ -3582,6 +3628,7 @@ async def api_read_side(r, node, lib, images: list[str], rng, steps: dict) -> No
         t0 = time.perf_counter()
         check_walk(await _page_all(r, node, lid, order), order, n_rows)
         steps[step] = time.perf_counter() - t0
+    await _walk_by_size_under_writes(r, node, lid, steps)
 
     t0 = time.perf_counter()
     stats = await r.exec(node, "library.statistics", library_id=lid)
@@ -3781,11 +3828,195 @@ def phase_api(rng, tmp: str, p4: dict) -> dict:
     return {"launches": got["launches"]}
 
 
+# --- phase 12: observability (trace context, spans, the host sampler) ------
+
+#: phase 3's size mix at ~256 files: 192 of 101-512 KiB, 48 small, 16 JPEGs
+N_OBS_LARGE, N_OBS_SMALL, N_OBS_JPEG = 192, 48, 16
+N_OBS_REF = 8  # cas_ids also held against blake3_ref (pure Python)
+OBS_STAGES = ("walk", "identify.hash", "identify.db", "task.dispatch", "feeder.fetch",
+              "thumbnail.decode", "thumbnail.device", "thumbnail.encode")
+OBS_SECRET = "sk-observability-smoke-planted-secret-0123456789"
+OBS_OVERHEAD = 0.05  # the bar of JAX's test_overhead_at_default_rate_under_5pct
+
+
+def _webps(data_dir: str) -> dict[str, bytes]:
+    out = {}
+    for dirpath, _, files in os.walk(os.path.join(data_dir, "thumbnails")):
+        for f in files:
+            if f.endswith(".webp"):
+                with open(os.path.join(dirpath, f), "rb") as fh:
+                    out[f] = fh.read()
+    return out
+
+
+async def obs_scan(node, root: str, steps: dict, tag: str) -> dict:
+    """A new library and a location over `root` through the router, waited
+    on; its cas_ids by path, the identifier's metadata and K1's launches."""
+    from spacedrive_tpu_torch.jobs.report import JobReport
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    r = node.router
+    t0 = time.perf_counter()
+    lid = (await r.exec(node, "library.create", {"name": f"obs-{tag}"}))["uuid"]
+    lib = next(x for x in node.libraries.libraries.values() if str(x.id) == lid)
+    blake3_cuda.chunk_cvs.launches = 0
+    await r.exec(node, "locations.create", {"path": root}, library_id=lid)
+    await _until_idle(r, node, lid)
+    await node.thumbnailer.wait_library_batch(lib.id)
+    launches = blake3_cuda.chunk_cvs.launches
+    steps[f"{tag}_scan_s"] = time.perf_counter() - t0
+    reports = {x["name"]: x for x in await r.exec(node, "jobs.reports", library_id=lid)}
+    check(set(reports) == {"indexer", "file_identifier", "media_processor"}
+          and all(x["status"] == "COMPLETED" for x in reports.values()),
+          f"the {tag} scan's jobs: {[(x['name'], x['status']) for x in reports.values()]}")
+    # the .spacedrive marker names its library, so it differs between the scans
+    rows = [x for x in lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")
+            if os.path.basename(_row_path(root, x)) != ".spacedrive"]
+    (row,) = lib.db.find("job", name="file_identifier")
+    return {"lid": lid, "launches": launches, "identifier": JobReport.from_row(row).metadata,
+            "cas": {_row_path(root, x): x["cas_id"] for x in rows}}
+
+
+def check_trace(trace_mod, identifier: dict) -> dict:
+    """One trace id holds every stage of the scan; the identify.hash spans
+    sum to no more than the identifier's hash seconds (`identifier`: its
+    report's metadata). Returns span
+    counts and seconds by stage of that trace."""
+    by_trace: dict[str, list] = collections.defaultdict(list)
+    for rec in trace_mod.recent():
+        by_trace[rec["trace_id"]].append(rec)
+    full = [t for t, recs in by_trace.items() if set(OBS_STAGES) <= {x["stage"] for x in recs}]
+    check(len(full) == 1, f"{len(full)} traces hold every stage of {OBS_STAGES}; stages by trace: "
+          f"{ {t[:8]: sorted({x['stage'] for x in recs}) for t, recs in by_trace.items()} }")
+    stages: dict[str, dict] = {}
+    for rec in by_trace[full[0]]:
+        st = stages.setdefault(rec["stage"], {"spans": 0, "seconds": 0.0})
+        st["spans"] += 1
+        st["seconds"] += rec["seconds"]
+    hash_s = float(identifier["hash_time"])
+    # the job's metadata rounds each window's seconds to 0.1 ms
+    check(stages["identify.hash"]["seconds"] <= hash_s + 1e-3,
+          f"identify.hash spans sum to {stages['identify.hash']['seconds']:.4f} s, over the "
+          f"identifier's hash seconds {hash_s}")
+    return {"trace_id": full[0], "stages": stages, "identifier_hash_s": hash_s}
+
+
+def phase_observability(rng, tmp: str) -> dict:
+    """Phase 12: a Node on the card with the host sampler on scans a new
+    ~256-file location through the router under one trace; the trace
+    export, the profile and the debug bundle through their procedures;
+    the same corpus again with SD_PROFILE=0 gives the same results."""
+    import asyncio
+
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.ops import blake3_ref, cas
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+    from spacedrive_tpu_torch.telemetry import sampler, trace
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    telemetry.reset()
+    since = degradation()
+    steps: dict[str, float] = {}
+    root = os.path.join(tmp, "p12_corpus")
+    t0 = time.perf_counter()
+    paths = build_api_corpus(root, rng, (N_OBS_LARGE, N_OBS_SMALL, N_OBS_JPEG, 0))
+    steps["corpus_s"] = time.perf_counter() - t0
+    os.environ["SD_CLOUD_TOKEN"] = OBS_SECRET
+
+    async def profiled() -> dict:
+        data_dir = os.path.join(tmp, "p12_sdx")
+        node = Node(data_dir, device=DEVICE)
+        await node.start()
+        try:
+            check(node._profiler_started and sampler.SAMPLER.running(), "the sampler is not running")
+            scan = await obs_scan(node, root, steps, "profiled")
+            t0 = time.perf_counter()
+            r = node.router
+            doc = json.loads(json.dumps(await r.exec(node, "telemetry.trace_export")))
+            xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+            check(xs and all(e["dur"] >= 0 for e in xs),
+                  f"trace_export: {len(xs)} X events, some with dur < 0")
+            profile = await r.exec(node, "telemetry.profile")
+            bundle = json.dumps(await r.exec(node, "telemetry.debug_bundle"), default=str)
+            identity_hex = node.config.config.identity.to_bytes().hex()
+            steps["procedures_s"] = time.perf_counter() - t0
+        finally:
+            await node.shutdown()
+        check(identity_hex not in bundle and OBS_SECRET not in bundle,
+              "the debug bundle holds the identity hex or a secret SD_* value")
+        return {**scan, "x_events": len(xs), "profile": profile, "bundle_bytes": len(bundle),
+                "webps": _webps(data_dir)}
+
+    async def unprofiled() -> dict:
+        data_dir = os.path.join(tmp, "p12_sdx_off")
+        node = Node(data_dir, device=DEVICE)
+        await node.start()
+        try:
+            check(not node._profiler_started and not sampler.SAMPLER.running(),
+                  "SD_PROFILE=0 started the sampler")
+            scan = await obs_scan(node, root, steps, "unprofiled")
+        finally:
+            await node.shutdown()
+        return {**scan, "webps": _webps(data_dir)}
+
+    on = asyncio.run(profiled())
+    t0 = time.perf_counter()
+    spans = check_trace(trace, on["identifier"])
+    check(on["launches"] > 0, "the profiled scan launched K1 no time")
+    hashed = [p for p in paths if os.path.getsize(p) > 0]
+    plain = cas.cas_ids([cas.read_message(p, os.path.getsize(p)) for p in hashed], "cpu")
+    for p, want in zip(hashed, plain):
+        check(on["cas"].get(p) == want, f"cas_id of {p} != the plain path on the CPU")
+    for p in hashed[:: max(1, len(hashed) // N_OBS_REF)][:N_OBS_REF]:
+        msg = cas.read_message(p, os.path.getsize(p))
+        check(on["cas"][p] == blake3_ref.blake3_hex(msg, 8), f"cas_id of {p} != blake3_ref")
+    prof = on["profile"]
+    check(prof["enabled"] and prof["samples"] > 0, f"telemetry.profile: {prof}")
+    groups = {g["group"]: g["share"] for g in prof["frame_groups"]}
+    check("device_dispatch" in groups, f"no device_dispatch samples among {groups}")
+    ratio = telemetry.gauge_value("sd_profile_overhead_ratio")
+    check(prof["overhead_ratio"] < OBS_OVERHEAD and ratio < OBS_OVERHEAD,
+          f"sampler overhead {prof['overhead_ratio']} (gauge {ratio}) >= {OBS_OVERHEAD}")
+    steps["checks_s"] = time.perf_counter() - t0
+
+    os.environ["SD_PROFILE"] = "0"
+    try:
+        off = asyncio.run(unprofiled())
+    finally:
+        os.environ.pop("SD_PROFILE", None)
+        os.environ.pop("SD_CLOUD_TOKEN", None)
+    check(off["cas"] == on["cas"], "cas_ids with SD_PROFILE=0 != with the sampler on")
+    check(off["webps"] == on["webps"] and len(on["webps"]) == N_OBS_JPEG,
+          f"webp bytes with SD_PROFILE=0 != with the sampler on ({len(off['webps'])} / "
+          f"{len(on['webps'])} files)")
+    check_healthy("12", since)
+    seconds = time.perf_counter() - t_phase
+    total = max(1, prof["samples"])
+    print(json.dumps({"observability": {
+        "steps_s": steps, "seconds": seconds, "files": len(paths),
+        "spans_by_stage": spans["stages"], "identifier_hash_s": spans["identifier_hash_s"],
+        "trace_x_events": on["x_events"], "bundle_bytes": on["bundle_bytes"],
+        "sampler": {"samples": prof["samples"], "hz": prof["hz"],
+                    "states": {k: v / total for k, v in prof["states"].items()},
+                    "threads": prof["threads"], "groups": groups,
+                    "overhead_ratio": prof["overhead_ratio"]},
+        "k1_launches": {"profiled": on["launches"], "unprofiled": off["launches"]}}}),
+        flush=True)
+    print(f"phase 12: one trace over {len(OBS_STAGES)} stages, {prof['samples']} samples, "
+          f"overhead {prof['overhead_ratio']:.4f}, SD_PROFILE=0 bit-identical, in "
+          f"{seconds:.1f} s", flush=True)
+    return {"launches": {"observability_profiled": on["launches"],
+                         "observability_unprofiled": off["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=11, choices=range(3, 12),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 11: all); "
+    parser.add_argument("--stop-after", type=int, default=12, choices=range(3, 13),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 12: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -3841,6 +4072,9 @@ def main() -> int:
         if args.stop_after >= 11:
             api = phase_api(rng, tmp, {**lib, "images": lib["images"][:N_IMAGES]})
             launches.update(api["launches"])
+        if args.stop_after >= 12:
+            obs = phase_observability(rng, tmp)
+            launches.update(obs["launches"])
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

@@ -41,9 +41,8 @@ VERSION = "0.1.0"
 #: the JAX router's procedures this one does not register yet, each with
 #: the ROADMAP plane that brings what it drives
 DEFERRED: dict[str, str] = {
-    **{f"telemetry.{k}": "6.2" for k in (
-        "snapshot", "render", "trace_export", "events", "debug_bundle", "tenants", "health",
-        "mesh", "attrib", "profile", "slo", "serve")},
+    **{f"telemetry.{k}": "6.2b" for k in (
+        "tenants", "health", "mesh", "attrib", "slo", "serve")},
     "ephemeralFiles.list": "6.3",
     "locations.relink": "6.3",
     **{f"files.{k}": "6.4" for k in ("copyFiles", "cutFiles", "deleteFiles", "eraseFiles")},
@@ -79,6 +78,7 @@ def mount() -> Router:
     _backups(r)
     _auth(r)
     _models(r)
+    _telemetry(r)
     _invalidation(r)
     install_registry(r)
     return r
@@ -301,7 +301,7 @@ def _locations(r: Router) -> None:
             raise RspcError.bad_request(f"location path: {e}")
         if loc is None:
             return None
-        await scan_location(library, loc, node.jobs, backend=node.device.type)
+        await scan_location(library, loc, node.jobs, backend=str(node.device))
         invalidate_query(node, "locations.list", library)
         return loc["id"]
 
@@ -341,7 +341,7 @@ def _locations(r: Router) -> None:
         loc = library.db.find_one("location", id=int(arg["location_id"]))
         if loc is None:
             raise RspcError.not_found("location")
-        await scan_location(library, loc, node.jobs, backend=node.device.type)
+        await scan_location(library, loc, node.jobs, backend=str(node.device))
         return None
 
     @r.mutation("locations.subPathRescan", library=True)
@@ -350,7 +350,7 @@ def _locations(r: Router) -> None:
         if loc is None:
             raise RspcError.not_found("location")
         await light_scan_location(library, loc, arg.get("sub_path", "/"), node.jobs,
-                                  backend=node.device.type)
+                                  backend=str(node.device))
         return None
 
     # indexer rules sub-namespace (ref:api/locations.rs indexer_rules)
@@ -1213,6 +1213,50 @@ def _models(r: Router) -> None:
     def list_models(node):
         # ref:crates/ai image_labeler/model listing; one built-in model
         return ["labeler-net-v1"]
+
+
+def _telemetry(r: Router) -> None:
+    """The diagnostics read path: the registry, the span ring, the
+    flight recorder, the debug bundle and the host profile (plane 6.2a;
+    the verdict and tenant procedures wait for 6.2b)."""
+    from .. import telemetry
+
+    @r.query("telemetry.snapshot")
+    def snapshot(node):
+        return telemetry.snapshot()
+
+    @r.query("telemetry.render")
+    def render(node):
+        # the Prometheus text, for copy/paste diagnostics in the UI
+        return {"text": telemetry.render()}
+
+    @r.query("telemetry.trace_export")
+    def trace_export(node, arg=None):
+        # Chrome-trace JSON (Perfetto-loadable); arg {trace_id?} filters
+        trace_id = (arg or {}).get("trace_id") if isinstance(arg, dict) else None
+        return telemetry.trace_export(trace_id)
+
+    @r.query("telemetry.events")
+    def events(node):
+        # the flight recorder's rings, most-recent-last
+        return telemetry.events.all_events()
+
+    @r.query("telemetry.debug_bundle")
+    def debug_bundle(node):
+        # the redacted support artifact (see telemetry.bundle)
+        return telemetry.debug_bundle(node)
+
+    @r.query("telemetry.profile")
+    async def profile(node, arg=None):
+        # the host sampler: frame groups, on-CPU vs GIL-wait split,
+        # capture windows; arg {mesh?: bool, format?: "folded"} (the
+        # mesh view is this node's alone until p2p is ported)
+        opts = arg if isinstance(arg, dict) else {}
+        if opts.get("format") == "folded":
+            return {"folded": telemetry.sampler.SAMPLER.folded()}
+        if opts.get("mesh"):
+            return await telemetry.sampler.mesh_profile(node)
+        return telemetry.sampler.SAMPLER.profile()
 
 
 def _invalidation(r: Router) -> None:

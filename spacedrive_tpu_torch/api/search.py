@@ -9,13 +9,29 @@ row's order value and id) compiled into one SQL query; `search_semantic`
 scores the library's vector index. Results come back normalised, as the
 JAX package's sd-cache does (api/cache.py): `items` hold references,
 `nodes` the rows.
+
+`search_paths` by size gives JAX's pages, ties and cursors included,
+without JAX's cost on a library at rest: the size key is a per-row hex
+expression with no index (the DDL stays JAX's), so JAX's SQL evaluates
+it over every row and sorts them for each page. Here a page by size
+whose library DB changed no row since the last such page
+(`LibraryDb.change_stamp`) walks the size order of all rows, built once
+with that expression in the page's direction, from the cursor and keeps
+the rows that pass the filter. A page after a change takes JAX's SQL
+and builds nothing, so a walk while a job writes costs what JAX's does.
+`search_semantic` observes `sd_search_query_seconds`.
 """
 
 from __future__ import annotations
 
+import bisect
+import threading
+import time
+import weakref
 from typing import Any
 
 from ..db.database import blob_u64, escape_like
+from ..telemetry import metrics as _tm
 from .cache import normalise
 from .router import RspcError
 
@@ -119,26 +135,110 @@ def search_paths(library: Any, arg: dict[str, Any] | None) -> dict[str, Any]:
                      f"WHERE {' AND '.join(sub)})")
 
     order_field, direction = _ordering(arg, _FILE_PATH_ORDER, default="name")
-    _apply_cursor(arg.get("cursor"), order_field, direction, "fp.id", conds, params)
-
-    where = ("WHERE " + " AND ".join(conds)) if conds else ""
-    rows = library.db.query(
-        f"SELECT fp.*, o.kind AS object_kind, o.favorite AS object_favorite, "
-        f"o.note AS object_note, o.date_accessed AS object_date_accessed, "
-        f"{order_field} AS __order "
-        "FROM file_path fp LEFT JOIN object o ON o.id = fp.object_id "
-        f"{where} ORDER BY {order_field} {direction}, fp.id ASC LIMIT ?",
-        (*params, take + 1),
-    )
-    has_more = len(rows) > take
-    rows = rows[:take]
-    cursor_out = [rows[-1].get("__order"), rows[-1]["id"]] if has_more and rows else None
+    cursor = arg.get("cursor")
+    page = None
+    if order_field == _SIZE_ORDER:
+        page = _page_by_size(library.db, conds, params, take, direction, cursor)
+    if page is not None:
+        rows, cursor_out = page
+    else:
+        _apply_cursor(cursor, order_field, direction, "fp.id", conds, params)
+        where = ("WHERE " + " AND ".join(conds)) if conds else ""
+        rows = library.db.query(
+            f"SELECT {_PATH_COLUMNS}, {order_field} AS __order "
+            "FROM file_path fp LEFT JOIN object o ON o.id = fp.object_id "
+            f"{where} ORDER BY {order_field} {direction}, fp.id ASC LIMIT ?",
+            (*params, take + 1),
+        )
+        has_more = len(rows) > take
+        rows = rows[:take]
+        cursor_out = [rows[-1].get("__order"), rows[-1]["id"]] if has_more and rows else None
     for r in rows:
         r.pop("__order", None)
         r["size_in_bytes"] = blob_u64(r.pop("size_in_bytes_bytes", None)) or 0
     out = normalise("file_path", rows)
     out["cursor"] = cursor_out
     return out
+
+
+_PATH_COLUMNS = ("fp.*, o.kind AS object_kind, o.favorite AS object_favorite, "
+                 "o.note AS object_note, o.date_accessed AS object_date_accessed")
+
+#: per library DB: (change stamp, {direction: [(size key, id)] in that
+#: direction's page order}); the orders are built only at rest
+_size_orders: "weakref.WeakKeyDictionary[Any, tuple]" = weakref.WeakKeyDictionary()
+_size_orders_lock = threading.Lock()
+
+
+def _size_order(db: Any, direction: str) -> list[tuple[str, int]] | None:
+    """Every file_path row's (size key, id) in the page order of
+    `direction`, or None when a row of `db` changed since the last page
+    by size: that page takes JAX's SQL, and the next one at rest builds."""
+    stamp = db.change_stamp()
+    with _size_orders_lock:
+        hit = _size_orders.get(db)
+        if hit is None or hit[0] != stamp:
+            _size_orders[db] = (stamp, {})
+            return None
+        orders = hit[1]
+    order = orders.get(direction)
+    if order is None:
+        order = [(r["k"], r["id"]) for r in db.query(
+            f"SELECT fp.id, {_SIZE_ORDER} AS k FROM file_path fp "
+            f"ORDER BY k {direction}, fp.id ASC")]
+        orders[direction] = order
+    return order
+
+
+def _page_by_size(db: Any, conds: list[str], params: list[Any], take: int,
+                  direction: str, cursor: Any) -> tuple[list[dict], list | None] | None:
+    """One page of `search.paths` by size: the rows and the next cursor
+    that JAX's SQL returns, or None to take that SQL (a library whose
+    rows changed since the last page, or a cursor whose order value is
+    not a key string)."""
+    order = _size_order(db, direction)
+    if order is None:
+        return None
+    start = 0
+    if cursor is not None:
+        try:
+            order_val, last_id = cursor[0], int(cursor[1])
+        except (TypeError, ValueError, IndexError):
+            raise RspcError.bad_request("malformed cursor") from None
+        if not isinstance(order_val, str):
+            return None
+        if direction == "ASC":
+            start = bisect.bisect_right(order, (order_val, last_id))
+        else:
+            # the first row with key < v, or key == v and id > last_id
+            lo, hi = 0, len(order)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                k, i = order[mid]
+                if k > order_val or (k == order_val and i <= last_id):
+                    lo = mid + 1
+                else:
+                    hi = mid
+            start = lo
+    if conds:
+        keep = {r["id"] for r in db.query(
+            "SELECT fp.id FROM file_path fp LEFT JOIN object o ON o.id = fp.object_id "
+            "WHERE " + " AND ".join(conds), params)}
+        picked = []
+        for kv in order[start:]:
+            if kv[1] in keep:
+                picked.append(kv)
+                if len(picked) > take:
+                    break
+    else:
+        picked = order[start:start + take + 1]
+    has_more = len(picked) > take
+    picked = picked[:take]
+    by_id = {r["id"]: r for r in db.query(
+        f"SELECT {_PATH_COLUMNS} FROM file_path fp LEFT JOIN object o ON o.id = fp.object_id "
+        f"WHERE fp.id IN ({_in_list(len(picked))})", [i for _k, i in picked])} if picked else {}
+    rows = [by_id[i] for _k, i in picked]
+    return rows, (list(picked[-1]) if has_more and picked else None)
 
 
 def search_objects(library: Any, arg: dict[str, Any] | None) -> dict[str, Any]:
@@ -199,6 +299,7 @@ def search_semantic(library: Any, arg: dict[str, Any] | None) -> dict[str, Any]:
         raise RspcError.bad_request("query must be a non-empty string")
     take = _clamp_take(arg)
 
+    t0 = time.perf_counter()
     probe = _index.probe_for(library, q)
     if probe is None:
         return {"items": [], "nodes": [], "scores": {}, "resolved": False}
@@ -218,6 +319,7 @@ def search_semantic(library: Any, arg: dict[str, Any] | None) -> dict[str, Any]:
     out = normalise("file_path", rows)
     out["scores"] = scores
     out["resolved"] = True
+    _tm.SEARCH_QUERY_SECONDS.observe(time.perf_counter() - t0)
     return out
 
 

@@ -13,6 +13,10 @@
         [--batch-size 32] [--steps 600] [--lr 1e-3] [--device ...]
     python -m spacedrive_tpu_torch labeler train-demo --data-dir D [--out F] [--steps 300]
         [--device ...]
+    python -m spacedrive_tpu_torch trace-export [--url URL] [--trace-id HEX] [--out F]
+    python -m spacedrive_tpu_torch profile [--url URL] [--folded] [--out F]
+    python -m spacedrive_tpu_torch debug-bundle [--data-dir D | --url URL] [--out F]
+    python -m spacedrive_tpu_torch licenses [--out F]
 
 Before the command, `--faults PLAN [--fault-seed N]` arms the fault
 plane for the invocation (chaos testing, utils/faults.py: e.g.
@@ -69,6 +73,18 @@ scikit-learn's bundled digit scans. Both write the checkpoint to `--out`
 (default `D/image_labeler/weights.npz`, the artifact the node's labeler
 loads on its next scan), report progress on stderr and print
 `{"checkpoint", "metrics"}` as JSON.
+
+`trace-export`, `profile` and `debug-bundle` (counterparts of the `sdx`
+commands) read a running node's HTTP API at `--url`: its span ring as
+Chrome-trace JSON (`GET /trace`, loadable in Perfetto), its host
+sampler's profile (`GET /profile`; `--folded` gives flamegraph.pl
+text), its redacted debug bundle (`POST /rspc/telemetry.debug_bundle`).
+The port's own node answers these in-process through its router
+(`telemetry.trace_export`, `telemetry.profile`,
+`telemetry.debug_bundle`) until the HTTP host is ported. Without
+`--url`, `debug-bundle` builds the bundle offline from `--data-dir`
+(node config redacted, this process's empty rings). `licenses` prints
+the dependency and license inventory (utils/deps.py).
 """
 
 from __future__ import annotations
@@ -124,7 +140,7 @@ async def index_library(path: str, data_dir: str, library: str, backend: str = "
         loc = lib.db.find_one("location", path=os.path.abspath(path))
         if loc is None:
             loc = LocationCreateArgs(path=path).create(lib)
-        await scan_location(lib, loc, node.jobs, backend=node.device.type)
+        await scan_location(lib, loc, node.jobs, backend=str(node.device))
         await node.jobs.wait_idle()
         failed = lib.db.query(
             "SELECT name, errors_text FROM job WHERE status = ? AND date_created >= ?",
@@ -318,6 +334,110 @@ def _train(args: argparse.Namespace, labeler_dir: str) -> int:
     return 0
 
 
+def _write_or_print(doc: str, out: str | None) -> None:
+    if out:
+        with open(out, "w") as f:
+            f.write(doc + "\n")
+        print(f"wrote {out} ({len(doc)} bytes)", file=sys.stderr)
+    else:
+        print(doc)
+
+
+def _http_get(url: str, timeout: float = 10.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def cmd_trace_export(args: argparse.Namespace) -> int:
+    """A running node's Chrome-trace JSON (GET /trace): load the output
+    in Perfetto (ui.perfetto.dev) or chrome://tracing."""
+    import urllib.error
+
+    url = args.url.rstrip("/") + "/trace"
+    if args.trace_id:
+        url += f"?trace_id={args.trace_id}"
+    try:
+        doc = _http_get(url)
+    except (urllib.error.URLError, OSError) as e:
+        print(f"trace-export: cannot reach {url}: {e}", file=sys.stderr)
+        return 1
+    # refuse to write a non-trace artifact (a proxy error page, another
+    # server on that port), with a message, not a traceback
+    try:
+        parsed = json.loads(doc)
+        events = parsed["traceEvents"]
+    except (ValueError, TypeError, KeyError):
+        print(f"trace-export: {url} did not return Chrome-trace JSON", file=sys.stderr)
+        return 1
+    print(f"trace-export: {len(events)} events", file=sys.stderr)
+    _write_or_print(json.dumps(parsed, indent=2), args.out)
+    return 0
+
+
+def cmd_profile(args: argparse.Namespace) -> int:
+    """A running node's host profile (GET /profile); --folded gives
+    flamegraph.pl collapsed-stack text."""
+    import urllib.error
+
+    url = args.url.rstrip("/") + "/profile"
+    if args.folded:
+        url += "?format=folded"
+    try:
+        doc = _http_get(url)
+    except (urllib.error.URLError, OSError) as e:
+        print(f"profile: cannot reach {url}: {e}", file=sys.stderr)
+        return 1
+    if args.folded:
+        _write_or_print(doc.rstrip("\n"), args.out)
+        return 0
+    try:
+        parsed = json.loads(doc)
+    except ValueError:
+        print(f"profile: {url} did not return JSON", file=sys.stderr)
+        return 1
+    _write_or_print(json.dumps(parsed, indent=2), args.out)
+    if isinstance(parsed, dict) and parsed.get("enabled"):
+        groups = parsed.get("frame_groups") or []
+        split = "  ".join(f"{g['group']}={g['share']:.0%}" for g in groups[:5])
+        print(f"profile: {parsed.get('samples', 0)} samples over "
+              f"{parsed.get('duration_s', 0)}s — {split}", file=sys.stderr)
+    return 0
+
+
+def cmd_debug_bundle(args: argparse.Namespace) -> int:
+    """The redacted debug bundle: from a running node (--url), or built
+    offline from the data dir."""
+    from .telemetry.bundle import render_bundle
+
+    if args.url:
+        import urllib.error
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/rspc/telemetry.debug_bundle"
+        req = urllib.request.Request(url, data=b"{}", method="POST",
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                payload = json.loads(resp.read().decode())
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            print(f"debug-bundle: cannot reach {url}: {e}", file=sys.stderr)
+            return 1
+        doc = json.dumps(payload.get("result"), indent=2)
+    else:
+        doc = render_bundle(data_dir=args.data_dir)
+    _write_or_print(doc, args.out)
+    return 0
+
+
+def cmd_licenses(args: argparse.Namespace) -> int:
+    from .utils.deps import collect
+
+    _write_or_print(json.dumps(collect(), indent=2), args.out)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m spacedrive_tpu_torch")
     parser.add_argument(
@@ -395,6 +515,33 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--steps", type=int, default=300)
     ld.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     lb.set_defaults(func=cmd_labeler)
+
+    te = sub.add_parser("trace-export", help="a running node's span ring as Perfetto-loadable "
+                        "Chrome-trace JSON")
+    te.add_argument("--url", default="http://127.0.0.1:8080", help="the node's HTTP API origin")
+    te.add_argument("--trace-id", default=None, help="filter to one trace id (hex)")
+    te.add_argument("--out", help="write JSON here instead of stdout")
+    te.set_defaults(func=cmd_trace_export)
+
+    pf = sub.add_parser("profile", help="a running node's host profile: frame groups, on-CPU "
+                        "vs GIL-wait split, capture windows (flamegraph.pl text with --folded)")
+    pf.add_argument("--url", default="http://127.0.0.1:8080", help="the node's HTTP API origin")
+    pf.add_argument("--folded", action="store_true",
+                    help="flamegraph.pl collapsed-stack text instead of the JSON document")
+    pf.add_argument("--out", help="write output here instead of stdout")
+    pf.set_defaults(func=cmd_profile)
+
+    db = sub.add_parser("debug-bundle", help="redacted diagnostic bundle: config (secrets "
+                        "stripped), metrics, spans, flight-recorder rings, profile, versions/env")
+    db.add_argument("--data-dir", default=None, help="build offline from this data dir")
+    db.add_argument("--url", default=None,
+                    help="pull the bundle from a running node instead of building it offline")
+    db.add_argument("--out", help="write JSON here instead of stdout")
+    db.set_defaults(func=cmd_debug_bundle)
+
+    li = sub.add_parser("licenses", help="dependency and license inventory")
+    li.add_argument("--out", help="write JSON here instead of stdout")
+    li.set_defaults(func=cmd_licenses)
     return parser
 
 

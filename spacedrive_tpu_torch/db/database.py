@@ -127,6 +127,14 @@ class LibraryDb:
         with self._lock:
             return self._conn.execute(sql, params).fetchone()
 
+    def change_stamp(self) -> tuple[int, int]:
+        """Rows this connection has changed since it opened, and the
+        file's data version (which other connections' commits bump):
+        while the stamp stays equal, no row of the database changed."""
+        with self._lock:
+            version = self._conn.execute("PRAGMA data_version").fetchone()["data_version"]
+            return self._conn.total_changes, version
+
     # --- typed helpers -------------------------------------------------------
 
     @staticmethod

@@ -8,8 +8,9 @@ pause/cancel handling at step boundaries).
 Steps and state are msgpack-serializable dicts so any job can be
 persisted mid-flight and cold-resumed after a crash.
 
-Counterpart of `spacedrive_tpu/jobs/job.py`, without phase metrics and
-trace context.
+Counterpart of `spacedrive_tpu/jobs/job.py`: each phase's wall time goes
+to `sd_job_phase_seconds`, and a job carries its trace context through
+pause, serialization and resume.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from dataclasses import dataclass, field
 from typing import Any, TYPE_CHECKING
 
 from ..tasks import ExecStatus, Interrupter, InterruptionKind, Task
+from ..telemetry import metrics as _tm
+from ..telemetry import trace as _trace
 from ..utils.msgpack_codec import packb, unpackb
 from .report import JobReport, JobStatus
 
@@ -55,6 +58,8 @@ class JobContext:
         self.report = report
         self.manager = manager
         self._started = time.monotonic()
+        self._phase: str | None = None
+        self._phase_started = self._started
 
     def progress(
         self,
@@ -73,9 +78,24 @@ class JobContext:
             r.message = message
         if phase is not None:
             r.phase = phase
+            if phase != self._phase:
+                self._close_phase()
+                self._phase = phase
         r.estimate_completion(time.monotonic() - self._started)
         if self.manager is not None:
             self.manager._emit_progress(self)
+
+    def _close_phase(self) -> None:
+        """Observe the elapsed phase into sd_job_phase_seconds; the
+        pre-first-phase stretch records as "init". Called on every
+        phase transition and by the manager when the job settles."""
+        now = time.monotonic()
+        _tm.JOB_PHASE_SECONDS.observe(
+            now - self._phase_started,
+            job=self.report.name,
+            phase=self._phase or "init",
+        )
+        self._phase_started = now
 
 
 class StatefulJob(abc.ABC):
@@ -95,6 +115,10 @@ class StatefulJob(abc.ABC):
         self.errors: list[str] = []
         self.initialized = False
         self.next_jobs: list["StatefulJob"] = []
+        # distributed-trace context: minted or inherited at ingest,
+        # carried through pause/resume (it serializes with the job
+        # state) and down job chains, so one user action is one trace
+        self.trace_ctx: "_trace.TraceContext | None" = None
 
     # --- contract ---
 
@@ -134,6 +158,8 @@ class StatefulJob(abc.ABC):
                 "errors": self.errors,
                 "initialized": self.initialized,
                 "next_jobs": [j.serialize_state() for j in self.next_jobs],
+                # a resumed job continues its original trace
+                "trace": self.trace_ctx.to_wire() if self.trace_ctx else None,
             }
         )
 
@@ -152,6 +178,7 @@ class StatefulJob(abc.ABC):
         job.next_jobs = [
             StatefulJob.deserialize_state(r, registry) for r in obj.get("next_jobs", [])
         ]
+        job.trace_ctx = _trace.TraceContext.from_wire(obj.get("trace"))
         return job
 
 
@@ -171,6 +198,14 @@ class JobRunnerTask(Task):
     async def run(self, interrupter: Interrupter) -> ExecStatus:
         job, ctx = self.job, self.ctx
         report = ctx.report
+        # normally the task system installed the dispatch-time context;
+        # a directly-driven runner (tests, tools) still continues the
+        # job's own trace
+        trace_token = (
+            _trace.set_current(job.trace_ctx)
+            if _trace.current() is None and job.trace_ctx is not None
+            else None
+        )
         try:
             if not job.initialized:
                 await job.init_job(ctx)
@@ -206,6 +241,8 @@ class JobRunnerTask(Task):
             logger.exception("job %s failed", job.NAME)
             raise JobError(str(e)) from e
         finally:
+            if trace_token is not None:
+                _trace.reset_current(trace_token)
             # runs on DONE, pause, cancel, and failure alike — jobs
             # release runtime-only resources (thread pools, prefetch
             # buffers) here, never in finalize (which pause skips)

@@ -6,11 +6,13 @@ resume,cancel,cold_resume}) + JobBuilder chaining
 MediaProcessor chains). Reports persist in the library's `job` table;
 progress streams over the library event bus as JobProgressEvent.
 
-Counterpart of `spacedrive_tpu/jobs/manager.py`, without the
-telemetry plane's job events and trace context: progress also reaches
-the node's bus (what `jobs.progress` reads), a settled job notifies its
-outcome (`_notify_outcome`) and a completed one invalidates the queries
-its class names in INVALIDATES (`_invalidate_on_complete`).
+Counterpart of `spacedrive_tpu/jobs/manager.py`, with its job events on
+the `jobs` flight ring and its trace context (a job runs under the
+trace of the caller that ingested it, or a fresh one, and a chain
+continues it), without the attribution plane's pass markers: progress
+also reaches the node's bus (what `jobs.progress` reads), a settled job
+notifies its outcome (`_notify_outcome`) and a completed one invalidates
+the queries its class names in INVALIDATES (`_invalidate_on_complete`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Any
 
 from ..db.database import now_iso
 from ..tasks import TaskStatus, TaskSystem
+from ..telemetry import trace as _trace
+from ..telemetry.events import JOB_EVENTS
 from ..utils.tasks import supervise
 from .job import JobContext, JobRunnerTask, StatefulJob, status_for_result
 from .report import JobProgressEvent, JobReport, JobStatus
@@ -66,6 +70,11 @@ class JobManager:
     # --- ingest & drive (ref:manager.rs:101-178) ---
 
     async def ingest(self, job: StatefulJob, library: Any, parent: JobReport | None = None) -> None:
+        # the job's trace: the caller's (an rspc mutation, a parent job)
+        # when one is active, else a fresh root; the whole chain and
+        # every task it dispatches runs under it
+        if job.trace_ctx is None:
+            job.trace_ctx = _trace.current() or _trace.new_context()
         report = JobReport(
             id=job.id,
             name=job.NAME,
@@ -74,6 +83,7 @@ class JobManager:
             status=JobStatus.QUEUED,
         )
         report.create(library.db)
+        JOB_EVENTS.emit("queued", job=job.NAME, id=str(job.id))
         self._dispatch(job, library, report)
 
     def _dispatch(self, job: StatefulJob, library: Any, report: JobReport) -> None:
@@ -81,7 +91,13 @@ class JobManager:
         report.status = JobStatus.RUNNING
         report.started_at = report.started_at or now_iso()
         report.update(library.db)
-        handle = self.system.dispatch(JobRunnerTask(job, ctx))
+        JOB_EVENTS.emit("running", job=job.NAME, id=str(job.id))
+        runner = JobRunnerTask(job, ctx)
+        # dispatch under the job's context so the task-system boundary
+        # carries it (cold resume re-enters here with the deserialized
+        # context, and the resumed job continues its original trace)
+        with _trace.use(job.trace_ctx):
+            handle = self.system.dispatch(runner)
         self._active[job.id] = (handle, ctx)
         # keep a strong ref: the loop only weak-refs tasks and a GC'd
         # supervisor would drop final status writes + job chaining
@@ -94,6 +110,9 @@ class JobManager:
 
     async def _supervise(self, job: StatefulJob, library: Any, handle, ctx: JobContext) -> None:
         result = await handle.wait()
+        # close the job's last phase so sd_job_phase_seconds accounts
+        # the full wall time, not just up to the last transition
+        ctx._close_phase()
         report = ctx.report
         report.status = status_for_result(result.status, bool(job.errors))
         if result.status == TaskStatus.ERROR:
@@ -116,6 +135,11 @@ class JobManager:
         self._emit_progress(ctx)
         self._active.pop(job.id, None)
         logger.info("job %s -> %s", job.NAME, report.status.name)
+        JOB_EVENTS.emit(
+            "settled", job=job.NAME, id=str(job.id),
+            status=report.status.name,
+            errors=len(report.errors_text),
+        )
 
         self._notify_outcome(job, library, report)
 
@@ -123,6 +147,10 @@ class JobManager:
         if report.status in (JobStatus.COMPLETED, JobStatus.COMPLETED_WITH_ERRORS):
             self._invalidate_on_complete(job, library)
             for next_job in job.next_jobs:
+                # chained jobs continue the originating trace: the
+                # indexer → identifier → media chain is ONE user action
+                if next_job.trace_ctx is None:
+                    next_job.trace_ctx = job.trace_ctx
                 await self.ingest(next_job, library, parent=report)
 
     @staticmethod
@@ -208,6 +236,7 @@ class JobManager:
         report.status = JobStatus.PAUSED
         report.data = runner.job.serialize_state()
         report.update(ctx.library.db)
+        JOB_EVENTS.emit("paused", job=report.name, id=str(job_id))
         self._emit_progress(ctx)
 
     async def resume(self, job_id: uuid.UUID) -> None:
@@ -217,6 +246,7 @@ class JobManager:
             report = entry[1].report
             report.status = JobStatus.RUNNING
             report.update(entry[1].library.db)
+            JOB_EVENTS.emit("resumed", job=report.name, id=str(job_id))
 
     async def cancel(self, job_id: uuid.UUID) -> None:
         entry = self._active.get(job_id)

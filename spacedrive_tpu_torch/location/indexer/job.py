@@ -8,9 +8,9 @@ metadata with scan/db timings (:76-88), shallow variant (shallow.rs).
 The indexer is pure host-side metadata work; its output (orphan
 file_paths) is what feeds the device cas_id batches downstream.
 
-Counterpart of `spacedrive_tpu/location/indexer/job.py`. Where the JAX
-package puts the walk's journal verdicts on a trace span, this one adds
-them to the run metadata (`journal_hit`, `journal_miss`, ...).
+Counterpart of `spacedrive_tpu/location/indexer/job.py`. The walk runs
+under a `walk` span that carries the journal's verdicts, as in JAX; the
+run metadata also keeps them (`journal_hit`, `journal_miss`, ...).
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from ...files.isolated_path import IsolatedFilePathData
 from ...jobs import StatefulJob
 from ...jobs.job import JobContext, JobError, StepResult
 from ...jobs.manager import register_job
+from ...ops.cas import message_len
+from ...telemetry import span
 from .journal import IndexJournal, Identity, key_of
 from .rules import load_rules_for_location
 from .walker import walk, walk_single_dir
@@ -35,7 +37,8 @@ BATCH_SIZE = 1000  # ref:indexer_job.rs:47
 
 
 class _JournalCheck:
-    """Per-walk index-journal consult, counting verdicts."""
+    """Per-walk index-journal consult, counting verdicts for the walk
+    span (the counters themselves increment inside IndexJournal)."""
 
     def __init__(self, journal: IndexJournal, loc_id: int):
         self.journal = journal
@@ -47,6 +50,10 @@ class _JournalCheck:
             self.loc_id, key_of(iso), Identity.from_metadata(meta)
         )
         self.counts[verdict] = self.counts.get(verdict, 0) + 1
+        if verdict == "hit" and meta.size_in_bytes:
+            # a vouched unchanged file: its whole sampled message will
+            # never be read, hashed or shipped this pass
+            self.journal.bytes_saved(message_len(meta.size_in_bytes))
         return verdict
 
 
@@ -164,12 +171,15 @@ class IndexerJob(StatefulJob):
         """One bounded walk; leftover dirs become 'walk' continuation
         steps so arbitrarily large locations index completely."""
         rules, iso_factory, fetcher, remover, jcheck = self._walk_env(ctx)
-        result = walk(
-            root, rules, iso_factory, fetcher, remover,
-            update_notifier=lambda p, n: None,
-            initial_accepted_by_children=accepted,
-            journal_check=jcheck,
-        )
+        with span("walk") as walk_span:
+            result = walk(
+                root, rules, iso_factory, fetcher, remover,
+                update_notifier=lambda p, n: None,
+                initial_accepted_by_children=accepted,
+                journal_check=jcheck,
+            )
+            if jcheck.counts:
+                walk_span.annotate(**{f"journal_{k}": v for k, v in jcheck.counts.items()})
         # journal verdicts over EVERY walked file (unchanged files
         # included) — the warm-pass hit-rate evidence
         for verdict, n in jcheck.counts.items():

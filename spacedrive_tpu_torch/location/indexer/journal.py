@@ -32,16 +32,14 @@ wrong):
 Counterpart of `spacedrive_tpu/location/indexer/journal.py` without its
 process-pool consult and the watcher, rename and orphan-prune surface
 the port does not run yet. The payload bytes and the verdicts are the
-same. Where the JAX journal counts verdicts and bytes saved into
-process-wide telemetry, each `IndexJournal` here tallies them in its
-own `counts`. No program code reads `counts` yet: it, `bytes_saved` and
-`lookup(count_invalidated=)` keep the JAX journal's API until the port's
-telemetry reads them.
+same. Verdicts and bytes saved count into `sd_index_journal_ops_total`
+and `sd_index_journal_bytes_saved_total`, as in the JAX journal. Its
+per-location runtime counters, their `reset_runtime` and the
+`location_stats` that reads them come with the federation snapshot.
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import os
 import sqlite3
@@ -50,6 +48,7 @@ from typing import Any
 
 from ...db.database import blob_u64, now_iso, u64_blob
 from ...ops.cas import ChunkCache
+from ...telemetry import metrics as _tm
 from ...utils.msgpack_codec import MsgpackError, packb, unpackb
 
 logger = logging.getLogger(__name__)
@@ -189,9 +188,6 @@ class IndexJournal:
 
     def __init__(self, db: Any):
         self.db = db
-        #: verdicts this journal handed out (hit / miss / invalidated /
-        #: bypassed) and the bytes whose work a vouch skipped
-        self.counts: collections.Counter[str] = collections.Counter()
 
     # ---- consult -------------------------------------------------------
 
@@ -207,7 +203,7 @@ class IndexJournal:
         invalidation."""
         verdict, entry = self._lookup(location_id, key, identity)
         if verdict != INVALIDATED or count_invalidated:
-            self.counts[verdict] += 1
+            _tm.INDEX_JOURNAL_OPS.inc(result=verdict)
         return verdict, entry
 
     def _lookup(
@@ -242,7 +238,7 @@ class IndexJournal:
     def bytes_saved(self, n: int) -> None:
         """Count `n` bytes whose work a vouch skipped."""
         if n > 0:
-            self.counts["bytes_saved"] += n
+            _tm.INDEX_JOURNAL_BYTES_SAVED.inc(n)
 
     # ---- record --------------------------------------------------------
 

@@ -6,7 +6,8 @@ and `.spacedrive` metadata markers (location/metadata.rs).
 
 Counterpart of `spacedrive_tpu/location/locations.py`. The chain is
 Indexer → FileIdentifier → MediaProcessor, as there, with the
-identifier and the media job on an explicit backend ("cuda" or "cpu");
+identifier and the media job on an explicit backend ("cuda" or "cpu",
+or an indexed device of either, as a Node on "cuda:1" passes it);
 `deep_rescan_sub_path` and `light_scan_location` spawn it over one
 subtree. Relinking a moved location waits for the location manager.
 """

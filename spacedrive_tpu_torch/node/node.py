@@ -14,18 +14,20 @@ and unless `with_labeler=False` the image-labeler actor on the same
 device (ref:lib.rs:142, the reference's `ai` feature gate), whose
 resolved artifact names the config's `image_labeler_version`.
 `start` starts the loop-lag monitor, the process-wide autotune
-controller (parallel/autotune.py; SD_AUTOTUNE=0 starts nothing) and
-the process pool (parallel/procpool.py; SD_PROCS=0, the default,
-spawns nothing), binds the thumbnailer to the running loop, loads the
+controller (parallel/autotune.py; SD_AUTOTUNE=0 starts nothing), the
+host sampling profiler (telemetry/sampler.py; SD_PROFILE=0 starts
+nothing) and the process pool (parallel/procpool.py; SD_PROCS=0, the
+default, spawns nothing), binds the thumbnailer to the running loop, loads the
 libraries (each registers with the labeler, which re-queues its
 persisted batches) and cold-resumes their jobs; `shutdown` stops them,
 persists both actors' queues and stops the task system. The
-controller and the pool are refcounted, so two nodes in one process
-share one controller and one worker set. A Node lives within one event
+controller, the sampler and the pool are refcounted, so two nodes in
+one process share one controller, one sampling thread and one worker
+set. A Node lives within one event
 loop (one `asyncio.run`).
 
-Not ported: the telemetry history writer, the host sampler and the
-resource sampler (plane 6.2), the location manager and its watchers
+Not ported: the telemetry history writer and the resource sampler
+(plane 6.2b), the location manager and its watchers
 (6.3), the orphan remover (6.4), P2P and cloud sync (6.7, 6.8), and the
 serve runtime and the API server (6.9).
 """
@@ -55,6 +57,7 @@ from ..object.media.thumbnail.actor import Thumbnailer
 from ..parallel import autotune as _autotune
 from ..parallel import procpool as _procpool
 from ..tasks import TaskSystem
+from ..telemetry import sampler as _sampler
 from ..telemetry.events import LoopLagMonitor
 from ..utils.events import EventBus
 from ..utils.tracing import install_loop_excepthook
@@ -103,6 +106,11 @@ class Node:
         self.autotuner = _autotune.CONTROLLER
         self.procpool = _procpool.POOL
         self._procpool_started = False
+        # the process-wide host sampling profiler (telemetry/sampler.py):
+        # a refcounted hold, so two in-process nodes share one sampling
+        # thread; SD_PROFILE=0 starts nothing
+        self.profiler = _sampler.SAMPLER
+        self._profiler_started = False
         self._started = False
 
     def add_stage_seconds(self, stage: str, seconds: float) -> None:
@@ -144,6 +152,10 @@ class Node:
         install_loop_excepthook(asyncio.get_running_loop())
         self.loop_monitor.start()
         self.autotuner.start()
+        # tag this thread as the event loop's, so samples classify as
+        # loop vs feeder vs worker, then take a hold on the sampler
+        self.profiler.register_loop_thread()
+        self._profiler_started = self.profiler.start()
         # workers up before any job runs, so the first batch never pays
         # the spawn inside a measured pass
         self._procpool_started = self.procpool.start()
@@ -181,11 +193,14 @@ class Node:
         self.libraries.libraries.pop(lib_id, None)
 
     async def shutdown(self) -> None:
-        """Stop the loop-lag monitor, the controller and the pool (each
-        releases its hold), persist the actors' queues, stop the task
+        """Stop the loop-lag monitor, the controller, the sampler and the
+        pool (each releases its hold), persist the actors' queues, stop the task
         system and close the libraries (ref:lib.rs:240-250)."""
         await self.loop_monitor.stop()
         await self.autotuner.stop()
+        if self._profiler_started:
+            self.profiler.stop()
+            self._profiler_started = False
         if self._procpool_started:
             self.procpool.stop()
             self._procpool_started = False

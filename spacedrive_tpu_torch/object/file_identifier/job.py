@@ -12,9 +12,13 @@ and hashes the whole window as ONE device batch (the BLAKE3 chunk
 kernel, ops/csrc/blake3_chunk.cu) — the batch dim replaces task-level
 concurrency.
 
-Counterpart of `spacedrive_tpu/object/file_identifier/job.py`, without
-its spans and stage histograms. The backend is "cuda" (default) or
-"cpu" and nothing else. Window sizes come from the autotune seam
+Counterpart of `spacedrive_tpu/object/file_identifier/job.py`, with its
+`identify.hash` span (around the finisher, which waits for K1's words;
+it carries the journal's verdicts) and its `identify.db` span, and their
+stage histograms. The backend is a device string of type "cuda"
+(default) or "cpu": "cuda" rides the degradation ladder over every
+visible card, an indexed one ("cuda:1", "cpu:0") pins the hash there,
+strict. Window sizes come from the autotune seam
 (parallel/autotune.py) on every fetch: a device window is the
 "identify" policy's `identify_window_rows(cards)` (IDENTIFY_DEVICE_WINDOW
 rows per card while the controller holds the static size), a CPU window
@@ -50,12 +54,27 @@ from ...ops import cas
 from ...parallel import autotune as _autotune
 from ...parallel.feeder import WindowPipeline
 from ...parallel.mesh import device_scale
+from ...telemetry import metrics as _tm
 from ...telemetry import profiler as _profiler
+from ...telemetry import span
 from .link import kind_for_row as _kind_for_row
 
 logger = logging.getLogger(__name__)
 
 BACKENDS = ("cuda", "cpu")
+
+
+def check_backend(backend: Any) -> str:
+    """`backend` as a device string whose type is one of BACKENDS (a
+    JobError otherwise): "cuda", "cpu", or an indexed device of either."""
+    try:
+        device = torch.device(backend)
+    except (RuntimeError, TypeError):
+        device = None
+    if device is None or device.type not in BACKENDS:
+        raise JobError(f"backend must be one of {BACKENDS} or an indexed device of them, "
+                       f"got {backend!r}")
+    return str(device)
 
 
 def orphan_where_clause(sub_path_mat: str | None = None) -> str:
@@ -87,14 +106,12 @@ class FileIdentifierJob(StatefulJob):
         if location is None:
             raise JobError(f"location {loc_id} not found")
 
-        backend = self.init.get("backend", "cuda")
-        if backend not in BACKENDS:
-            raise JobError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        backend = check_backend(self.init.get("backend", "cuda"))
         # the STATIC base sizes the step estimate; live windows are read
         # from the policy per fetch (_window_limit)
         chunk = (
-            _autotune.identify_window_rows(device_scale(backend)) if backend == "cuda"
-            else _autotune.IDENTIFY_CPU_WINDOW
+            _autotune.identify_window_rows(device_scale(backend))
+            if torch.device(backend).type == "cuda" else _autotune.IDENTIFY_CPU_WINDOW
         )
 
         params: list[Any] = [loc_id]
@@ -178,10 +195,13 @@ class FileIdentifierJob(StatefulJob):
             ident = _journal.stat_identity(full)
             entry = None
             if ident is not None:
-                verdict, entry = journal.lookup(loc_id, key, ident)
+                # the walker already counted this file's verdict this
+                # pass: don't count the invalidation twice
+                verdict, entry = journal.lookup(loc_id, key, ident, count_invalidated=False)
                 if verdict == _journal.HIT and entry.cas_id:
                     # vouched: skip the read, the hash, and the transfer
                     resolved[row["id"]] = entry.cas_id
+                    journal.bytes_saved(cas.message_len(size))
                     jstats["hit"] += 1
                     metas.append({"row": row, "cas_id": "journal"})
                     continue
@@ -200,13 +220,15 @@ class FileIdentifierJob(StatefulJob):
             ):
                 t_rehash = time.perf_counter()
                 try:
-                    cas_id, cache, n_dirty, _hashed = cas.dirty_range_rehash(
+                    cas_id, cache, n_dirty, hashed = cas.dirty_range_rehash(
                         msg, entry.chunks
                     )
                 except ValueError:
                     cache = None
                 else:
                     rehash_s += time.perf_counter() - t_rehash
+                    journal.bytes_saved(len(msg) - hashed)
+                    _tm.INDEX_BYTES_HASHED.inc(hashed)
                     resolved[row["id"]] = cas_id
                     to_record[row["id"]] = (key, ident, cas_id, cache, entry)
                     jstats["dirty"] += 1
@@ -234,7 +256,7 @@ class FileIdentifierJob(StatefulJob):
         the device backend (each fetch sees the current sizing), the
         reference's parity chunk recorded at init on the CPU."""
         d = self.data
-        if d["backend"] == "cuda":
+        if torch.device(d["backend"]).type == "cuda":
             return _autotune.policy("identify").identify_window_rows(device_scale(d["backend"]))
         return d["chunk_size"]
 
@@ -277,28 +299,51 @@ class FileIdentifierJob(StatefulJob):
          jstats, times) = window
         d["cursor"] = rows[-1]["id"]
 
-        t_wait = time.perf_counter()
-        cas_ids = await asyncio.to_thread(finisher)
-        hash_wait = time.perf_counter() - t_wait
-        # take + finish, as in the JAX package's run metadata
+        take_time = time.perf_counter() - t0
+        msg_bytes = sum(len(m) for m in messages)
+        # the span ends where the finisher's copy of K1's words back
+        # already waits for the device: no extra synchronize for it
+        async with span("identify.hash", nbytes=msg_bytes) as hash_span:
+            t_wait = time.perf_counter()
+            cas_ids = await asyncio.to_thread(finisher)
+            hash_wait = time.perf_counter() - t_wait
+            if jstats["hit"] or jstats["dirty"]:
+                # the journal's verdict on the trace: how much of this
+                # window the journal spared the device
+                hash_span.annotate(
+                    journal_hits=jstats["hit"],
+                    journal_dirty_rehash=jstats["dirty"],
+                    journal_dirty_chunks=jstats["dirty_chunks"],
+                )
+        _tm.INDEX_BYTES_HASHED.inc(msg_bytes)
+        # take + finish, as in the JAX package's run metadata; the stage
+        # histogram covers the finisher only (feeder wait has its own)
         hash_time = time.perf_counter() - t0
+        _tm.IDENTIFIER_STAGE_SECONDS.observe(hash_span.duration, stage="hash")
 
         by_row_id = {r["id"]: c for r, c in zip(msg_rows, cas_ids)}
         by_row_id.update(resolved)
 
         t1 = time.perf_counter()
-        created, linked = self._link_objects(library, rows, by_row_id)
-        # journal vouches ONLY after the cas/object sync write
-        # committed: a crash in between costs a redundant rehash on
-        # resume, never a journal entry ahead of the DB
-        records = []
-        for row_id, (key, ident, cas_hex, cache, carry) in to_record.items():
-            if cas_hex is None:
-                cas_hex = by_row_id.get(row_id)
-            if cas_hex is not None:  # "" = vouched-empty sentinel
-                records.append((key, ident, cas_hex, cache, carry))
-        _journal.IndexJournal(library.db).record_many(d["location_id"], records)
+        async with span("identify.db"):
+            created, linked = self._link_objects(library, rows, by_row_id)
+            # journal vouches ONLY after the cas/object sync write
+            # committed: a crash in between costs a redundant rehash on
+            # resume, never a journal entry ahead of the DB
+            records = []
+            for row_id, (key, ident, cas_hex, cache, carry) in to_record.items():
+                if cas_hex is None:
+                    cas_hex = by_row_id.get(row_id)
+                if cas_hex is not None:  # "" = vouched-empty sentinel
+                    records.append((key, ident, cas_hex, cache, carry))
+            _journal.IndexJournal(library.db).record_many(d["location_id"], records)
         db_time = time.perf_counter() - t1
+        _tm.IDENTIFIER_STAGE_SECONDS.observe(db_time, stage="db")
+        _tm.IDENTIFIER_FILES.inc(len(rows))
+        # the per-window device vs host split: finisher = device wait;
+        # window wait + DB linking = host
+        _tm.PIPELINE_DEVICE_SECONDS.observe(hash_span.duration, pipeline="identify")
+        _tm.PIPELINE_HOST_SECONDS.observe(take_time + db_time, pipeline="identify")
 
         errors = [f"unreadable file_path {r['id']}" for m, r in zip(metas, rows) if m is None]
         md = self.run_metadata

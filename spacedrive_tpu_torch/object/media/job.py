@@ -5,7 +5,8 @@ Counterpart of `spacedrive_tpu/object/media/job.py`
 thumbnails to the node-wide thumbnailer actor (:148-170); the steps are
 chunks of BATCH_SIZE files of EXIF extraction, a `wait_thumbnails`
 rendezvous (:83-88, :199-230), unless SD_EMBED=0 chunks of embedding
-forwards on the job's `backend` device ("cuda" or "cpu"), and, when the
+forwards on the job's `backend` device ("cuda" or "cpu", or an indexed
+device of either, which pins them there), and, when the
 node has an image labeler, a `wait_labels` rendezvous with the batch of
 every image row init sent it (:176-196). Every thumbnail, media_data
 row and embedding is vouched in the index journal after it is durable,
@@ -53,7 +54,7 @@ from ...ops import embed_torch
 from ...parallel import autotune as _autotune
 from ...parallel import procpool as _procpool
 from ...parallel.mesh import device_scale
-from ..file_identifier.job import BACKENDS
+from ..file_identifier.job import check_backend
 from ..search import index as _search_index
 from .media_data import ImageMetadata, VideoMetadata
 from .thumbnail.host import DOC_EXTENSIONS, IMAGE_EXTENSIONS, VIDEO_EXTENSIONS
@@ -123,9 +124,7 @@ class MediaProcessorJob(StatefulJob):
         location = library.db.find_one("location", id=loc_id)
         if location is None:
             raise JobError(f"location {loc_id} not found")
-        backend = self.init.get("backend", "cuda")
-        if backend not in BACKENDS:
-            raise JobError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        backend = check_backend(self.init.get("backend", "cuda"))
         self.data.update(location_id=loc_id, location_path=location["path"], backend=backend)
 
         qmarks = ",".join("?" for _ in THUMBNAILABLE_EXTENSIONS)

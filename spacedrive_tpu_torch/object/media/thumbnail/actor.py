@@ -46,9 +46,12 @@ path; a video frame carries its film strip from `finish` and from
 `resize_cpu` alike. A failed build of the video frontend
 (NativeBuildError) fails the batch instead of counting as a bad file.
 
-Not ported: telemetry and trace context.
-`stage_seconds` keeps the decode / device / encode totals the JAX actor
-observes into its stage histogram, and the batches' wall time.
+A batch carries the trace of the code that queued it (the media job's)
+and runs under it: its chunks record `thumbnail.decode`,
+`thumbnail.device` (ending where the resize's host copy already waits
+for the card) and `thumbnail.encode` spans, or `procpool.thumb_cpu` on
+the pool, with the JAX actor's stage histograms. `stage_seconds` also
+keeps the decode / device / encode totals.
 """
 
 from __future__ import annotations
@@ -68,6 +71,9 @@ from ....native.build import NativeBuildError
 from ....parallel import autotune as _autotune
 from ....parallel import mesh as _mesh
 from ....parallel import procpool as _procpool
+from ....telemetry import metrics as _tm
+from ....telemetry import span
+from ....telemetry import trace as _trace
 from ....telemetry.events import RESILIENCE_EVENTS
 from ....utils import faults as _faults
 from .process import (
@@ -249,12 +255,16 @@ class Thumbnailer:
                 continue
             if self.store.exists(library_id, cas_id):
                 self.skipped += 1
+                _tm.THUMB_FILES.inc(result="skipped")
                 continue
             norm.append((cas_id, path, ext))
         if not norm:
             return 0
         batch = Batch(library_id=library_id, entries=norm, background=background)
         batch.id = next(self._batch_ids)
+        # the actor's worker is a task of its own: the batch carries the
+        # enqueueing trace (the media job's) across
+        batch.trace = _trace.wire_current()
         if background:
             self._bg.append(batch)
         else:
@@ -364,11 +374,12 @@ class Thumbnailer:
             self._cond.notify_all()
 
     async def _process_batch(self, batch: Batch) -> None:
-        pool = self._pool()
-        if pool is not None:
-            await self._process_batch_pool(batch, pool)
-        else:
-            await self._process_batch_inline(batch)
+        with _trace.use(_trace.TraceContext.from_wire(batch.trace)):
+            pool = self._pool()
+            if pool is not None:
+                await self._process_batch_pool(batch, pool)
+            else:
+                await self._process_batch_inline(batch)
 
     def _pool(self) -> _procpool.ProcPool | None:
         """The running process pool, for the software path only; None for
@@ -420,13 +431,19 @@ class Thumbnailer:
         while pos < len(entries) and not self._stopped:
             chunk = entries[pos:pos + chunk_rows]
             pos += len(chunk)
+            _tm.THUMB_BATCH_FILL.observe(len(chunk) / chunk_rows)
             t0 = time.perf_counter()
-            webps = await asyncio.gather(*(one(e) for e in chunk))
+            # workers account the per-image stages; this span is the
+            # owner-side wall of the chunk
+            async with span("procpool.thumb_cpu") as pool_span:
+                webps = await asyncio.gather(*(one(e) for e in chunk))
+            _tm.PIPELINE_HOST_SECONDS.observe(pool_span.duration, pipeline="thumbnail")
             await asyncio.to_thread(store_chunk, chunk, webps)
             self.stage_seconds["encode"] += time.perf_counter() - t0
             for (cas_id, _path, _ext), webp in zip(chunk, webps):
                 if webp is None:
                     self.errors += 1
+                    _tm.THUMB_FILES.inc(result="error")
                 else:
                     self._stored(batch.library_id, cas_id)
             if _faults.hit("thumbnail.persist") is not None:
@@ -463,9 +480,11 @@ class Thumbnailer:
                     return None
 
         async def decode_chunk(chunk):
-            t0 = time.perf_counter()
-            decoded = await asyncio.gather(*(decode_one(e) for e in chunk))
-            self.stage_seconds["decode"] += time.perf_counter() - t0
+            async with span("thumbnail.decode") as decode_span:
+                decoded = await asyncio.gather(*(decode_one(e) for e in chunk))
+            self.stage_seconds["decode"] += decode_span.duration
+            _tm.THUMB_STAGE_SECONDS.observe(decode_span.duration, stage="decode")
+            _tm.PIPELINE_HOST_SECONDS.observe(decode_span.duration, pipeline="thumbnail")
             return decoded
 
         def encode_store(cas_id: str, d: Decoded, resized) -> None:
@@ -487,16 +506,21 @@ class Thumbnailer:
             and the host-path stragglers, store them, account, and drop
             the chunk from the batch's persisted remainder."""
             nonlocal done
-            t0 = time.perf_counter()
             by_device = dict(zip(device_idx, resized))
             jobs = [(i, d) for i, d in enumerate(decoded) if d is not None]
-            ok = await asyncio.gather(*(encode_one(chunk[i][0], d, by_device.get(i))
-                                        for i, d in jobs))
+            async with span("thumbnail.encode") as encode_span:
+                ok = await asyncio.gather(*(encode_one(chunk[i][0], d, by_device.get(i))
+                                            for i, d in jobs))
             for (i, _d), stored in zip(jobs, ok):
                 if stored:
                     self._stored(batch.library_id, chunk[i][0])
-            self.errors += len(chunk) - sum(ok)
-            self.stage_seconds["encode"] += time.perf_counter() - t0
+            failed = len(chunk) - sum(ok)
+            self.errors += failed
+            if failed:
+                _tm.THUMB_FILES.inc(failed, result="error")
+            self.stage_seconds["encode"] += encode_span.duration
+            _tm.THUMB_STAGE_SECONDS.observe(encode_span.duration, stage="encode")
+            _tm.PIPELINE_HOST_SECONDS.observe(encode_span.duration, pipeline="thumbnail")
             if _faults.hit("thumbnail.persist") is not None:
                 # simulated process death between "chunk stored" and
                 # "accounted": a BaseException no recovery path absorbs;
@@ -523,13 +547,21 @@ class Thumbnailer:
                     # chunk N+1 decodes while chunk N rides the device
                     decode_task = asyncio.ensure_future(
                         decode_chunk(entries[pos:pos + chunk_rows]))
+                _tm.THUMB_BATCH_FILL.observe(len(chunk) / chunk_rows)
                 device_idx = [i for i, d in enumerate(decoded) if d is not None
                               and self.use_device and not needs_cpu_fallback(d)]
                 resized = []
                 if device_idx:
-                    t0 = time.perf_counter()
-                    resized = await self._resize_chunk([decoded[i] for i in device_idx])
-                    self.stage_seconds["device"] += time.perf_counter() - t0
+                    ds = [decoded[i] for i in device_idx]
+                    # the resize returns host arrays: the span ends where
+                    # that copy already waited for the card
+                    async with span("thumbnail.device",
+                                    nbytes=sum(d.array.nbytes for d in ds)) as device_span:
+                        resized = await self._resize_chunk(ds)
+                    self.stage_seconds["device"] += device_span.duration
+                    _tm.THUMB_STAGE_SECONDS.observe(device_span.duration, stage="device")
+                    _tm.PIPELINE_DEVICE_SECONDS.observe(device_span.duration,
+                                                        pipeline="thumbnail")
                 if encode_task is not None:
                     await encode_task  # chunk N-1 finishes storing first
                 encode_task = asyncio.ensure_future(
@@ -581,6 +613,7 @@ class Thumbnailer:
 
     def _stored(self, library_id: str | None, cas_id: str) -> None:
         self.generated += 1
+        _tm.THUMB_FILES.inc(result="generated")
         if self.event_bus is not None:
             self.event_bus.emit({
                 "type": "NewThumbnail",

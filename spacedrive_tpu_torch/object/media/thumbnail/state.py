@@ -5,8 +5,8 @@ Counterpart of `spacedrive_tpu/object/media/thumbnail/state.py`
 persists its queued batches to `thumbs_to_process.bin` whenever the
 queue changes and on shutdown, reloads them at startup, and deletes the
 file after a successful load. The file is the JAX package's bytes for
-the same batches; the trace slot is always nil here (the port carries
-no trace context).
+the same batches, the originating trace context included, so a batch
+resumed after a crash still reports into the trace that queued it.
 """
 
 from __future__ import annotations
@@ -30,13 +30,15 @@ class Batch:
     entries: list[tuple[str, str, str]]  # (cas_id, path, extension)
     background: bool = False
     id: int = 0  # process-local rendezvous handle; not persisted
+    # originating trace context (wire dict); persisted
+    trace: dict | None = None
 
     def to_wire(self) -> dict:
         return {
             "library_id": self.library_id,
             "entries": [list(e) for e in self.entries],
             "background": self.background,
-            "trace": None,
+            "trace": self.trace,
         }
 
     @classmethod
@@ -45,6 +47,7 @@ class Batch:
             library_id=d.get("library_id"),
             entries=[tuple(e) for e in d.get("entries", [])],
             background=bool(d.get("background", False)),
+            trace=d.get("trace") if isinstance(d.get("trace"), dict) else None,
         )
 
 

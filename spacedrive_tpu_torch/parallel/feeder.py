@@ -2,8 +2,10 @@
 
 Counterpart of `spacedrive_tpu/parallel/feeder.py`, with its
 `feeder.fetch` fault point, its one producer restart, its callable
-depth and its five series (fetch and wait seconds, H2D bytes, in-flight
-depth, prefetch hits), without its spans and trace propagation. On a
+depth, its five series (fetch and wait seconds, H2D bytes, in-flight
+depth, prefetch hits), its `feeder.fetch` and `feeder.wait` spans and
+its trace propagation: the producer thread (and its restart) runs under
+the trace of the code that built the pipeline. On a
 large library the sampled reads (~56 KiB a file) dominate wall-clock,
 so the host must read window N+1 while the device hashes window N.
 `WindowPipeline` does that: a producer thread chains a cursor fetch
@@ -24,6 +26,8 @@ import time
 from typing import Any, Callable, Generic, TypeVar
 
 from ..telemetry import metrics as _tm
+from ..telemetry import span as _span
+from ..telemetry import trace as _trace
 from ..telemetry.events import RESILIENCE_EVENTS
 from ..utils import faults as _faults
 from .autotune import FEEDER_BASE_DEPTH
@@ -79,6 +83,9 @@ class WindowPipeline(Generic[T]):
         self._fetch = fetch
         self._error: BaseException | None = None
         self._restarts_left = 1
+        # a thread starts with empty contextvars: carry the building
+        # task's trace across, so the producer's feeder.fetch spans join it
+        self._trace_ctx = _trace.current()
         self._thread = threading.Thread(
             target=self._run, args=(start_key,), name="sd-window-pipeline",
             daemon=True,
@@ -86,6 +93,9 @@ class WindowPipeline(Generic[T]):
         self._thread.start()
 
     def _run(self, key: Any) -> None:
+        # the first producer and its restart both run here
+        if self._trace_ctx is not None:
+            _trace.set_current(self._trace_ctx)
         try:
             while not self._stop.is_set():
                 spec = _faults.hit("feeder.fetch")
@@ -95,7 +105,8 @@ class WindowPipeline(Generic[T]):
                     elif spec.mode == "crash":
                         raise _faults.InjectedFault("injected feeder producer crash")
                 t0 = time.perf_counter()
-                item = self._fetch(key)
+                with _span("feeder.fetch"):
+                    item = self._fetch(key)
                 _tm.FEEDER_FETCH_SECONDS.observe(time.perf_counter() - t0)
                 if item is None:
                     self._put(None)
@@ -179,7 +190,7 @@ class WindowPipeline(Generic[T]):
                 raise err
             return None
         t0 = time.perf_counter()
-        with self._cond:
+        with _span("feeder.wait"), self._cond:
             while not self._buf and not self._stop.is_set():
                 self._cond.wait()
             if self._buf:

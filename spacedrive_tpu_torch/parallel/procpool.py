@@ -78,6 +78,16 @@ def enabled() -> bool:
     return procs() > 0
 
 
+def rig_stamp() -> dict:
+    """Host execution-rig facts a bench record carries, so a comparator
+    can tell a one-core run from a scaling regression before gating
+    any parallelism ratio (JAX `procpool.rig_stamp`)."""
+    return {
+        "cpu_count": os.cpu_count() or 1,
+        "procpool_procs": procs(),
+    }
+
+
 class ProcPoolError(RuntimeError):
     """A pool-side failure (worker error, death past the retry budget,
     pool stopped, an unpackable payload). Call sites catch it and run

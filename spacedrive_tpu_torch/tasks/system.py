@@ -8,8 +8,11 @@ shutdown contract that returns unfinished tasks to the caller
 are concurrent coroutines, which matches this framework's workload
 (batch assembly + device-step awaiting + async IO).
 
-Counterpart of `spacedrive_tpu/tasks/system.py`, without its metrics
-and trace propagation. `start` takes a refcounted hold on the process
+Counterpart of `spacedrive_tpu/tasks/system.py`, with its metrics
+(queue wait, dispatch latency, occupancy, steals) and its trace
+propagation: a task runs under the trace of the caller that dispatched
+it, below a synthetic `task.dispatch` span that covers its queue wait.
+`start` takes a refcounted hold on the process
 pool (parallel/procpool.py; a no-op under SD_PROCS=0) and `shutdown`
 releases it, so task bodies can ship host decodes to it.
 """
@@ -20,9 +23,12 @@ import asyncio
 import collections
 import logging
 import os
+import time
 from typing import Iterable
 
 from ..parallel import procpool as _procpool
+from ..telemetry import metrics as _tm
+from ..telemetry import trace as _trace
 from .task import (
     ExecStatus,
     Interrupter,
@@ -50,6 +56,7 @@ class _Worker:
     # -- queue ops --
 
     def enqueue(self, handle: TaskHandle) -> None:
+        handle._enqueued_at = time.monotonic()
         if handle.task.priority:
             self.queue.appendleft(handle)
             # suspend a running non-priority task so the priority one
@@ -98,8 +105,47 @@ class _Worker:
                 return handle
         return None
 
+    @staticmethod
+    def _trace_dispatch(handle: TaskHandle, now: float) -> "_trace.TraceContext | None":
+        """The execution-side half of dispatch propagation: record a
+        synthetic "task.dispatch" span covering the queue wait, and
+        return the context the task body should run under (child of the
+        dispatcher's span). None when the dispatcher had no trace."""
+        ctx = getattr(handle, "_trace_ctx", None)
+        if ctx is None:
+            return None
+        span_id = _trace.new_span_id()
+        enqueued = getattr(handle, "_enqueued_at", None)
+        wait = max(0.0, now - enqueued) if enqueued is not None else 0.0
+        _trace.record_span({
+            "stage": "task.dispatch",
+            "seconds": wait,
+            "t0": time.time() - wait,
+            "trace_id": ctx.trace_id,
+            "span_id": span_id,
+            "parent_id": ctx.span_id,
+        })
+        return _trace.TraceContext(ctx.trace_id, span_id)
+
     async def _execute(self, handle: TaskHandle) -> None:
         task = handle.task
+        now = time.monotonic()
+        enqueued = getattr(handle, "_enqueued_at", None)
+        if enqueued is not None:
+            _tm.TASK_QUEUE_WAIT.observe(now - enqueued)
+        dispatched = getattr(handle, "_dispatched_at", None)
+        if dispatched is not None:
+            # first execution only: a suspended or stolen task
+            # re-entering would double-count its dispatch latency
+            _tm.TASK_DISPATCH_LATENCY.observe(now - dispatched)
+            handle._dispatched_at = None
+        busy = len(self.system._running) + 1  # including us
+        _tm.TASK_BATCH_OCCUPANCY.observe(busy / self.system.worker_count)
+        # the worker coroutine has its own contextvars, so the context
+        # captured at dispatch() rides the handle; the task body (a copy
+        # of this context, taken by ensure_future) nests under it
+        exec_ctx = self._trace_dispatch(handle, now)
+        trace_token = _trace.set_current(exec_ctx) if exec_ctx is not None else None
         interrupter = Interrupter()
         self.current = handle
         self.current_interrupter = interrupter
@@ -119,6 +165,8 @@ class _Worker:
             self.current_interrupter = None
             self.current_coro = None
             self.system._running.pop(task.id, None)
+            if trace_token is not None:
+                _trace.reset_current(trace_token)
 
         kind = interrupter.check()
         if status == ExecStatus.DONE:
@@ -128,6 +176,7 @@ class _Worker:
         elif status == ExecStatus.PAUSED:
             if kind == InterruptionKind.SUSPEND:
                 # transparent preemption: task goes back on our queue
+                handle._enqueued_at = time.monotonic()
                 self.queue.append(handle)
                 self.wakeup.set()
             elif kind == InterruptionKind.CANCEL:
@@ -205,6 +254,10 @@ class TaskSystem:
     def dispatch(self, task: Task) -> TaskHandle:
         self.start()
         handle = TaskHandle(task, self)
+        handle._dispatched_at = time.monotonic()
+        # the worker re-installs the dispatcher's trace before the body
+        handle._trace_ctx = _trace.current()
+        _tm.TASKS_DISPATCHED.inc()
         self._handles[task.id] = handle
         worker = self.workers[self._rr % self.worker_count]
         self._rr += 1
@@ -214,8 +267,13 @@ class TaskSystem:
     def dispatch_many(self, tasks: Iterable[Task]) -> list[TaskHandle]:
         self.start()
         handles = []
+        now = time.monotonic()
+        ctx = _trace.current()
         for task in tasks:
             handle = TaskHandle(task, self)
+            handle._dispatched_at = now
+            handle._trace_ctx = ctx
+            _tm.TASKS_DISPATCHED.inc()
             self._handles[task.id] = handle
             min(self.workers, key=lambda w: w.load()).enqueue(handle)
             handles.append(handle)
@@ -232,6 +290,7 @@ class TaskSystem:
         for donor in donors:
             handle = donor.steal_from()
             if handle is not None:
+                _tm.TASK_STEALS.inc()
                 logger.debug("worker %d stole %r from %d", thief_index, handle.task, donor.index)
                 return handle
         return None

@@ -1,17 +1,16 @@
 """Flight recorder — bounded per-subsystem rings of structured events.
 
-An owned copy of `spacedrive_tpu/telemetry/events.py` without the
-pieces that lean on planes the port does not have yet: events carry no
-`trace_id` (there is no trace context), the slow-op watchdog waits for
-the telemetry plane, `LoopLagMonitor` opens no profiler capture (the
-port has no sampler), and only the rings the port writes are
-predeclared.
-
-Metrics answer "how much"; the flight recorder answers "what happened
-just before it went wrong". Each subsystem gets a small always-on ring
-of structured events (demotions, feeder restarts, fault activations,
-errors with tracebacks). Rings are bounded deques, so a retry storm can
-never grow memory.
+An owned copy of `spacedrive_tpu/telemetry/events.py`. Metrics answer
+"how much"; the flight recorder answers "what happened just before it
+went wrong". Each subsystem gets a small always-on ring of structured
+events (job state transitions, demotions, feeder restarts, fault
+activations, errors with tracebacks, slow-op watchdog firings,
+event-loop-lag samples). Rings are bounded deques, so a retry storm can
+never grow memory, and they dump wholesale into the debug bundle
+(``telemetry.bundle``). An event emitted under an active trace carries
+its ``trace_id``; a span slower than ``SLOW_OP_SECONDS`` fires the
+watchdog ring; a loop-lag sample past the warning opens one capture
+window of the host sampler (``telemetry/sampler.py``).
 
 Cardinality discipline: the event ``type`` is a CONSTANT string and
 field *names* are literal keyword arguments. Field *values* may be
@@ -27,15 +26,19 @@ import traceback as _tb
 from collections import deque
 from typing import Any
 
-from . import metrics
+from . import metrics, trace
 
 RING_CAPACITY = 512
 MAX_TRACEBACK_CHARS = 8192
 
+# spans slower than this fire a watchdog event (see spans.Span.__exit__)
+SLOW_OP_SECONDS = 1.0
+
 
 class EventRing:
     """One subsystem's bounded event log. ``emit`` is safe from any
-    thread; events carry a wall-clock timestamp."""
+    thread; events carry a wall-clock timestamp and, when a trace is
+    active, the trace id that caused them."""
 
     def __init__(self, name: str, capacity: int = RING_CAPACITY):
         self.name = name
@@ -47,7 +50,10 @@ class EventRing:
         self.dropped = 0
 
     def emit(self, type: str, **fields: Any) -> None:
+        ctx = trace.current()
         rec: dict[str, Any] = {"ts": time.time(), "type": type}
+        if ctx is not None:
+            rec["trace_id"] = ctx.trace_id
         if fields:
             rec["fields"] = fields
         with self._lock:
@@ -113,11 +119,18 @@ def clear_all() -> None:
 
 # --- the predeclared subsystem rings -----------------------------------
 
+JOB_EVENTS = ring("jobs")          # job state transitions
+P2P_EVENTS = ring("p2p")           # connects, stream opens, retransmits
+SYNC_EVENTS = ring("sync")         # ingest accept/reject transitions, delta-guard trips
+WATCHER_EVENTS = ring("watcher")   # debounced burst flushes
 ERROR_EVENTS = ring("errors")      # caught and uncaught exceptions w/ tracebacks
+WATCHDOG_EVENTS = ring("watchdog")  # slow-op firings
+LOOP_EVENTS = ring("loop")         # event-loop-lag samples over threshold
 FAULT_EVENTS = ring("faults")      # injected-fault activations (utils/faults)
 RESILIENCE_EVENTS = ring("resilience")  # demotions, last rungs, feeder restarts
-LOOP_EVENTS = ring("loop")         # event-loop-lag samples over threshold
-AUTOTUNE_EVENTS = ring("autotune")  # closed-loop tuning decisions
+AUTOTUNE_EVENTS = ring("autotune")  # closed-loop tuning decisions (w/ trace_id)
+WORK_EVENTS = ring("work")         # mesh work-stealing: publishes, leases, steals, expiries
+SERVE_EVENTS = ring("serve")       # admission gate: sheds (w/ trace_id), mode transitions
 
 
 def record_error(source: str, exc: BaseException | None,
@@ -139,12 +152,17 @@ def record_error(source: str, exc: BaseException | None,
     )
 
 
+def watchdog_slow_op(stage: str, seconds: float) -> None:
+    """A span exceeded SLOW_OP_SECONDS (called by spans on exit)."""
+    WATCHDOG_EVENTS.emit("slow_op", stage=stage, seconds=round(seconds, 4))
+
 
 class LoopLagMonitor:
     """Samples event-loop scheduling lag: sleeps ``interval`` and
     measures how late the wakeup lands. Every sample updates the
     ``sd_event_loop_lag_seconds`` gauge (the autotune controller's lag
-    signal); samples past ``warn_s`` also land in the loop ring."""
+    signal); samples past ``warn_s`` also land in the loop ring and
+    trigger one capture window of the host sampler."""
 
     def __init__(self, interval: float = 0.5, warn_s: float = 0.2):
         self.interval = interval
@@ -181,6 +199,8 @@ class LoopLagMonitor:
     async def _run(self) -> None:
         import asyncio
 
+        from . import sampler as _sampler
+
         while not self._stopped:
             t0 = time.monotonic()
             await asyncio.sleep(self.interval)
@@ -188,3 +208,7 @@ class LoopLagMonitor:
             metrics.EVENT_LOOP_LAG.set(lag)
             if lag >= self.warn_s:
                 LOOP_EVENTS.emit("lag", seconds=round(lag, 4))
+                # loop-lag degradation opens a deep-capture window: the
+                # sampler names the frames that starved the loop; its
+                # cooldown absorbs a sustained-lag train into ONE window
+                _sampler.trigger("loop_lag")

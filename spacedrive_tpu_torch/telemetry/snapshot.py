@@ -1,9 +1,9 @@
-"""Point reads of the registry by family name.
+"""telemetry.snapshot — the JSON read path.
 
-Counterpart of `spacedrive_tpu/telemetry/snapshot.py`'s `gauge_value`
-and `counter_value` (the autotune controller reads the loop lag and a
-bench rig's link probe through them); the port has no spans, so no
-`snapshot()` of recent spans.
+An owned copy of `spacedrive_tpu/telemetry/snapshot.py`: the registry
+and the recent spans shaped for rspc consumers (`telemetry.snapshot`),
+and point reads of single families (the autotune controller reads the
+loop lag and a bench rig's link probe through them).
 """
 
 from __future__ import annotations
@@ -11,6 +11,23 @@ from __future__ import annotations
 from typing import Any
 
 from .registry import REGISTRY
+from .spans import recent_spans
+
+
+def snapshot() -> dict[str, Any]:
+    return {
+        "metrics": REGISTRY.snapshot(),
+        "spans": recent_spans(),
+    }
+
+
+def histogram_recent(name: str, **labels: Any) -> list[float]:
+    """Raw recent observations of a histogram series ([] when the
+    metric is unknown)."""
+    fam = REGISTRY.get(name)
+    if fam is None or not hasattr(fam, "recent"):
+        return []
+    return fam.recent(**labels)
 
 
 def gauge_value(name: str, default: float = 0.0, **labels: Any) -> float:

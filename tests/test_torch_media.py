@@ -47,6 +47,19 @@ import spacedrive_tpu_torch.object.media.thumbnail.actor as pactor
 import spacedrive_tpu_torch.object.media.thumbnail.process as pprocess
 import spacedrive_tpu_torch.tasks as ptasks
 from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+import spacedrive_tpu.telemetry as jtelemetry
+import spacedrive_tpu_torch.telemetry as ptelemetry
+
+
+@pytest.fixture(autouse=True)
+def _reset_telemetry():
+    """This file's JAX and port scans leave no spans, series or ring
+    events to later tests of the worker: both packages' telemetry is
+    reset after each test."""
+    yield
+    jtelemetry.reset()
+    ptelemetry.reset()
+
 
 JAX = types.SimpleNamespace(
     JobManager=jjobs.JobManager, TaskSystem=jtasks.TaskSystem, Libraries=jlibrary.Libraries,

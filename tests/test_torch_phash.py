@@ -44,6 +44,19 @@ from spacedrive_tpu.ops import phash_jax
 from spacedrive_tpu_torch import cli
 from spacedrive_tpu_torch.ops import phash_torch
 from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+import spacedrive_tpu.telemetry as jtelemetry
+import spacedrive_tpu_torch.telemetry as ptelemetry
+
+
+@pytest.fixture(autouse=True)
+def _reset_telemetry():
+    """This file's JAX and port scans leave no spans, series or ring
+    events to later tests of the worker: both packages' telemetry is
+    reset after each test."""
+    yield
+    jtelemetry.reset()
+    ptelemetry.reset()
+
 
 #: a bit may differ from the JAX package's only where its coefficient
 #: lies within EPS × max|coefficient| of the row's median: the JAX DCT

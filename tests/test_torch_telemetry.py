@@ -2,14 +2,18 @@
 renders the same Prometheus text and snapshot after the same operations
 (cardinality overflow and cross-process deltas included), the port's
 metric families carry the JAX names, help, labels and buckets, and the
-flight-recorder rings keep and drop the same events."""
+flight-recorder rings keep and drop the same events; `peer_label` gives
+the label JAX's gives for every form of peer id."""
+
+import uuid
 
 import pytest
 
 from spacedrive_tpu.telemetry import events as jevents
+from spacedrive_tpu.telemetry import peers as jpeers
 from spacedrive_tpu.telemetry import metrics as jmetrics
 from spacedrive_tpu.telemetry import registry as jregistry
-from spacedrive_tpu_torch.telemetry import events, metrics, registry
+from spacedrive_tpu_torch.telemetry import events, metrics, peers, registry
 
 
 def _drive(reg_mod):
@@ -157,9 +161,8 @@ def test_plane_families_render_as_jax():
 def test_snapshot_point_reads():
     import importlib
 
-    from spacedrive_tpu_torch.telemetry import snapshot
-
-    # the JAX package's telemetry/__init__ exports a function of this name
+    # both packages' telemetry/__init__ export a function of this name
+    snapshot = importlib.import_module("spacedrive_tpu_torch.telemetry.snapshot")
     jsnapshot = importlib.import_module("spacedrive_tpu.telemetry.snapshot")
 
     for mod in (snapshot, jsnapshot):
@@ -202,3 +205,11 @@ async def test_loop_lag_monitor_sets_the_gauge(monkeypatch):
     assert metrics.EVENT_LOOP_LAG.value() == seen[-1]
     assert events.ring("autotune") is events.AUTOTUNE_EVENTS
     assert events.ring("loop") is events.LOOP_EVENTS
+
+
+@pytest.mark.parametrize("peer", [
+    uuid.UUID(int=7), b"\x01\x02\x03", bytearray(b"node-key"), "ed25519:abc", 12345,
+])
+def test_peer_label_equals_jax(peer):
+    assert peers.peer_label(peer) == jpeers.peer_label(peer)
+    assert len(peers.peer_label(peer)) == peers.PEER_LABEL_HEX_CHARS

@@ -42,6 +42,19 @@ from spacedrive_tpu_torch.ops import thumbnail_torch as tt
 from spacedrive_tpu_torch.tasks import TaskSystem
 from spacedrive_tpu_torch.utils.events import EventBus
 from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+import spacedrive_tpu.telemetry as jtelemetry
+import spacedrive_tpu_torch.telemetry as ptelemetry
+
+
+@pytest.fixture(autouse=True)
+def _reset_telemetry():
+    """This file's JAX and port scans leave no spans, series or ring
+    events to later tests of the worker: both packages' telemetry is
+    reset after each test."""
+    yield
+    jtelemetry.reset()
+    ptelemetry.reset()
+
 
 
 def _cpu_thumbnailer(data_dir, **kwargs):
@@ -567,6 +580,7 @@ def test_vouches_match_jax_payload_bytes_and_carry_forward(tmp_path):
 
 
 def test_lookup_counts_and_bytes_saved(tmp_path):
+    ptelemetry.reset()  # the counts below are this test's alone
     db = LibraryDb(tmp_path / "j.db")
     _seed_location(db)
     journal = IndexJournal(db)
@@ -578,7 +592,10 @@ def test_lookup_counts_and_bytes_saved(tmp_path):
     journal.lookup(1, key, Identity(1, 1, 2, 1), count_invalidated=False)  # not counted
     journal.bytes_saved(4096)
     journal.bytes_saved(0)
-    assert dict(journal.counts) == {"miss": 1, "hit": 1, "invalidated": 1, "bytes_saved": 4096}
+    counted = {v: ptelemetry.counter_value("sd_index_journal_ops_total", result=v)
+               for v in ("miss", "hit", "invalidated", "bypassed")}
+    assert counted == {"miss": 1, "hit": 1, "invalidated": 1, "bypassed": 0}
+    assert ptelemetry.counter_value("sd_index_journal_bytes_saved_total") == 4096
     db.close()
 
 

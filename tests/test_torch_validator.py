@@ -38,6 +38,19 @@ from spacedrive_tpu_torch.object.validation.job import ObjectValidatorJob
 from spacedrive_tpu_torch.ops import blake3_host
 from spacedrive_tpu_torch.ops.blake3_ref import StreamingBlake3, blake3_hex
 from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+import spacedrive_tpu.telemetry as jtelemetry
+import spacedrive_tpu_torch.telemetry as ptelemetry
+
+
+@pytest.fixture(autouse=True)
+def _reset_telemetry():
+    """This file's JAX and port scans leave no spans, series or ring
+    events to later tests of the worker: both packages' telemetry is
+    reset after each test."""
+    yield
+    jtelemetry.reset()
+    ptelemetry.reset()
+
 
 KIB = 1024
 SIZES = [0, 1, 1023, 1024, 1025, 2048, 64 * KIB, 256 * KIB, 256 * KIB + 1, 1024 * KIB + 3]
