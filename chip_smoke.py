@@ -148,6 +148,29 @@ secret `SD_*` value. Then the same corpus into a second data dir with
 by delta. It prints `{"observability": ...}` with its seconds by step,
 span counts and seconds by stage, the sampler's samples, state and
 group shares and overhead.
+Phase 13 is the node's samplers and verdicts, with the ladder, the
+controller and the port's telemetry reset first and the history writer
+and the resource sampler at 0.1 s: phase 12's size mix scanned through
+the router on a new Node and data dir, three times. (1) A clean scan,
+the attribution of the pass (`telemetry.attrib`) partitions its window
+(the unrounded sweep to 1e-9 s), and the identify job's pass (the spans
+between its markers) covers >= 0.9 of its wall time; `telemetry.health`
+healthy, `device` and `serve` unknown (one card dispatches no sharded
+part; no serve runtime), `feeder`, `event_loop`, `resilience` and `slo`
+neither degraded nor unhealthy; `pass_throughput` not breached;
+`telemetry.tenants` empty, `telemetry.serve` disabled, `telemetry.mesh`
+this node alone; the resource gauges above 0 and >= 5 history records
+with the allowlist's keys. (2)
+A scan under `feeder.fetch:stall:delay_s=0.4`: its `link` bucket >= 0.3
+s and above `device` and `host_cpu`. (3) With `SD_HISTORY=0`,
+`SD_RESOURCES=0` and `SD_TENANT_OBS=0`, traced with torch.profiler
+(CUDA activity only): cas_ids and webp bytes equal the clean scan's, no
+history record, no resource sampler; the card's busy seconds in the
+trace (merged kernel, memcpy and memset intervals) beside the scan's
+attribution window. Every scan's
+cas_ids against the plain path on the CPU (8 also against
+`blake3_ref`); `check_healthy` by delta for the clean and quiet scans.
+It prints `{"verdicts": ...}`.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -155,7 +178,8 @@ non-zero before any work. The last line of standard output is
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
-decoders', the API's and the observability plane's numbers as JSON.
+decoders', the API's, the observability plane's and the verdicts'
+numbers as JSON.
 """
 
 from __future__ import annotations
@@ -3851,7 +3875,8 @@ def _webps(data_dir: str) -> dict[str, bytes]:
 
 async def obs_scan(node, root: str, steps: dict, tag: str) -> dict:
     """A new library and a location over `root` through the router, waited
-    on; its cas_ids by path, the identifier's metadata and K1's launches."""
+    on; its cas_ids by path, the identifier's metadata, K1's launches and
+    the scan's wall seconds (from `locations.create` to its thumbnails)."""
     from spacedrive_tpu_torch.jobs.report import JobReport
     from spacedrive_tpu_torch.ops import blake3_cuda
 
@@ -3860,10 +3885,12 @@ async def obs_scan(node, root: str, steps: dict, tag: str) -> dict:
     lid = (await r.exec(node, "library.create", {"name": f"obs-{tag}"}))["uuid"]
     lib = next(x for x in node.libraries.libraries.values() if str(x.id) == lid)
     blake3_cuda.chunk_cvs.launches = 0
+    t_scan = time.perf_counter()
     await r.exec(node, "locations.create", {"path": root}, library_id=lid)
     await _until_idle(r, node, lid)
     await node.thumbnailer.wait_library_batch(lib.id)
     launches = blake3_cuda.chunk_cvs.launches
+    wall_s = time.perf_counter() - t_scan
     steps[f"{tag}_scan_s"] = time.perf_counter() - t0
     reports = {x["name"]: x for x in await r.exec(node, "jobs.reports", library_id=lid)}
     check(set(reports) == {"indexer", "file_identifier", "media_processor"}
@@ -3874,7 +3901,7 @@ async def obs_scan(node, root: str, steps: dict, tag: str) -> dict:
             if os.path.basename(_row_path(root, x)) != ".spacedrive"]
     (row,) = lib.db.find("job", name="file_identifier")
     return {"lid": lid, "launches": launches, "identifier": JobReport.from_row(row).metadata,
-            "cas": {_row_path(root, x): x["cas_id"] for x in rows}}
+            "cas": {_row_path(root, x): x["cas_id"] for x in rows}, "wall_s": wall_s}
 
 
 def check_trace(trace_mod, identifier: dict) -> dict:
@@ -4012,11 +4039,255 @@ def phase_observability(rng, tmp: str) -> dict:
                          "observability_unprofiled": off["launches"]}}
 
 
+# --- phase 13: the node's samplers and verdicts (plane 6.2b) ---------------
+
+VERDICT_ENV = {"SD_HISTORY_INTERVAL_S": "0.1", "SD_RESOURCE_INTERVAL_S": "0.1"}
+QUIET_ENV = {"SD_HISTORY": "0", "SD_RESOURCES": "0", "SD_TENANT_OBS": "0"}
+VERDICT_STALL = "feeder.fetch:stall:delay_s=0.4"
+VERDICT_COVER = 0.9  # JAX's test_clean_pass_buckets_cover_wall_time bar
+VERDICT_PARTITION = 1e-9  # the unrounded sweep against its window
+VERDICT_ROUNDING = 3e-6  # five buckets and the window, each rounded to 1 us
+VERDICT_HISTORY_MIN = 5
+RESOURCE_GAUGES = ("sd_resource_rss_bytes", "sd_resource_fds", "sd_resource_threads")
+KINETO_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def card_trace(path: str):
+    """A torch.profiler context that traces CUDA activity only, its
+    Chrome trace written to `path` on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA],
+                   on_trace_ready=lambda p: p.export_chrome_trace(path))
+
+
+def card_busy_s(path: str) -> dict:
+    """The card's busy seconds in a Chrome trace: the union of its
+    kernel, memcpy and memset intervals (streams overlap, so they are
+    merged, not summed), and the kernel count."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in KINETO_DEVICE_CATS and e.get("ph") == "X")
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return {"busy_s": busy / 1e6, "kernels": sum(e.get("cat") == "kernel" for e in events),
+            "device_events": len(spans)}
+
+
+def check_attribution(doc: dict, wall_s: float, tag: str) -> dict:
+    """The scan's report (`telemetry.attrib` of its last pass): its
+    buckets partition its window (the sweep's unrounded segments to
+    VERDICT_PARTITION, the document's rounded buckets to
+    VERDICT_ROUNDING). The identify job's pass, the spans between its
+    `started` and `settled` markers, covers >= VERDICT_COVER of the
+    markers' wall time: JAX's bar, which times a FileIdentifierJob. The
+    whole scan's coverage is returned, not held: the media job's embed
+    and media_data steps carry no span in either package."""
+    from spacedrive_tpu_torch.telemetry import attrib
+    from spacedrive_tpu_torch.telemetry import trace as trace_mod
+
+    check("error" not in doc and doc["spans"] > 0, f"{tag} attribution: {doc}")
+    spans = trace_mod.recent(doc["trace_id"])
+    intervals = attrib._span_intervals(spans)
+    window = max(iv["t1"] for iv in intervals) - min(iv["t0"] for iv in intervals)
+    swept = sum(seg["seconds"] for seg in attrib._sweep(intervals))
+    check(abs(swept - window) <= VERDICT_PARTITION,
+          f"{tag} attribution: segments sum to {swept!r} s over a {window!r} s window")
+    total = sum(doc["buckets"].values())
+    check(abs(total - doc["wall_seconds"]) <= VERDICT_ROUNDING,
+          f"{tag} attribution: buckets {doc['buckets']} sum to {total} != {doc['wall_seconds']}")
+    check(set(doc["buckets"]) == set(attrib.BUCKETS)
+          and all(v >= 0 for v in doc["buckets"].values()), f"{tag} buckets: {doc['buckets']}")
+    marks = {(p["job"], p["event"]): p["ts"] for p in doc["passes"]}
+    t0, t1 = marks[("file_identifier", "started")], marks[("file_identifier", "settled")]
+    identify = attrib.report(doc["trace_id"], [
+        x for x in spans if t0 <= x["t0"] and x["t0"] + x["seconds"] <= t1])
+    covered = sum(identify["buckets"].values())
+    check(covered >= VERDICT_COVER * (t1 - t0),
+          f"{tag}: the identify pass's buckets cover {covered:.4f} s of its {t1 - t0:.4f} s "
+          f"(< {VERDICT_COVER})")
+    return {"buckets": doc["buckets"], "window_s": doc["wall_seconds"], "wall_s": wall_s,
+            "coverage": total / wall_s, "spans": doc["spans"],
+            "top_stages": dict(list(doc["top_stages"].items())[:6]),
+            "identify": {"buckets": identify["buckets"], "wall_s": t1 - t0,
+                         "coverage": covered / (t1 - t0)}}
+
+
+def phase_verdicts(rng, tmp: str) -> dict:
+    """Phase 13: a Node on the card scans phase 12's size mix through the
+    router while its history writer and resource sampler run at 0.1 s;
+    the attribution of the pass, the health, SLO, tenant, serve and mesh
+    procedures and the card's busy share of the scan; a scan under an
+    injected feeder stall blames the link bucket; with the plane off the
+    scan is bit-identical and writes no history."""
+    import asyncio
+
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.ops import blake3_ref, cas
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+    from spacedrive_tpu_torch.telemetry import history, resources
+    from spacedrive_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    telemetry.reset()
+    since = degradation()
+    steps: dict[str, float] = {}
+    root = os.path.join(tmp, "p13_corpus")
+    t0 = time.perf_counter()
+    paths = build_api_corpus(root, rng, (N_OBS_LARGE, N_OBS_SMALL, N_OBS_JPEG, 0))
+    steps["corpus_s"] = time.perf_counter() - t0
+    saved = {k: os.environ.get(k) for k in (*VERDICT_ENV, *QUIET_ENV)}
+    os.environ.update(VERDICT_ENV)
+
+    async def scan(tag: str, trace_path: str | None = None) -> dict:
+        data_dir = os.path.join(tmp, f"p13_sdx_{tag}")
+        node = Node(data_dir, device=DEVICE)
+        await node.start()
+        try:
+            if trace_path is None:
+                got = await obs_scan(node, root, steps, tag)
+            else:
+                with card_trace(trace_path):
+                    got = await obs_scan(node, root, steps, tag)
+                    torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = node.router
+            got["attrib"] = await r.exec(node, "telemetry.attrib", {"refresh": True})
+            got["health"] = await r.exec(node, "telemetry.health")
+            got["slo"] = await r.exec(node, "telemetry.slo")
+            got["tenants"] = await r.exec(node, "telemetry.tenants")
+            got["serve"] = await r.exec(node, "telemetry.serve")
+            got["mesh"] = await r.exec(node, "telemetry.mesh")
+            got["gauges"] = {g: telemetry.gauge_value(g) for g in RESOURCE_GAUGES}
+            got["resources_started"] = node._resources_started
+            got["resource_samples"] = resources.SAMPLER.sample_count()
+            got["allowlist"] = sorted(history.default_samplers())
+            steps[f"{tag}_procedures_s"] = time.perf_counter() - t0
+        finally:
+            await node.shutdown()
+        got["history"] = history.read(history.history_dir(data_dir))
+        got["webps"] = _webps(data_dir)
+        return got
+
+    try:
+        trace_path = os.path.join(tmp, "p13_card_trace.json")
+        clean = asyncio.run(scan("clean"))
+        t0 = time.perf_counter()
+        att = check_attribution(clean["attrib"], clean["wall_s"], "the clean scan")
+        health = {k: v["status"] for k, v in clean["health"]["subsystems"].items()}
+        check(clean["health"]["status"] == "healthy",
+              f"health {clean['health']['status']}: {health}")
+        check(health["device"] == "unknown" and health["serve"] == "unknown",
+              f"device / serve verdicts {health['device']} / {health['serve']} (want unknown)")
+        for sub in ("feeder", "event_loop", "resilience", "slo"):
+            check(health[sub] not in ("degraded", "unhealthy"), f"health {sub}: {health[sub]}")
+        slos = {x["name"]: x["status"] for x in clean["slo"]["slos"]}
+        check(slos["pass_throughput"] != "breach", f"pass_throughput breached: {clean['slo']}")
+        check(clean["tenants"] == {"enabled": True, "k": 8, "surfaces": {}},
+              f"telemetry.tenants: {clean['tenants']}")
+        check(clean["serve"] == {"enabled": False}, f"telemetry.serve: {clean['serve']}")
+        local = clean["mesh"]["local"]
+        check(clean["mesh"]["mesh"] == {"peers": {}} and local["health"]["status"] == "healthy"
+              and clean["lid"] in local["node"]["libraries"],
+              f"telemetry.mesh: peers {clean['mesh']['mesh']}, libraries "
+              f"{list(local['node']['libraries'])}")
+        check(all(v > 0 for v in clean["gauges"].values()), f"resource gauges {clean['gauges']}")
+        full = [x for x in clean["history"] if sorted(x["v"]) == clean["allowlist"]]
+        check(len(full) >= VERDICT_HISTORY_MIN,
+              f"{len(full)} of {len(clean['history'])} history records hold the allowlist "
+              f"(want >= {VERDICT_HISTORY_MIN})")
+        check_healthy("13 (clean scan)", since)
+        steps["clean_checks_s"] = time.perf_counter() - t0
+
+        with faults.active(faults.FaultPlan.parse(VERDICT_STALL)):
+            stalled = asyncio.run(scan("stalled"))
+        stall = check_attribution(stalled["attrib"], stalled["wall_s"], "the stalled scan")
+        b = stall["buckets"]
+        check(b["link"] >= 0.3 and b["link"] > b["device"] and b["link"] > b["host_cpu"],
+              f"the stalled scan's buckets {b}: link must be >= 0.3 s and above device and "
+              "host_cpu")
+
+        # the stall's fault activations are expected: read the quiet
+        # scan's degradation counters from here
+        mesh.LADDER.reset()
+        autotune.reset()
+        telemetry.reset()
+        since = degradation()
+        os.environ.update(QUIET_ENV)
+        # the card's busy time is read on this scan: CUPTI's tracing slows
+        # the clean scan's feeder past health's 1 s wait bar
+        quiet = asyncio.run(scan("quiet", trace_path))
+        card = card_busy_s(trace_path)
+        quiet_att = check_attribution(quiet["attrib"], quiet["wall_s"], "the quiet scan")
+        card["window_s"] = quiet_att["window_s"]
+        card["share_of_window"] = card["busy_s"] / quiet_att["window_s"]
+        check(quiet["cas"] == clean["cas"], "cas_ids with the plane off != with it on")
+        check(quiet["webps"] == clean["webps"] and len(clean["webps"]) == N_OBS_JPEG,
+              f"webp bytes with the plane off != with it on ({len(quiet['webps'])} / "
+              f"{len(clean['webps'])} files)")
+        check(quiet["history"] == [], f"SD_HISTORY=0 wrote {len(quiet['history'])} records")
+        check(not quiet["resources_started"] and quiet["resource_samples"] == 0
+              and not any(quiet["gauges"].values()),
+              f"SD_RESOURCES=0 sampled: started {quiet['resources_started']}, "
+              f"{quiet['resource_samples']} samples, gauges {quiet['gauges']}")
+        check(not any(k.startswith("resource_") or k.startswith("tenant_")
+                      for k in quiet["allowlist"]),
+              f"the plane off still samples {quiet['allowlist']}")
+        check_healthy("13 (quiet scan)", since)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    t0 = time.perf_counter()
+    hashed = [p for p in paths if os.path.getsize(p) > 0]
+    plain = cas.cas_ids([cas.read_message(p, os.path.getsize(p)) for p in hashed], "cpu")
+    for tag, got in (("clean", clean), ("stalled", stalled), ("quiet", quiet)):
+        check(got["launches"] > 0, f"the {tag} scan launched K1 no time")
+        for p, want in zip(hashed, plain):
+            check(got["cas"].get(p) == want, f"{tag} scan: cas_id of {p} != the plain path")
+    for p in hashed[:: max(1, len(hashed) // N_OBS_REF)][:N_OBS_REF]:
+        msg = cas.read_message(p, os.path.getsize(p))
+        check(clean["cas"][p] == blake3_ref.blake3_hex(msg, 8), f"cas_id of {p} != blake3_ref")
+    steps["plain_check_s"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"verdicts": {
+        "steps_s": steps, "seconds": seconds, "files": len(paths),
+        "attribution": {"clean": att, "stalled": stall, "quiet": quiet_att},
+        "card": card,
+        "health": health,
+        "slo": {x["name"]: {"status": x["status"], "current": x["current"]}
+                for x in clean["slo"]["slos"]},
+        "slo_status": clean["slo"]["status"],
+        "history_records": {"clean": len(clean["history"]), "allowlist": len(full),
+                            "stalled": len(stalled["history"]), "quiet": 0},
+        "resource_gauges": clean["gauges"], "resource_samples": clean["resource_samples"],
+        "k1_launches": {t: g["launches"] for t, g in (("clean", clean), ("stalled", stalled),
+                                                      ("quiet", quiet))}}}), flush=True)
+    print(f"phase 13: identify buckets cover {att['identify']['coverage']:.3f} of its pass "
+          f"({att['coverage']:.3f} of the scan), card busy {card['share_of_window']:.3f} of a "
+          f"scan's window, health {clean['health']['status']}, "
+          f"stalled link {b['link']:.3f} s, plane off bit-identical, in {seconds:.1f} s",
+          flush=True)
+    return {"launches": {"verdicts_clean": clean["launches"],
+                         "verdicts_stalled": stalled["launches"],
+                         "verdicts_quiet": quiet["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=12, choices=range(3, 13),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 12: all); "
+    parser.add_argument("--stop-after", type=int, default=13, choices=range(3, 14),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 13: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -4075,6 +4346,9 @@ def main() -> int:
         if args.stop_after >= 12:
             obs = phase_observability(rng, tmp)
             launches.update(obs["launches"])
+        if args.stop_after >= 13:
+            verdicts = phase_verdicts(rng, tmp)
+            launches.update(verdicts["launches"])
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

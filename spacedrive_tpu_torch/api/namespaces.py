@@ -41,8 +41,6 @@ VERSION = "0.1.0"
 #: the JAX router's procedures this one does not register yet, each with
 #: the ROADMAP plane that brings what it drives
 DEFERRED: dict[str, str] = {
-    **{f"telemetry.{k}": "6.2b" for k in (
-        "tenants", "health", "mesh", "attrib", "slo", "serve")},
     "ephemeralFiles.list": "6.3",
     "locations.relink": "6.3",
     **{f"files.{k}": "6.4" for k in ("copyFiles", "cutFiles", "deleteFiles", "eraseFiles")},
@@ -1217,8 +1215,9 @@ def _models(r: Router) -> None:
 
 def _telemetry(r: Router) -> None:
     """The diagnostics read path: the registry, the span ring, the
-    flight recorder, the debug bundle and the host profile (plane 6.2a;
-    the verdict and tenant procedures wait for 6.2b)."""
+    flight recorder, the debug bundle and the host profile (plane 6.2a);
+    the tenant sketches, the health verdicts, the node's mesh snapshot,
+    the pass attribution, the SLOs and the serve posture (plane 6.2b)."""
     from .. import telemetry
 
     @r.query("telemetry.snapshot")
@@ -1246,6 +1245,34 @@ def _telemetry(r: Router) -> None:
         # the redacted support artifact (see telemetry.bundle)
         return telemetry.debug_bundle(node)
 
+    @r.query("telemetry.tenants")
+    def tenants(node):
+        # the per-tenant heavy-hitter sketches: hashed tenant labels only
+        return telemetry.tenants.snapshot()
+
+    @r.query("telemetry.health")
+    def health(node):
+        # per-subsystem → per-node verdicts (telemetry.health)
+        return telemetry.health.evaluate(node)
+
+    @r.query("telemetry.mesh")
+    async def mesh(node, arg=None):
+        # this node's snapshot and the federation's peers; arg
+        # {refresh?, force?} steers the peer refresh, which comes with
+        # the p2p plane (until then the view holds this node alone)
+        return telemetry.federation.mesh_status(node)
+
+    @r.query("telemetry.attrib")
+    async def attrib(node, arg=None):
+        # critical-path attribution of one trace (default: the last
+        # settled pass); arg {trace_id?, refresh?}
+        opts = arg if isinstance(arg, dict) else {}
+        return await telemetry.attrib.assemble(
+            node,
+            opts.get("trace_id") or None,
+            refresh=bool(opts.get("refresh")),
+        )
+
     @r.query("telemetry.profile")
     async def profile(node, arg=None):
         # the host sampler: frame groups, on-CPU vs GIL-wait split,
@@ -1257,6 +1284,18 @@ def _telemetry(r: Router) -> None:
         if opts.get("mesh"):
             return await telemetry.sampler.mesh_profile(node)
         return telemetry.sampler.SAMPLER.profile()
+
+    @r.query("telemetry.slo")
+    def slo(node):
+        # SLO burn-rate posture over the node's persistent history, the
+        # evaluation the `slo` health subsystem embeds
+        return telemetry.slo.evaluate(getattr(node, "history", None))
+
+    @r.query("telemetry.serve")
+    def serve_status(node):
+        # the admission gate and read caches come with the serve plane;
+        # until then this is JAX's answer without a serve runtime
+        return {"enabled": False}
 
 
 def _invalidation(r: Router) -> None:

@@ -85,6 +85,18 @@ The port's own node answers these in-process through its router
 `--url`, `debug-bundle` builds the bundle offline from `--data-dir`
 (node config redacted, this process's empty rings). `licenses` prints
 the dependency and license inventory (utils/deps.py).
+
+`attrib [TRACE_ID]`, `slo`, `tenants` and `mesh-status` (counterparts
+of the `sdx` commands) read a running node at `--url`: the critical-path
+attribution of the last settled pass or of TRACE_ID (`GET /attrib`;
+`--refresh` bypasses the report cache), the SLO evaluation (`POST
+/rspc/telemetry.slo`), the tenant sketches (`GET /tenants`) and the
+mesh view (`GET /mesh`; `--no-refresh` serves the cached one). Without
+`--url`, `slo` evaluates the history under `--data-dir` offline (the
+history survives restarts), and `tenants` and `mesh-status` answer
+through an in-process Node on `--data-dir` (the router's
+`telemetry.tenants` and `telemetry.mesh`); the mesh holds this node
+alone until the p2p plane.
 """
 
 from __future__ import annotations
@@ -431,6 +443,131 @@ def cmd_debug_bundle(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_attrib(args: argparse.Namespace) -> int:
+    """A running node's critical-path attribution (GET /attrib): where
+    the last pass's (or TRACE_ID's) wall-clock went — device / host_cpu
+    / link / queue_wait / gap."""
+    import urllib.error
+    import urllib.parse
+
+    url = args.url.rstrip("/") + "/attrib"
+    query = {}
+    if args.trace_id:
+        query["trace_id"] = args.trace_id
+    if args.refresh:
+        query["refresh"] = "1"
+    if query:
+        url += "?" + urllib.parse.urlencode(query)
+    try:
+        doc = json.loads(_http_get(url, timeout=30.0))
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"attrib: cannot reach {url}: {e}", file=sys.stderr)
+        return 1
+    if doc.get("error"):
+        print(f"attrib: {doc['error']}", file=sys.stderr)
+        return 1
+    _write_or_print(json.dumps(doc, indent=2), args.out)
+    buckets = doc.get("buckets") or {}
+    if buckets:
+        wall = doc.get("wall_seconds") or 0.0
+        split = "  ".join(f"{k}={v:.2f}s" for k, v in sorted(
+            buckets.items(), key=lambda kv: kv[1], reverse=True))
+        print(f"attrib: {wall:.2f}s critical path — {split}", file=sys.stderr)
+    return 0
+
+
+def cmd_slo(args: argparse.Namespace) -> int:
+    """SLO burn-rate posture: a running node's live evaluation (--url),
+    or the data dir's persistent history evaluated offline."""
+    if args.url:
+        import urllib.error
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/rspc/telemetry.slo"
+        req = urllib.request.Request(url, data=b"{}", method="POST",
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                payload = json.loads(resp.read().decode())
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            print(f"slo: cannot reach {url}: {e}", file=sys.stderr)
+            return 1
+        doc = payload.get("result")
+    elif args.data_dir:
+        from .telemetry import slo as _slo
+        from .telemetry.history import history_dir
+
+        doc = _slo.evaluate(directory=history_dir(args.data_dir))
+    else:
+        print("slo: give --url or --data-dir", file=sys.stderr)
+        return 2
+    _write_or_print(json.dumps(doc, indent=2), args.out)
+    if isinstance(doc, dict):
+        for s in doc.get("slos") or []:
+            print(f"slo: {s['name']}: {s['status']}"
+                  + (f"  (current {s['current']:g})"
+                     if isinstance(s.get("current"), (int, float)) else ""),
+                  file=sys.stderr)
+    return 0
+
+
+async def _in_process(data_dir: str, device: str, key: str) -> object:
+    """`key` answered by the router of a Node on `device` over `data_dir`."""
+    from .node.node import Node
+
+    node = Node(data_dir, device=device, with_labeler=False)
+    await node.start()
+    try:
+        return await node.router.exec(node, key)
+    finally:
+        await node.shutdown()
+
+
+def _read_node(args: argparse.Namespace, what: str, path: str, key: str) -> object | None:
+    """GET `path` of the node at --url, or `key` through an in-process
+    Node on --data-dir; None (after a message) when neither answers."""
+    if args.url:
+        import urllib.error
+
+        url = args.url.rstrip("/") + path
+        try:
+            return json.loads(_http_get(url, timeout=30.0))
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            print(f"{what}: cannot reach {url}: {e}", file=sys.stderr)
+            return None
+    if not args.data_dir:
+        print(f"{what}: give --url or --data-dir", file=sys.stderr)
+        return None
+    return asyncio.run(_in_process(args.data_dir, args.device, key))
+
+
+def cmd_tenants(args: argparse.Namespace) -> int:
+    """Per-tenant accounting: the heavy-hitter sketches per surface
+    (hashed tenant labels, never raw UUIDs)."""
+    doc = _read_node(args, "tenants", "/tenants", "telemetry.tenants")
+    if doc is None:
+        return 1
+    if not args.url:
+        # the JAX command's shape: this node's sketches and each peer's
+        # federated digest (no peers until the p2p plane)
+        doc = {"local": doc, "peers": {}}
+    _write_or_print(json.dumps(doc, indent=2, default=str), args.out)
+    return 0
+
+
+def cmd_mesh_status(args: argparse.Namespace) -> int:
+    """The mesh view: this node's snapshot (health, metrics, ring
+    digests, libraries) and every peer's, freshness-marked."""
+    path = "/mesh" + ("?refresh=0" if args.no_refresh else "")
+    doc = _read_node(args, "mesh-status", path, "telemetry.mesh")
+    if doc is None:
+        return 1
+    _write_or_print(json.dumps(doc, indent=2, default=str), args.out)
+    if not args.url and not doc["mesh"]["peers"]:
+        print("no peers in the federation cache (none discovered?)", file=sys.stderr)
+    return 0
+
+
 def cmd_licenses(args: argparse.Namespace) -> int:
     from .utils.deps import collect
 
@@ -538,6 +675,44 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pull the bundle from a running node instead of building it offline")
     db.add_argument("--out", help="write JSON here instead of stdout")
     db.set_defaults(func=cmd_debug_bundle)
+
+    at = sub.add_parser("attrib", help="critical-path attribution: where the last pass's "
+                        "wall-clock went (device / host_cpu / link / queue_wait / gap)")
+    at.add_argument("trace_id", nargs="?", default=None,
+                    help="trace id (hex; default: the last completed pass)")
+    at.add_argument("--url", default="http://127.0.0.1:8080", help="the node's HTTP API origin")
+    at.add_argument("--refresh", action="store_true", help="bypass the report cache")
+    at.add_argument("--out", help="write JSON here instead of stdout")
+    at.set_defaults(func=cmd_attrib)
+
+    so = sub.add_parser("slo", help="SLO burn-rate posture: per-objective status over the "
+                        "persistent telemetry history (multi-window burn rates)")
+    so.add_argument("--url", default=None,
+                    help="read a running node's rspc telemetry.slo instead of evaluating "
+                         "the data dir's history offline")
+    so.add_argument("--data-dir", default=None, help="evaluate this data dir's history")
+    so.add_argument("--out", help="write JSON here instead of stdout")
+    so.set_defaults(func=cmd_slo)
+
+    tn = sub.add_parser("tenants", help="per-tenant accounting: heavy-hitter sketches per "
+                        "surface, fairness index, dominant share (hashed tenant labels)")
+    tn.add_argument("--url", default=None,
+                    help="read a running node's GET /tenants instead of an in-process node")
+    tn.add_argument("--data-dir", default=None, help="the in-process node's data dir")
+    tn.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    tn.add_argument("--out", help="write JSON here instead of stdout")
+    tn.set_defaults(func=cmd_tenants)
+
+    ms = sub.add_parser("mesh-status", help="mesh-wide observability: this node's health, "
+                        "metrics and ring digests and every peer's snapshot")
+    ms.add_argument("--url", default=None,
+                    help="read a running node's GET /mesh instead of an in-process node")
+    ms.add_argument("--no-refresh", action="store_true",
+                    help="with --url: serve the cached mesh view without re-pulling peers")
+    ms.add_argument("--data-dir", default=None, help="the in-process node's data dir")
+    ms.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ms.add_argument("--out", help="write JSON here instead of stdout")
+    ms.set_defaults(func=cmd_mesh_status)
 
     li = sub.add_parser("licenses", help="dependency and license inventory")
     li.add_argument("--out", help="write JSON here instead of stdout")

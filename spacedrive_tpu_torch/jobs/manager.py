@@ -9,8 +9,9 @@ progress streams over the library event bus as JobProgressEvent.
 Counterpart of `spacedrive_tpu/jobs/manager.py`, with its job events on
 the `jobs` flight ring and its trace context (a job runs under the
 trace of the caller that ingested it, or a fresh one, and a chain
-continues it), without the attribution plane's pass markers: progress
-also reaches the node's bus (what `jobs.progress` reads), a settled job
+continues it) and the attribution plane's pass markers (``started`` at
+ingest, ``settled`` when the supervisor closes the job): progress also
+reaches the node's bus (what `jobs.progress` reads), a settled job
 notifies its outcome (`_notify_outcome`) and a completed one invalidates
 the queries its class names in INVALIDATES (`_invalidate_on_complete`).
 """
@@ -24,6 +25,7 @@ from typing import Any
 
 from ..db.database import now_iso
 from ..tasks import TaskStatus, TaskSystem
+from ..telemetry import attrib as _attrib
 from ..telemetry import trace as _trace
 from ..telemetry.events import JOB_EVENTS
 from ..utils.tasks import supervise
@@ -84,6 +86,9 @@ class JobManager:
         )
         report.create(library.db)
         JOB_EVENTS.emit("queued", job=job.NAME, id=str(job.id))
+        # pass boundary marker: attribution's "last pass" resolves
+        # through these instead of guessing from the span ring
+        _attrib.mark_pass(job.NAME, job.trace_ctx.trace_id, "started")
         self._dispatch(job, library, report)
 
     def _dispatch(self, job: StatefulJob, library: Any, report: JobReport) -> None:
@@ -140,6 +145,11 @@ class JobManager:
             status=report.status.name,
             errors=len(report.errors_text),
         )
+        if job.trace_ctx is not None:
+            _attrib.mark_pass(
+                job.NAME, job.trace_ctx.trace_id, "settled",
+                status=report.status.name,
+            )
 
         self._notify_outcome(job, library, report)
 

@@ -53,7 +53,8 @@ class _JournalCheck:
         if verdict == "hit" and meta.size_in_bytes:
             # a vouched unchanged file: its whole sampled message will
             # never be read, hashed or shipped this pass
-            self.journal.bytes_saved(message_len(meta.size_in_bytes))
+            self.journal.bytes_saved(message_len(meta.size_in_bytes),
+                                     location_id=self.loc_id)
         return verdict
 
 

@@ -33,16 +33,20 @@ Counterpart of `spacedrive_tpu/location/indexer/journal.py` without its
 process-pool consult and the watcher, rename and orphan-prune surface
 the port does not run yet. The payload bytes and the verdicts are the
 same. Verdicts and bytes saved count into `sd_index_journal_ops_total`
-and `sd_index_journal_bytes_saved_total`, as in the JAX journal. Its
-per-location runtime counters, their `reset_runtime` and the
-`location_stats` that reads them come with the federation snapshot.
+and `sd_index_journal_bytes_saved_total` and into the per-location
+runtime counters, as in the JAX journal; `location_stats` joins those
+with the persisted entry counts for the federation snapshot, and
+`reset_runtime` (called by `telemetry.reset()`) drops them.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import sqlite3
+import threading
+import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -182,12 +186,74 @@ def _decode_payload(blob: Any) -> dict | None:
     return obj
 
 
+#: process-lifetime per-location runtime counters (hits/misses/…,
+#: bytes saved), keyed (db path, location_id) — IndexJournal instances
+#: are transient per-call wrappers, so the counts live here the way
+#: series live in the telemetry registry. Read by location_stats() for
+#: the federation snapshot (GET /mesh, sdx mesh-status).
+_LOC_RUNTIME: dict[tuple[str, int], dict[str, int]] = {}
+_LOC_RUNTIME_LOCK = threading.Lock()
+_LOC_FIELDS = ("hits", "misses", "invalidated", "bypassed", "bytes_saved")
+#: a verdict's runtime counter
+_LOC_FIELD_OF = {HIT: "hits", MISS: "misses", INVALIDATED: "invalidated",
+                 BYPASSED: "bypassed"}
+#: hard cap on tracked (db, location) counter sets — libraries churned
+#: by tests/bench arms would otherwise grow the dict for process
+#: lifetime; eviction is oldest-inserted first (dict order)
+_LOC_RUNTIME_MAX = 1024
+_RT_KEY_SEQ = itertools.count()
+#: location_stats() DB-half cache: (monotonic ts, db_half, live ids)
+#: per db key — federation refreshes snapshots every ~5 s on the event
+#: loop, and the GROUP BY scans one journal row per file
+_STATS_CACHE: dict[str, tuple[float, dict, Any]] = {}
+_STATS_TTL_S = 5.0
+
+
+def reset_runtime() -> None:
+    """Test/bench isolation (called by telemetry.reset()): drop the
+    process-lifetime per-location counters and the stats cache."""
+    with _LOC_RUNTIME_LOCK:
+        _LOC_RUNTIME.clear()
+    _STATS_CACHE.clear()
+
+
 class IndexJournal:
     """Journal access bound to one library DB. Location scoping rides
     in each call's `location_id` (duplicates span locations)."""
 
     def __init__(self, db: Any):
         self.db = db
+
+    def _db_key(self) -> str:
+        """Runtime-counter namespace for this library DB. Disk DBs key
+        by path; in-memory DBs (tests) would all collide on
+        ":memory:", so each gets a token minted once per Database
+        object (NOT id() — a recycled address must not inherit a dead
+        DB's counters)."""
+        path = str(getattr(self.db, "path", "?"))
+        if path != ":memory:":
+            return path
+        tok = getattr(self.db, "_journal_rt_key", None)
+        if tok is None:
+            tok = f":memory:#{next(_RT_KEY_SEQ)}"
+            try:
+                self.db._journal_rt_key = tok
+            except AttributeError:
+                pass  # slotted/foreign db: fall back to per-call token
+        return tok
+
+    def _loc_count(self, location_id: int | None, field: str,
+                   n: int = 1) -> None:
+        if location_id is None:
+            return
+        key = (self._db_key(), int(location_id))
+        with _LOC_RUNTIME_LOCK:
+            stats = _LOC_RUNTIME.get(key)
+            if stats is None:
+                while len(_LOC_RUNTIME) >= _LOC_RUNTIME_MAX:
+                    _LOC_RUNTIME.pop(next(iter(_LOC_RUNTIME)))
+                stats = _LOC_RUNTIME[key] = dict.fromkeys(_LOC_FIELDS, 0)
+            stats[field] += n
 
     # ---- consult -------------------------------------------------------
 
@@ -204,6 +270,7 @@ class IndexJournal:
         verdict, entry = self._lookup(location_id, key, identity)
         if verdict != INVALIDATED or count_invalidated:
             _tm.INDEX_JOURNAL_OPS.inc(result=verdict)
+            self._loc_count(location_id, _LOC_FIELD_OF[verdict])
         return verdict, entry
 
     def _lookup(
@@ -235,10 +302,11 @@ class IndexJournal:
             return HIT, entry
         return INVALIDATED, entry
 
-    def bytes_saved(self, n: int) -> None:
+    def bytes_saved(self, n: int, location_id: int | None = None) -> None:
         """Count `n` bytes whose work a vouch skipped."""
         if n > 0:
             _tm.INDEX_JOURNAL_BYTES_SAVED.inc(n)
+            self._loc_count(location_id, "bytes_saved", n)
 
     # ---- record --------------------------------------------------------
 
@@ -381,3 +449,73 @@ class IndexJournal:
             )
         except sqlite3.Error:
             pass
+
+    # ---- stats ---------------------------------------------------------
+
+    def location_stats(self) -> dict[int, dict[str, Any]]:
+        """Per-location journal effectiveness: persisted entry counts
+        (DB truth) joined with this process's runtime verdict counters.
+        Rides the federation snapshot's per-library block so hit rates
+        and bytes saved show up on ``telemetry.mesh`` / the CLI's ``mesh-status``
+        without any new wire surface.
+
+        The DB half (a GROUP BY over one row per file, plus the live
+        location-id set) is cached for ``_STATS_TTL_S`` per DB:
+        federation refreshes every snapshot pull (5 s cadence,
+        synchronous on the event loop), and a million-file library
+        must not pay a full index_journal scan on each one. Runtime
+        counters are merged fresh on every call."""
+        db_path = self._db_key()
+        now = time.monotonic()
+        cached = _STATS_CACHE.get(db_path)
+        if cached is not None and now - cached[0] < _STATS_TTL_S:
+            db_half, live = cached[1], cached[2]
+        else:
+            db_half = {}
+            try:
+                rows = self.db.query(
+                    "SELECT location_id, COUNT(*) AS entries, "
+                    "COALESCE(SUM(stale), 0) AS stale "
+                    "FROM index_journal GROUP BY location_id"
+                )
+            except sqlite3.Error:
+                return {}
+            for r in rows:
+                db_half[int(r["location_id"])] = {
+                    "entries": int(r["entries"]),
+                    "stale_entries": int(r["stale"]),
+                }
+            try:
+                live = {int(r["id"]) for r in self.db.query(
+                    "SELECT id FROM location")}
+            except sqlite3.Error:
+                live = None
+            while len(_STATS_CACHE) >= _LOC_RUNTIME_MAX:
+                _STATS_CACHE.pop(next(iter(_STATS_CACHE)))
+            _STATS_CACHE[db_path] = (now, db_half, live)
+        out: dict[int, dict[str, Any]] = {
+            loc: dict(v) for loc, v in db_half.items()
+        }
+        with _LOC_RUNTIME_LOCK:
+            if live is not None:
+                # a deleted location's counters must not haunt GET /mesh
+                # until process restart (the DB rows are pruned by
+                # prune_orphans; this prunes their runtime shadow)
+                for key in [k for k in _LOC_RUNTIME
+                            if k[0] == db_path and k[1] not in live]:
+                    del _LOC_RUNTIME[key]
+            runtime = {
+                loc: dict(stats)
+                for (path, loc), stats in _LOC_RUNTIME.items()
+                if path == db_path
+            }
+        for loc, stats in runtime.items():
+            entry = out.setdefault(
+                loc, {"entries": 0, "stale_entries": 0})
+            entry.update(stats)
+            consults = (stats["hits"] + stats["misses"]
+                        + stats["invalidated"])
+            entry["hit_rate"] = (
+                round(stats["hits"] / consults, 4) if consults else None
+            )
+        return out

@@ -13,23 +13,26 @@ path, as the JAX CLI's `--backend cpu` does, `spacedrive_tpu/cli.py:30`),
 and unless `with_labeler=False` the image-labeler actor on the same
 device (ref:lib.rs:142, the reference's `ai` feature gate), whose
 resolved artifact names the config's `image_labeler_version`.
-`start` starts the loop-lag monitor, the process-wide autotune
-controller (parallel/autotune.py; SD_AUTOTUNE=0 starts nothing), the
-host sampling profiler (telemetry/sampler.py; SD_PROFILE=0 starts
-nothing) and the process pool (parallel/procpool.py; SD_PROCS=0, the
-default, spawns nothing), binds the thumbnailer to the running loop, loads the
+`start` starts the loop-lag monitor, the telemetry history writer
+(telemetry/history.py, under `<data_dir>/telemetry_history/`;
+SD_HISTORY=0 samples nothing), the process-wide autotune controller
+(parallel/autotune.py; SD_AUTOTUNE=0 starts nothing), the host sampling
+profiler (telemetry/sampler.py; SD_PROFILE=0 starts nothing), the
+process pool (parallel/procpool.py; SD_PROCS=0, the default, spawns
+nothing) and the resource sampler (telemetry/resources.py, with the
+node's inventory providers registered first; SD_RESOURCES=0 starts
+nothing), binds the thumbnailer to the running loop, loads the
 libraries (each registers with the labeler, which re-queues its
-persisted batches) and cold-resumes their jobs; `shutdown` stops them,
-persists both actors' queues and stops the task system. The
-controller, the sampler and the pool are refcounted, so two nodes in
-one process share one controller, one sampling thread and one worker
-set. A Node lives within one event
-loop (one `asyncio.run`).
+persisted batches) and cold-resumes their jobs; `shutdown` stops them
+(joining the samplers' threads and the writer's task), persists both
+actors' queues and stops the task system. The controller, the two
+samplers and the pool are refcounted, so two nodes in one process share
+one controller, one thread per sampler and one worker set. A Node lives
+within one event loop (one `asyncio.run`).
 
-Not ported: the telemetry history writer and the resource sampler
-(plane 6.2b), the location manager and its watchers
-(6.3), the orphan remover (6.4), P2P and cloud sync (6.7, 6.8), and the
-serve runtime and the API server (6.9).
+Not ported: the location manager and its watchers (6.3), the orphan
+remover (6.4), P2P and cloud sync (6.7, 6.8), and the serve runtime and
+the API server (6.9).
 """
 
 from __future__ import annotations
@@ -57,7 +60,9 @@ from ..object.media.thumbnail.actor import Thumbnailer
 from ..parallel import autotune as _autotune
 from ..parallel import procpool as _procpool
 from ..tasks import TaskSystem
+from ..telemetry import resources as _resources
 from ..telemetry import sampler as _sampler
+from ..telemetry.history import HistoryWriter, history_dir
 from ..telemetry.events import LoopLagMonitor
 from ..utils.events import EventBus
 from ..utils.tracing import install_loop_excepthook
@@ -103,6 +108,12 @@ class Node:
         self.stage_seconds: collections.Counter[str] = collections.Counter()
         self._stage_lock = threading.Lock()
         self.loop_monitor = LoopLagMonitor()
+        # persistent telemetry history: sampled allowlisted series into
+        # an append-only segment store under the data dir — constructed
+        # unconditionally so offline readers (the CLI's slo) open the
+        # same directory; sampling starts with the node, unless
+        # SD_HISTORY=0
+        self.history = HistoryWriter(history_dir(self.data_dir))
         self.autotuner = _autotune.CONTROLLER
         self.procpool = _procpool.POOL
         self._procpool_started = False
@@ -111,6 +122,11 @@ class Node:
         # thread; SD_PROFILE=0 starts nothing
         self.profiler = _sampler.SAMPLER
         self._profiler_started = False
+        # the process-wide resource sampler: refcounted like the
+        # profiler; SD_RESOURCES=0 starts nothing. Inventory providers
+        # that need node state register at start, unregister at shutdown
+        self.resources = _resources.SAMPLER
+        self._resources_started = False
         self._started = False
 
     def add_stage_seconds(self, stage: str, seconds: float) -> None:
@@ -151,6 +167,7 @@ class Node:
         # orphaned-task crashes reach the log and the error ring
         install_loop_excepthook(asyncio.get_running_loop())
         self.loop_monitor.start()
+        self.history.start()
         self.autotuner.start()
         # tag this thread as the event loop's, so samples classify as
         # loop vs feeder vs worker, then take a hold on the sampler
@@ -159,6 +176,11 @@ class Node:
         # workers up before any job runs, so the first batch never pays
         # the spawn inside a measured pass
         self._procpool_started = self.procpool.start()
+        # inventories registered before the sampler's hold, so the
+        # first tick reads them all
+        for name, fn in _resources.node_providers(self).items():
+            self.resources.register_provider(name, fn)
+        self._resources_started = self.resources.start()
         self.thumbnailer._ensure_started()
         for lib in self.libraries.load_all():
             await self._init_library(lib)
@@ -193,10 +215,12 @@ class Node:
         self.libraries.libraries.pop(lib_id, None)
 
     async def shutdown(self) -> None:
-        """Stop the loop-lag monitor, the controller, the sampler and the
-        pool (each releases its hold), persist the actors' queues, stop the task
-        system and close the libraries (ref:lib.rs:240-250)."""
+        """Stop the loop-lag monitor, the history writer, the controller,
+        the samplers and the pool (each releases its hold), persist the
+        actors' queues, stop the task system and close the libraries
+        (ref:lib.rs:240-250)."""
         await self.loop_monitor.stop()
+        await self.history.stop()
         await self.autotuner.stop()
         if self._profiler_started:
             self.profiler.stop()
@@ -204,6 +228,16 @@ class Node:
         if self._procpool_started:
             self.procpool.stop()
             self._procpool_started = False
+        if self._resources_started:
+            self.resources.stop()
+            self._resources_started = False
+        if not self.resources.running():
+            # last hold released (or sampling disabled): drop the
+            # node-state closures so a dead node can't be read. While a
+            # sibling in-process node still holds the sampler, its own
+            # registrations (last-wins) stay live instead
+            for name in _resources.node_providers(self):
+                self.resources.unregister_provider(name)
         await self.thumbnailer.shutdown()
         if self.image_labeler is not None:
             await self.image_labeler.shutdown()

@@ -163,7 +163,8 @@ class DuplicateDetectorJob(StatefulJob):
             )
             if (verdict == _journal.HIT and entry is not None
                     and entry.phash is not None and entry.cas_id == r["cas_id"]):
-                journal.bytes_saved(blob_u64(r["size_in_bytes_bytes"]) or 0)
+                journal.bytes_saved(blob_u64(r["size_in_bytes_bytes"]) or 0,
+                                    location_id=r["location_id"])
                 return entry.phash
             return None
 

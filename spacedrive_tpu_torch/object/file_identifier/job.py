@@ -201,7 +201,7 @@ class FileIdentifierJob(StatefulJob):
                 if verdict == _journal.HIT and entry.cas_id:
                     # vouched: skip the read, the hash, and the transfer
                     resolved[row["id"]] = entry.cas_id
-                    journal.bytes_saved(cas.message_len(size))
+                    journal.bytes_saved(cas.message_len(size), location_id=loc_id)
                     jstats["hit"] += 1
                     metas.append({"row": row, "cas_id": "journal"})
                     continue
@@ -227,7 +227,7 @@ class FileIdentifierJob(StatefulJob):
                     cache = None
                 else:
                     rehash_s += time.perf_counter() - t_rehash
-                    journal.bytes_saved(len(msg) - hashed)
+                    journal.bytes_saved(len(msg) - hashed, location_id=loc_id)
                     _tm.INDEX_BYTES_HASHED.inc(hashed)
                     resolved[row["id"]] = cas_id
                     to_record[row["id"]] = (key, ident, cas_id, cache, entry)

@@ -166,7 +166,7 @@ class MediaProcessorJob(StatefulJob):
         vouched = await asyncio.to_thread(consult_all)
 
         def skip(r: dict) -> None:
-            journal.bytes_saved(blob_u64(r["size_in_bytes_bytes"]) or 0)
+            journal.bytes_saved(blob_u64(r["size_in_bytes_bytes"]) or 0, location_id=loc_id)
 
         # the thumbnails go to the node's actor up front
         # (ref:job.rs:148-156); the job only awaits them later

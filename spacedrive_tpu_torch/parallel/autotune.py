@@ -27,15 +27,16 @@ feeder +1 (at once past ``URGENT_WAIT_S``); an **overbuffered** one
 decays both toward static; a **congested** link probe demotes the
 dispatch rung and sheds extra depth; **full** batches promote the rung,
 **low occupancy** demotes it; **event-loop lag** past
-``LOOP_LAG_DEGRADED`` sheds depth; the pool quantum grows on IPC tax
+``health.LOOP_LAG_DEGRADED`` sheds depth; the pool quantum grows on IPC tax
 and shrinks on slow or underfilled batches. The rung never exceeds what
 the `DeviceLadder` level allows (`_ladder_rung_cap`): full set → top
 rung, subset → middle, host → bottom.
 
 Not ported: the stage plane (`_tick_stages`, `stage_rate`,
-`stage_lease`, `reset_stage_targets`, `observed_files_per_s` and the
-snapshot's ``stages``), which reads `parallel/scheduler` and `p2p.work`;
-a tick skips it.
+`stage_lease`, `reset_stage_targets` and the snapshot's ``stages``),
+which reads `parallel/scheduler` and `p2p.work`; a tick skips it.
+:func:`observed_files_per_s` (the history's ``files_per_s`` series)
+reads only the identifier's registry series.
 
 ``SD_AUTOTUNE=0`` starts no controller and makes every policy read
 return the static size, bit for bit. ``SD_AUTOTUNE_INTERVAL_S`` sets
@@ -106,11 +107,6 @@ POOL_DISPATCH_SHARE = 0.15
 POOL_RT_SLOW_S = 2.0
 POOL_SCALE_MIN = 1.0
 POOL_SCALE_MAX = 8.0
-
-#: event-loop lag that stops the feeder from deepening (the JAX
-#: package's `telemetry/health.LOOP_LAG_DEGRADED`, whose health plane
-#: the port does not have yet)
-LOOP_LAG_DEGRADED = 0.2
 
 WORKLOADS = ("identify", "thumbnail", "embed")
 
@@ -548,6 +544,8 @@ class Controller:
 
     @staticmethod
     def _loop_lagging(s: Sample) -> bool:
+        from ..telemetry.health import LOOP_LAG_DEGRADED
+
         return s.loop_lag_s >= LOOP_LAG_DEGRADED
 
     def _step(self, workload: str, knob: str, want: int | None, urgent: bool = False) -> bool:
@@ -630,6 +628,25 @@ def policy(workload: str) -> PipelinePolicy:
 
 def snapshot() -> dict[str, Any]:
     return CONTROLLER.snapshot()
+
+
+def observed_files_per_s(workload: str = "identify") -> float | None:
+    """Telemetry-derived throughput for a workload: the identifier's
+    files over its hash and db seconds (the history's ``files_per_s``
+    series; the mesh work plane's lease sizing reads it too, with its
+    plane). None until the workload has processed anything here."""
+    from ..telemetry import metrics as _tm
+
+    if workload != "identify":
+        return None
+    files = _tm.IDENTIFIER_FILES.value()
+    secs = (
+        _tm.IDENTIFIER_STAGE_SECONDS.stats(stage="hash")["sum"]
+        + _tm.IDENTIFIER_STAGE_SECONDS.stats(stage="db")["sum"]
+    )
+    if not files or secs <= 0:
+        return None
+    return files / secs
 
 
 def reset() -> None:

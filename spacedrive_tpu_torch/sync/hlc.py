@@ -71,6 +71,12 @@ class HybridLogicalClock:
             self._last = phys if phys > self._last else NTP64(self._last + 1)
             return Timestamp(self._last, self.instance_id)
 
+    def peek_last(self) -> NTP64:
+        """The newest timestamp this clock has issued or merged (the
+        library head the federation snapshot and health compare)."""
+        with self._lock:
+            return self._last
+
     def update(self, remote_time: NTP64) -> None:
         """Merge a remote op's timestamp (ingest path,
         ref:core/crates/sync/src/ingest.rs:120-131). Raises ClockDriftError

@@ -6,22 +6,28 @@ domain rows and their crdt_operation rows in ONE transaction (:70-93);
 manager owns the library's HLC and instance identity and emits
 SyncMessage events for the P2P layer.
 
-Counterpart of `spacedrive_tpu/sync/manager.py`, without the replication
-lag gauges (telemetry).
+Counterpart of `spacedrive_tpu/sync/manager.py`: the per-instance ingest
+watermarks are loaded from the op log at start, and the replication
+watermarks and lag (`sd_sync_lag_seconds`, `sd_sync_watermark_seconds`)
+read them for the health and federation planes. Ingest, which advances
+them, comes with its plane.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 import uuid
 from typing import Any, Callable
 
 from ..db.database import LibraryDb
+from ..telemetry import metrics as _tm
+from ..telemetry.peers import peer_label
 from ..utils.events import EventBus
 from ..utils.msgpack_codec import packb
 from .crdt import CRDTOperation
 from .factory import OperationFactory
-from .hlc import HybridLogicalClock
+from .hlc import NTP64, HybridLogicalClock
 
 logger = logging.getLogger(__name__)
 
@@ -40,6 +46,51 @@ class SyncManager(OperationFactory):
         self.db = db
         self.event_bus = event_bus or EventBus()
         self.emit_messages = emit_messages
+        # per-instance ingest watermarks (ref:manager.rs:29 `timestamps`)
+        self.timestamps: dict[uuid.UUID, NTP64] = {}
+        self._load_timestamps()
+
+    # --- startup ---
+
+    def _load_timestamps(self) -> None:
+        rows = self.db.query(
+            "SELECT i.pub_id, MAX(c.timestamp) AS ts FROM crdt_operation c "
+            "JOIN instance i ON i.id = c.instance_id GROUP BY c.instance_id"
+        )
+        for row in rows:
+            self.timestamps[uuid.UUID(bytes=row["pub_id"])] = NTP64(row["ts"])
+
+    # --- replication observability ---
+
+    def replication_watermarks(self) -> dict[str, float]:
+        """Per-remote-instance latest applied HLC timestamp (unix
+        seconds), keyed by the capped ``peer_label`` short-hash — the
+        raw pub_id never reaches a metric label or a wire snapshot."""
+        return {
+            peer_label(inst): ts.as_unix()
+            for inst, ts in self.timestamps.items()
+            if inst != self.instance
+        }
+
+    def observe_replication_lag(self) -> dict[str, float]:
+        """Refresh ``sd_sync_lag_seconds{peer}`` /
+        ``sd_sync_watermark_seconds{peer}`` from the in-memory
+        watermarks and return the lag map: wall-clock now minus the
+        latest applied HLC timestamp from each peer. Called by the
+        health and federation read paths so the gauges stay honest
+        when no ops are flowing."""
+        now = time.time()
+        lags: dict[str, float] = {}
+        for inst, ts in self.timestamps.items():
+            if inst == self.instance:
+                continue
+            label = peer_label(inst)
+            watermark = ts.as_unix()
+            lag = max(0.0, now - watermark)
+            lags[label] = lag
+            _tm.SYNC_LAG.set(lag, peer=label)
+            _tm.SYNC_WATERMARK.set(watermark, peer=label)
+        return lags
 
     def _instance_db_id(self, instance: uuid.UUID) -> int:
         row = self.db.find_one("instance", pub_id=instance.bytes)

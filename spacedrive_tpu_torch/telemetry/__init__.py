@@ -4,7 +4,8 @@ and scrape APIs, the debug bundle.
 
 Counterpart of `spacedrive_tpu/telemetry/__init__.py` (plane 6.2a:
 owned copies of its trace, spans, events, sampler, peers, bundle,
-snapshot and metrics modules). Surface:
+snapshot and metrics modules; plane 6.2b: history, resources, slo,
+attrib, tenants, health and the local half of federation). Surface:
 
 - ``REGISTRY`` / ``counter`` / ``gauge`` / ``histogram`` — the
   process-wide metrics registry (Prometheus text via ``render()``);
@@ -16,14 +17,30 @@ snapshot and metrics modules). Surface:
   with the host sampler's capture windows on a ``host-profile`` lane;
 - ``events`` — flight-recorder rings; ``debug_bundle()`` — the redacted
   support artifact; ``sampler`` — the continuous host profiler;
+- ``history`` / ``resources`` — the node's persistent history writer and
+  its resource sampler; ``slo`` / ``health`` / ``tenants`` — the
+  verdicts over them; ``attrib`` — the critical-path attribution of a
+  pass; ``federation`` — the node's compact self-snapshot;
 - ``reset()`` — test isolation across metrics, spans, traces, rings,
-  and the sampler's accumulators. Each plane still to come adds its
-  own reset here.
+  the sampler, attribution, SLO state, resources, tenants and the
+  history tails.
 
 This package imports no torch: process-pool workers import its metrics.
 """
 
-from . import events, metrics, sampler, trace
+from . import (
+    attrib,
+    events,
+    federation,
+    health,
+    history,
+    metrics,
+    resources,
+    sampler,
+    slo,
+    tenants,
+    trace,
+)
 from .registry import (
     BYTE_BUCKETS,
     MAX_SERIES_PER_FAMILY,
@@ -46,13 +63,30 @@ def render() -> str:
 
 def reset() -> None:
     """Test/bench isolation: zero every metric series and clear the
-    span ring, the trace ring, every flight-recorder ring, the host
-    sampler's accumulators, capture ring and trigger state."""
+    span ring, the trace ring, every flight-recorder ring, the
+    attribution report cache and pass markers, SLO evaluation state,
+    the host sampler's accumulators, timeline, capture ring and trigger
+    state, the resource sampler's last-sample state and planted test
+    leaks, the tenant plane's sketches, every history writer's
+    in-memory tail (durable segments are data-dir state and survive)
+    and the index journal's per-location runtime counters. Circuit
+    breakers survive, as in the JAX package
+    (``utils.resilience.reset_breakers`` drops them)."""
     REGISTRY.reset()
     clear_recent()
     trace.clear()
     events.clear_all()
+    attrib.reset()
+    slo.reset()
     sampler.reset()
+    resources.reset()
+    tenants.reset()
+    history.reset_tails()
+    # the journal's per-location counters live like registry series
+    # (lazy import: the journal imports metrics)
+    from ..location.indexer.journal import reset_runtime
+
+    reset_runtime()
 
 
 def trace_export(trace_id=None):
@@ -106,5 +140,7 @@ __all__ = [
     "metrics", "span", "Span", "current_span", "recent_spans",
     "clear_recent", "snapshot", "histogram_recent", "gauge_value",
     "counter_value", "render", "counter", "gauge", "histogram",
-    "trace", "events", "reset", "trace_export", "debug_bundle", "sampler",
+    "trace", "events", "reset", "trace_export", "debug_bundle",
+    "health", "federation", "attrib", "history", "slo", "sampler",
+    "resources", "tenants",
 ]

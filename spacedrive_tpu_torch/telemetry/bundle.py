@@ -21,9 +21,8 @@ the process:
    by the error ring may embed the very value the config redaction hid.
 
 Where the JAX bundle lists ``jax`` and ``jaxlib``, this one lists
-``torch`` and the CUDA version torch was built with. The per-tenant
-plane is not ported yet: ``tenants`` is what the JAX plane returns with
-no tenant recorded.
+``torch`` and the CUDA version torch was built with. ``tenants`` is the
+tenant plane's snapshot (hashed labels only), as in the JAX bundle.
 """
 
 from __future__ import annotations
@@ -164,11 +163,6 @@ def _libraries(node: Any) -> list[dict[str, Any]]:
     return out
 
 
-#: what the JAX tenant plane's ``snapshot()`` returns with no tenant
-#: recorded, at its defaults; the port's own comes with plane 6.2b
-NO_TENANTS: dict[str, Any] = {"enabled": True, "k": 8, "surfaces": {}}
-
-
 def build_bundle(node: Any = None, data_dir: str | None = None) -> dict[str, Any]:
     """Assemble the bundle dict (JSON-serializable, already redacted)."""
     from . import trace as _trace
@@ -177,6 +171,7 @@ def build_bundle(node: Any = None, data_dir: str | None = None) -> dict[str, Any
     from .snapshot import snapshot as _snapshot
 
     from . import sampler as _sampler
+    from . import tenants as _tenants
 
     trace_events = _trace.recent()
     snap = _snapshot()
@@ -206,8 +201,9 @@ def build_bundle(node: Any = None, data_dir: str | None = None) -> dict[str, Any
             "doc": _sampler.SAMPLER.profile(),
             "folded": _sampler.SAMPLER.folded(max_bytes=64 * 1024),
         },
-        # per-tenant accounting snapshot (the plane is not ported yet)
-        "tenants": dict(NO_TENANTS),
+        # per-tenant accounting snapshot: hashed labels only, so it is
+        # redaction-clean by construction
+        "tenants": _tenants.snapshot(),
     }
     if node is not None:
         bundle["libraries"] = _libraries(node)

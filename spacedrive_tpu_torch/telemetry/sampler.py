@@ -21,8 +21,13 @@ An owned copy of `spacedrive_tpu/telemetry/sampler.py`, stdlib only:
   ingest, device dispatch, …). The group vocabulary is the JAX
   package's; frames of this package are named relative to it, and
   ``torch`` takes the place of ``jax``/``jaxlib`` in ``device_dispatch``;
-- **triggered deep captures**: a loop-lag degradation (or a manual
-  trigger; SLO and brownout triggers come with their planes) opens one
+  a bounded timeline of (ts, kind, state, group) records lets
+  ``telemetry/attrib.py`` split its ``gap`` and ``host_cpu`` buckets
+  into the code that ate them (:func:`decompose_segments`), and
+  ``group_shares()`` feeds the history's ``profile_share_*`` series;
+- **triggered deep captures**: a loop-lag degradation or an SLO warn or
+  breach (or a manual trigger; the brownout trigger comes with the
+  serve plane) opens one
   bounded high-rate capture window (``CAPTURE_HZ`` for
   ``CAPTURE_S``), kept in a ring of recent windows.
   Hysteresis: one window per ``COOLDOWN_S``, so a flapping
@@ -62,6 +67,7 @@ MAX_STACK_DEPTH = 48        # frames kept per sample (leafward)
 MAX_STACKS = 4096           # distinct collapsed stacks tracked
 CAPTURE_RING = 8            # recent deep-capture windows retained
 CAPTURE_MAX_SAMPLES = 4096  # per-window sample bound
+TIMELINE_SAMPLES = 65536    # recent (ts, kind, state, group) records
 FOLDED_MAX_BYTES = 256 * 1024  # wire/bundle bound for folded text
 
 #: execution states (fixed vocabulary)
@@ -318,6 +324,8 @@ class Sampler:
         self._state_counts: dict[str, int] = {}
         self._total_samples = 0
         self._started_ts: float | None = None
+        self._timeline: deque[tuple[float, str, str, str]] = deque(
+            maxlen=TIMELINE_SAMPLES)
         # per-thread CPU clock bookkeeping (sampler thread only)
         self._cpu_prev: dict[int, tuple[float, float]] = {}
         # triggered captures
@@ -383,6 +391,7 @@ class Sampler:
             self._kind_counts.clear()
             self._state_counts.clear()
             self._total_samples = 0
+            self._timeline.clear()
             self._cpu_prev.clear()
             self._capture = None
             self._captures.clear()
@@ -553,6 +562,7 @@ class Sampler:
                 self._state_counts[state] = \
                     self._state_counts.get(state, 0) + 1
                 self._total_samples += 1
+                self._timeline.append((ts, kind, state, group))
                 if cap is not None and not cap.closed:
                     if len(cap.samples) < CAPTURE_MAX_SAMPLES:
                         cap.samples.append((ts, kind, state, group))
@@ -563,6 +573,14 @@ class Sampler:
         _tm.PROFILE_SAMPLES.inc(len(records))
 
     # -- reads ------------------------------------------------------------
+
+    def samples_between(self, t0: float, t1: float) \
+            -> list[tuple[float, str, str, str]]:
+        """Timeline records with ``t0 <= ts <= t1`` — the attribution
+        engine's gap-decomposition read path."""
+        with self._lock:
+            recs = list(self._timeline)
+        return [r for r in recs if t0 <= r[0] <= t1]
 
     def folded(self, max_bytes: int = FOLDED_MAX_BYTES) -> str:
         """flamegraph.pl collapsed-stack text. Synthetic
@@ -582,6 +600,18 @@ class Sampler:
                 break
             out.append(line)
         return "".join(out)
+
+    def group_shares(self) -> dict[str, float]:
+        """Cumulative per-group sample shares over every state (the
+        history allowlist's ``profile_share_*`` series)."""
+        with self._lock:
+            total = self._total_samples
+            counts: dict[str, int] = {}
+            for (_state, group), n in self._group_counts.items():
+                counts[group] = counts.get(group, 0) + n
+        if not total:
+            return {}
+        return {g: round(n / total, 6) for g, n in counts.items()}
 
     def profile(self, top_k: int = 24) -> dict[str, Any]:
         """The full JSON profile document (``GET /profile``)."""
@@ -739,3 +769,53 @@ async def mesh_profile(node: Any) -> dict[str, Any]:
     profiles (pulled over the TELEMETRY wire) join it with the p2p
     plane; until then ``mesh`` is empty, as for a JAX node without p2p."""
     return {"local": SAMPLER.profile(), "mesh": {}, "partial": False}
+
+
+# --- attribution decomposition -------------------------------------------
+
+
+def decompose_segments(segments: list[tuple[float, float]],
+                       bucket_seconds: float) -> dict[str, Any] | None:
+    """Decompose one attribution bucket's wall time into named frame
+    groups: timeline samples landing inside the bucket's critical-path
+    segments vote by group, and the bucket's seconds split
+    proportionally. ``coverage`` is the fraction of votes carrying a
+    named (non-``other``) group — the honesty figure the ≥70% bar
+    gates. Returns None when profiling is off or no sample landed in
+    the window (the report simply omits the decomposition)."""
+    if not enabled() or not segments:
+        return None
+    t_lo = min(s[0] for s in segments)
+    t_hi = max(s[1] for s in segments)
+    recs = SAMPLER.samples_between(t_lo, t_hi)
+    if not recs:
+        return None
+    spans = sorted(segments)
+    counts: dict[str, int] = {}
+    total = 0
+    import bisect
+
+    starts = [s[0] for s in spans]
+    for ts, _kind, state, group in recs:
+        if state == WAIT:
+            # a thread parked in select/locks/queues is not executing
+            # the bucket — only runnable samples (on-CPU or GIL-wait)
+            # vote, or every idle daemon thread would dilute the split
+            continue
+        i = bisect.bisect_right(starts, ts) - 1
+        if i < 0 or ts > spans[i][1]:
+            continue
+        counts[group] = counts.get(group, 0) + 1
+        total += 1
+    if not total:
+        return None
+    named = total - counts.get("other", 0)
+    return {
+        "samples": total,
+        "coverage": round(named / total, 4),
+        "groups": {
+            g: round(bucket_seconds * n / total, 6)
+            for g, n in sorted(counts.items(), key=lambda kv: kv[1],
+                               reverse=True)
+        },
+    }

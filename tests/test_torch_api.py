@@ -11,7 +11,7 @@ rows, ids, counts, orders, cursors, cas_ids, checksums, statistics,
 tags and labels, and the invalidated keys of a rescan;
 `search.semantic` scores agree within 1e-5.
 
-Also: the port's key set is the JAX router's less `DEFERRED` (37 keys,
+Also: the port's key set is the JAX router's less `DEFERRED` (31 keys,
 each naming its ROADMAP plane), `client_gen` emits the JAX package's
 module for the ported keys, and with the bundled labeler checkpoint a
 labelled scan invalidates `labels.list` as the JAX actor does.
@@ -36,7 +36,7 @@ from spacedrive_tpu.api.router import CoreEventKind as JCoreEventKind
 from spacedrive_tpu_torch.api.router import CoreEventKind
 
 #: JAX plane numbers in ROADMAP.md's plane list
-PLANES = {"6.2b", "6.3", "6.4", "6.5", "6.6", "6.7", "6.8"}
+PLANES = {"6.3", "6.4", "6.5", "6.6", "6.7", "6.8"}
 
 
 @pytest.fixture(autouse=True)
@@ -142,14 +142,15 @@ def test_keys_equal_jax_less_deferred():
     jkeys = set(japi.mount().keys())
     pkeys = set(papi.mount().keys())
     assert len(japi.mount().keys()) == 127
-    assert len(papi.DEFERRED) == 37 and len(pkeys) == 90
+    assert len(papi.DEFERRED) == 31 and len(pkeys) == 96
     assert set(papi.DEFERRED) <= jkeys
     assert pkeys == jkeys - set(papi.DEFERRED)
     assert set(papi.DEFERRED.values()) == PLANES
     counts = {}
     for key, plane in papi.DEFERRED.items():
         counts[plane] = counts.get(plane, 0) + 1
-    assert counts == {"6.2b": 6, "6.3": 2, "6.4": 4, "6.5": 4, "6.6": 7, "6.7": 9, "6.8": 5}
+    assert counts == {"6.3": 2, "6.4": 4, "6.5": 4, "6.6": 7, "6.7": 9, "6.8": 5}
+    assert not any(k.startswith("telemetry.") for k in papi.DEFERRED)
 
 
 def test_registrations_equal_jax():
@@ -175,7 +176,7 @@ def test_client_bindings_equal_jax_on_ported_keys():
                        "spacedrive_tpu.api.client_gen") == want
     assert "spacedrive_tpu_torch.api.client_gen" in got.splitlines()[0]
     assert '"semantic"' in got and "telemetry.trace_export" in got
-    assert "telemetry.tenants" not in got
+    assert "telemetry.tenants" in got and "p2p.state" not in got
 
 
 def test_router_keys_unique_and_library_resolution(tmp_path):

@@ -56,6 +56,16 @@ def test_the_scan_covers_the_decoders():
             os.path.join("ops", "thumbnail_dims.py")} <= rel
 
 
+def test_the_scan_covers_the_samplers_and_verdicts():
+    """The node's samplers and verdicts (owned copies of the JAX
+    telemetry modules and the resilience layer) are scanned too."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    tel = {os.path.join("telemetry", f) for f in (
+        "history.py", "resources.py", "slo.py", "attrib.py", "tenants.py", "health.py",
+        "federation.py")}
+    assert tel | {os.path.join("utils", "resilience.py"), os.path.join("utils", "compat.py")} <= rel
+
+
 def test_sklearn_only_inside_digits_demo_dataset():
     """scikit-learn, which the card's machine lacks, is imported by one
     function of the port, lazily: `models/train.py`'s

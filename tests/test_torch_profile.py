@@ -19,9 +19,11 @@
   (a local stand-in serving the port's own documents), `debug-bundle`
   offline and `licenses`.
 
-Cases left for later planes: SLO-breach triggers, history shares and
-the bench comparator (6.2b), attribution's gap decomposition (6.2b),
-the mesh pull (6.7b), the live HTTP host (6.9).
+The SLO-breach trigger and the history's profile shares are held in
+tests/test_torch_slo_history.py, attribution's gap decomposition in
+tests/test_torch_attrib.py. Cases left for later entries: the bench
+comparator and `bench_e2e`'s attribution summary (queue 1 entry 4's
+`bench_e2e.py` legs), the mesh pull (6.7b), the live HTTP host (6.9).
 """
 
 import asyncio
