@@ -63,8 +63,9 @@ card: (a) cas_ids over slot lists `[cuda:0] * k`, k = 1-4, at 1024 x 57
 rows per slot and at row counts that leave pad rows, against the
 single-device path and the reference, K1 timed per slot count, the
 resize and the embedder at k = 2 and 4 against k = 1, and the sharded
-Hamming matrix; (b) `index_pass` again over phase 3's files (hard links
-taken before phase 4) under four injected faults, whose results must
+Hamming matrix; (b) `index_pass` again over every 4th of phase 3's
+files of each kind (hard links taken before phase 4; a cut for the time
+limit) under four injected faults, whose results must
 be phase 3's, with the planned activations, one feeder restart, a cas
 fallback and the one-device ladder's end level; one more injected K1
 failure at the shipped reset_timeout, after which the retry and the
@@ -75,7 +76,8 @@ identify job whose trace names K1; it prints the identify dispatch rows
 the autotune rung cap allows at the ladder's end level. Phase 9 is the
 host execution plane, with the ladder and the autotune controller
 reset first: (a) `index --library` then `duplicates` over phase 3's
-files (the hard links) and four near copies, on fresh data dirs, with
+files (the hard links) but every other image (a cut for the time limit)
+and four near copies, on fresh data dirs, with
 `SD_PROCS=0` and with `SD_PROCS=min(8, cpu_count)` (the controller
 live in both): every planted pair in a near group; cas_ids, objects,
 media_data rows, pHash bits, duplicate groups and webp bytes equal,
@@ -171,6 +173,39 @@ attribution window. Every scan's
 cas_ids against the plain path on the CPU (8 also against
 `blake3_ref`); `check_healthy` by delta for the clean and quiet scans.
 It prints `{"verdicts": ...}`.
+Phase 14 is the live location, with the ladder and the controller reset
+first: a Node on the card (without the labeler) over phase 4's data dir,
+whose libraries' locations it watches through inotify (required), takes
+a seeded burst, each step settled before the next (no unpaired move
+half, no debounced flush or size roll-up, no flush in flight,
+`jobs.isActive` false). (a) One rename timed to its row, then the 256
+images of `images/` renamed, `small/` (16,384 files) renamed and an empty
+folder made: K1 launched no time and nothing rehashed, every row keeps
+its id and object, and the watcher ring's burst record shows the
+window widened to 2 s. (b) One new file timed to its cas_id, then 63
+more (16 JPEG/PNG of 640-4032 px, 32 of 101-512 KiB, 16 under 16 KiB), a
+64-file directory moved in and 32 files rewritten in place (16 at their
+size, 16 grown): K1 launched, 128 files hashed on the card and 32 by
+dirty range, cas_ids against the plain path on the card and blake3_ref
+(one child process per core), thumbnails at their dimensions, embeddings
+and media_data. (c) 32 files and a directory removed: their rows and
+journal rows gone; after the orphan remover's `invoke`, no object
+without a file_path and no journal row without its path. (d) A second
+location through `locations.create`, then through the router
+`files.copyFiles` of 16 images into it (its watcher's rescan launches K1,
+the copies link to their sources' objects, the object count holds),
+`cutFiles` of 8, `deleteFiles` of 8 and `eraseFiles` of 4 within the
+first (no rescan of the erased location starts); every fs job
+completes. (e) `ephemeralFiles.list` of 32 JPEGs outside every location:
+cas_ids against blake3_ref and the plain path, the ephemeral thumbnails
+resized on the card at their dimensions. (f) `locations.fullRescan` of
+both locations: K1 launched no time, both media jobs idle, and the
+file_path rows by (location, path, name, extension, is_dir, size,
+cas_id, object_id) unchanged. (g) No ERROR record of the location,
+job or object loggers, every job of the phase completed, the watchers
+settled, `check_healthy` by delta. It prints `{"live_location": ...}`
+with the seconds and K1 launches of each step and the latency from an
+event to its row (a rename) and to its cas_id (a new file).
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -178,8 +213,8 @@ non-zero before any work. The last line of standard output is
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
-decoders', the API's, the observability plane's and the verdicts'
-numbers as JSON.
+decoders', the API's, the observability plane's, the verdicts' and the
+live location's numbers as JSON.
 """
 
 from __future__ import annotations
@@ -189,7 +224,9 @@ import collections
 import gzip
 import io
 import json
+import logging
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1154,7 +1191,6 @@ def check_validator(data_dir: str, corpus: str, got: dict, rng) -> dict:
     CRDT op per row; K1 launched."""
     from spacedrive_tpu_torch.object.validation import file_checksum
     from spacedrive_tpu_torch.object.validation.hash import DEVICE_MAX_BYTES
-    from spacedrive_tpu_torch.ops import blake3_ref
 
     lib = _open_library(data_dir)
     try:
@@ -1180,10 +1216,12 @@ def check_validator(data_dir: str, corpus: str, got: dict, rng) -> dict:
     sample = [int(i) for i in rng.choice(device_leg, N_REF_DEVICE, replace=False)] \
         + host_leg[:N_REF_HOST]
     t0 = time.perf_counter()
+    contents = []
     for i in sample:
         with open(paths[i], "rb") as f:
-            check(rows[i]["integrity_checksum"] == blake3_ref.blake3_hex(f.read(), 32),
-                  f"integrity_checksum of {paths[i]} != blake3_ref")
+            contents.append(f.read())
+    for i, ref in zip(sample, blake3_ref_hexes(contents, 32)):
+        check(rows[i]["integrity_checksum"] == ref, f"integrity_checksum of {paths[i]} != blake3_ref")
     ref_s = time.perf_counter() - t0
     print(f"phase 5: validator: {len(rows)} integrity_checksums == the host hasher; "
           f"{len(sample)} == blake3_ref; {n_ops} CRDT ops; device files by bucket "
@@ -2153,6 +2191,11 @@ N_SEAM_HASHES = 4096
 N_SEAM_ACTOR = 8
 N_SEAM_PROFILE = 64
 N_LAST_RUNG = 256  # hot and small messages each, through the cas last rung
+# the time limit's cuts of earlier paths (since the smoke passed 1,000 s
+# with phase 14): 8(b) runs on every 4th of phase 3's files of each kind,
+# 9(a) on every file but every other image
+SEAM_FAULTS_EVERY = 4
+POOL_IMAGES_EVERY = 2
 # every pipeline fault family once, on the main path
 SEAM_FAULTS = ("device.blake3:xla:times=1;device.thumbnail:raise:times=1;"
                "embed.forward:xla:times=1;feeder.fetch:crash:times=1")
@@ -2201,16 +2244,29 @@ def check_healthy(phase: str, since: dict | None = None) -> None:
           f"phase {phase} degraded: {got}")
 
 
-def snapshot_corpus(corpus: str, root: str) -> str:
+def snapshot_corpus(corpus: str, root: str, keep: set[str] | None = None) -> str:
     """Hard links to phase 3's files, taken before phase 4 adds, rewrites
     and deletes files in the corpus (its 32 in-place rewrites reach the
-    links too; phase 8 holds those to the plain path)."""
+    links too; phase 8 holds those to the plain path); with `keep`, to
+    those of its paths relative to `corpus` only."""
     for dirpath, _dirs, files in os.walk(corpus):
         dst = os.path.join(root, os.path.relpath(dirpath, corpus))
         os.makedirs(dst, exist_ok=True)
         for f in files:
-            os.link(os.path.join(dirpath, f), os.path.join(dst, f))
+            if keep is None or os.path.relpath(os.path.join(dirpath, f), corpus) in keep:
+                os.link(os.path.join(dirpath, f), os.path.join(dst, f))
     return root
+
+
+def every_nth(corpus: str, images_step: int, others_step: int) -> set[str]:
+    """Every `images_step`-th image and every `others_step`-th other file
+    of `corpus` (paths relative to it, in sorted order): a cut of an
+    earlier phase's depth for the smoke's time limit."""
+    files = sorted(os.path.relpath(os.path.join(d, f), corpus)
+                   for d, _, fs in os.walk(corpus) for f in fs)
+    images = [f for f in files if f.endswith((".jpg", ".png"))]
+    others = [f for f in files if not f.endswith((".jpg", ".png"))]
+    return set(images[::images_step]) | set(others[::others_step])
 
 
 def k1_ms_by_slots(msgs: list[bytes], dev: torch.device) -> dict[int, float]:
@@ -2293,7 +2349,8 @@ def check_sharded(rng, p3: dict) -> dict:
 
 
 def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
-    """(b) `index_pass` over phase 3's files under SEAM_FAULTS: the
+    """(b) `index_pass` over a quarter of phase 3's files (every
+    SEAM_FAULTS_EVERY-th image and other file) under SEAM_FAULTS: the
     results of phase 3, the planned activations, one feeder restart, a
     cas fallback, and the one-device ladder's end level."""
     from spacedrive_tpu_torch.index_pass import index_pass
@@ -2301,6 +2358,8 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
     from spacedrive_tpu_torch.parallel import autotune, mesh
     from spacedrive_tpu_torch.utils import faults
 
+    keep = every_nth(snapshot, SEAM_FAULTS_EVERY, SEAM_FAULTS_EVERY)
+    snapshot = snapshot_corpus(snapshot, os.path.join(tmp, "seam_cut"), keep)
     before = degradation()
     mesh.LADDER.reset_timeout = 0.0
     plan = faults.FaultPlan.parse(SEAM_FAULTS, seed=1)
@@ -2323,7 +2382,12 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
 
     rewritten = {os.path.relpath(p, p3["corpus"]) for p in p4["rewritten"]}
     changed = []
-    for path, want in p3["cas_ids"].items():
+    kept = {path: want for path, want in p3["cas_ids"].items()
+            if os.path.relpath(path, p3["corpus"]) in keep}
+    kept_cas = {p3["cas_ids"][p] for p, *_ in p3["images"]
+                if os.path.relpath(p, p3["corpus"]) in keep}
+    kept_images = kept_cas & p3["resized"].keys()
+    for path, want in kept.items():
         rel = os.path.relpath(path, p3["corpus"])
         got = result.cas_ids[os.path.join(snapshot, rel)]
         if rel in rewritten:
@@ -2332,10 +2396,13 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
             check(got == want, f"cas_id of {rel} under faults differs from phase 3")
     plain = plain_cas_ids([cas.read_message(p) for _, p in changed])
     check([g for g, _ in changed] == plain, "a rewritten file's cas_id differs from the plain path")
-    check(result.resized.keys() == p3["resized"].keys(), "thumbnails under faults")
-    for c, arr in p3["resized"].items():
-        check(np.array_equal(result.resized[c], arr), f"thumbnail pixels of {c} changed")
-    worst = max(float(np.abs(result.embeddings[c] - v).max()) for c, v in p3["embeddings"].items())
+    check(result.resized.keys() == kept_images, "thumbnails under faults")
+    for c in kept_images:
+        check(np.array_equal(result.resized[c], p3["resized"][c]), f"thumbnail pixels of {c} changed")
+    check(result.embeddings.keys() == kept_cas & p3["embeddings"].keys(),
+          "embeddings under faults")
+    worst = max(float(np.abs(result.embeddings[c] - p3["embeddings"][c]).max())
+                for c in result.embeddings)
     check(worst <= 1e-5, f"embeddings under faults differ by {worst}")
     delta = {k: after[k] - before[k] for k in after}
     check(sum(plan.activations().values()) == 4 and delta["fault_activations"] == 4,
@@ -2344,13 +2411,13 @@ def check_faults_pass(p3: dict, p4: dict, snapshot: str, tmp: str) -> dict:
     check(delta["cas_fallbacks"] >= 1, "no cas fallback under device.blake3")
     check(end_level == ONE_DEVICE_END_LEVEL,
           f"the ladder ended at level {end_level}, want {ONE_DEVICE_END_LEVEL}")
-    print(f"phase 8: index_pass under {SEAM_FAULTS} in {seconds:.1f} s: {len(p3['cas_ids'])} "
-          f"cas_ids == phase 3 ({len(changed)} rewritten == plain path), {len(p3['resized'])} "
+    print(f"phase 8: index_pass under {SEAM_FAULTS} in {seconds:.1f} s: {len(kept)} "
+          f"cas_ids == phase 3 ({len(changed)} rewritten == plain path), {len(kept_images)} "
           f"thumbnails' pixels == phase 3, embeddings within {worst:.3g}; activations "
           f"{plan.activations()}, ladder ended at level {end_level}", flush=True)
     print(f"phase 8: policy('identify').dispatch_rows_per_device() at ladder level {end_level}: "
           f"{rows_at_end}", flush=True)
-    return {"launches": launches, "seconds": seconds, "end_level": end_level,
+    return {"launches": launches, "seconds": seconds, "files": len(keep), "end_level": end_level,
             "dispatch_rows_at_end_level": rows_at_end,
             "activations": plan.activations(), "counter_deltas": delta,
             "embed_max_diff": worst}
@@ -2770,10 +2837,11 @@ def check_pool_equal(got: dict, want: dict, what: str) -> float:
 
 
 def pool_corpus(snapshot: str, root: str) -> tuple[str, list]:
-    """Hard links to the snapshot plus N_POOL_NEAR re-encoded JPEGs and
+    """Hard links to the snapshot's files but for every other image
+    (POOL_IMAGES_EVERY), plus N_POOL_NEAR re-encoded JPEGs and
     N_POOL_NEAR resized PNGs under near/; returns the corpus and the
     planted (original, copy) pairs as file keys."""
-    snapshot_corpus(snapshot, root)
+    snapshot_corpus(snapshot, root, every_nth(snapshot, POOL_IMAGES_EVERY, 1))
     images = sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
                     for f in fs if f.endswith((".jpg", ".png")))
     os.makedirs(os.path.join(root, "near"), exist_ok=True)
@@ -4283,11 +4351,678 @@ def phase_verdicts(rng, tmp: str) -> dict:
                          "verdicts_quiet": quiet["launches"]}}
 
 
+# --- phase 14: the live location (watchers, fs ops, orphans) -----------------
+
+LIVE_RENAMES = 256  # file renames within one directory
+LIVE_DIR_MIN = 500  # files under the renamed directory, at least
+LIVE_NEW = (16, 32, 16)  # new images, files of 101-512 KiB, files under 16 KiB
+LIVE_MOVED_IN = (32, 32)  # a directory moved in: files of 101-512 KiB, under 16 KiB
+LIVE_REWRITES = 16  # rewritten in place at the same size, and as many at a new size
+LIVE_REMOVED = 32  # files removed, beside one directory
+LIVE_FS = {"copy": 16, "cut": 8, "delete": 8, "erase": 4}
+LIVE_BROWSE = 32  # JPEGs listed by ephemeralFiles.list
+LIVE_WAIT_S = 120  # the bound on one step's settling
+LIVE_QUIET_S = 0.1  # watchers, debounce and jobs idle this long: the step has settled
+LIVE_ORACLE_COLS = ("location_id", "materialized_path", "name", "extension", "is_dir",
+                    "size_in_bytes_bytes", "cas_id", "object_id")
+
+
+def blake3_ref_hexes(messages: list[bytes], out_len: int = 8) -> list[str]:
+    """blake3_ref's `out_len`-byte digests of `messages` in hex (pure
+    Python, ~0.8 MB/s), in one child process per core: each imports the
+    reference alone. The default length is a cas_id's."""
+    import pickle
+
+    code = ("import pickle, sys\n"
+            "from spacedrive_tpu_torch.ops import blake3_ref\n"
+            "msgs = pickle.load(sys.stdin.buffer)\n"
+            f"pickle.dump([blake3_ref.blake3_hex(m, {int(out_len)}) for m in msgs], "
+            "sys.stdout.buffer)\n")
+    n = max(1, min(os.cpu_count() or 1, len(messages)))
+    parts = [messages[i::n] for i in range(n)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, "-c", code], stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, cwd=root, env=env) for _ in parts]
+    outs = []
+    try:
+        for proc, part in zip(procs, parts):
+            proc.stdin.write(pickle.dumps(part))
+            proc.stdin.close()
+        for proc in procs:
+            outs.append(pickle.loads(proc.stdout.read()))
+            check(proc.wait(timeout=300) == 0, "a blake3_ref child failed")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    got: list[str] = [""] * len(messages)
+    for i, out in enumerate(outs):
+        got[i::n] = out
+    return got
+
+
+def _now_iso() -> str:
+    from spacedrive_tpu_torch.db.database import now_iso
+
+    return now_iso()
+
+
+def _live_rows(db, loc_id: int) -> dict[int, dict]:
+    return {r["id"]: r for r in db.query("SELECT * FROM file_path WHERE location_id = ?", (loc_id,))}
+
+
+def _oracle_set(db) -> set:
+    return {tuple(r[c] for c in LIVE_ORACLE_COLS) for r in db.query("SELECT * FROM file_path")}
+
+
+def _jobs_since(db, since: str) -> list[dict]:
+    from datetime import datetime
+
+    from spacedrive_tpu_torch.jobs.report import JobReport
+
+    def seconds(r) -> float:
+        if not (r["date_started"] and r["date_completed"]):
+            return 0.0
+        return (datetime.fromisoformat(r["date_completed"])
+                - datetime.fromisoformat(r["date_started"])).total_seconds()
+
+    return [{"name": r["name"], "status": r["status"], "created": r["date_created"],
+             "errors": r["errors_text"], "metadata": JobReport.from_row(r).metadata,
+             "seconds": seconds(r)}
+            for r in db.query("SELECT * FROM job WHERE date_created >= ? ORDER BY rowid", (since,))]
+
+
+def _job_seconds(jobs: list[dict]) -> dict[str, float]:
+    """Seconds each kind of job ran, summed (they overlap on the job
+    system's workers)."""
+    out: dict[str, float] = collections.Counter()
+    for j in jobs:
+        out[j["name"]] += j["seconds"]
+    return dict(out)
+
+
+def _identifier_sum(jobs: list[dict], key: str) -> int:
+    return sum(int(j["metadata"].get(key, 0)) for j in jobs if j["name"] == "file_identifier")
+
+
+def _live_orphans(db) -> tuple[int, int]:
+    """(objects without a file_path, journal rows without their path)."""
+    objects = db.query_one("SELECT COUNT(*) AS n FROM object o WHERE NOT EXISTS "
+                           "(SELECT 1 FROM file_path fp WHERE fp.object_id = o.id)")["n"]
+    journal = db.query_one(
+        "SELECT COUNT(*) AS n FROM index_journal ij WHERE NOT EXISTS (SELECT 1 FROM file_path fp "
+        "WHERE fp.location_id = ij.location_id AND fp.materialized_path = ij.materialized_path "
+        "AND fp.name = ij.name AND fp.extension = ij.extension)")["n"]
+    return objects, journal
+
+
+class _ErrorRecords(logging.Handler):
+    """Counts the ERROR records of the location manager and the jobs."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.records: list[str] = []
+
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()}")
+
+
+async def _live_settle(node, lid: str, what: str) -> float:
+    """Wait until the watchers hold no unpaired move half, no debounced
+    flush and no flush in flight, and `jobs.isActive` is false, for
+    LIVE_QUIET_S on end; fails past LIVE_WAIT_S. Returns the seconds
+    waited."""
+    import asyncio
+
+    mgr, r = node.location_manager, node.router
+    t0 = time.perf_counter()
+    quiet_since = None
+    while True:
+        check(time.perf_counter() - t0 < LIVE_WAIT_S, f"{what}: not settled after {LIVE_WAIT_S} s")
+        busy = bool(mgr._flush_tasks) or await r.exec(node, "jobs.isActive", library_id=lid) or any(
+            e.flush_handle is not None or e.dirty_dirs or e.deep_dirs
+            or e.watcher._pending_from for e in mgr._watched.values())
+        now = time.perf_counter()
+        if busy:
+            quiet_since = None
+        elif quiet_since is None:
+            quiet_since = now
+        elif now - quiet_since >= LIVE_QUIET_S:
+            return now - t0
+        await asyncio.sleep(0.02)
+
+
+async def _until_row(db, cond, what: str) -> float:
+    """Poll the library DB until `cond(db)` holds; the seconds it took."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not cond(db):
+        check(time.perf_counter() - t0 < LIVE_WAIT_S, f"{what}: no row after {LIVE_WAIT_S} s")
+        await asyncio.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def _burst_flushes(loc_id: int, since_ts: float) -> list[dict]:
+    from spacedrive_tpu_torch.telemetry.events import WATCHER_EVENTS
+
+    return [x["fields"] for x in WATCHER_EVENTS.snapshot()
+            if x["type"] == "burst_flush" and x["ts"] >= since_ts
+            and x["fields"].get("location") == loc_id]
+
+
+def _write_images(stage: str, rng, n: int, prefix: str) -> list[tuple[str, int, int, int]]:
+    """`n` seeded JPEG/PNG images of 640-4032 px written under `stage`
+    (phase 3's aspects and orientations); their (path, w, h, orientation)."""
+    jobs = []
+    os.makedirs(stage, exist_ok=True)
+    for i in range(n):
+        aw, ah = ASPECTS[i % 4]
+        long_side = int(np.exp(rng.uniform(np.log(LONG_SIDE[0]), np.log(LONG_SIDE[1]))))
+        w, h = long_side, max(1, long_side * ah // aw)
+        if i % 2:
+            w, h = h, w
+        fmt = "png" if prefix != "browse" and i % 4 == 3 else "jpg"
+        jobs.append((os.path.join(stage, f"{prefix}{i:02d}.{fmt}"), w, h,
+                     int(rng.integers(1 << 30)), fmt, (1, 6, 8, 3)[i % 4] if fmt == "jpg" else 1))
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(_image, jobs))
+
+
+def _expected_dims(w: int, h: int, orientation: int) -> tuple[int, int]:
+    from spacedrive_tpu_torch.ops import thumbnail_torch
+
+    tw, th = thumbnail_torch.scale_dimensions(w, h)
+    return (th, tw) if orientation in (5, 6, 7, 8) else (tw, th)
+
+
+def _check_thumbs(store, ns, images, cas_of: dict, what: str) -> None:
+    from PIL import Image
+
+    for path, w, h, orientation in images:
+        webp = store.path_for(ns, cas_of[path])
+        check(os.path.exists(webp), f"{what}: no thumbnail for {path}")
+        with Image.open(webp) as im:
+            check(im.size == _expected_dims(w, h, orientation),
+                  f"{what}: the thumbnail of {path} is {im.size}, want "
+                  f"{_expected_dims(w, h, orientation)}")
+
+
+def _check_cas(paths: list[str], cas_of: dict, what: str) -> None:
+    """cas_ids of `paths` against the plain path on the card and
+    blake3_ref on the host."""
+    from spacedrive_tpu_torch.ops import cas
+
+    msgs = [cas.read_message(p, os.path.getsize(p)) for p in paths]
+    for p, plain, ref in zip(paths, plain_cas_ids(msgs), blake3_ref_hexes(msgs)):
+        check(cas_of.get(p) == plain, f"{what}: cas_id of {p} {cas_of.get(p)} != the plain path's "
+              f"{plain}")
+        check(plain == ref, f"{what}: the plain path's cas_id of {p} != blake3_ref's")
+
+
+async def live_renames(ctx: dict) -> dict:
+    """14(a): one lone rename timed to its row, then 256 renames within
+    one directory and a directory of >= LIVE_DIR_MIN files renamed, and a
+    new empty folder at the end of the storm."""
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    node, lib, loc, corpus = ctx["node"], ctx["lib"], ctx["loc"], ctx["corpus"]
+    db, lid, mgr = lib.db, ctx["lid"], node.location_manager
+    rows = _live_rows(db, loc["id"])
+    by_dir: dict[str, list[dict]] = collections.defaultdict(list)
+    for r in rows.values():
+        if not r["is_dir"]:
+            by_dir[r["materialized_path"]].append(r)
+    images = sorted(by_dir["/images/"], key=lambda r: r["name"])[:LIVE_RENAMES]
+    check(len(images) == LIVE_RENAMES, f"/images/ holds {len(by_dir['/images/'])} indexed files")
+    big = [r for r in rows.values() if r["materialized_path"].startswith("/small/")]
+    check(len([r for r in big if not r["is_dir"]]) >= LIVE_DIR_MIN,
+          f"/small/ holds {len(big)} rows, want >= {LIVE_DIR_MIN} files")
+    lone = sorted(by_dir["/d00/"], key=lambda r: r["name"])[0]
+
+    blake3_cuda.chunk_cvs.launches = 0
+    since, t0 = _now_iso(), time.time()
+    old = _row_path(corpus, lone)
+    os.rename(old, old[:-4] + "_moved.bin")
+    latency = await _until_row(db, lambda d: d.find_one("file_path", id=lone["id"])["name"]
+                               == lone["name"] + "_moved", "the lone rename")
+    ren = {}
+    for r in images:
+        src = _row_path(corpus, r)
+        ren[r["id"]] = "r_" + r["name"]
+        os.rename(src, os.path.join(os.path.dirname(src), os.path.basename(src).replace(
+            r["name"], ren[r["id"]], 1)))
+    os.rename(os.path.join(corpus, "small"), os.path.join(corpus, "small_moved"))
+    os.mkdir(os.path.join(corpus, "inbox"))
+    t_storm = time.perf_counter()
+    small = next(r for r in rows.values() if (r["materialized_path"], r["name"]) == ("/", "small"))
+    applied = await _until_row(db, lambda d: d.find_one("file_path", id=small["id"])["name"]
+                               == "small_moved", "the directory rename")
+    await _live_settle(node, lid, "14(a)")
+    storm_s = time.perf_counter() - t_storm
+    launches = blake3_cuda.chunk_cvs.launches
+    check(launches == 0, f"the rename storm launched K1 {launches} times")
+    jobs = _jobs_since(db, since)
+    check(_identifier_sum(jobs, "device_files") == 0
+          and _identifier_sum(jobs, "journal_dirty_rehash") == 0,
+          f"the rename storm rehashed files: {[j['metadata'] for j in jobs]}")
+    after = _live_rows(db, loc["id"])
+    for r in images:
+        got = after.get(r["id"])
+        check(got is not None and got["name"] == ren[r["id"]] and got["object_id"] == r["object_id"]
+              and got["cas_id"] == r["cas_id"], f"renamed image {r['name']}: {got}")
+    for r in big:
+        got = after.get(r["id"])
+        check(got is not None and got["materialized_path"] == "/small_moved/"
+              + r["materialized_path"][len("/small/"):] and got["object_id"] == r["object_id"],
+              f"row {r['id']} under the renamed directory: {got}")
+    flushes = _burst_flushes(loc["id"], t0)
+    widened = [f for f in flushes if f["vouched"] >= LIVE_RENAMES]
+    check(len(widened) == 1 and widened[0]["debounce_s"] == round(mgr.debounce_max, 3)
+          > mgr.debounce, f"the storm's burst_flush records {flushes}: want one with >= "
+          f"{LIVE_RENAMES} vouched events and the window widened to {mgr.debounce_max} s")
+    print(f"phase 14(a): a rename reached its row in {1e3 * latency:.1f} ms; {LIVE_RENAMES} "
+          f"renames and a directory of {len(big)} rows moved in place (ids and objects kept), 0 "
+          f"K1 launches, 0 rehashed; burst {widened[0]}", flush=True)
+    return {"launches": launches, "rename_latency_ms": 1e3 * latency, "storm_s": storm_s,
+            "storm_applied_s": applied, "renamed_dir_rows": len(big), "burst_flush": widened[0]}
+
+
+async def live_content(ctx: dict, rng) -> dict:
+    """14(b): 64 new files (one of them alone, timed to its cas_id), a
+    directory of 64 files moved in, 32 rewrites in place."""
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    node, lib, loc, corpus, tmp = ctx["node"], ctx["lib"], ctx["loc"], ctx["corpus"], ctx["tmp"]
+    db, lid = lib.db, ctx["lid"]
+    n_img, n_large, n_small = LIVE_NEW
+    stage = os.path.join(tmp, "p14_stage")
+    images = _write_images(stage, rng, n_img, "new")
+    blobs: list[tuple[str, bytes]] = []
+    for p, *_ in images:
+        with open(p, "rb") as f:
+            blobs.append((os.path.join(corpus, "images", os.path.basename(p)), f.read()))
+    large = np.exp(rng.uniform(np.log(101 * 1024), np.log(512 * 1024), n_large)).astype(int)
+    for i, size in enumerate(large):
+        blobs.append((os.path.join(corpus, f"d{i % 8:02d}", f"new{i:02d}.bin"), rng.bytes(int(size))))
+    for i in range(n_small):
+        blobs.append((os.path.join(corpus, "small_moved", f"s{i % 4:02d}", f"new{i:02d}.dat"),
+                      rng.bytes(int(rng.integers(1, 16 * 1024)))))
+    incoming = os.path.join(tmp, "p14_incoming")
+    moved: list[str] = []
+    for i, size in enumerate(list(np.exp(rng.uniform(np.log(101 * 1024), np.log(512 * 1024),
+                                                     LIVE_MOVED_IN[0])).astype(int))
+                             + list(rng.integers(1, 16 * 1024, LIVE_MOVED_IN[1]))):
+        path = os.path.join(incoming, f"sub{i % 2}", f"in{i:02d}.bin")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(rng.bytes(int(size)))
+        moved.append(os.path.join(corpus, "incoming", f"sub{i % 2}", f"in{i:02d}.bin"))
+    rows = [r for r in _live_rows(db, loc["id"]).values()
+            if not r["is_dir"] and r["materialized_path"] in {f"/d{i:02d}/" for i in range(8, 15)}
+            and os.path.getsize(_row_path(corpus, r)) > 101 * 1024]
+    picked = [rows[int(i)] for i in rng.choice(len(rows), 2 * LIVE_REWRITES, replace=False)]
+    same = [_row_path(corpus, r) for r in picked[:LIVE_REWRITES]]
+    grown = [_row_path(corpus, r) for r in picked[LIVE_REWRITES:]]
+
+    blake3_cuda.chunk_cvs.launches = 0
+    since = _now_iso()
+    lone_path, lone_data = blobs[n_img]
+    with open(lone_path, "wb") as f:
+        f.write(lone_data)
+    latency = await _until_row(db, lambda d: (r := d.query_one(
+        "SELECT cas_id FROM file_path WHERE location_id = ? AND materialized_path = ? AND "
+        "name = ?", (loc["id"], "/d00/", "new00"))) is not None and r["cas_id"] is not None,
+        "the lone new file")
+    t_burst = time.perf_counter()
+    for path, data in blobs[:n_img] + blobs[n_img + 1:]:
+        with open(path, "wb") as f:
+            f.write(data)
+    os.rename(incoming, os.path.join(corpus, "incoming"))
+    for p in same:
+        rewrite_in_place(p)
+    for p in grown:
+        with open(p, "ab") as f:
+            f.write(rng.bytes(4096))
+    await _live_settle(node, lid, "14(b)")
+    burst_s = time.perf_counter() - t_burst
+    launches = blake3_cuda.chunk_cvs.launches
+    check(launches > 0, "the new and changed files launched K1 no time")
+    jobs = _jobs_since(db, since)
+    device_files = _identifier_sum(jobs, "device_files")
+    dirty = _identifier_sum(jobs, "journal_dirty_rehash")
+    # every rewritten file is over 100 KiB: its sampled message keeps its
+    # 57,352 bytes whatever its size, so the chunk cache rehashes the dirty
+    # chunks of all 32 on the host
+    n_device, n_dirty = len(blobs) + len(moved), len(same) + len(grown)
+    check(device_files == n_device and dirty == n_dirty,
+          f"hashed {device_files} files on the card and {dirty} by dirty range, want {n_device} "
+          f"and {n_dirty}")
+    cas_of = {_row_path(corpus, r): r["cas_id"] for r in _live_rows(db, loc["id"]).values()}
+    paths = [p for p, _ in blobs] + moved + same + grown
+    _check_cas(paths, cas_of, "14(b)")
+    # the new images: thumbnails at their dims, embeddings and media_data
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
+
+    landed = [(os.path.join(corpus, "images", os.path.basename(p)), w, h, o)
+              for p, w, h, o in images]
+    _check_thumbs(ThumbnailStore(os.path.join(ctx["data_dir"], "thumbnails")), str(lib.id),
+                  landed, cas_of, "14(b)")
+    objs = {r["object_id"] for r in _live_rows(db, loc["id"]).values()
+            if _row_path(corpus, r) in {p for p, *_ in landed}}
+    embedded = {r["object_id"] for r in db.query("SELECT object_id FROM object_embedding")}
+    media = {r["object_id"] for r in db.query("SELECT object_id FROM media_data")}
+    check(len(objs) == n_img and objs <= embedded and objs <= media,
+          f"the new images' {len(objs)} objects: {len(objs - embedded)} without an embedding, "
+          f"{len(objs - media)} without media_data")
+    print(f"phase 14(b): a new file reached its cas_id in {1e3 * latency:.1f} ms; {len(paths)} "
+          f"new, moved-in and rewritten files: {device_files} hashed on the card (K1 {launches} "
+          f"launches), {dirty} by dirty range; cas_ids == the plain path and blake3_ref; "
+          f"{n_img} thumbnails at their dims, embedded", flush=True)
+    return {"launches": launches, "new_file_latency_ms": 1e3 * latency, "burst_s": burst_s,
+            "files": len(paths), "device_files": device_files, "dirty_range": dirty,
+            "chains": sum(j["name"] == "file_identifier" for j in jobs),
+            "job_s": _job_seconds(jobs)}
+
+
+async def live_removals(ctx: dict, rng) -> dict:
+    """14(c): 32 files and a directory removed; then the orphan remover."""
+    from spacedrive_tpu_torch.location.indexer.journal import key_of
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    node, lib, loc, corpus = ctx["node"], ctx["lib"], ctx["loc"], ctx["corpus"]
+    db, lid = lib.db, ctx["lid"]
+    rows = [r for r in _live_rows(db, loc["id"]).values()
+            if not r["is_dir"] and r["materialized_path"] in {f"/d{i:02d}/" for i in range(2, 6)}]
+    gone = [rows[int(i)] for i in rng.choice(len(rows), LIVE_REMOVED, replace=False)]
+    tree = [r for r in _live_rows(db, loc["id"]).values()
+            if r["materialized_path"].startswith("/d15/")
+            or (r["materialized_path"], r["name"]) == ("/", "d15")]
+    blake3_cuda.chunk_cvs.launches = 0
+    t0 = time.perf_counter()
+    for r in gone:
+        os.remove(_row_path(corpus, r))
+    shutil.rmtree(os.path.join(corpus, "d15"))
+    await _live_settle(node, lid, "14(c)")
+    removed_s = time.perf_counter() - t0
+    launches = blake3_cuda.chunk_cvs.launches
+    left = _live_rows(db, loc["id"])
+    journal = {(r["materialized_path"], r["name"], r["extension"])
+               for r in db.query("SELECT * FROM index_journal WHERE location_id = ?", (loc["id"],))}
+    for r in gone + tree:
+        check(r["id"] not in left, f"the removed {_row_path(corpus, r)} still has its row")
+        check(key_of(r) not in journal, f"the removed {_row_path(corpus, r)} keeps its journal row")
+    objects_before = db.count("object")
+    orphans_before = _live_orphans(db)
+    t0 = time.perf_counter()
+    await lib.orphan_remover.invoke()
+    await _until_row(db, lambda d: _live_orphans(d) == (0, 0), "the orphan remover")
+    remover_s = time.perf_counter() - t0
+    print(f"phase 14(c): {len(gone)} files and a directory of {len(tree)} rows removed, rows and "
+          f"journal rows gone; the orphan remover took {objects_before - db.count('object')} "
+          f"objects and left no orphan (before: {orphans_before}) in {remover_s:.2f} s", flush=True)
+    return {"launches": launches, "removed_s": removed_s, "remover_s": remover_s,
+            "rows_removed": len(gone) + len(tree),
+            "objects_removed": objects_before - db.count("object"),
+            "orphans_before": list(orphans_before)}
+
+
+async def live_fs_ops(ctx: dict, rng) -> dict:
+    """14(d): a second watched location through `locations.create`; then
+    `files.copyFiles` into it, `cutFiles`, `deleteFiles` and `eraseFiles`
+    within the first, each settled before the next."""
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    node, lib, loc, corpus, tmp = ctx["node"], ctx["lib"], ctx["loc"], ctx["corpus"], ctx["tmp"]
+    db, lid, r = lib.db, ctx["lid"], node.router
+    steps: dict[str, float] = {}
+    target = os.path.join(tmp, "p14_target")
+    os.makedirs(target)
+    t0 = time.perf_counter()
+    loc2 = await r.exec(node, "locations.create", {"path": target, "name": "target"},
+                        library_id=lid)
+    await _live_settle(node, lid, "14(d) locations.create")
+    steps["create_s"] = time.perf_counter() - t0
+    check(node.location_manager.is_watched(lib, loc2), "locations.create started no watcher")
+    rows = _live_rows(db, loc["id"])
+    imgs = sorted((x for x in rows.values() if x["materialized_path"] == "/images/"
+                   and x["name"].startswith("r_")), key=lambda x: x["id"])
+    sources = [imgs[int(i)] for i in rng.choice(len(imgs), LIVE_FS["copy"], replace=False)]
+    launches = {}
+
+    async def op(name: str, key: str, arg: dict) -> float:
+        blake3_cuda.chunk_cvs.launches = 0
+        t0 = time.perf_counter()
+        await r.exec(node, key, arg, library_id=lid)
+        await _live_settle(node, lid, f"14(d) {key}")
+        launches[name] = blake3_cuda.chunk_cvs.launches
+        steps[f"{name}_s"] = time.perf_counter() - t0
+        return t0
+
+    objects = db.count("object")
+    await op("copy", "files.copyFiles", {
+        "source_location_id": loc["id"], "target_location_id": loc2,
+        "sources_file_path_ids": [x["id"] for x in sources], "target_relative_path": "copies"})
+    copies = {x["name"]: x for x in _live_rows(db, loc2).values()
+              if x["materialized_path"] == "/copies/"}
+    check(len(copies) == len(sources), f"{len(copies)} copies indexed, want {len(sources)}")
+    for s in sources:
+        c = copies.get(s["name"])
+        check(c is not None and c["cas_id"] == s["cas_id"] and c["object_id"] == s["object_id"],
+              f"the copy of {s['name']}: {c} (source cas {s['cas_id']}, object {s['object_id']})")
+    check(launches["copy"] > 0, "the copies' rescan launched K1 no time")
+    check(db.count("object") == objects, f"the copies made {db.count('object') - objects} objects")
+
+    pool = {f"/d{i:02d}/": sorted((x for x in rows.values() if x["materialized_path"] == f"/d{i:02d}/"
+                                   and not x["is_dir"]), key=lambda x: x["id"]) for i in (6, 8, 9)}
+    cut = pool["/d06/"][:LIVE_FS["cut"]]
+    await op("cut", "files.cutFiles", {
+        "source_location_id": loc["id"], "target_location_id": loc["id"],
+        "sources_file_path_ids": [x["id"] for x in cut], "target_relative_path": "d07"})
+    after = _live_rows(db, loc["id"])
+    for x in cut:
+        check(after.get(x["id"], {}).get("materialized_path") == "/d07/"
+              and after[x["id"]]["object_id"] == x["object_id"]
+              and os.path.exists(_row_path(corpus, after[x["id"]])),
+              f"the cut {x['name']}: {after.get(x['id'])}")
+    check(launches["cut"] == 0, f"the cut launched K1 {launches['cut']} times")
+
+    deleted = pool["/d08/"][:LIVE_FS["delete"]]
+    await op("delete", "files.deleteFiles", {"location_id": loc["id"],
+                                             "file_path_ids": [x["id"] for x in deleted]})
+    erased = pool["/d09/"][:LIVE_FS["erase"]]
+    ts_erase = time.time()
+    since_erase = _now_iso()
+    await op("erase", "files.eraseFiles", {"location_id": loc["id"], "passes": 1,
+                                           "file_path_ids": [x["id"] for x in erased]})
+    after = _live_rows(db, loc["id"])
+    for x in deleted + erased:
+        check(x["id"] not in after and not os.path.exists(_row_path(corpus, x)),
+              f"{_row_path(corpus, x)}: row {x['id'] in after}, on disk {os.path.exists(_row_path(corpus, x))}")
+    flushes = _burst_flushes(loc["id"], ts_erase)
+    rescans = [j for j in _jobs_since(db, since_erase) if j["name"] == "indexer"]
+    check(not flushes and not rescans, f"a rescan started in the erased location: flushes "
+          f"{flushes}, indexer jobs {len(rescans)}")
+    reports = {j["name"]: j for j in await r.exec(node, "jobs.reports", library_id=lid)}
+    for name in ("file_copier", "file_cutter", "file_deleter", "file_eraser"):
+        check(reports.get(name, {}).get("status") == "COMPLETED",
+              f"{name}: {reports.get(name, {}).get('status')} {reports.get(name, {}).get('errors')}")
+    delete_ops = db.query_one("SELECT COUNT(*) AS n FROM crdt_operation WHERE model = 'file_path' "
+                              "AND kind = 'd'")["n"]
+    print(f"phase 14(d): {len(copies)} copies indexed in the second location through K1 "
+          f"({launches['copy']} launches), linked to their sources' objects (objects "
+          f"{objects} -> {db.count('object')}); {len(cut)} cut in place, {len(deleted)} deleted, "
+          f"{len(erased)} erased with no rescan of their location", flush=True)
+    return {"launches": sum(launches.values()), "launches_by_op": launches, "steps_s": steps,
+            "loc2": loc2, "file_path_delete_ops": delete_ops}
+
+
+async def live_ephemeral(ctx: dict, rng) -> dict:
+    """14(e): `ephemeralFiles.list` of a directory outside every location."""
+    from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
+
+    node, tmp = ctx["node"], ctx["tmp"]
+    root = os.path.join(tmp, "p14_browse")
+    images = _write_images(root, rng, LIVE_BROWSE, "browse")
+    device_s = node.thumbnailer.stage_seconds["device"]
+    t0 = time.perf_counter()
+    listing = await node.router.exec(node, "ephemeralFiles.list", {"path": root})
+    list_s = time.perf_counter() - t0
+    await node.thumbnailer.wait_library_batch(None)
+    thumbs_s = time.perf_counter() - t0
+    entries = {e["path"]: e for e in listing["entries"]}
+    check(len(entries) == LIVE_BROWSE, f"ephemeralFiles.list gave {len(entries)} entries")
+    cas_of = {p: e["cas_id"] for p, e in entries.items()}
+    _check_cas(sorted(entries), cas_of, "14(e)")
+    _check_thumbs(ThumbnailStore(os.path.join(ctx["data_dir"], "thumbnails")), None, images,
+                  cas_of, "14(e)")
+    card_s = node.thumbnailer.stage_seconds["device"] - device_s
+    check(card_s > 0, "the ephemeral thumbnails took no time on the card")
+    print(f"phase 14(e): ephemeralFiles.list of {len(entries)} JPEGs in {list_s:.2f} s, cas_ids "
+          f"== blake3_ref; their thumbnails resized on the card ({card_s:.3f} s) at their dims",
+          flush=True)
+    return {"list_s": list_s, "thumbnails_s": thumbs_s, "card_resize_s": card_s}
+
+
+async def live_oracle(ctx: dict, loc2: int) -> dict:
+    """14(f): `locations.fullRescan` of both locations changes nothing."""
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    node, lib, loc = ctx["node"], ctx["lib"], ctx["loc"]
+    db, lid, r = lib.db, ctx["lid"], node.router
+    before = _oracle_set(db)
+    blake3_cuda.chunk_cvs.launches = 0
+    since = _now_iso()
+    t0 = time.perf_counter()
+    for loc_id in (loc["id"], loc2):
+        await r.exec(node, "locations.fullRescan", {"location_id": loc_id}, library_id=lid)
+    await _live_settle(node, lid, "14(f)")
+    seconds = time.perf_counter() - t0
+    launches = blake3_cuda.chunk_cvs.launches
+    check(launches == 0, f"the closing fullRescan launched K1 {launches} times")
+    media = [j["metadata"] for j in _jobs_since(db, since) if j["name"] == "media_processor"]
+    idle = {"media_data_extracted": 0, "media_data_skipped": 0, "thumbnails_dispatched": 0,
+            "embeddings_written": 0}
+    check(len(media) == 2 and all({k: m.get(k) for k in idle} == idle for m in media),
+          f"the closing fullRescans' media jobs did work: {media}")
+    after = _oracle_set(db)
+    check(after == before, f"the fullRescan changed rows: {len(before - after)} gone, "
+          f"{len(after - before)} new (e.g. {sorted(before ^ after, key=str)[:4]})")
+    print(f"phase 14(f): fullRescan of both locations ({len(after)} rows) in {seconds:.2f} s: 0 K1 "
+          f"launches, the media jobs idle, every row as the watchers left it", flush=True)
+    return {"launches": launches, "seconds": seconds, "rows": len(after),
+            "job_s": _job_seconds(_jobs_since(db, since))}
+
+
+def phase_live(rng, tmp: str, p4: dict) -> dict:
+    """Phase 14: a Node on the card over phase 4's data dir watches its
+    locations through a seeded burst of changes, the fs-ops jobs and the
+    orphan remover; a closing fullRescan changes nothing."""
+    import asyncio
+
+    from spacedrive_tpu_torch.location.indexer.job import IndexerJob
+    from spacedrive_tpu_torch.location.watcher import inotify
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    # the seconds the scans' full directory-size roll-ups take, beside the
+    # watcher's own per-directory sizes (`rollup_seconds`)
+    rollup = {"indexer_s": 0.0}
+    full_rollup = IndexerJob._rollup_directory_sizes
+
+    def timed_rollup(library, loc_id):
+        t0 = time.perf_counter()
+        try:
+            full_rollup(library, loc_id)
+        finally:
+            rollup["indexer_s"] += time.perf_counter() - t0
+
+    IndexerJob._rollup_directory_sizes = staticmethod(timed_rollup)
+    mesh.LADDER.reset()
+    autotune.reset()
+    since = degradation()
+    errors = _ErrorRecords()
+    watched_loggers = [logging.getLogger(n) for n in (
+        "spacedrive_tpu_torch.location", "spacedrive_tpu_torch.jobs",
+        "spacedrive_tpu_torch.object")]
+    for lg in watched_loggers:
+        lg.addHandler(errors)
+    steps: dict[str, float] = {}
+
+    async def run() -> dict:
+        t0 = time.perf_counter()
+        # no labeler: phase 6 holds the labelled scan, and it would relabel
+        # every image in the closing fullRescan
+        node = Node(p4["data_dir"], device=DEVICE, with_labeler=False)
+        await node.start()
+        steps["boot_s"] = time.perf_counter() - t0
+        try:
+            lib = next(x for x in node.libraries.libraries.values() if x.name == "smoke")
+            loc = lib.db.find_one("location", path=os.path.abspath(p4["corpus"]))
+            mgr = node.location_manager
+            backends = sorted({type(e.watcher).__name__ for e in mgr._watched.values()})
+            check(mgr.is_watched(lib, loc["id"]) and backends == ["InotifyWatcher"]
+                  and inotify.available(), f"the node's watchers: {backends}")
+            ctx = {"node": node, "lib": lib, "lid": str(lib.id), "loc": loc,
+                   "corpus": p4["corpus"], "data_dir": p4["data_dir"], "tmp": tmp}
+            phase_since = _now_iso()
+            out = {"backend": backends[0], "rollup_s": {}}
+            for name, fn in (("renames", lambda: live_renames(ctx)),
+                             ("content", lambda: live_content(ctx, rng)),
+                             ("removals", lambda: live_removals(ctx, rng)),
+                             ("fs_ops", lambda: live_fs_ops(ctx, rng)),
+                             ("ephemeral", lambda: live_ephemeral(ctx, rng)),
+                             ("oracle", lambda: live_oracle(ctx, out["fs_ops"]["loc2"]))):
+                t0, r0, w0 = time.perf_counter(), rollup["indexer_s"], mgr.rollup_seconds
+                out[name] = await fn()
+                steps[f"{name}_s"] = time.perf_counter() - t0
+                out["rollup_s"][name] = {"indexer": rollup["indexer_s"] - r0,
+                                         "watcher": mgr.rollup_seconds - w0}
+            # (g): every job of the phase completed, nothing is left to apply
+            jobs = _jobs_since(lib.db, phase_since)
+            bad = [(j["name"], j["status"], j["errors"]) for j in jobs if j["status"] != 2]
+            check(not bad, f"jobs of phase 14 that did not complete: {bad}")
+            out["jobs"] = len(jobs)
+            out["events_applied"] = mgr.events_applied
+            await _live_settle(node, str(lib.id), "14(g)")
+            return out
+        finally:
+            await node.shutdown()
+
+    try:
+        got = asyncio.run(run())
+    finally:
+        IndexerJob._rollup_directory_sizes = staticmethod(full_rollup)
+        for lg in watched_loggers:
+            lg.removeHandler(errors)
+    check(not errors.records, f"phase 14 logged {len(errors.records)} failures: "
+          f"{errors.records[:5]}")
+    check_healthy("14", since)
+    seconds = time.perf_counter() - t_phase
+    launches = {f"live_{k}": got[k]["launches"]
+                for k in ("renames", "content", "removals", "fs_ops", "oracle")}
+    print(json.dumps({"live_location": {
+        "steps_s": steps, "seconds": seconds, "backend": got["backend"],
+        "k1_launches": launches, "jobs": got["jobs"], "events_applied": got["events_applied"],
+        "rollup_s": got["rollup_s"],
+        **{k: {x: y for x, y in got[k].items() if x not in ("launches", "loc2")}
+           for k in ("renames", "content", "removals", "fs_ops", "ephemeral", "oracle")}}}),
+        flush=True)
+    print(f"phase 14: the live location on the card ({got['backend']}) in {seconds:.1f} s: "
+          f"rename {got['renames']['rename_latency_ms']:.1f} ms to its row, a new file "
+          f"{got['content']['new_file_latency_ms']:.1f} ms to its cas_id; the fullRescan "
+          f"oracle holds", flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=13, choices=range(3, 14),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 13: all); "
+    parser.add_argument("--stop-after", type=int, default=14, choices=range(3, 15),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 14: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -4349,6 +5084,9 @@ def main() -> int:
         if args.stop_after >= 13:
             verdicts = phase_verdicts(rng, tmp)
             launches.update(verdicts["launches"])
+        if args.stop_after >= 14:
+            live = phase_live(rng, tmp, lib)
+            launches.update(live["launches"])
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

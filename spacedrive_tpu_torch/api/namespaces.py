@@ -12,9 +12,9 @@ Counterpart of `spacedrive_tpu/api/namespaces.py`, registering its
 procedures in its order but for those in `DEFERRED`, each of which
 waits for the plane (a ROADMAP entry) that ports what it drives. The
 procedures that scan, validate or search run their jobs and ops on the
-node's device. `locations.create` and `locations.delete` scan and
-delete as the JAX procedures do but start and stop no watcher (the
-location manager is not ported).
+node's device. `locations.create` and `locations.delete` start and
+stop the location's watcher (the node's location manager), as the JAX
+procedures do.
 """
 
 from __future__ import annotations
@@ -41,9 +41,6 @@ VERSION = "0.1.0"
 #: the JAX router's procedures this one does not register yet, each with
 #: the ROADMAP plane that brings what it drives
 DEFERRED: dict[str, str] = {
-    "ephemeralFiles.list": "6.3",
-    "locations.relink": "6.3",
-    **{f"files.{k}": "6.4" for k in ("copyFiles", "cutFiles", "deleteFiles", "eraseFiles")},
     **{f"sync.{k}": "6.5" for k in ("enabled", "messages", "backfill", "newMessage")},
     **{f"keys.{k}": "6.6" for k in (
         "state", "unlock", "lock", "add", "mount", "unmount", "delete")},
@@ -229,7 +226,12 @@ def _locations(r: Router) -> None:
         RulePerKind,
         load_rules_for_location,
     )
-    from ..location.locations import LocationCreateArgs, light_scan_location, scan_location
+    from ..location.locations import (
+        LocationCreateArgs,
+        light_scan_location,
+        relink_location,
+        scan_location,
+    )
 
     async def _with_online(library, rows):
         """`online` for LOCALLY-owned locations = the path is reachable
@@ -300,6 +302,7 @@ def _locations(r: Router) -> None:
         if loc is None:
             return None
         await scan_location(library, loc, node.jobs, backend=str(node.device))
+        await node.location_manager.add(library, loc)
         invalidate_query(node, "locations.list", library)
         return loc["id"]
 
@@ -324,6 +327,7 @@ def _locations(r: Router) -> None:
     @r.mutation("locations.delete", library=True)
     async def delete(node, library, arg):
         loc_id = int(arg)
+        await node.location_manager.remove(library, loc_id)
         with library.db.transaction() as conn:
             conn.execute(
                 "DELETE FROM indexer_rule_in_location WHERE location_id = ?",
@@ -350,6 +354,10 @@ def _locations(r: Router) -> None:
         await light_scan_location(library, loc, arg.get("sub_path", "/"), node.jobs,
                                   backend=str(node.device))
         return None
+
+    @r.mutation("locations.relink", library=True)
+    def relink(node, library, arg):
+        return relink_location(library, arg["path"])
 
     # indexer rules sub-namespace (ref:api/locations.rs indexer_rules)
     @r.query("locations.indexerRules.list", library=True)
@@ -406,6 +414,10 @@ def _locations(r: Router) -> None:
 
 def _files(r: Router) -> None:
     from ..jobs.manager import JobBuilder
+    from ..object.fs.copy import FileCopierJob
+    from ..object.fs.cut import FileCutterJob
+    from ..object.fs.delete import FileDeleterJob
+    from ..object.fs.erase import FileEraserJob
     from ..object.validation.job import ObjectValidatorJob
 
     @r.query("files.get", library=True)
@@ -534,6 +546,41 @@ def _files(r: Router) -> None:
         invalidate_query(node, "search.paths", library)
         return None
 
+    @r.mutation("files.deleteFiles", library=True)
+    async def delete_files(node, library, arg):
+        await JobBuilder(
+            FileDeleterJob(
+                {
+                    "location_id": int(arg["location_id"]),
+                    "file_path_ids": [int(i) for i in arg["file_path_ids"]],
+                }
+            )
+        ).spawn(node.jobs, library)
+        return None
+
+    @r.mutation("files.eraseFiles", library=True)
+    async def erase_files(node, library, arg):
+        await JobBuilder(
+            FileEraserJob(
+                {
+                    "location_id": int(arg["location_id"]),
+                    "file_path_ids": [int(i) for i in arg["file_path_ids"]],
+                    "passes": int(arg.get("passes", 1)),
+                }
+            )
+        ).spawn(node.jobs, library)
+        return None
+
+    @r.mutation("files.copyFiles", library=True)
+    async def copy_files(node, library, arg):
+        await JobBuilder(FileCopierJob(dict(arg))).spawn(node.jobs, library)
+        return None
+
+    @r.mutation("files.cutFiles", library=True)
+    async def cut_files(node, library, arg):
+        await JobBuilder(FileCutterJob(dict(arg))).spawn(node.jobs, library)
+        return None
+
     @r.mutation("files.validate", library=True)
     async def validate(node, library, arg):
         await JobBuilder(ObjectValidatorJob(dict(arg))).spawn(node.jobs, library)
@@ -568,6 +615,16 @@ def _object_update(node: Any, library: Any, file_path_id: int, **fields: Any) ->
 
 
 def _ephemeral(r: Router) -> None:
+    @r.query("ephemeralFiles.list")
+    async def list_dir(node, arg):
+        """Non-indexed browse (ref:core/src/location/non_indexed.rs);
+        hashing/stat work runs off the event loop."""
+        from ..location.non_indexed import walk_dir
+
+        return await asyncio.to_thread(
+            walk_dir, node, arg["path"], with_hidden=bool(arg.get("with_hidden", False))
+        )
+
     # mutations on non-indexed paths (ref:core/src/api/ephemeral_files.rs)
     @r.mutation("ephemeralFiles.createFolder")
     def create_folder(node, arg):

@@ -6,6 +6,7 @@
     python -m spacedrive_tpu_torch search QUERY --data-dir D --library NAME [--semantic] [--take 10]
         [--device ...]
     python -m spacedrive_tpu_torch status --data-dir D [--device ...]
+    python -m spacedrive_tpu_torch browse PATH --data-dir D [--hidden] [--device ...]
     python -m spacedrive_tpu_torch labeler provision --data-dir D
         [--bundled | --from FILE [--classes FILE] [--sha256 HEX] | --url URL] [--device ...]
     python -m spacedrive_tpu_torch labeler status --data-dir D
@@ -56,6 +57,11 @@ labeler.
 (without the labeler), and prints the router's `nodeState` (the card in
 `device_model` and `accelerators`) with, for each library, its
 file_path and object counts and its five newest `jobs.reports`.
+
+`browse` (counterpart of `sdx browse`) lists one directory without
+indexing it (location/non_indexed.walk_dir on a Node on the device,
+without the labeler and without queueing thumbnails): a line per entry,
+directories first, with its kind, size and name.
 
 `labeler provision` (counterpart of `sdx labeler provision`) installs
 the labeler's model under `D/image_labeler/`: `--bundled` the
@@ -250,6 +256,28 @@ async def node_status(data_dir: str, backend: str = "cuda") -> dict:
 
 def cmd_status(args: argparse.Namespace) -> int:
     print(json.dumps(asyncio.run(node_status(args.data_dir, args.device)), indent=2))
+    return 0
+
+
+async def browse(path: str, data_dir: str, with_hidden: bool = False,
+                 backend: str = "cuda") -> list[dict]:
+    """One directory's non-indexed listing (`walk_dir`) on a Node on
+    `backend`, without queueing thumbnails."""
+    from .location.non_indexed import walk_dir
+    from .node.node import Node
+
+    node = Node(data_dir, device=backend, with_labeler=False)
+    try:
+        return walk_dir(node, path, with_hidden=with_hidden, queue_thumbnails=False)["entries"]
+    finally:
+        await node.shutdown()
+
+
+def cmd_browse(args: argparse.Namespace) -> int:
+    for e in asyncio.run(browse(args.path, args.data_dir, args.hidden, args.device)):
+        kind = "dir " if e["is_dir"] else "file"
+        print(f"{kind}  {e['size_in_bytes']:>12}  {e['name']}"
+              + (f".{e['extension']}" if e["extension"] else ""))
     return 0
 
 
@@ -617,6 +645,13 @@ def build_parser() -> argparse.ArgumentParser:
     su.add_argument("--data-dir", required=True)
     su.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     su.set_defaults(func=cmd_status)
+
+    br = sub.add_parser("browse", help="ephemeral (non-indexed) listing of a directory")
+    br.add_argument("path")
+    br.add_argument("--data-dir", required=True)
+    br.add_argument("--hidden", action="store_true")
+    br.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    br.set_defaults(func=cmd_browse)
 
     lb = sub.add_parser("labeler", help="image-labeler model artifacts")
     lbs = lb.add_subparsers(dest="labeler_cmd", required=True)

@@ -105,6 +105,24 @@ class IsolatedFilePathData:
         return cls(location_id, materialized, is_dir, name, ext, rel)
 
     @classmethod
+    def from_relative_str(
+        cls, location_id: int, relative: str, is_dir: bool | None = None
+    ) -> "IsolatedFilePathData":
+        """Parse a stored relative path; trailing '/' implies a dir."""
+        if is_dir is None:
+            is_dir = relative.endswith("/")
+        rel = relative.strip("/")
+        if not rel:
+            return cls(location_id, "/", True, "", "", "")
+        parent, _, filename = rel.rpartition("/")
+        materialized = f"/{parent}/" if parent else "/"
+        if is_dir:
+            name, ext = filename, ""
+        else:
+            name, ext = separate_name_and_extension(filename)
+        return cls(location_id, materialized, is_dir, name, ext, rel)
+
+    @classmethod
     def from_db_row(
         cls, location_id: int, materialized_path: str, name: str, extension: str, is_dir: bool
     ) -> "IsolatedFilePathData":
@@ -116,6 +134,21 @@ class IsolatedFilePathData:
     @property
     def is_root(self) -> bool:
         return self.is_dir and self.materialized_path == "/" and not self.name
+
+    def full_name(self) -> str:
+        if self.extension and not self.is_dir:
+            return f"{self.name}.{self.extension}"
+        return self.name
+
+    def parent(self) -> "IsolatedFilePathData":
+        if self.materialized_path == "/":
+            return IsolatedFilePathData(self.location_id, "/", True, "", "", "")
+        trimmed = self.materialized_path.strip("/")
+        parent_of_parent, _, dir_name = trimmed.rpartition("/")
+        materialized = f"/{parent_of_parent}/" if parent_of_parent else "/"
+        return IsolatedFilePathData(
+            self.location_id, materialized, True, dir_name, "", trimmed
+        )
 
     def materialized_path_for_children(self) -> str | None:
         """What this row's children store as their materialized_path."""

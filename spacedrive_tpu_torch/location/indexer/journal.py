@@ -30,9 +30,12 @@ wrong):
 `bypassed`).
 
 Counterpart of `spacedrive_tpu/location/indexer/journal.py` without its
-process-pool consult and the watcher, rename and orphan-prune surface
-the port does not run yet. The payload bytes and the verdicts are the
-same. Verdicts and bytes saved count into `sd_index_journal_ops_total`
+process-pool consult. The payload bytes and the verdicts are the same,
+and so is the watcher's surface (`mark_stale_subtree`, `delete_path`,
+`rename_path`: a rename moves the key and keeps every vouch and the
+chunk cache) and the orphan prune (`prune_orphans`,
+`prune_orphans_step`: liveness from the journal/DB join, never a
+re-stat of the disk). Verdicts and bytes saved count into `sd_index_journal_ops_total`
 and `sd_index_journal_bytes_saved_total` and into the per-location
 runtime counters, as in the JAX journal; `location_stats` joins those
 with the persisted entry counts for the federation snapshot, and
@@ -259,16 +262,17 @@ class IndexJournal:
 
     def lookup(
         self, location_id: int, key: Key, identity: Identity | None,
-        count_invalidated: bool = True,
+        count_invalidated: bool = True, count: bool = True,
     ) -> tuple[str, JournalEntry | None]:
         """(verdict, entry). `hit` entries vouch for their cached
         results; `invalidated` entries are returned too — their chunk
         cache still powers dirty-range rehash. A pipeline re-consulting
         a file the walker already judged this pass (the media job)
         passes `count_invalidated=False`, so one changed file counts one
-        invalidation."""
+        invalidation. `count=False` counts nothing: a probe-only consult
+        (the watcher's debounce sizing) is no pipeline verdict."""
         verdict, entry = self._lookup(location_id, key, identity)
-        if verdict != INVALIDATED or count_invalidated:
+        if count and (verdict != INVALIDATED or count_invalidated):
             _tm.INDEX_JOURNAL_OPS.inc(result=verdict)
             self._loc_count(location_id, _LOC_FIELD_OF[verdict])
         return verdict, entry
@@ -430,7 +434,7 @@ class IndexJournal:
             return 0
         mat, name, ext = key
         try:
-            return self.db.execute(
+            n = self.db.execute(
                 "UPDATE index_journal SET stale = 1 WHERE location_id = ? "
                 "AND materialized_path = ? AND name = ? AND extension = ? "
                 "AND stale = 0",
@@ -438,6 +442,26 @@ class IndexJournal:
             ).rowcount
         except sqlite3.Error:
             return 0
+        if n:
+            _tm.INDEX_JOURNAL_OPS.inc(n, result=INVALIDATED)
+        return n
+
+    def mark_stale_subtree(self, location_id: int, prefix: str) -> int:
+        """Invalidate every entry under a materialized-path prefix
+        (lost watcher events / RESCAN: unknown depths changed)."""
+        if not enabled():
+            return 0
+        try:
+            n = self.db.execute(
+                "UPDATE index_journal SET stale = 1 WHERE location_id = ? "
+                "AND substr(materialized_path, 1, ?) = ? AND stale = 0",
+                (location_id, len(prefix), prefix),
+            ).rowcount
+        except sqlite3.Error:
+            return 0
+        if n:
+            _tm.INDEX_JOURNAL_OPS.inc(n, result=INVALIDATED)
+        return n
 
     def _delete_key(self, location_id: int, key: Key) -> None:
         mat, name, ext = key
@@ -449,6 +473,65 @@ class IndexJournal:
             )
         except sqlite3.Error:
             pass
+
+    def delete_path(self, location_id: int, key: Key,
+                    subtree_prefix: str | None = None) -> None:
+        """Remove journal rows for a deleted path (and, for a removed
+        directory, its whole subtree)."""
+        if not enabled():
+            return
+        self._delete_key(location_id, key)
+        if subtree_prefix is not None:
+            try:
+                self.db.execute(
+                    "DELETE FROM index_journal WHERE location_id = ? AND "
+                    "substr(materialized_path, 1, ?) = ?",
+                    (location_id, len(subtree_prefix), subtree_prefix),
+                )
+            except sqlite3.Error:
+                pass
+
+    def rename_path(
+        self, location_id: int, old_key: Key, new_key: Key,
+        old_prefix: str | None = None, new_prefix: str | None = None,
+    ) -> None:
+        """A rename moves the key but keeps every vouch: content,
+        thumbnail, and media are untouched by a rename. For a directory,
+        pass the old/new materialized-path prefixes to move the subtree."""
+        if not enabled():
+            return
+        delete = ("DELETE FROM index_journal WHERE location_id = ? AND "
+                  "materialized_path = ? AND name = ? AND extension = ?")
+        try:
+            rows = [] if old_prefix is None or new_prefix is None else self.db.query(
+                "SELECT materialized_path, name, extension FROM "
+                "index_journal WHERE location_id = ? AND "
+                "substr(materialized_path, 1, ?) = ?",
+                (location_id, len(old_prefix), old_prefix),
+            )
+            # one transaction, as JAX's statements in its order: a commit
+            # per row costs seconds on a directory of 16k files
+            with self.db.transaction() as conn:
+                # landing on an existing key would violate the PK: clear it
+                conn.execute(delete, (location_id, *new_key))
+                conn.execute(
+                    "UPDATE index_journal SET materialized_path = ?, name = ?, "
+                    "extension = ? WHERE location_id = ? AND "
+                    "materialized_path = ? AND name = ? AND extension = ?",
+                    (*new_key, location_id, *old_key),
+                )
+                for r in rows:
+                    moved = new_prefix + r["materialized_path"][len(old_prefix):]
+                    conn.execute(delete, (location_id, moved, r["name"], r["extension"]))
+                    conn.execute(
+                        "UPDATE index_journal SET materialized_path = ? "
+                        "WHERE location_id = ? AND materialized_path = ? "
+                        "AND name = ? AND extension = ?",
+                        (moved, location_id, r["materialized_path"],
+                         r["name"], r["extension"]),
+                    )
+        except sqlite3.Error:
+            logger.exception("index journal rename failed (non-fatal)")
 
     # ---- stats ---------------------------------------------------------
 
@@ -519,3 +602,53 @@ class IndexJournal:
                 round(stats["hits"] / consults, 4) if consults else None
             )
         return out
+
+
+#: orphan-prune delete batch: small enough that one DELETE holds the
+#: write lock for milliseconds even against a million-row journal,
+#: large enough that a typical prune is one round trip
+PRUNE_BATCH = 2048
+
+
+def prune_orphans(db: Any, batch: int = PRUNE_BATCH) -> int:
+    """Drop journal rows whose file_path row vanished — the journal's
+    share of the orphan-remover pass (object/orphan_remover.py). Uses
+    the DB as the liveness source instead of re-stat'ing paths on disk.
+
+    Deletes in bounded rowid batches: one unbounded DELETE against a
+    million-row journal holds SQLite's write lock (and whichever thread
+    issued it) for the whole scan. Callers on the event loop should use
+    the async wrapper in object/orphan_remover.py, which yields between
+    batches."""
+    total = 0
+    while True:
+        n = prune_orphans_step(db, batch)
+        total += n
+        if n < max(1, batch):
+            break
+    return total
+
+
+def prune_orphans_step(db: Any, batch: int = PRUNE_BATCH) -> int:
+    """One bounded prune batch; a return < ``batch`` means the journal
+    is clean. The orphan-remover actor's async path calls this between
+    event-loop yields so a million-row prune can't freeze the loop."""
+    batch = max(1, batch)
+    try:
+        n = db.execute(
+            "DELETE FROM index_journal WHERE rowid IN ("
+            "SELECT ij.rowid FROM index_journal ij "
+            "WHERE NOT EXISTS ("
+            "SELECT 1 FROM file_path fp WHERE "
+            "fp.location_id = ij.location_id AND "
+            "fp.materialized_path = ij.materialized_path AND "
+            "fp.name = ij.name AND "
+            "fp.extension = ij.extension) LIMIT ?)",
+            (batch,),
+        ).rowcount
+    except sqlite3.Error:
+        return 0
+    n = max(0, n)
+    if n:
+        _tm.INDEX_JOURNAL_OPS.inc(n, result=INVALIDATED)
+    return n

@@ -9,7 +9,8 @@ Indexer → FileIdentifier → MediaProcessor, as there, with the
 identifier and the media job on an explicit backend ("cuda" or "cpu",
 or an indexed device of either, as a Node on "cuda:1" passes it);
 `deep_rescan_sub_path` and `light_scan_location` spawn it over one
-subtree. Relinking a moved location waits for the location manager.
+subtree (the location manager's watcher rescans); `relink_location`
+re-attaches a moved location by its `.spacedrive` marker.
 """
 
 from __future__ import annotations
@@ -161,6 +162,22 @@ async def light_scan_location(
         library, location, job_manager, sub_path=sub_path, shallow=True, backend=backend,
         notify=False,  # watcher-driven; see _spawn_scan_chain
     )
+
+
+def relink_location(library: Library, path: str) -> dict[str, Any] | None:
+    """Re-attach a moved location by its `.spacedrive` marker."""
+    marker = os.path.join(path, SPACEDRIVE_LOCATION_METADATA_FILE)
+    try:
+        with open(marker, "r", encoding="utf-8") as f:
+            meta = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    pub_id = bytes.fromhex(meta["location_pub_id"])
+    row = library.db.find_one("location", pub_id=pub_id)
+    if row is None:
+        return None
+    library.db.update("location", {"id": row["id"]}, path=os.path.abspath(path))
+    return library.db.find_one("location", id=row["id"])
 
 
 def update_location_size(library: Library, location_id: int) -> int:

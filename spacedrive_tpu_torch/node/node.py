@@ -13,6 +13,10 @@ path, as the JAX CLI's `--backend cpu` does, `spacedrive_tpu/cli.py:30`),
 and unless `with_labeler=False` the image-labeler actor on the same
 device (ref:lib.rs:142, the reference's `ai` feature gate), whose
 resolved artifact names the config's `image_labeler_version`.
+The node's location manager watches every location of its libraries
+(location/manager.py; `locations.create` and `locations.delete` add
+and remove one), and each library gets an orphan remover
+(object/orphan_remover.py) when it loads, stopped when it unloads.
 `start` starts the loop-lag monitor, the telemetry history writer
 (telemetry/history.py, under `<data_dir>/telemetry_history/`;
 SD_HISTORY=0 samples nothing), the process-wide autotune controller
@@ -30,8 +34,7 @@ samplers and the pool are refcounted, so two nodes in one process share
 one controller, one thread per sampler and one worker set. A Node lives
 within one event loop (one `asyncio.run`).
 
-Not ported: the location manager and its watchers (6.3), the orphan
-remover (6.4), P2P and cloud sync (6.7, 6.8), and the serve runtime and
+Not ported: P2P and cloud sync (6.7, 6.8), and the serve runtime and
 the API server (6.9).
 """
 
@@ -53,8 +56,13 @@ from ..models.labeler_actor import ImageLabeler
 from ..location.indexer import job as _indexer_job  # noqa: F401
 from ..object import duplicates as _duplicates_job  # noqa: F401
 from ..object.file_identifier import job as _identifier_job  # noqa: F401
+from ..object.fs import copy as _copy_job, cut as _cut_job  # noqa: F401
+from ..object.fs import delete as _delete_job, erase as _erase_job  # noqa: F401
 from ..object.media import job as _media_job  # noqa: F401
 from ..object.validation import job as _validator_job  # noqa: F401
+
+from ..location.manager import LocationManager
+from ..object.orphan_remover import OrphanRemoverActor
 
 from ..object.media.thumbnail.actor import Thumbnailer
 from ..parallel import autotune as _autotune
@@ -85,6 +93,7 @@ class Node:
         self.jobs = JobManager(self.task_system)
         self.libraries = Libraries(self.data_dir, node=self)
         self.actors = Actors()
+        self.location_manager = LocationManager(self)
         self.thumbnailer = Thumbnailer(os.path.join(self.data_dir, "thumbnails"),
                                        event_bus=self.event_bus, device=self.device,
                                        use_device=self.device.type != "cpu")
@@ -187,10 +196,17 @@ class Node:
 
     async def _init_library(self, lib: Library) -> None:
         """Per-library wiring at load (ref:library/manager/mod.rs:387-535):
-        register with the labeler, then cold-resume the library's jobs."""
+        start its orphan remover, register with the labeler, watch its
+        locations (the thumbnailer's data dir ignored), then cold-resume
+        its jobs."""
         lib.node = self
+        lib.orphan_remover = OrphanRemoverActor(lib.db)
+        lib.orphan_remover.start()
+        self.location_manager.ignore_paths.add(self.thumbnailer.data_dir)
         if self.image_labeler is not None:
             self.image_labeler.register_library(lib)
+        for loc in lib.db.find("location"):
+            await self.location_manager.add(lib, loc)
         await self.jobs.cold_resume(lib)
 
     async def create_library(self, name: str, description: str = "") -> Library:
@@ -211,14 +227,18 @@ class Node:
         if lib is None:
             return
         await shutdown_jobs(self.jobs, lib)
+        await _stop_orphan_remover(lib)
         lib.close()
         self.libraries.libraries.pop(lib_id, None)
 
     async def shutdown(self) -> None:
-        """Stop the loop-lag monitor, the history writer, the controller,
-        the samplers and the pool (each releases its hold), persist the
-        actors' queues, stop the task system and close the libraries
-        (ref:lib.rs:240-250)."""
+        """Stop the libraries' orphan removers, the loop-lag monitor, the
+        history writer, the controller, the samplers and the pool (each
+        releases its hold), persist the actors' queues, stop the
+        watchers (draining their in-flight rescans), stop the task
+        system and close the libraries (ref:lib.rs:240-250)."""
+        for lib in list(self.libraries.libraries.values()):
+            await _stop_orphan_remover(lib)
         await self.loop_monitor.stop()
         await self.history.stop()
         await self.autotuner.stop()
@@ -241,8 +261,15 @@ class Node:
         await self.thumbnailer.shutdown()
         if self.image_labeler is not None:
             await self.image_labeler.shutdown()
+        await self.location_manager.shutdown()
         await self.actors.shutdown()
         await self.task_system.shutdown()
         for lib in list(self.libraries.libraries.values()):
             lib.close()
         self._started = False
+
+
+async def _stop_orphan_remover(lib: Library) -> None:
+    remover = getattr(lib, "orphan_remover", None)
+    if remover is not None:
+        await remover.stop()

@@ -287,6 +287,9 @@ class Thumbnailer:
         # on the first wait or start
         return batch.id
 
+    def delete_thumbnails(self, library_id: str | None, cas_ids: list[str]) -> int:
+        return self.store.remove(library_id, cas_ids)
+
     # ---- rendezvous (ref:job.rs WaitThumbnails) ------------------------
     async def wait_batch(self, batch_id: int) -> None:
         """Wait for one dispatched batch (ids are per process; an

@@ -3,12 +3,15 @@
 Counterpart of `spacedrive_tpu/object/media/thumbnail/store.py`
 (ref:core/src/object/media/thumbnail/{shard.rs,directory.rs}): thumbs
 live at `<data>/thumbnails/<library_id | ephemeral>/<cas_id[0..3]>/
-<cas_id>.webp`, and the directory carries a version file.
+<cas_id>.webp`, and the directory carries a version file; `remove`,
+`remove_library` and `cleanup` delete thumbs by cas_id, by library, and
+those no live cas_id references.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 
 THUMBNAIL_DIR_VERSION = 1
@@ -75,3 +78,41 @@ class ThumbnailStore:
             f.write(webp)
         os.replace(tmp, path)
         return path
+
+    def remove(self, library_id: str | None, cas_ids: list[str]) -> int:
+        """Delete thumbs by cas_id (ref:actor.rs delete channel)."""
+        n = 0
+        for cas in cas_ids:
+            try:
+                os.remove(self.path_for(library_id, cas))
+                n += 1
+            except OSError:
+                pass
+        return n
+
+    def remove_library(self, library_id: str) -> None:
+        shutil.rmtree(os.path.join(self.root, library_id), ignore_errors=True)
+
+    def cleanup(self, library_id: str, live_cas_ids: set[str]) -> int:
+        """Remove thumbs whose cas_id is no longer referenced
+        (ref:clean_up.rs process_clean_up)."""
+        base = os.path.join(self.root, library_id)
+        removed = 0
+        if not os.path.isdir(base):
+            return 0
+        for shard in os.listdir(base):
+            sdir = os.path.join(base, shard)
+            if not os.path.isdir(sdir):
+                continue
+            for name in os.listdir(sdir):
+                if name.endswith(".webp") and name[: -len(".webp")] not in live_cas_ids:
+                    try:
+                        os.remove(os.path.join(sdir, name))
+                        removed += 1
+                    except OSError:
+                        pass
+            try:
+                os.rmdir(sdir)  # only succeeds when empty
+            except OSError:
+                pass
+        return removed

@@ -6,17 +6,24 @@ Replaces the Pallas TPU kernel `spacedrive_tpu/ops/blake3_pallas.py`
 message in registers) is issue-bound on 32-bit integer operations; its
 design notes sit in the source.
 
-The extension builds with nvcc for `sm_90a` through
-`torch.utils.cpp_extension.load` the first time a CUDA tensor reaches
+The kernel builds with nvcc for `sm_90a` into a shared library with a
+plain C interface (its source includes no PyTorch header, so the build
+takes seconds), loaded with ctypes, the first time a CUDA tensor reaches
 `chunk_cvs` (or `build()` is called), never at import, into
-`spacedrive_tpu_torch/_build/` (git-ignored). A tensor on the CPU takes
-the plain torch version, `blake3_torch.chunk_cvs_plain`; a CUDA tensor
-launches the kernel or raises — there is no fallback.
+`spacedrive_tpu_torch/_build/blake3_chunk/` (git-ignored) under a name
+that carries the source's digest. A tensor on the CPU takes the plain
+torch version, `blake3_torch.chunk_cvs_plain`; a CUDA tensor launches
+the kernel or raises — there is no fallback.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import hashlib
 import os
+import shutil
+import subprocess
 import threading
 
 import torch
@@ -25,34 +32,49 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-SOURCES = (
-    os.path.join(_CSRC, "blake3_binding.cpp"),
-    os.path.join(_CSRC, "blake3_chunk.cu"),
-)
-CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+SOURCE = os.path.join(_CSRC, "blake3_chunk.cu")
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _build_lock = threading.Lock()
-_built: list = []  # the loaded extension module, once built
+_built: list = []  # the loaded library, once built
 
 
-def build(verbose: bool = False):
-    """Compile (or load the cached build of) the extension once per
-    process and return it. `verbose` on the first call prints the
-    compiler's output, ptxas register and spill counts included."""
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (or load this process's build of) the kernel once and
+    return the library. `verbose` on the first call prints the
+    compiler's output, ptxas register and spill counts included. A
+    failed build raises RuntimeError with nvcc's output."""
     with _build_lock:
         if not _built:
-            from torch.utils.cpp_extension import load
-
+            with open(SOURCE, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()[:16]
             build_dir = os.path.join(BUILD_DIR, "blake3_chunk")
-            os.makedirs(build_dir, exist_ok=True)  # load() does not create it
-            _built.append(load(
-                name="sd_blake3_chunk",
-                sources=list(SOURCES),
-                build_directory=build_dir,
-                extra_cflags=["-O3"],
-                extra_cuda_cflags=list(CUDA_FLAGS) + (["-Xptxas=-v"] if verbose else []),
-                verbose=verbose,
-            ))
+            so = os.path.join(build_dir, f"blake3_chunk_{digest}.so")
+            if not os.path.exists(so):
+                os.makedirs(build_dir, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"  # no process loads a half-written library
+                cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                       "-o", tmp, SOURCE]
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+                if verbose:
+                    print(proc.stdout + proc.stderr, flush=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc exited {proc.returncode} building {SOURCE}:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(so)
+            lib.sd_blake3_chunk_cvs.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int64, ctypes.c_void_p]
+            lib.sd_blake3_chunk_cvs.restype = ctypes.c_int
+            _built.append(lib)
         return _built[0]
 
 
@@ -87,9 +109,24 @@ def chunk_cvs(
         raise ValueError(f"words must be int32 [N, 256], got {words.dtype} {tuple(words.shape)}")
     if not all(t.is_contiguous() for t in (words, chunk_len, is_root, t_lo)):
         raise ValueError("chunk_cvs takes contiguous tensors")
-    if words.shape[0] == 0:
+    if words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned")
+    n = words.shape[0]
+    if n == 0:
         return torch.empty((8, 0), dtype=torch.int32, device=words.device)
-    out = build().chunk_cvs(words, chunk_len, is_root, t_lo)
+    lib = build()
+    out = torch.empty((8, n), dtype=torch.int32, device=words.device)
+    index = words.get_device()
+    # the launch goes to the thread's current device: switch only when the
+    # tensors lie on another (a switch costs microseconds, as much as a
+    # small batch's kernel)
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        err = lib.sd_blake3_chunk_cvs(
+            words.data_ptr(), chunk_len.data_ptr(), is_root.data_ptr(), t_lo.data_ptr(),
+            out.data_ptr(), n, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        raise RuntimeError(f"the K1 launch failed: CUDA error {err}")
     chunk_cvs.launches += 1
     return out
 

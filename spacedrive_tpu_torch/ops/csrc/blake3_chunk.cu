@@ -27,9 +27,10 @@
 //   1 KiB apart, so a warp's load touches 32 separate 64-byte pieces;
 //   every fetched sector is used, and the kernel is issue-bound anyway.
 //
-// Plain C interface: this file includes no PyTorch header. The binding
-// (blake3_binding.cpp) checks the tensors, allocates the output, and
-// checks the launch.
+// Plain C interface: this file includes no PyTorch header, and nvcc
+// builds it alone into a shared library that ops/blake3_cuda.py loads
+// with ctypes. The wrapper there checks the tensors, allocates the
+// output, and raises when the launch returns an error.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -130,15 +131,18 @@ blake3_chunk_cvs_kernel(const uint4* __restrict__ words,  // [n, 64] = [n, 256] 
 
 }  // namespace
 
-// Launch on `stream`; the caller checks cudaGetLastError() right after.
+// Launch on `stream` (a cudaStream_t) on the calling thread's current
+// device; returns cudaGetLastError() right after the launch (0: it ran).
 // n > 0; words 16-byte aligned, every array contiguous.
-void sd_blake3_chunk_cvs_launch(const void* words, const void* chunk_len,
-                                const void* is_root, const void* t_lo, void* out,
-                                int64_t n, cudaStream_t stream) {
+extern "C" int sd_blake3_chunk_cvs(const void* words, const void* chunk_len,
+                                   const void* is_root, const void* t_lo, void* out,
+                                   int64_t n, void* stream) {
   constexpr int kThreads = 64;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
-  blake3_chunk_cvs_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+  blake3_chunk_cvs_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(words), static_cast<const int32_t*>(chunk_len),
       static_cast<const int32_t*>(is_root), static_cast<const int32_t*>(t_lo),
       static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -66,6 +66,21 @@ def test_the_scan_covers_the_samplers_and_verdicts():
     assert tel | {os.path.join("utils", "resilience.py"), os.path.join("utils", "compat.py")} <= rel
 
 
+def test_the_scan_covers_the_live_location():
+    """The location manager, its watchers, ephemeral browsing, the
+    fs-ops jobs and the orphan remover (owned copies of the JAX
+    modules) are scanned too."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    loc = os.path.join("location", "watcher")
+    fs = os.path.join("object", "fs")
+    assert {os.path.join("location", "manager.py"), os.path.join("location", "non_indexed.py"),
+            os.path.join("object", "orphan_remover.py")} <= rel
+    assert {os.path.join(loc, f) for f in ("__init__.py", "events.py", "inotify.py",
+                                           "polling.py", "platform_norm.py")} <= rel
+    assert {os.path.join(fs, f) for f in ("__init__.py", "copy.py", "cut.py", "delete.py",
+                                          "erase.py")} <= rel
+
+
 def test_sklearn_only_inside_digits_demo_dataset():
     """scikit-learn, which the card's machine lacks, is imported by one
     function of the port, lazily: `models/train.py`'s
