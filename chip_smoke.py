@@ -63,7 +63,7 @@ card: (a) cas_ids over slot lists `[cuda:0] * k`, k = 1-4, at 1024 x 57
 rows per slot and at row counts that leave pad rows, against the
 single-device path and the reference, K1 timed per slot count, the
 resize and the embedder at k = 2 and 4 against k = 1, and the sharded
-Hamming matrix; (b) `index_pass` again over every 4th of phase 3's
+Hamming matrix; (b) `index_pass` again over every 8th of phase 3's
 files of each kind (hard links taken before phase 4; a cut for the time
 limit) under four injected faults, whose results must
 be phase 3's, with the planned activations, one feeder restart, a cas
@@ -75,9 +75,9 @@ resize; (c) the hardware inventory against `nvidia-smi` and a profiled
 identify job whose trace names K1; it prints the identify dispatch rows
 the autotune rung cap allows at the ladder's end level. Phase 9 is the
 host execution plane, with the ladder and the autotune controller
-reset first: (a) `index --library` then `duplicates` over phase 3's
-files (the hard links) but every other image (a cut for the time limit)
-and four near copies, on fresh data dirs, with
+reset first: (a) `index --library` then `duplicates` over every 8th
+image and every 4th other file of phase 3's (the hard links; a cut for
+the time limit) and four near copies, on fresh data dirs, with
 `SD_PROCS=0` and with `SD_PROCS=min(8, cpu_count)` (the controller
 live in both): every planted pair in a near group; cas_ids, objects,
 media_data rows, pHash bits, duplicate groups and webp bytes equal,
@@ -88,7 +88,7 @@ taken before it, under `procpool.worker:crash:times=1`: one restart, a
 retried job, the same groups and bits; (c) a FileIdentifierJob over
 the un-identified copy of (a)'s library, every fetch stalled past the
 controller's urgent wait, with a 0.2 s tick and the static window cut
-to 64 rows: at least 8 windows, the window widened, the depth
+to 16 rows: at least 8 windows, the window widened, the depth
 deepened, decisions on the `autotune` ring and counter, the ids of
 (a); then `SD_AUTOTUNE=0`: the static sizes and the same ids. Phase 10
 is the other decoders, with the ladder and the controller reset first:
@@ -206,6 +206,33 @@ job or object loggers, every job of the phase completed, the watchers
 settled, `check_healthy` by delta. It prints `{"live_location": ...}`
 with the seconds and K1 launches of each step and the latency from an
 event to its row (a rename) and to its cas_id (a new file).
+Phase 15 is the replica, run on phase 14's Node before it shuts down,
+its watchers still running. (a) Where the host has the `cryptography`
+package (else the line says so and (a) is skipped): FileEncryptorJob
+over 32 of phase 4's files (16 over 100 KiB, 8 JPEGs, 8 under 16 KiB,
+each kind from one directory) through the Node's job manager; each
+`.sdenc` reaches the library through the watcher with a cas_id from K1
+on the card (against the plain path and blake3_ref); `files.cutFiles` moves them into a new
+sibling directory and FileDecryptorJob decrypts them there: each
+plaintext equals its original byte for byte, gets its cas_id bit for
+bit and links to its object (no new object); then `keys.unlock`,
+`keys.add` (automount), `keys.state` and a wrong-password retry that
+leaves the vault unlocked and every key mounted, through the router at
+the standard Argon2id profile. (b) The owner backfills (the pairing
+owner's step), a second Node on the card on its own data dir joins the
+library as JAX's `p2p/pairing.py:132-200` writes a joined library
+(same id, each instance holding the other's row), and its IngestActor
+pulls the op log through a loopback transport over the owner's
+`get_ops`, 1,000 ops a request, its `on_applied` refreshing the
+joiner's vector index: every model of `SYNC_MODELS` holds the same rows
+on both sides by sync id and synced values; a second pull applies 0
+ops; the join launches K1 no time and runs the embedder no time;
+`search.semantic` of 8 images gives the owner's objects with scores
+within 1e-5. Then the joiner tags 16 objects and notes one through its
+router, the owner's IngestActor pulls them back, and both sides hold
+equal rows again; no ERROR record, `check_healthy` by delta. It prints
+`{"replica": ...}` with the op count by model, the ingest's ops/s, the
+write-combined transactions and the seconds of each step.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -213,8 +240,9 @@ non-zero before any work. The last line of standard output is
 `nvidia-smi` name and power limit, and earlier lines carry the kernel
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
-decoders', the API's, the observability plane's, the verdicts' and the
-live location's numbers as JSON.
+decoders', the API's, the observability plane's, the verdicts', the
+live location's and the replica's numbers, and each phase's wall
+seconds, as JSON.
 """
 
 from __future__ import annotations
@@ -232,8 +260,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+
+_T_START = time.perf_counter()  # the smoke's wall clock, from before torch loads
 
 import numpy as np
 import torch
@@ -1276,9 +1307,20 @@ def split_one_object(data_dir: str) -> None:
             "(SELECT object_id FROM file_path GROUP BY object_id HAVING COUNT(*) > 1) "
             "ORDER BY fp.id DESC LIMIT 1", (int(ObjectKind.Image),))
         check(row is not None, "no object is shared by two files")
-        new = lib.db.insert("object", pub_id=b"split-object" + row["object_id"].to_bytes(4, "big"),
-                            kind=row["kind"])
-        lib.db.update("file_path", {"id": row["id"]}, object_id=new)
+        pub = b"split-object" + row["object_id"].to_bytes(4, "big")
+        fp_pub = lib.db.find_one("file_path", id=row["id"])["pub_id"]
+        sync = lib.sync
+        box = {}
+
+        def writes(conn):
+            box["id"] = conn.execute("INSERT INTO object (pub_id, kind) VALUES (?, ?)",
+                                     (pub, row["kind"])).lastrowid
+            conn.execute("UPDATE file_path SET object_id = ? WHERE id = ?", (box["id"], row["id"]))
+
+        # with its CRDT ops, as a device that minted the object writes it
+        sync.write_ops(sync.shared_create("object", pub.hex(), [("kind", row["kind"])])
+                       + [sync.shared_update("file_path", fp_pub.hex(), "object_id", pub.hex())],
+                       writes)
     finally:
         lib.close()
 
@@ -2191,11 +2233,12 @@ N_SEAM_HASHES = 4096
 N_SEAM_ACTOR = 8
 N_SEAM_PROFILE = 64
 N_LAST_RUNG = 256  # hot and small messages each, through the cas last rung
-# the time limit's cuts of earlier paths (since the smoke passed 1,000 s
-# with phase 14): 8(b) runs on every 4th of phase 3's files of each kind,
-# 9(a) on every file but every other image
-SEAM_FAULTS_EVERY = 4
-POOL_IMAGES_EVERY = 2
+# the time limit's cuts of earlier paths (phases 14 and 15 add ~200 s):
+# 8(b) runs on every 8th of phase 3's files of each kind, 9(a) and (c) on
+# every 8th image and every 4th other file
+SEAM_FAULTS_EVERY = 8
+POOL_IMAGES_EVERY = 8
+POOL_OTHERS_EVERY = 4
 # every pipeline fault family once, on the main path
 SEAM_FAULTS = ("device.blake3:xla:times=1;device.thumbnail:raise:times=1;"
                "embed.forward:xla:times=1;feeder.fetch:crash:times=1")
@@ -2686,10 +2729,12 @@ POOL_LIBRARY = "pool"
 # path), so the duplicate runs have near groups to find
 N_POOL_NEAR = 2
 # 9(c): every producer fetch stalls past URGENT_WAIT_S (0.5 s), and the
-# static identify window is cut from 1,024 to 64 rows a card so phase
-# 3's 4,096 rows make at least 8 windows while the controller widens them
+# static identify window is cut from 1,024 to 16 rows a card so 9(a)'s
+# ~1,000 rows make at least 8 windows while the controller widens them
+# (64 rows while 9(a) kept every file: 10 windows over 3,972 rows; 32
+# rows, 10 windows over 1,988)
 CONTROLLER_STALL = "feeder.fetch:stall:times=inf,delay_s=0.6"
-CONTROLLER_WINDOW = 64
+CONTROLLER_WINDOW = 16
 CONTROLLER_INTERVAL_S = 0.2
 
 
@@ -2837,11 +2882,12 @@ def check_pool_equal(got: dict, want: dict, what: str) -> float:
 
 
 def pool_corpus(snapshot: str, root: str) -> tuple[str, list]:
-    """Hard links to the snapshot's files but for every other image
-    (POOL_IMAGES_EVERY), plus N_POOL_NEAR re-encoded JPEGs and
+    """Hard links to every POOL_IMAGES_EVERY-th image and every
+    POOL_OTHERS_EVERY-th other file of the snapshot, plus N_POOL_NEAR
+    re-encoded JPEGs and
     N_POOL_NEAR resized PNGs under near/; returns the corpus and the
     planted (original, copy) pairs as file keys."""
-    snapshot_corpus(snapshot, root, every_nth(snapshot, POOL_IMAGES_EVERY, 1))
+    snapshot_corpus(snapshot, root, every_nth(snapshot, POOL_IMAGES_EVERY, POOL_OTHERS_EVERY))
     images = sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
                     for f in fs if f.endswith((".jpg", ".png")))
     os.makedirs(os.path.join(root, "near"), exist_ok=True)
@@ -4916,10 +4962,12 @@ async def live_oracle(ctx: dict, loc2: int) -> dict:
             "job_s": _job_seconds(_jobs_since(db, since))}
 
 
-def phase_live(rng, tmp: str, p4: dict) -> dict:
+def phase_live(rng, tmp: str, p4: dict, then=None) -> dict:
     """Phase 14: a Node on the card over phase 4's data dir watches its
     locations through a seeded burst of changes, the fs-ops jobs and the
-    orphan remover; a closing fullRescan changes nothing."""
+    orphan remover; a closing fullRescan changes nothing. `then(ctx)`,
+    where given, runs on that Node before it shuts down (phase 15); its
+    result is returned under "then"."""
     import asyncio
 
     from spacedrive_tpu_torch.location.indexer.job import IndexerJob
@@ -4988,6 +5036,8 @@ def phase_live(rng, tmp: str, p4: dict) -> dict:
             out["jobs"] = len(jobs)
             out["events_applied"] = mgr.events_applied
             await _live_settle(node, str(lib.id), "14(g)")
+            if then is not None:
+                out["then"] = await then(ctx)
             return out
         finally:
             await node.shutdown()
@@ -5001,7 +5051,8 @@ def phase_live(rng, tmp: str, p4: dict) -> dict:
     check(not errors.records, f"phase 14 logged {len(errors.records)} failures: "
           f"{errors.records[:5]}")
     check_healthy("14", since)
-    seconds = time.perf_counter() - t_phase
+    # phase 15 ran on this phase's Node: its seconds are its own
+    seconds = time.perf_counter() - t_phase - (got["then"]["seconds"] if then else 0.0)
     launches = {f"live_{k}": got[k]["launches"]
                 for k in ("renames", "content", "removals", "fs_ops", "oracle")}
     print(json.dumps({"live_location": {
@@ -5015,14 +5066,463 @@ def phase_live(rng, tmp: str, p4: dict) -> dict:
           f"rename {got['renames']['rename_latency_ms']:.1f} ms to its row, a new file "
           f"{got['content']['new_file_latency_ms']:.1f} ms to its cas_id; the fullRescan "
           f"oracle holds", flush=True)
+    return {"launches": launches, "then": got.get("then")}
+
+
+REPLICA_FILES = (16, 8, 8)  # files over 100 KiB, JPEGs, files under 16 KiB
+REPLICA_DIR = "p15_decrypted"  # the sibling directory the copies are decrypted in
+REPLICA_PASSWORD = "correct horse battery staple"
+# Argon2id (KiB, passes, lanes) of the jobs' keyslots: the standard profile
+# (128 MiB, 8 passes) takes ~0.8 s a derivation on a host core, 64 of them
+# here; the keys.* calls run the standard profile
+REPLICA_KDF = [1024, 1, 1]
+REPLICA_QUERIES = 8
+REPLICA_TAGGED = 16
+REPLICA_SCORE_TOL = 1e-5
+
+
+def _synced_fields(db) -> dict[str, set[str]]:
+    """The fields each model's ops carry in a library's op log."""
+    fields: dict[str, set[str]] = collections.defaultdict(set)
+    for x in db.query("SELECT DISTINCT model, kind FROM crdt_operation"):
+        if x["kind"].startswith("u:"):
+            fields[x["model"]].add(x["kind"][2:])
+    return fields
+
+
+def _sync_view(db, fields: dict[str, set[str]]) -> dict[str, dict]:
+    """Every synced model's rows by sync id, with the values of the
+    fields its ops carry (`fields`), the foreign keys as their targets'
+    sync ids."""
+    from spacedrive_tpu_torch.db.sync_registry import SYNC_MODELS, SyncKind
+
+    def sync_id(v):
+        return v.hex() if isinstance(v, (bytes, bytearray)) else v
+
+    ids = {t: {r["id"]: sync_id(r[f]) for r in db.query(f"SELECT id, {f} FROM {t}")}
+           for t, f in (("object", "pub_id"), ("location", "pub_id"), ("tag", "pub_id"),
+                        ("label", "name"))}
+    view: dict[str, dict] = {}
+    for model in SYNC_MODELS.values():
+        if model.kind is SyncKind.LOCAL:
+            continue
+        refs = {fr.column: fr.table for fr in model.foreign_refs}
+        cols = fields.get(model.name, set()) - set(model.local_fields)
+        rows = {}
+        for r in db.query(f"SELECT * FROM {model.name}"):
+            if model.kind is SyncKind.RELATION:
+                key = (ids[model.item.table].get(r[model.item.column]),
+                       ids[model.group.table].get(r[model.group.column]))
+            elif model.id_ref is not None:
+                key = ids[model.id_ref.table].get(r[model.id_ref.column])
+            else:
+                key = sync_id(r[model.id_field])
+            rows[key] = {c: (ids[refs[c]].get(r[c]) if c in refs and r[c] is not None else r[c])
+                         for c in sorted(cols)}
+        view[model.name] = rows
+    return view
+
+
+def _table_columns(db, table: str) -> list[str]:
+    return [x["name"] for x in db.query(f"PRAGMA table_info({table})")]
+
+
+def _check_views_equal(a: dict, b: dict, what: str) -> dict[str, int]:
+    """Fails on any model whose rows differ; returns the rows by model."""
+    for model in a:
+        if a[model] != b[model]:
+            ka, kb = set(a[model]), set(b[model])
+            diff = [k for k in ka & kb if a[model][k] != b[model][k]]
+            example = ([(k, {c: (a[model][k][c], b[model][k].get(c)) for c in a[model][k]
+                             if a[model][k][c] != b[model][k].get(c)}) for k in diff[:2]])
+            check(False, f"{what}: {model} differs: {len(ka - kb)} rows only on the owner, "
+                  f"{len(kb - ka)} only on the joiner, {len(diff)} with other values, e.g. "
+                  f"{sorted(ka ^ kb, key=str)[:2]} {example}")
+    return {m: len(rows) for m, rows in a.items()}
+
+
+async def replica_crypto(ctx: dict, rng) -> dict:
+    """15(a): the crypto jobs through the live location, and keys.*."""
+    import filecmp
+
+    from spacedrive_tpu_torch.api.router import RspcError
+    from spacedrive_tpu_torch.db.database import blob_u64
+    from spacedrive_tpu_torch.jobs import JobBuilder
+    from spacedrive_tpu_torch.object.fs.encrypt import FileDecryptorJob, FileEncryptorJob
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    node, lib, loc, corpus = ctx["node"], ctx["lib"], ctx["loc"], ctx["corpus"]
+    db, lid, r = lib.db, ctx["lid"], node.router
+    steps: dict[str, float] = {}
+    launches: dict[str, int] = {}
+    rows = [x for x in _live_rows(db, loc["id"]).values()
+            if not x["is_dir"] and x["cas_id"] and x["name"] != ".spacedrive"
+            and os.path.exists(_row_path(corpus, x))]
+    size = {x["id"]: blob_u64(x["size_in_bytes_bytes"]) or 0 for x in rows}
+    pools = (
+        [x for x in rows if size[x["id"]] > 100 * 1024 and x["extension"] not in ("jpg", "png")],
+        [x for x in rows if x["extension"] == "jpg"],
+        [x for x in rows if size[x["id"]] < 16 * 1024 and x["extension"] not in ("jpg", "png")],
+    )
+    chosen = []
+    for pool, n in zip(pools, REPLICA_FILES):
+        # each kind from one directory (the one with the most candidates),
+        # so the watcher's rescans of the copies are a few chains; names
+        # are distinct within it, and the three directories hold no name
+        # twice in the corpus
+        by_dir = collections.defaultdict(list)
+        for x in pool:
+            by_dir[x["materialized_path"]].append(x)
+        best = sorted(by_dir.items(), key=lambda kv: (-len(kv[1]), kv[0]))[0][1]
+        best.sort(key=lambda x: x["id"])
+        check(len(best) >= n, f"15(a): {len(best)} candidates, want {n}")
+        chosen += [best[int(i)] for i in rng.choice(len(best), n, replace=False)]
+    check(len({(x["name"], x["extension"]) for x in chosen}) == len(chosen),
+          "15(a): two chosen files share a name")
+    os.makedirs(os.path.join(corpus, REPLICA_DIR))
+    await _live_settle(node, lid, "15(a) mkdir")
+    objects = db.count("object")
+    since = _now_iso()
+
+    def enc_rows(path: str | None = None) -> list[dict]:
+        return [x for x in db.query(
+            "SELECT * FROM file_path WHERE location_id = ? AND extension = 'sdenc'"
+            + (" AND materialized_path = ?" if path else ""),
+            (loc["id"], path) if path else (loc["id"],)) if x["cas_id"]]
+
+    async def run(name: str, job=None, key: str | None = None, arg=None, ready=None) -> None:
+        blake3_cuda.chunk_cvs.launches = 0
+        t0 = time.perf_counter()
+        if job is not None:
+            await JobBuilder(job).spawn(node.jobs, lib)
+        else:
+            await r.exec(node, key, arg, library_id=lid)
+        await _until_row(db, ready, f"15(a) {name}")
+        await _live_settle(node, lid, f"15(a) {name}")
+        steps[f"{name}_s"] = time.perf_counter() - t0
+        launches[name] = blake3_cuda.chunk_cvs.launches
+
+    await run("encrypt", FileEncryptorJob({
+        "location_id": loc["id"], "file_path_ids": [x["id"] for x in chosen],
+        "password": REPLICA_PASSWORD, "_test_overrides": REPLICA_KDF}),
+        ready=lambda db: len(enc_rows()) == len(chosen))
+    encrypted = {_row_path(corpus, x): x for x in enc_rows()}
+    check(set(encrypted) == {_row_path(corpus, x) + ".sdenc" for x in chosen},
+          "15(a): the .sdenc rows are not the encrypted files")
+    check(launches["encrypt"] > 0, "15(a): the .sdenc files were hashed without K1")
+    _check_cas(sorted(encrypted), {p: x["cas_id"] for p, x in encrypted.items()}, "15(a) .sdenc")
+    new_objects = len({x["cas_id"] for x in encrypted.values()})
+    await run("cut", key="files.cutFiles", arg={
+        "source_location_id": loc["id"], "target_location_id": loc["id"],
+        "sources_file_path_ids": [x["id"] for x in encrypted.values()],
+        "target_relative_path": REPLICA_DIR},
+        ready=lambda db: len(enc_rows(f"/{REPLICA_DIR}/")) == len(chosen))
+    check(launches["cut"] == 0, f"15(a): the cut launched K1 {launches['cut']} times")
+
+    def decrypted(db) -> dict[str, dict]:
+        return {f"{x['name']}.{x['extension']}" if x["extension"] else x["name"]: x
+                for x in db.query("SELECT * FROM file_path WHERE location_id = ? AND "
+                                  "materialized_path = ? AND extension != 'sdenc'",
+                                  (loc["id"], f"/{REPLICA_DIR}/")) if x["cas_id"]}
+
+    await run("decrypt", FileDecryptorJob({
+        "location_id": loc["id"], "file_path_ids": [x["id"] for x in enc_rows()],
+        "password": REPLICA_PASSWORD, "_test_overrides": REPLICA_KDF}),
+        ready=lambda db: len(decrypted(db)) == len(chosen))
+    check(launches["decrypt"] > 0, "15(a): the decrypted copies were hashed without K1")
+    got = decrypted(db)
+    for x in chosen:
+        name = f"{x['name']}.{x['extension']}" if x["extension"] else x["name"]
+        y = got.get(name)
+        check(y is not None and y["cas_id"] == x["cas_id"] and y["object_id"] == x["object_id"],
+              f"15(a): the decrypted {name}: {y and (y['cas_id'], y['object_id'])}, its original "
+              f"{(x['cas_id'], x['object_id'])}")
+        check(filecmp.cmp(_row_path(corpus, x), _row_path(corpus, y), shallow=False),
+              f"15(a): the decrypted {name} differs from its original")
+    check(db.count("object") == objects + new_objects,
+          f"15(a): objects {objects} -> {db.count('object')}, want +{new_objects} (the .sdenc)")
+    jobs = _jobs_since(db, since)
+    bad = [(j["name"], j["status"], j["errors"]) for j in jobs if j["status"] != 2]
+    check(not bad, f"15(a): jobs that did not complete: {bad}")
+
+    # keys.* through the router, at the standard Argon2id profile
+    t0 = time.perf_counter()
+    await r.exec(node, "keys.unlock", {"password": REPLICA_PASSWORD}, library_id=lid)
+    await r.exec(node, "keys.add", {"automount": True}, library_id=lid)
+    st = await r.exec(node, "keys.state", library_id=lid)
+    check(st["unlocked"] and len(st["keys"]) == 1 and st["keys"][0]["mounted"],
+          f"15(a): keys.state after unlock and add: {st}")
+    try:
+        await r.exec(node, "keys.unlock", {"password": "wrong"}, library_id=lid)
+        check(False, "15(a): keys.unlock took a wrong password")
+    except RspcError:
+        pass
+    st = await r.exec(node, "keys.state", library_id=lid)
+    check(st["unlocked"] and all(k["mounted"] for k in st["keys"]),
+          f"15(a): a wrong-password retry changed the vault: {st}")
+    check(await r.exec(node, "keys.unlock", {"password": REPLICA_PASSWORD}, library_id=lid)
+          is not None, "15(a): the true password no longer unlocks")
+    steps["keys_s"] = time.perf_counter() - t0
+    print(f"phase 15(a): {len(chosen)} files encrypted, indexed through the watcher (K1 "
+          f"{launches['encrypt']} launches), moved and decrypted (K1 {launches['decrypt']}): "
+          f"every copy's cas_id and object are its original's; keys.* through the router",
+          flush=True)
+    return {"files": len(chosen), "launches": launches, "steps_s": steps,
+            "job_s": _job_seconds(jobs), "new_objects": new_objects}
+
+
+def _join_library(joiner, owner_lib):
+    """The joiner's library as JAX's p2p/pairing.py:132-200 writes it
+    (pairing itself is plane 6.7b): a DB under the owner's library id
+    holding this node's instance row and the owner's instance rows, the
+    config file, the Library on the node. The owner registers the
+    joiner's instance row and a 0 watermark for it."""
+    from spacedrive_tpu_torch.db import LibraryDb
+    from spacedrive_tpu_torch.db.database import new_pub_id
+    from spacedrive_tpu_torch.location.indexer.rules import seed_rules
+    from spacedrive_tpu_torch.node.library import Library, LibraryConfig, _config_vm, _platform_int
+    from spacedrive_tpu_torch.sync.hlc import NTP64
+
+    libraries = joiner.libraries
+    db = LibraryDb(libraries._db_path(owner_lib.id))
+    me = {"pub_id": new_pub_id(), "identity": joiner.identity.to_remote_identity().to_bytes(),
+          "node_id": joiner.id.bytes, "node_name": joiner.config.config.name,
+          "node_platform": _platform_int()}
+    instance_id = db.insert("instance", **me, last_seen=_now_iso(), date_created=_now_iso())
+    for inst in owner_lib.db.find("instance"):
+        db.insert("instance", pub_id=inst["pub_id"], identity=inst["identity"] or b"",
+                  node_id=inst["node_id"] or b"", node_name=inst["node_name"] or "",
+                  node_platform=inst["node_platform"] or 0, last_seen=_now_iso(),
+                  date_created=inst["date_created"] or _now_iso())
+    config = LibraryConfig(name=owner_lib.config.name, description=owner_lib.config.description,
+                           instance_id=instance_id)
+    _config_vm.save(libraries._config_path(owner_lib.id), config.to_dict())
+    lib = Library(owner_lib.id, config, db, uuid.UUID(bytes=me["pub_id"]), node=joiner)
+    libraries.libraries[lib.id] = lib
+    seed_rules(db)
+    owner_lib.db.insert("instance", **me, last_seen=_now_iso(), date_created=_now_iso())
+    owner_lib.sync.timestamps.setdefault(lib.sync.instance, NTP64(0))
+    return lib
+
+
+def _loopback(src_sync):
+    """tests/test_sync_ingest.py's loopback transport over one peer's
+    `get_ops`: (ops, has_more)."""
+    async def request_ops(timestamps, count):
+        ops = src_sync.get_ops(count=count, clocks=timestamps)
+        return ops, len(ops) == count
+    return request_ops
+
+
+async def _semantic_hits(node, lid: str, query: str) -> list[tuple[str, float]]:
+    """`search.semantic` through `node`'s router: (object pub_id, score)."""
+    lib = node.libraries.libraries[uuid.UUID(lid)]
+    res = await node.router.exec(node, "search.semantic", {"query": query, "take": 10},
+                                 library_id=lid)
+    check(res["resolved"], f"search.semantic did not resolve {query}")
+    pubs = {}
+    for fp_id, score in res["scores"].items():
+        row = lib.db.query_one("SELECT o.pub_id FROM file_path fp JOIN object o "
+                               "ON o.id = fp.object_id WHERE fp.id = ?", (int(fp_id),))
+        pubs[row["pub_id"].hex()] = score
+    return sorted(pubs.items(), key=lambda kv: -kv[1])
+
+
+async def replica_join(ctx: dict, rng, tmp: str) -> dict:
+    """15(b): a second Node joins the library by its op log."""
+    import asyncio
+
+    from spacedrive_tpu_torch.location.indexer.job import IndexerJob
+    from spacedrive_tpu_torch.location.locations import update_location_size
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.object.orphan_remover import process_clean_up_async
+    from spacedrive_tpu_torch.object.search.index import on_embeddings_applied
+    from spacedrive_tpu_torch.ops import blake3_cuda, embed_torch
+    from spacedrive_tpu_torch.sync.ingest import OPS_PER_REQUEST, IngestActor, backfill_operations
+    from spacedrive_tpu_torch.telemetry import counter_value
+
+    owner, lib, corpus = ctx["node"], ctx["lib"], ctx["corpus"]
+    db, lid = lib.db, ctx["lid"]
+    steps: dict[str, float] = {}
+    t0 = time.perf_counter()
+    backfilled = await asyncio.to_thread(backfill_operations, lib.sync)
+    steps["backfill_s"] = time.perf_counter() - t0
+    by_model = {x["model"]: x["n"] for x in db.query(
+        "SELECT model, COUNT(*) AS n FROM crdt_operation GROUP BY model ORDER BY model")}
+    n_ops = sum(by_model.values())
+
+    async def derive(library) -> int:
+        """What a replica derives from its rows and no op carries: the
+        orphan clean-up (objects whose last file_path went) and the
+        directory and location sizes (the indexer's roll-up at the end
+        of a scan). Returns the orphans removed."""
+        removed = await process_clean_up_async(library.db)
+        for x in library.db.find("location"):
+            IndexerJob._rollup_directory_sizes(library, x["id"])
+            update_location_size(library, x["id"])
+        return removed
+
+    embeds = {"chunks": 0}
+    embed_chunk = embed_torch._embed_chunk
+
+    def counted(*a, **k):
+        embeds["chunks"] += 1
+        return embed_chunk(*a, **k)
+
+    t0 = time.perf_counter()
+    joiner = Node(os.path.join(tmp, "p15_joiner"), device=DEVICE, with_labeler=False)
+    await joiner.start()
+    try:
+        jlib = _join_library(joiner, lib)
+        await joiner._init_library(jlib)
+        steps["join_s"] = time.perf_counter() - t0
+        for a, b in ((db, jlib.db), (jlib.db, db)):
+            check({x["pub_id"] for x in b.find("instance")} <= {x["pub_id"] for x in a.find("instance")},
+                  "15(b): an instance lacks the other's instance row")
+        actor = IngestActor(jlib.sync, _loopback(lib.sync), ops_per_request=OPS_PER_REQUEST,
+                            on_applied=lambda: on_embeddings_applied(jlib))
+        jlib.ingest = actor
+        # the joiner's orphan remover waits for the whole log: its tick
+        # would drop an object whose file_path link has not arrived yet
+        await jlib.orphan_remover.stop()
+        combined0 = counter_value("sd_sync_txn_combined_total")
+        blake3_cuda.chunk_cvs.launches = 0
+        embed_torch._embed_chunk = counted
+        try:
+            t0 = time.perf_counter()
+            actor.notify()
+            await actor.wait_idle()
+            steps["pull_s"] = time.perf_counter() - t0
+            applied, rejected = actor.applied, actor.rejected
+            t0 = time.perf_counter()
+            actor.notify()
+            await actor.wait_idle()
+            steps["second_pull_s"] = time.perf_counter() - t0
+            check(actor.applied == applied, f"15(b): a second pull applied {actor.applied - applied} ops")
+            join_launches = blake3_cuda.chunk_cvs.launches
+        finally:
+            embed_torch._embed_chunk = embed_chunk
+        combined = counter_value("sd_sync_txn_combined_total") - combined0
+        rate = applied / steps["pull_s"] if steps["pull_s"] else 0.0
+        print(f"phase 15(b): the joiner applied {applied} of {n_ops} ops ({rejected} rejected) "
+              f"in {steps['pull_s']:.2f} s, {rate:.0f} ops/s, {combined:.0f} transactions "
+              f"combined; steps {json.dumps(steps)}", flush=True)
+        check(join_launches == 0, f"15(b): the join launched K1 {join_launches} times")
+        check(embeds["chunks"] == 0, f"15(b): the join ran the embedder {embeds['chunks']} times")
+        t0 = time.perf_counter()
+        orphans = {"owner": await derive(lib), "joiner": await derive(jlib)}
+        jlib.orphan_remover.start()
+        steps["derive_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fields = _synced_fields(db)
+        rows = _check_views_equal(_sync_view(db, fields), _sync_view(jlib.db, fields),
+                                  "15(b) after the pull")
+        steps["compare_s"] = time.perf_counter() - t0
+
+        # search.semantic on both sides, the joiner on its card
+        images = sorted((x for x in db.query(
+            "SELECT fp.* FROM file_path fp JOIN object_embedding e ON e.object_id = fp.object_id "
+            "WHERE fp.location_id = ? AND fp.extension IN ('jpg', 'png')", (ctx["loc"]["id"],))
+            if os.path.exists(_row_path(corpus, x))), key=lambda x: x["id"])
+        check(len(images) >= REPLICA_QUERIES, f"15(b): {len(images)} embedded images")
+        t0 = time.perf_counter()
+        worst = 0.0
+        for i in rng.choice(len(images), REPLICA_QUERIES, replace=False):
+            q = _row_path(corpus, images[int(i)])
+            want, got = await _semantic_hits(owner, lid, q), await _semantic_hits(joiner, lid, q)
+            if dict(got).keys() != dict(want).keys():
+                check(False, f"15(b): search.semantic of {q}: the joiner's hits {got} differ "
+                      f"from the owner's {want}")
+                continue
+            for (pw, sw), (pg, sg) in zip(want, got):
+                worst = max(worst, abs(sw - sg), abs(sw - dict(got)[pw]))
+                check(pw == pg or abs(sw - sg) <= REPLICA_SCORE_TOL,
+                      f"15(b): search.semantic of {q}: rank order differs beyond a tie")
+        check(worst <= REPLICA_SCORE_TOL, f"15(b): search.semantic scores differ by {worst}")
+        steps["search_s"] = time.perf_counter() - t0
+
+        # the joiner writes; the owner pulls those ops back
+        t0 = time.perf_counter()
+        jr = joiner.router
+        tag = await jr.exec(joiner, "tags.create", {"name": "replica", "color": "#2a9d8f"},
+                            library_id=lid)
+        objs = sorted(x["id"] for x in jlib.db.query("SELECT id FROM object"))
+        picked = [objs[int(i)] for i in rng.choice(len(objs), REPLICA_TAGGED, replace=False)]
+        await jr.exec(joiner, "tags.assign", {"tag_id": tag, "object_ids": picked}, library_id=lid)
+        fp = jlib.db.query_one("SELECT id, object_id FROM file_path WHERE object_id = ?", (picked[0],))
+        await jr.exec(joiner, "files.setNote", {"id": fp["id"], "note": "written on the replica"},
+                      library_id=lid)
+        back = IngestActor(lib.sync, _loopback(jlib.sync), on_applied=lambda: on_embeddings_applied(lib))
+        lib.ingest = back
+        back.notify()
+        await back.wait_idle()
+        steps["write_back_s"] = time.perf_counter() - t0
+        check(back.applied >= 2 + REPLICA_TAGGED + 1,
+              f"15(b): the owner applied {back.applied} of the joiner's ops")
+        # the joiner's log relays the owner's own ops too, written since
+        # the owner's node loaded the library: the owner applies them
+        # again (as JAX's does), so it derives its local state again
+        t0 = time.perf_counter()
+        orphans["owner_after_write_back"] = await derive(lib)
+        steps["derive_again_s"] = time.perf_counter() - t0
+        fields = _synced_fields(db)
+        rows = _check_views_equal(_sync_view(db, fields), _sync_view(jlib.db, fields),
+                                  "15(b) after the write-back")
+        tagged = db.query_one("SELECT COUNT(*) AS n FROM tag_on_object t JOIN tag g ON g.id = t.tag_id "
+                              "WHERE g.name = 'replica'")["n"]
+        check(tagged == REPLICA_TAGGED, f"15(b): the owner holds {tagged} tagged objects")
+    finally:
+        await joiner.shutdown()
+    print(f"phase 15(b): a second Node joined the library: {applied} of {n_ops} ops applied in "
+          f"{steps['pull_s']:.2f} s ({rate:.0f} ops/s, {combined:.0f} transactions combined), every "
+          f"synced model equal, a second pull applied 0, K1 0 and the embedder 0 on the joiner; "
+          f"search.semantic equal; the joiner's tag and note came back", flush=True)
+    unsynced = {m: sorted(set(_table_columns(db, m)) - fields.get(m, set()))
+                for m in rows}
+    return {"ops": n_ops, "ops_by_model": by_model, "backfilled": backfilled, "applied": applied,
+            "rejected": rejected, "ops_per_s": rate, "txn_combined": combined, "rows": rows,
+            "orphans_removed": orphans, "columns_no_op_carries": unsynced,
+            "write_back_ops": back.applied, "launches": join_launches,
+            "embed_chunks": embeds["chunks"], "search_worst_score_diff": worst, "steps_s": steps}
+
+
+def phase_replica(rng, tmp: str):
+    """Phase 15, run by phase 14 on its Node (`phase_live(then=...)`):
+    (a) the crypto jobs through the live location, where the host has
+    `cryptography`; (b) a second Node joins the library by its op log."""
+    import importlib.util
+
+    async def run(ctx: dict) -> dict:
+        t_phase = time.perf_counter()
+        since = degradation()
+        out: dict = {}
+        if importlib.util.find_spec("cryptography") is None:
+            out["crypto"] = {"skipped": "no cryptography on this host"}
+        else:
+            out["crypto"] = await replica_crypto(ctx, rng)
+        out["join"] = await replica_join(ctx, rng, tmp)
+        out["seconds"] = time.perf_counter() - t_phase
+        out["since"] = since
+        return out
+
+    return run
+
+
+def report_replica(got: dict) -> dict:
+    check_healthy("15", got.pop("since"))
+    crypto, join = got["crypto"], got["join"]
+    launches = {"replica_crypto": sum(crypto.get("launches", {}).values()),
+                "replica_join": join["launches"]}
+    print(json.dumps({"replica": {**got, "k1_launches": launches}}), flush=True)
+    print(f"phase 15: the replica in {got['seconds']:.1f} s", flush=True)
     return {"launches": launches}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=14, choices=range(3, 15),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 14: all); "
+    parser.add_argument("--stop-after", type=int, default=15, choices=range(3, 16),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 15: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -5038,55 +5538,82 @@ def main() -> int:
     sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     print(f"phase 1: {name_power}, max SM clock {sm_clock_hz / 1e6:.0f} MHz, "
           f"{torch.cuda.device_count()} card(s)", flush=True)
-    t0 = time.perf_counter()
+    # each phase's wall seconds, checks included, from the end of the one before
+    phase_s: dict[str, float] = {}
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name], mark[0] = now - mark[0], now
+
     blake3_cuda.build()
-    print(f"phase 1: K1 built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 1: K1 built in {time.perf_counter() - mark[0]:.1f} s", flush=True)
+    lap("1")
 
     kernel = phase_kernel(rng, sm_clock_hz)
     check_healthy("2")
+    lap("2")
     launches: dict[str, int] = {}
     with tempfile.TemporaryDirectory(prefix="sd_chip_smoke_") as tmp:
         got = phase_pass(rng, tmp)
         check_healthy("3")
         launches["index_pass"] = got["launches"]
+        lap("3")
         if args.stop_after >= 4:
             snapshot = snapshot_corpus(got["corpus"], os.path.join(tmp, "corpus_p3"))
             lib = phase_library(rng, tmp, got)
             check_healthy("4")
             launches.update(lib["launches"])
+            lap("4")
         if args.stop_after >= 5:
             read = phase_read_side(rng, lib)
             check_healthy("5")
             launches.update(read["launches"])
+            lap("5")
         if args.stop_after >= 6:
             labels = phase_labeler(rng, tmp, lib)
             check_healthy("6")
             launches.update(labels["launches"])
+            lap("6")
         if args.stop_after >= 7:
             training = phase_training(rng, tmp)
             check_healthy("7")
             launches.update(training["launches"])
+            lap("7")
         if args.stop_after >= 8:
             seam = phase_device_seam(rng, tmp, got, lib, snapshot, name_power)
             launches.update(seam["launches"])
+            lap("8")
         if args.stop_after >= 9:
             plane = phase_execution_plane(tmp, snapshot)
             launches.update(plane["launches"])
+            lap("9")
         if args.stop_after >= 10:
             other = phase_decoders(rng, tmp, name_power)
             launches.update(other["launches"])
+            lap("10")
         if args.stop_after >= 11:
             api = phase_api(rng, tmp, {**lib, "images": lib["images"][:N_IMAGES]})
             launches.update(api["launches"])
+            lap("11")
         if args.stop_after >= 12:
             obs = phase_observability(rng, tmp)
             launches.update(obs["launches"])
+            lap("12")
         if args.stop_after >= 13:
             verdicts = phase_verdicts(rng, tmp)
             launches.update(verdicts["launches"])
+            lap("13")
         if args.stop_after >= 14:
-            live = phase_live(rng, tmp, lib)
+            then = phase_replica(rng, tmp) if args.stop_after >= 15 else None
+            live = phase_live(rng, tmp, lib, then)
             launches.update(live["launches"])
+            if then is not None:
+                launches.update(report_replica(live["then"])["launches"])
+            lap("14" if then is None else "14 and 15")  # 15 runs on 14's Node
+    lap("cleanup")
+    print(json.dumps({"wall_s": {"phases": phase_s,
+                                 "smoke": time.perf_counter() - _T_START}}), flush=True)
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())

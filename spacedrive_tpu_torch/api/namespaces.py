@@ -41,9 +41,6 @@ VERSION = "0.1.0"
 #: the JAX router's procedures this one does not register yet, each with
 #: the ROADMAP plane that brings what it drives
 DEFERRED: dict[str, str] = {
-    **{f"sync.{k}": "6.5" for k in ("enabled", "messages", "backfill", "newMessage")},
-    **{f"keys.{k}": "6.6" for k in (
-        "state", "unlock", "lock", "add", "mount", "unmount", "delete")},
     **{f"p2p.{k}": "6.7" for k in (
         "state", "spacedrop", "acceptSpacedrop", "cancelSpacedrop", "rejectSpacedrop",
         "pairLibrary", "acceptPairing", "rejectPairing", "events")},
@@ -66,8 +63,10 @@ def mount() -> Router:
     _spaces(r)
     _albums(r)
     _labels(r)
+    _sync(r)
     _nodes(r)
     _volumes(r)
+    _keys(r)
     _preferences(r)
     _notifications(r)
     _backups(r)
@@ -1082,6 +1081,35 @@ def _labels(r: Router) -> None:
 # --- nodes / volumes / preferences / notifications -----------------------
 
 
+# --- sync ----------------------------------------------------------------
+
+
+def _sync(r: Router) -> None:
+    from ..sync.ingest import backfill_operations
+
+    @r.query("sync.enabled", library=True)
+    def enabled(node, library):
+        return library.sync.emit_messages
+
+    @r.query("sync.messages", library=True)
+    def messages(node, library, arg):
+        count = int((arg or {}).get("count", 100))
+        return [op.to_wire() for op in library.sync.get_ops(count=count)]
+
+    @r.mutation("sync.backfill", library=True)
+    def backfill(node, library):
+        return backfill_operations(library.sync)
+
+    @r.subscription("sync.newMessage", library=True)
+    async def new_message(node, library) -> AsyncIterator[Any]:
+        async for event in _bus_events_for(library.event_bus):
+            if event == ("SyncMessage", "Created") or event == (
+                "SyncMessage",
+                "Ingested",
+            ):
+                yield event[1]
+
+
 def _nodes(r: Router) -> None:
     @r.mutation("nodes.edit")
     def edit(node, arg):
@@ -1109,6 +1137,134 @@ def _volumes(r: Router) -> None:
     @r.mutation("volumes.track", library=True)
     def track(node, library):
         return save_volumes(library.db)
+
+
+def _key_manager(library):
+    """Per-library crypto vault (ref:core/src/api/keys.rs — the
+    KeyManager the reference's KeyManager/ UI drives). The keystore
+    file lives next to the library database."""
+    km = library.key_manager
+    if km is None:
+        from ..crypto.keys import KeyManager
+
+        path = library.db.path
+        store = (path[: -len(".db")] if path.endswith(".db") else path) \
+            + ".keystore"
+        km = KeyManager(store)
+        library.key_manager = km
+    return km
+
+
+def _keys(r: Router) -> None:
+    """`keys.*` as JAX's, but for `keys.add`: a key added with
+    `automount` to an unlocked vault is mounted at once, as the vault
+    mounts such keys whenever it unlocks (JAX's mounts it only at the
+    next `keys.unlock`, so tests/test_api.py::
+    test_keys_unlock_wrong_password_retry_keeps_vault_intact fails there)."""
+    from ..crypto.keys import CryptoError
+
+    def guard(fn, *a):
+        try:
+            return fn(*a)
+        except CryptoError as e:
+            raise RspcError.bad_request(str(e))
+
+    @r.query("keys.state", library=True)
+    def state(node, library):
+        km = _key_manager(library)
+        mounted = set(km.mounted_uuids())
+        return {
+            "unlocked": km.unlocked,
+            "keys": [
+                {"uuid": sk.uuid, "automount": sk.automount,
+                 "algorithm": int(sk.algorithm),
+                 "mounted": sk.uuid in mounted}
+                for sk in km.stored.values()
+            ],
+        }
+
+    @r.mutation("keys.unlock", library=True)
+    def unlock(node, library, arg):
+        km = _key_manager(library)
+        # snapshot BEFORE clobbering: a wrong-password retry against an
+        # already-unlocked vault must restore the working master, not
+        # lock the manager and yank every mounted key out from under
+        # its consumers
+        prev_master = bytes(km._master) if km.unlocked else None
+        km.set_master_password(str(arg["password"]).encode())
+        if km.stored:
+            # VERIFY before committing: decrypting a stored key proves
+            # the password. Accepting it unchecked would let a typo'd
+            # password "unlock" the vault and encrypt NEW keys under the
+            # typo — a keystore needing two different passwords. The
+            # probe prefers an unmounted key and never unmounts one that
+            # was already mounted (a second unlock must not yank a key
+            # out from under its consumers).
+            mounted_before = set(km.mounted_uuids())
+            probe = next((u for u in km.stored if u not in mounted_before),
+                         next(iter(km.stored)))
+            try:
+                km.mount(probe)
+            except CryptoError:
+                if prev_master is not None:
+                    # mounted keys were never touched (the failed probe
+                    # mounts nothing); restoring the master returns the
+                    # manager to its exact pre-call state
+                    km.set_master_password(prev_master)
+                else:
+                    km.lock()
+                invalidate_query(node, "keys.state", library)
+                raise RspcError.bad_request("wrong master password")
+            if probe not in mounted_before \
+                    and not km.stored[probe].automount:
+                km.unmount(probe)
+        mounted = guard(km.automount)
+        invalidate_query(node, "keys.state", library)
+        return {"automounted": mounted}
+
+    @r.mutation("keys.lock", library=True)
+    def lock(node, library):
+        _key_manager(library).lock()
+        invalidate_query(node, "keys.state", library)
+        return None
+
+    @r.mutation("keys.add", library=True)
+    def add(node, library, arg):
+        import secrets as _secrets
+
+        arg = arg or {}
+        km = _key_manager(library)
+        if arg.get("material"):
+            try:
+                material = bytes.fromhex(arg["material"])
+            except ValueError:
+                raise RspcError.bad_request("material must be hex")
+        else:
+            material = _secrets.token_bytes(32)
+        automount = bool(arg.get("automount"))
+        key_uuid = guard(lambda: km.add_key(material, automount=automount))
+        if automount:
+            guard(km.mount, key_uuid)
+        invalidate_query(node, "keys.state", library)
+        return {"uuid": key_uuid}
+
+    @r.mutation("keys.mount", library=True)
+    def mount(node, library, arg):
+        guard(_key_manager(library).mount, str(arg))
+        invalidate_query(node, "keys.state", library)
+        return None
+
+    @r.mutation("keys.unmount", library=True)
+    def unmount(node, library, arg):
+        guard(_key_manager(library).unmount, str(arg))
+        invalidate_query(node, "keys.state", library)
+        return None
+
+    @r.mutation("keys.delete", library=True)
+    def delete(node, library, arg):
+        guard(_key_manager(library).delete_key, str(arg))
+        invalidate_query(node, "keys.state", library)
+        return None
 
 
 def _preferences(r: Router) -> None:
@@ -1370,8 +1526,13 @@ def _invalidation(r: Router) -> None:
 
 
 async def _bus_events(node: Any) -> AsyncIterator[Any]:
-    """Bridge the node's thread-safe EventBus into an async stream."""
-    sub = node.event_bus.subscribe()
+    async for event in _bus_events_for(node.event_bus):
+        yield event
+
+
+async def _bus_events_for(bus: Any) -> AsyncIterator[Any]:
+    """Bridge a thread-safe EventBus into an async stream."""
+    sub = bus.subscribe()
     try:
         while True:
             for event in sub.poll():

@@ -18,6 +18,8 @@
     python -m spacedrive_tpu_torch profile [--url URL] [--folded] [--out F]
     python -m spacedrive_tpu_torch debug-bundle [--data-dir D | --url URL] [--out F]
     python -m spacedrive_tpu_torch licenses [--out F]
+    python -m spacedrive_tpu_torch crypto inspect FILE
+    python -m spacedrive_tpu_torch crypto encrypt|decrypt FILE [--password PW]
 
 Before the command, `--faults PLAN [--fault-seed N]` arms the fault
 plane for the invocation (chaos testing, utils/faults.py: e.g.
@@ -596,6 +598,56 @@ def cmd_mesh_status(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_crypto(args: argparse.Namespace) -> int:
+    """`crypto inspect` prints an encrypted file's header as JSON;
+    `crypto encrypt` writes FILE.sdenc and `crypto decrypt` FILE without
+    its `.sdenc` (or FILE.decrypted), asking for the password when
+    `--password` is absent (counterpart of `sdx crypto`)."""
+    from .crypto import FileHeader, decrypt_file, encrypt_file
+
+    if args.crypto_cmd == "inspect":
+        # ref:apps/cli/src/main.rs — print header details
+        with open(args.file, "rb") as f:
+            header, raw = FileHeader.from_reader(f)
+        print(
+            json.dumps(
+                {
+                    "version": header.version,
+                    "algorithm": header.algorithm.name,
+                    "keyslots": [
+                        {
+                            "hashing": ks.hashing_algorithm.kind,
+                            "params": int(ks.hashing_algorithm.params),
+                        }
+                        for ks in header.keyslots
+                    ],
+                    "has_metadata": header.metadata is not None,
+                    "has_preview_media": header.preview_media is not None,
+                    "header_bytes": len(raw),
+                },
+                indent=2,
+            )
+        )
+    elif args.crypto_cmd == "encrypt":
+        import getpass
+
+        pw = args.password or getpass.getpass("password: ")
+        encrypt_file(args.file, args.file + ".sdenc", pw.encode())
+        print(f"wrote {args.file}.sdenc")
+    elif args.crypto_cmd == "decrypt":
+        import getpass
+
+        pw = args.password or getpass.getpass("password: ")
+        out = (
+            args.file[: -len(".sdenc")]
+            if args.file.endswith(".sdenc")
+            else args.file + ".decrypted"
+        )
+        meta = decrypt_file(args.file, out, pw.encode())
+        print(f"wrote {out}" + (f"  metadata: {meta}" if meta else ""))
+    return 0
+
+
 def cmd_licenses(args: argparse.Namespace) -> int:
     from .utils.deps import collect
 
@@ -748,6 +800,15 @@ def build_parser() -> argparse.ArgumentParser:
     ms.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ms.add_argument("--out", help="write JSON here instead of stdout")
     ms.set_defaults(func=cmd_mesh_status)
+
+    cr = sub.add_parser("crypto", help="encrypted-file tools")
+    crs = cr.add_subparsers(dest="crypto_cmd", required=True)
+    for name in ("inspect", "encrypt", "decrypt"):
+        c = crs.add_parser(name)
+        c.add_argument("file")
+        if name != "inspect":
+            c.add_argument("--password")
+    cr.set_defaults(func=cmd_crypto)
 
     li = sub.add_parser("licenses", help="dependency and license inventory")
     li.add_argument("--out", help="write JSON here instead of stdout")

@@ -41,7 +41,13 @@ it keeps the watched state equal to a full rescan's:
   directory of many rows does not split the storm it belongs to;
 - a directory's subtree rows are rewritten in one transaction (JAX
   commits each row: seconds on a directory of 16k files, on the event
-  loop).
+  loop);
+- a rename's and a remove's row changes are written with their CRDT
+  ops (`sync.write_ops`: the renamed row's path, name, extension and
+  modification date, each subtree row's path, a delete per removed
+  row), as the fs-ops jobs write theirs, so a replica that ingests the
+  op log sees them; JAX's manager writes the rows alone, and its
+  renames and removes never leave the node.
 """
 
 from __future__ import annotations
@@ -171,6 +177,17 @@ class LocationManager:
         if entry.size_dirs:
             self._schedule_flush(entry)
 
+    async def announce(self, library: Any, location_id: int,
+                       events: list[WatchEvent]) -> None:
+        """Apply a job's own finished writes as watcher events: the job
+        held their paths while it wrote them (`pause`), so a half-written
+        file started no rescan, and each lands here once, whole."""
+        entry = self._watched.get((str(library.id), location_id))
+        if entry is None:
+            return
+        for event in events:
+            await self._on_event(entry, event)
+
     def _held(self, entry: _Watched, paths: list[str] | None) -> list[str]:
         """The absolute paths a pause holds: `paths`, or the location."""
         if paths is None:
@@ -236,7 +253,7 @@ class LocationManager:
                         entry,
                         vouched=jentry is not None and not jentry.stale,
                     )
-                    self._apply_rename(db, loc_id, old_rel, rel, event.is_dir)
+                    self._apply_rename(entry.library, loc_id, old_rel, rel, event.is_dir)
                     # the burst's quiet time runs from the end of the
                     # apply: a directory of many rows takes seconds, and
                     # must not split the storm it belongs to
@@ -248,7 +265,7 @@ class LocationManager:
                     return
                 kind = EventKind.CREATE  # renamed in from outside = create
             if kind == EventKind.REMOVE:
-                self._apply_remove(db, loc_id, rel, event.is_dir)
+                self._apply_remove(entry.library, loc_id, rel, event.is_dir)
                 if rel:
                     entry.size_dirs.add(IsolatedFilePathData.from_relative_str(
                         loc_id, rel, event.is_dir).materialized_path)
@@ -309,19 +326,20 @@ class LocationManager:
             logger.exception("watcher event application failed: %s", event)
 
     def _apply_rename(
-        self, db: Any, loc_id: int, old_rel: str, new_rel: str, is_dir: bool
+        self, library: Any, loc_id: int, old_rel: str, new_rel: str, is_dir: bool
     ) -> None:
+        db, sync = library.db, library.sync
         old_iso = IsolatedFilePathData.from_relative_str(loc_id, old_rel, is_dir)
         # a rename changes no content: the journal entry MOVES with the
         # file, keeping its cas/thumb/media vouches — no re-hash, no
         # re-thumbnail (the cheapest possible "targeted re-index")
-        _new_iso = IsolatedFilePathData.from_relative_str(loc_id, new_rel, is_dir)
+        new_iso = IsolatedFilePathData.from_relative_str(loc_id, new_rel, is_dir)
         IndexJournal(db).rename_path(
-            loc_id, key_of(old_iso), key_of(_new_iso),
+            loc_id, key_of(old_iso), key_of(new_iso),
             *(
                 (
                     f"{old_iso.materialized_path}{old_iso.name}/",
-                    f"{_new_iso.materialized_path}{_new_iso.name}/",
+                    f"{new_iso.materialized_path}{new_iso.name}/",
                 )
                 if is_dir else (None, None)
             ),
@@ -334,36 +352,39 @@ class LocationManager:
             extension=old_iso.extension,
             is_dir=int(is_dir),
         )
-        new_iso = IsolatedFilePathData.from_relative_str(loc_id, new_rel, is_dir)
         if row is None:
             return  # never indexed; the next rescan picks it up
-        db.update(
-            "file_path",
-            {"id": row["id"]},
-            materialized_path=new_iso.materialized_path,
-            name=new_iso.name,
-            extension=new_iso.extension,
-            date_modified=now_iso(),
-        )
+        fields = {"materialized_path": new_iso.materialized_path, "name": new_iso.name,
+                  "extension": new_iso.extension, "date_modified": now_iso()}
+        ops = [sync.shared_update("file_path", row["pub_id"].hex(), f, v)
+               for f, v in fields.items()]
+        moved: list[tuple[str, int]] = []
         if is_dir:
             # rewrite the subtree's materialized paths (ref:utils.rs rename)
             old_prefix = f"{old_iso.materialized_path}{old_iso.name}/"
             new_prefix = f"{new_iso.materialized_path}{new_iso.name}/"
-            rows = db.query(
-                "SELECT id, materialized_path FROM file_path "
+            for child in db.query(
+                "SELECT id, pub_id, materialized_path FROM file_path "
                 "WHERE location_id = ? AND substr(materialized_path, 1, ?) = ?",
                 (loc_id, len(old_prefix), old_prefix),
-            )
+            ):
+                path = new_prefix + child["materialized_path"][len(old_prefix):]
+                moved.append((path, child["id"]))
+                ops.append(sync.shared_update("file_path", child["pub_id"].hex(),
+                                              "materialized_path", path))
+
+        def writes(conn):
             # one transaction: a commit per row costs seconds on a
             # directory of 16k files, on the event loop
-            with db.transaction() as conn:
-                conn.executemany(
-                    "UPDATE file_path SET materialized_path = ? WHERE id = ?",
-                    [(new_prefix + child["materialized_path"][len(old_prefix):], child["id"])
-                     for child in rows],
-                )
+            conn.execute(
+                "UPDATE file_path SET materialized_path = ?, name = ?, extension = ?, "
+                "date_modified = ? WHERE id = ?", (*fields.values(), row["id"]))
+            conn.executemany("UPDATE file_path SET materialized_path = ? WHERE id = ?", moved)
 
-    def _apply_remove(self, db: Any, loc_id: int, rel: str, is_dir: bool) -> None:
+        sync.write_ops(ops, writes)
+
+    def _apply_remove(self, library: Any, loc_id: int, rel: str, is_dir: bool) -> None:
+        db, sync = library.db, library.sync
         # the event's is_dir can be unknowable post-deletion: try file then dir
         journal = IndexJournal(db)
         for as_dir in ([is_dir] if is_dir else [False, True]):
@@ -382,14 +403,21 @@ class LocationManager:
             )
             if row is None:
                 continue
+            rows = [row]
             if as_dir:
                 prefix = f"{iso.materialized_path}{iso.name}/"
-                db.execute(
-                    "DELETE FROM file_path WHERE location_id = ? "
+                rows += db.query(
+                    "SELECT id, pub_id FROM file_path WHERE location_id = ? "
                     "AND substr(materialized_path, 1, ?) = ?",
                     (loc_id, len(prefix), prefix),
                 )
-            db.delete("file_path", id=row["id"])
+            ids = [r["id"] for r in rows]
+
+            def writes(conn):
+                conn.executemany("DELETE FROM file_path WHERE id = ?", [(i,) for i in ids])
+
+            sync.write_ops([sync.shared_delete("file_path", r["pub_id"].hex()) for r in rows],
+                           writes)
             return
 
     def _roll_up_sizes(self, entry: _Watched, dirs: set[str]) -> None:

@@ -8,7 +8,9 @@ on create, wiring the sync manager, and cold-resuming jobs.
 
 Counterpart of `spacedrive_tpu/node/library.py`. Each Library also
 holds its search index (object/search/index.LibraryIndex), which the JAX
-package keeps in a process-wide registry.
+package keeps in a process-wide registry. Its orphan remover, its sync
+ingest actor (`ingest`, set by whoever pulls ops for it) and its key
+manager (`key_manager`, made at the first `keys.*` call) start unset.
 """
 
 from __future__ import annotations
@@ -76,6 +78,9 @@ class Library:
         self.node = node
         self.sync = SyncManager(db, instance_uuid, self.event_bus)
         self.search_index = LibraryIndex(self)
+        self.orphan_remover: Any = None
+        self.ingest: Any = None  # sync/ingest.IngestActor
+        self.key_manager: Any = None  # crypto/keys.KeyManager
 
     @property
     def name(self) -> str:

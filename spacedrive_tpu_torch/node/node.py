@@ -16,7 +16,9 @@ resolved artifact names the config's `image_labeler_version`.
 The node's location manager watches every location of its libraries
 (location/manager.py; `locations.create` and `locations.delete` add
 and remove one), and each library gets an orphan remover
-(object/orphan_remover.py) when it loads, stopped when it unloads.
+(object/orphan_remover.py) when it loads, stopped when it unloads, as
+is the library's sync ingest actor (`Library.ingest`, sync/ingest.py)
+where one pulls for it.
 `start` starts the loop-lag monitor, the telemetry history writer
 (telemetry/history.py, under `<data_dir>/telemetry_history/`;
 SD_HISTORY=0 samples nothing), the process-wide autotune controller
@@ -34,8 +36,9 @@ samplers and the pool are refcounted, so two nodes in one process share
 one controller, one thread per sampler and one worker set. A Node lives
 within one event loop (one `asyncio.run`).
 
-Not ported: P2P and cloud sync (6.7, 6.8), and the serve runtime and
-the API server (6.9).
+Not ported: P2P and cloud sync (6.7, 6.8), which wire a library's
+ingest actor to its peers, and the serve runtime and the API server
+(6.9).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from ..object import duplicates as _duplicates_job  # noqa: F401
 from ..object.file_identifier import job as _identifier_job  # noqa: F401
 from ..object.fs import copy as _copy_job, cut as _cut_job  # noqa: F401
 from ..object.fs import delete as _delete_job, erase as _erase_job  # noqa: F401
+from ..object.fs import encrypt as _crypto_jobs  # noqa: F401
 from ..object.media import job as _media_job  # noqa: F401
 from ..object.validation import job as _validator_job  # noqa: F401
 
@@ -227,18 +231,18 @@ class Node:
         if lib is None:
             return
         await shutdown_jobs(self.jobs, lib)
-        await _stop_orphan_remover(lib)
+        await _stop_library_actors(lib)
         lib.close()
         self.libraries.libraries.pop(lib_id, None)
 
     async def shutdown(self) -> None:
-        """Stop the libraries' orphan removers, the loop-lag monitor, the
+        """Stop the libraries' orphan removers and ingest actors, the loop-lag monitor, the
         history writer, the controller, the samplers and the pool (each
         releases its hold), persist the actors' queues, stop the
         watchers (draining their in-flight rescans), stop the task
         system and close the libraries (ref:lib.rs:240-250)."""
         for lib in list(self.libraries.libraries.values()):
-            await _stop_orphan_remover(lib)
+            await _stop_library_actors(lib)
         await self.loop_monitor.stop()
         await self.history.stop()
         await self.autotuner.stop()
@@ -269,7 +273,7 @@ class Node:
         self._started = False
 
 
-async def _stop_orphan_remover(lib: Library) -> None:
-    remover = getattr(lib, "orphan_remover", None)
-    if remover is not None:
-        await remover.stop()
+async def _stop_library_actors(lib: Library) -> None:
+    for actor in (lib.orphan_remover, lib.ingest):
+        if actor is not None:
+            await actor.stop()

@@ -10,8 +10,9 @@ mod.rs:154-200), `fetch_source_and_target_location_paths`
 
 Counterpart of `spacedrive_tpu/object/fs/__init__.py`. `watcher_pause`
 reaches the node's location manager through `ctx.library.node` and
-pauses only the paths the job writes; the encrypting job waits for the
-crypto plane.
+pauses only the paths the job writes; `watcher_announce` then hands the
+manager what a job wrote under its pause that the library should see
+(the crypto jobs' finished files), as the watcher's own events.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import re
 from dataclasses import dataclass
 
 from ...files.isolated_path import full_path_from_db_row
+from ...location.watcher.events import EventKind, WatchEvent
 
 DUPLICATE_PATTERN = re.compile(r" \(\d+\)")
 
@@ -38,14 +40,18 @@ class FileData:
     full_path: str
 
 
+def _location_manager(ctx):
+    node = getattr(ctx.library, "node", None)
+    return getattr(node, "location_manager", None) if node is not None else None
+
+
 @contextlib.contextmanager
 def watcher_pause(ctx, location_id: int, paths: list[str] | None = None):
     """Suppress the location watcher under `paths` (the whole location
     when none are given) while a job scribbles there
     (ref:location/manager/mod.rs stop_watcher/reinit_watcher — the
     reference's fs jobs ignore their own write events the same way)."""
-    node = getattr(ctx.library, "node", None)
-    mgr = getattr(node, "location_manager", None) if node is not None else None
+    mgr = _location_manager(ctx)
     if mgr is not None:
         mgr.pause(ctx.library, location_id, paths)
     try:
@@ -53,6 +59,19 @@ def watcher_pause(ctx, location_id: int, paths: list[str] | None = None):
     finally:
         if mgr is not None:
             mgr.resume(ctx.library, location_id, paths)
+
+
+async def watcher_announce(ctx, location_id: int, created: list[str] = (),
+                           removed: list[str] = ()) -> None:
+    """After a pause: apply the files a job finished writing (`created`)
+    and removed (`removed`) as the location watcher's events, so they
+    reach the library as a user's would."""
+    mgr = _location_manager(ctx)
+    if mgr is not None:
+        await mgr.announce(ctx.library, location_id, [
+            *(WatchEvent(EventKind.CREATE, p) for p in created),
+            *(WatchEvent(EventKind.REMOVE, p) for p in removed),
+        ])
 
 
 def get_location_path(db, location_id: int) -> str:

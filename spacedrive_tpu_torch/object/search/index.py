@@ -91,6 +91,8 @@ class LibraryIndex:
         self._pos: dict[int, int] = {}
         self._watermark = 0  # max object_embedding.id folded in
         self._stamp = ""  # max date_calculated folded in (ISO text)
+        #: rows read before their vector arrived: read again by id
+        self._pending: set[int] = set()
         self._loaded = False
         #: the matrix on the last query's device, until a refresh changes it
         self._on_device: tuple[str, torch.Tensor] | None = None
@@ -147,18 +149,21 @@ class LibraryIndex:
 
     def refresh(self) -> int:
         """Fold new and updated `object_embedding` rows in; returns the
-        vector count. Only rows past the (id, stamp) watermarks are read
-        on a warm call."""
+        vector count. Only rows past the (id, stamp) watermarks, and the
+        rows still waiting for their vector, are read on a warm call."""
         with self._lock:
+            db = self._library.db
             if not self._loaded:
                 self._load_persisted()
+                self._pending = {int(r["id"]) for r in db.query(
+                    "SELECT id FROM object_embedding WHERE vector IS NULL AND id <= ?",
+                    (self._watermark,))}
                 self._loaded = True
-            db = self._library.db
             total = db.query_one("SELECT COUNT(*) AS n FROM object_embedding")["n"]
             if total < len(self._ids):
                 # shrink (object deletes cascade): rebuild from scratch
                 self._matrix = np.zeros((0, _embedder.EMBED_DIM), np.float32)
-                self._ids, self._pos = [], {}
+                self._ids, self._pos, self._pending = [], {}, set()
                 self._watermark, self._stamp = 0, ""
                 self._on_device = None
             rows = db.query(
@@ -168,6 +173,18 @@ class LibraryIndex:
                 "ORDER BY id",
                 (self._watermark, self._stamp),
             )
+            # a row without its vector yet is read again by id: sync
+            # applies a row's create before its vector, possibly in a
+            # later batch, and the vector's stamp may be older than one
+            # already read (JAX's refresh passes such a row for good)
+            seen = {int(r["id"]) for r in rows}
+            waiting = sorted(self._pending - seen)
+            for i in range(0, len(waiting), 500):
+                part = waiting[i:i + 500]
+                rows += [r for r in db.query(
+                    "SELECT id, object_id, vector, date_calculated FROM object_embedding "
+                    f"WHERE vector IS NOT NULL AND id IN ({','.join('?' * len(part))})",
+                    tuple(part))]
             if not rows:
                 return len(self._ids)
             fresh: list[np.ndarray] = []
@@ -177,6 +194,10 @@ class LibraryIndex:
                 self._watermark = max(self._watermark, int(r["id"]))
                 if r["date_calculated"]:
                     self._stamp = max(self._stamp, str(r["date_calculated"]))
+                if r["vector"] is None:
+                    self._pending.add(int(r["id"]))
+                    continue
+                self._pending.discard(int(r["id"]))
                 vec = _embedder.blob_to_vector(r["vector"])
                 if vec is None:
                     logger.warning("object_embedding row %s has an invalid vector; skipped",

@@ -4,7 +4,8 @@ The validator's host leg hashes whole files of any size in 1 MiB
 blocks; pure Python (`blake3_ref.StreamingBlake3`, the reference the
 tests hold this against) runs at about half a megabyte a second, so the
 leg streams through `csrc/blake3_stream.c` instead, an owned copy of the
-streaming part of the JAX package's native hasher.
+streaming part of the JAX package's native hasher; `blake3_digest` is
+its one-shot form (crypto/hashing.py's Balloon hashing).
 
 The library is built by native/build.py (the system C compiler, the
 first time a hasher is made, never at import, into
@@ -22,7 +23,7 @@ import threading
 
 from ..native.build import COMPILERS, NativeBuildError, built_path, compile_shared
 
-__all__ = ["NativeBuildError", "StreamingHasher", "load"]
+__all__ = ["NativeBuildError", "StreamingHasher", "blake3_digest", "load"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "blake3_stream.c")
 
@@ -50,8 +51,21 @@ def load() -> ctypes.CDLL:
             lib.b3_update.restype = None
             lib.b3_finalize.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32]
             lib.b3_finalize.restype = None
+            lib.b3_hash.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p,
+                                    ctypes.c_uint32]
+            lib.b3_hash.restype = None
             _lib.append(lib)
         return _lib[0]
+
+
+def blake3_digest(data: bytes, out_len: int = 32) -> bytes:
+    """One-shot BLAKE3 of `data`, `out_len` (1..64) bytes."""
+    if not 0 < out_len <= 64:
+        raise ValueError(f"digest length must be 1..64, got {out_len}")
+    lib = load()
+    out = ctypes.create_string_buffer(64)
+    lib.b3_hash(bytes(data), len(data), out, out_len)
+    return out.raw[:out_len]
 
 
 class StreamingHasher:

@@ -1,6 +1,7 @@
 /* Streaming BLAKE3 (hash mode) on the host, in portable C: the
  * validator's full-file checksum for files the device leg does not take
- * (empty files, files over 256 KiB, buckets too small to batch).
+ * (empty files, files over 256 KiB, buckets too small to batch), and the
+ * one-shot digest of crypto/hashing.py's Balloon hashing.
  *
  * An owned copy of the streaming part of the JAX package's
  * spacedrive_tpu/native/blake3.c, written from the public BLAKE3
@@ -9,7 +10,7 @@
  * pending chunk and a stack of at most 64 subtree chaining values.
  *
  * Plain C interface, loaded with ctypes (ops/blake3_host.py):
- *   b3_state_size, b3_init, b3_update, b3_finalize.
+ *   b3_state_size, b3_init, b3_update, b3_finalize, b3_hash.
  */
 
 #include <stdint.h>
@@ -198,3 +199,10 @@ void b3_finalize(const b3_state *s, uint8_t *out, uint32_t out_len) {
 }
 
 uint32_t b3_state_size(void) { return (uint32_t)sizeof(b3_state); }
+
+void b3_hash(const uint8_t *data, uint64_t len, uint8_t *out, uint32_t out_len) {
+  b3_state s;
+  b3_init(&s);
+  b3_update(&s, data, len);
+  b3_finalize(&s, out, out_len);
+}

@@ -2,13 +2,17 @@
 
 Parity targets: the reference's `sd-sync` vocabulary crate
 (ref:crates/sync/src/{crdt.rs,factory.rs,compressed.rs}) and the
-`sd-core-sync` manager (ref:core/crates/sync/src/). Counterpart of
-`spacedrive_tpu/sync/`, without ingest and the compressed wire batches
-(no peer exchanges ops with the port yet).
+`sd-core-sync` manager/ingest (ref:core/crates/sync/src/) — see
+manager.py and ingest.py. Counterpart of `spacedrive_tpu/sync/`.
 """
 
 from .hlc import NTP64, HybridLogicalClock, Timestamp
-from .crdt import CRDTOperation, CRDTOperationData
+from .crdt import (
+    CRDTOperation,
+    CRDTOperationData,
+    CompressedCRDTOperation,
+    CompressedCRDTOperations,
+)
 from .factory import OperationFactory
 
 __all__ = [
@@ -17,5 +21,7 @@ __all__ = [
     "Timestamp",
     "CRDTOperation",
     "CRDTOperationData",
+    "CompressedCRDTOperation",
+    "CompressedCRDTOperations",
     "OperationFactory",
 ]

@@ -9,8 +9,8 @@ SyncMessage events for the P2P layer.
 Counterpart of `spacedrive_tpu/sync/manager.py`: the per-instance ingest
 watermarks are loaded from the op log at start, and the replication
 watermarks and lag (`sd_sync_lag_seconds`, `sd_sync_watermark_seconds`)
-read them for the health and federation planes. Ingest, which advances
-them, comes with its plane.
+read them for the health and federation planes; ingest (sync/ingest.py)
+advances them, and `get_ops` pages the op log after a peer's.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import logging
 import time
 import uuid
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 from ..db.database import LibraryDb
 from ..telemetry import metrics as _tm
@@ -134,6 +134,46 @@ class SyncManager(OperationFactory):
                 )
         if ops and self.emit_messages:
             self.event_bus.emit(("SyncMessage", "Created"))
+
+    # --- read side (ref:manager.rs:115-172) ---
+
+    def get_ops(
+        self,
+        count: int = 1000,
+        clocks: Iterable[tuple[uuid.UUID, NTP64]] = (),
+    ) -> list[CRDTOperation]:
+        """Ops strictly after each instance's watermark, oldest first.
+        `clocks` are the requesting peer's per-instance watermarks;
+        instances not listed start from 0. Each instance's first `count`
+        ops come off the (instance_id, timestamp) index and are merged,
+        so a page costs O(page), not O(op log): JAX's single query
+        (the instances' ranges OR'ed, then ordered) sorts every op past
+        the watermarks on every page, which made a joiner's pull of a
+        ~400k-op log quadratic. The same ops, in the same order."""
+        clock_map = {inst: int(ts) for inst, ts in clocks}
+        parts, params = [], []
+        for row in self.db.query("SELECT id, pub_id FROM instance"):
+            watermark = clock_map.get(uuid.UUID(bytes=row["pub_id"]), -1)
+            parts.append("SELECT * FROM (SELECT timestamp, data FROM crdt_operation "
+                         "WHERE instance_id = ? AND timestamp > ? ORDER BY timestamp LIMIT ?)")
+            params.extend([row["id"], watermark, count])
+        if not parts:
+            return []
+        rows = self.db.query(
+            " UNION ALL ".join(parts) + " ORDER BY timestamp ASC LIMIT ?",
+            (*params, count),
+        )
+        return [CRDTOperation.unpack(r["data"]) for r in rows]
+
+    def get_cloud_ops(self, count: int = 1000) -> list[tuple[bytes, CRDTOperation]]:
+        """Pending rows from the cloud receive cache
+        (ref:core/src/cloud/sync/ingest.rs)."""
+        rows = self.db.query(
+            "SELECT id, data FROM cloud_crdt_operation ORDER BY timestamp ASC LIMIT ?",
+            (count,),
+        )
+        return [(r["id"], CRDTOperation.unpack(r["data"])) for r in rows]
+
 
 def _record_id_blob(record_id: Any) -> bytes:
     return packb(record_id)

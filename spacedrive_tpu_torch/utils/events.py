@@ -4,7 +4,9 @@ Parity: the reference's `event_bus` broadcast channel on Node
 (ref:core/src/lib.rs:113 `event_bus: broadcast::channel(256)`) carrying
 `CoreEvent` (ref:core/src/api/mod.rs:54-58). Here: a synchronous
 fan-out bus with bounded per-subscriber queues; async consumers drain
-via `subscribe()` queues.
+via `subscribe()` queues, and `on()` callbacks run synchronously in the
+emitter (a library's sync notifications wake its peers' ingest actors
+this way).
 
 Counterpart of `spacedrive_tpu/utils/events.py`.
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import collections
 import threading
-from typing import Any
+from typing import Any, Callable
 
 
 class Subscription:
@@ -44,19 +46,35 @@ class EventBus:
     def __init__(self, capacity: int = 256):
         self._capacity = capacity
         self._subs: list[Subscription] = []
+        self._callbacks: list[Callable[[Any], None]] = []
         self._lock = threading.Lock()
 
     def emit(self, event: Any) -> None:
         with self._lock:
             subs = list(self._subs)
+            cbs = list(self._callbacks)
         for sub in subs:
             sub.push(event)
+        for cb in cbs:
+            cb(event)
 
     def subscribe(self) -> Subscription:
         sub = Subscription(self, self._capacity)
         with self._lock:
             self._subs.append(sub)
         return sub
+
+    def on(self, callback: Callable[[Any], None]) -> Callable[[], None]:
+        """Call `callback(event)` on every emit; returns its remover."""
+        with self._lock:
+            self._callbacks.append(callback)
+
+        def off():
+            with self._lock:
+                if callback in self._callbacks:
+                    self._callbacks.remove(callback)
+
+        return off
 
     def unsubscribe(self, sub: Subscription) -> None:
         with self._lock:

@@ -11,10 +11,14 @@ rows, ids, counts, orders, cursors, cas_ids, checksums, statistics,
 tags and labels, and the invalidated keys of a rescan;
 `search.semantic` scores agree within 1e-5.
 
-Also: the port's key set is the JAX router's less `DEFERRED` (25 keys,
+Also: the port's key set is the JAX router's less `DEFERRED` (14 keys,
 each naming its ROADMAP plane), `client_gen` emits the JAX package's
 module for the ported keys, and with the bundled labeler checkpoint a
-labelled scan invalidates `labels.list` as the JAX actor does.
+labelled scan invalidates `labels.list` as the JAX actor does. The
+`sync.*` procedures answer as JAX's after the same writes; `keys.*`
+run through the router, and a wrong-password retry leaves the vault
+as tests/test_api.py:572 asserts, which the JAX router fails (a key
+added with `automount` is not mounted until the next unlock there).
 """
 
 import asyncio
@@ -36,7 +40,7 @@ from spacedrive_tpu.api.router import CoreEventKind as JCoreEventKind
 from spacedrive_tpu_torch.api.router import CoreEventKind
 
 #: JAX plane numbers in ROADMAP.md's plane list
-PLANES = {"6.5", "6.6", "6.7", "6.8"}
+PLANES = {"6.7", "6.8"}
 
 
 @pytest.fixture(autouse=True)
@@ -142,14 +146,15 @@ def test_keys_equal_jax_less_deferred():
     jkeys = set(japi.mount().keys())
     pkeys = set(papi.mount().keys())
     assert len(japi.mount().keys()) == 127
-    assert len(papi.DEFERRED) == 25 and len(pkeys) == 102
+    assert len(papi.DEFERRED) == 14 and len(pkeys) == 113
     assert set(papi.DEFERRED) <= jkeys
     assert pkeys == jkeys - set(papi.DEFERRED)
     assert set(papi.DEFERRED.values()) == PLANES
     counts = {}
     for key, plane in papi.DEFERRED.items():
         counts[plane] = counts.get(plane, 0) + 1
-    assert counts == {"6.5": 4, "6.6": 7, "6.7": 9, "6.8": 5}
+    assert counts == {"6.7": 9, "6.8": 5}
+    assert {k.split(".")[0] for k in papi.DEFERRED} == {"p2p", "cloud"}
     assert not any(k.startswith("telemetry.") for k in papi.DEFERRED)
 
 
@@ -672,6 +677,155 @@ async def _status_flow(pkg, tmp, corpus, capsys):
 
 def test_status_matches_sdx_status(tmp_path, capsys):
     _assert_equal_by_key(_both(tmp_path, _status_flow, capsys))
+
+
+# --- sync.* and keys.* ---------------------------------------------------------
+
+
+async def _sync_flow(pkg, tmp, corpus):
+    """The four `sync.*` procedures through one package's router after a
+    scan and a tag: `sync.newMessage` sees the tag's write, `messages`
+    pages the op log oldest first, `backfill` covers the rows written
+    without ops."""
+    node, lib, _loc = await _scanned_node(pkg, os.path.join(tmp, "node"), corpus)
+    r, lid = node.router, str(lib.id)
+    out = {"library_id": lid}
+    try:
+        seen = []
+
+        async def consume():
+            async for ev in r.subscribe(node, "sync.newMessage", library_id=lid):
+                seen.append(ev)
+
+        task = asyncio.ensure_future(consume())
+        await asyncio.sleep(0.05)
+        await r.exec(node, "tags.create", {"name": "synced", "color": "#123456"},
+                     library_id=lid)
+        await asyncio.sleep(0.2)
+        task.cancel()
+        out["newMessage"] = seen
+        out["enabled"] = await r.exec(node, "sync.enabled", library_id=lid)
+        msgs = await r.exec(node, "sync.messages", {"count": 10_000}, library_id=lid)
+        assert len(msgs) == lib.db.count("crdt_operation")
+        assert [m["timestamp"] for m in msgs] == sorted(m["timestamp"] for m in msgs)
+        out["messages"] = sorted((m["model"], next(iter(m["data"])),
+                                  (m["data"].get("u") or {}).get("field")) for m in msgs)
+        out["first_page"] = len(await r.exec(node, "sync.messages", library_id=lid))
+        out["backfill"] = await r.exec(node, "sync.backfill", library_id=lid)
+    finally:
+        await node.shutdown()
+    return out
+
+
+def test_sync_procedures_match_jax(tmp_path):
+    outs = _both(tmp_path, _sync_flow)
+    _assert_equal_by_key(outs)
+    assert outs["port"]["newMessage"] == ["Created"]
+    # both media jobs write the four images' media_data rows without ops:
+    # backfill covers them (a create and three fields each), as a pairing
+    # owner's backfill does before a joiner pulls
+    assert outs["port"]["backfill"] == 16 and outs["port"]["first_page"] == 100
+
+
+async def _keys_flow(pkg, tmp, corpus):
+    """`keys.*` through one package's router (light Argon2id): unlock an
+    empty vault, add keys, mount / unmount / delete, lock and unlock
+    again, a wrong password on a locked vault."""
+    from spacedrive_tpu_torch.crypto import hashing as phashing
+    from spacedrive_tpu.crypto import hashing as jhashing
+
+    light = {"Argon2id": (1024, 1, 1)}
+    node = NODES[pkg](os.path.join(tmp, "node"))
+    await node.start()
+    r = node.router
+    mod = jhashing if pkg == "jax" else phashing
+    saved = dict(mod._ARGON2)
+    for p in mod.Params:
+        mod._ARGON2[p] = light["Argon2id"]
+    try:
+        lid = (await r.exec(node, "library.create", {"name": "keys"}))["uuid"]
+        out = {"library_id": lid}
+
+        async def state():
+            st = await r.exec(node, "keys.state", library_id=lid)
+            return {"unlocked": st["unlocked"],
+                    "keys": sorted((k["automount"], k["mounted"], k["algorithm"])
+                                   for k in st["keys"])}
+
+        out["locked"] = await state()
+        out["unlock_empty"] = await r.exec(node, "keys.unlock", {"password": "hunter2"},
+                                           library_id=lid)
+        plain = (await r.exec(node, "keys.add", {"material": "ab" * 32}, library_id=lid))["uuid"]
+        auto = (await r.exec(node, "keys.add", {"automount": True}, library_id=lid))["uuid"]
+        out["added"] = await state()
+        await r.exec(node, "keys.mount", plain, library_id=lid)
+        out["mounted"] = await state()
+        await r.exec(node, "keys.unmount", plain, library_id=lid)
+        await r.exec(node, "keys.lock", library_id=lid)
+        out["relocked"] = await state()
+        with pytest.raises(Exception):
+            await r.exec(node, "keys.unlock", {"password": "wrong"}, library_id=lid)
+        out["after_wrong_on_locked"] = await state()
+        out["unlock_again"] = await r.exec(node, "keys.unlock", {"password": "hunter2"},
+                                           library_id=lid)
+        out["unlocked"] = await state()
+        await r.exec(node, "keys.delete", auto, library_id=lid)
+        out["deleted"] = await state()
+        with pytest.raises(Exception):
+            await r.exec(node, "keys.add", {"material": "zz"}, library_id=lid)
+    finally:
+        mod._ARGON2.update(saved)
+        await node.shutdown()
+    return out
+
+
+def test_keys_procedures_match_jax_but_for_the_added_automount_key(tmp_path):
+    outs = _both(tmp_path, _keys_flow)
+    port, jax = outs["port"], outs["jax"]
+    # the one difference: the port mounts a key added with automount to an
+    # unlocked vault at once; JAX mounts it at the next unlock
+    assert port["added"] == {"unlocked": True, "keys": [[False, False, 0], [True, True, 0]]}
+    assert jax["added"] == {"unlocked": True, "keys": [[False, False, 0], [True, False, 0]]}
+    assert port["mounted"]["keys"] == [[False, True, 0], [True, True, 0]]
+    for k in ("added", "mounted"):
+        port.pop(k), jax.pop(k)
+    _assert_equal_by_key(outs)
+    assert port["unlock_again"] == {"automounted": 1}
+    assert port["deleted"] == {"unlocked": True, "keys": [[False, False, 0]]}
+
+
+def test_keys_unlock_wrong_password_retry_keeps_vault_intact(tmp_path):
+    """What tests/test_api.py:572 asserts, through a port Node: a
+    wrong-password `keys.unlock` retry on an unlocked vault keeps it
+    unlocked with every mounted key mounted, and the true password still
+    unlocks. The JAX router fails it: its `keys.add` with automount does
+    not mount the key, so the first `mounted` check fails."""
+    from spacedrive_tpu_torch.api.router import RspcError
+
+    async def run():
+        node = _port_node(os.path.join(tmp_path, "node"))
+        await node.start()
+        try:
+            lib = await node.create_library("keys-lib")
+            r = node.router
+            lid = str(lib.id)
+            await r.exec(node, "keys.unlock", {"password": "hunter2"}, library_id=lid)
+            await r.exec(node, "keys.add", {"automount": True}, library_id=lid)
+            st = await r.exec(node, "keys.state", None, library_id=lid)
+            assert st["unlocked"] and st["keys"][0]["mounted"]
+
+            with pytest.raises(RspcError):
+                await r.exec(node, "keys.unlock", {"password": "wrong"}, library_id=lid)
+            st = await r.exec(node, "keys.state", None, library_id=lid)
+            assert st["unlocked"], "wrong-password retry locked the vault"
+            assert all(k["mounted"] for k in st["keys"]), "wrong-password retry unmounted keys"
+            # the true password still unlocks (master wasn't corrupted)
+            out = await r.exec(node, "keys.unlock", {"password": "hunter2"}, library_id=lid)
+            assert out is not None
+        finally:
+            await node.shutdown()
+
+    asyncio.run(run())
 
 
 # --- the labeler closes ------------------------------------------------------

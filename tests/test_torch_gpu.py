@@ -833,3 +833,87 @@ def test_router_scan_validate_and_semantic_on_cuda_match_cpu(tmp_path):
     assert cuda_hits[0][0] in ("i1", "dup")
     np.testing.assert_allclose([s for _, s in cuda_hits], [s for _, s in cpu_hits],
                                atol=1e-5, rtol=1e-5)
+
+
+def _join(joiner, owner_lib):
+    """A library joined as JAX's p2p/pairing.py:132-200 writes one (the
+    pairing protocol is plane 6.7b): the owner's library id, this node's
+    instance row and the owner's, the config file."""
+    from spacedrive_tpu_torch.db import LibraryDb
+    from spacedrive_tpu_torch.db.database import new_pub_id, now_iso
+    from spacedrive_tpu_torch.location.indexer.rules import seed_rules
+    from spacedrive_tpu_torch.node.library import Library, LibraryConfig, _config_vm
+
+    db = LibraryDb(joiner.libraries._db_path(owner_lib.id))
+    me = new_pub_id()
+    iid = db.insert("instance", pub_id=me, identity=b"", node_id=joiner.id.bytes,
+                    node_name="joiner", node_platform=0, last_seen=now_iso(),
+                    date_created=now_iso())
+    for inst in owner_lib.db.find("instance"):
+        db.insert("instance", **{k: v for k, v in inst.items() if k != "id"})
+    config = LibraryConfig(name=owner_lib.config.name, instance_id=iid)
+    _config_vm.save(joiner.libraries._config_path(owner_lib.id), config.to_dict())
+    lib = Library(owner_lib.id, config, db, uuid.UUID(bytes=me), node=joiner)
+    joiner.libraries.libraries[lib.id] = lib
+    seed_rules(db)
+    owner_lib.db.insert("instance", pub_id=me, identity=b"", node_id=joiner.id.bytes,
+                        node_name="joiner", node_platform=0, last_seen=now_iso(),
+                        date_created=now_iso())
+    return lib
+
+
+async def _joined_search(tmp_path, loc):
+    """An owner on "cpu" scans `loc`; a joiner on "cuda" and one on "cpu"
+    pull its op log (after the owner's backfill) through the loopback
+    over `get_ops`, their `on_applied` refreshing their indexes; each
+    answers `search.semantic` of one image. Returns both rankings and
+    K1's launches over the joins."""
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.object.search.index import on_embeddings_applied
+    from spacedrive_tpu_torch.sync.ingest import IngestActor, backfill_operations
+
+    owner = Node(str(tmp_path / "owner"), device="cpu", with_labeler=False)
+    await owner.start()
+    joiners = {d: Node(str(tmp_path / d), device=d, with_labeler=False) for d in ("cuda", "cpu")}
+    try:
+        lid = (await owner.router.exec(owner, "library.create", {"name": "shared"}))["uuid"]
+        await owner.router.exec(owner, "locations.create", {"path": str(loc)}, library_id=lid)
+        await owner.jobs.wait_idle()
+        olib = owner.libraries.libraries[uuid.UUID(lid)]
+        backfill_operations(olib.sync)
+        out = {}
+        blake3_cuda.chunk_cvs.launches = 0
+        for device, node in joiners.items():
+            await node.start()
+            lib = _join(node, olib)
+            await node._init_library(lib)
+
+            async def pull(timestamps, count):
+                ops = olib.sync.get_ops(count=count, clocks=timestamps)
+                return ops, len(ops) == count
+
+            lib.ingest = IngestActor(lib.sync, pull,
+                                     on_applied=lambda lib=lib: on_embeddings_applied(lib))
+            lib.ingest.notify()
+            await lib.ingest.wait_idle()
+            sem = await node.router.exec(node, "search.semantic",
+                                         {"query": str(loc / "i1.png"), "take": 10},
+                                         library_id=lid)
+            out[device] = [(n["name"], n["score"]) for n in sem["nodes"]]
+        return out, blake3_cuda.chunk_cvs.launches
+    finally:
+        for node in (owner, *joiners.values()):
+            await node.shutdown()
+
+
+def test_a_joiner_on_cuda_answers_semantic_search_as_one_on_cpu(tmp_path):
+    """Two replicas join one library by its op log, one on the card and
+    one on the CPU: the same ranking, scores within 1e-5, and neither
+    join launched K1 (the replicas hash nothing)."""
+    loc = tmp_path / "loc"
+    _media_tree(loc)
+    hits, launches = asyncio.run(_joined_search(tmp_path, loc))
+    assert hits["cuda"] and [n for n, _ in hits["cuda"]] == [n for n, _ in hits["cpu"]]
+    np.testing.assert_allclose([s for _, s in hits["cuda"]], [s for _, s in hits["cpu"]],
+                               atol=1e-5, rtol=1e-5)
+    assert launches == 0

@@ -165,10 +165,22 @@ class _FakeNode:
     history = None
 
 
+def _declared_rings(ev):
+    """The flight-recorder rings a package's events module declares."""
+    return {r.name: r for r in vars(ev).values() if isinstance(r, ev.EventRing)}
+
+
 def test_local_snapshot_equals_jax_but_for_the_node_id(monkeypatch):
     from spacedrive_tpu.telemetry import federation as jfed
     from spacedrive_tpu_torch.telemetry import federation
 
+    # the ring registry is process-wide and keeps every ring ever made:
+    # tests/test_telemetry.py's probe rings stay in the JAX package's when
+    # that file ran earlier in the same worker, and the digests list them;
+    # both packages digest the rings their events modules declare
+    assert set(_declared_rings(events)) == set(_declared_rings(jevents))
+    for ev in (events, jevents):
+        monkeypatch.setattr(ev, "_rings", _declared_rings(ev))
     for m in (pm, jm):
         m.GATE_REQUESTS.inc(klass="control", outcome="admitted")
         m.FEEDER_WAIT_SECONDS.observe(0.25)

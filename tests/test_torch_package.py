@@ -81,6 +81,27 @@ def test_the_scan_covers_the_live_location():
                                           "erase.py")} <= rel
 
 
+def test_the_scan_covers_sync_ingest_and_crypto():
+    """Sync ingest and the crypto stack (owned copies of the JAX modules)
+    are scanned too. Their MessagePack bytes, packed and read, come from
+    utils/msgpack_codec: none imports the `msgpack` package."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    planes = {os.path.join("db", "sync_registry.py"), os.path.join("object", "fs", "encrypt.py")}
+    planes |= {os.path.join("sync", f) for f in ("apply.py", "ingest.py", "crdt.py",
+                                                 "manager.py")}
+    planes |= {os.path.join("crypto", f) for f in ("__init__.py", "stream.py", "xchacha.py",
+                                                   "hashing.py", "header.py", "keys.py",
+                                                   "keyring.py")}
+    assert planes <= rel
+    for f in planes:
+        with open(os.path.join(PACKAGE, f), encoding="utf-8") as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom) else [])
+            assert "msgpack" not in names, f"{f} imports msgpack"
+
+
 def test_sklearn_only_inside_digits_demo_dataset():
     """scikit-learn, which the card's machine lacks, is imported by one
     function of the port, lazily: `models/train.py`'s

@@ -1,15 +1,14 @@
-"""CRDT vocabulary tests: HLC monotonicity/merge, op wire roundtrips
-(the reference's own coverage here is wire roundtrips, e.g.
-ref:core/src/p2p/sync/mod.rs:56-70).
+"""CRDT vocabulary tests: HLC monotonicity/merge, op wire roundtrips,
+compression grouping (the reference's own coverage here is wire
+roundtrips, e.g. ref:core/src/p2p/sync/mod.rs:56-70).
 
-The JAX package's tests/test_sync_vocab.py, pointed at the port package,
-less its test of the compressed wire batches, which the port does not
-have.
+The JAX package's tests/test_sync_vocab.py, pointed at the port package.
 """
 
 import uuid
 
 from spacedrive_tpu_torch.sync import (
+    CompressedCRDTOperations,
     CRDTOperation,
     CRDTOperationData,
     HybridLogicalClock,
@@ -68,6 +67,25 @@ def test_shared_create_emits_field_updates():
     assert ts == sorted(ts) and len(set(ts)) == 3
 
 
+def test_compression_roundtrip_and_grouping():
+    f = make_factory()
+    ops = (
+        f.shared_create("object", "r1", [("kind", 1)])
+        + f.shared_create("object", "r2", [("kind", 2)])
+        + [f.shared_update("file_path", "r3", "cas_id", "abc")]
+    )
+    comp = CompressedCRDTOperations.compress(ops)
+    assert len(comp) == len(ops)
+    # one instance group, two model runs (object, file_path)
+    assert len(comp.groups) == 1
+    models = [m for m, _ in comp.groups[0][1]]
+    assert models == ["object", "file_path"]
+    # record grouping under object: r1 then r2
+    object_records = [r for r, _ in comp.groups[0][1][0][1]]
+    assert object_records == ["r1", "r2"]
+    assert CompressedCRDTOperations.unpack(comp.pack()).expand() == ops
+
+
 def test_relation_ops():
     f = make_factory()
     rid = {"item": "obj-pub", "group": "tag-pub"}
@@ -75,3 +93,22 @@ def test_relation_ops():
     assert ops[0].record_id == rid
     back = CRDTOperation.unpack(ops[1].pack())
     assert back.record_id == rid
+
+
+def test_ops_and_batches_decode_as_the_msgpack_package_reads_them():
+    """An op and a compressed batch read back equal through the owned
+    codec, which reads each packed object as the `msgpack` package does."""
+    import msgpack
+
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    f = make_factory()
+    ops = (f.shared_create("object", "r1", [("kind", 1), ("blob", b"\x00\xff"), ("x", 1.5)])
+           + f.relation_create("tag_on_object", {"item": "a", "group": "b"}, [("n", -7)])
+           + [f.shared_delete("object", "r1")])
+    raws = [op.pack() for op in ops]
+    batch = CompressedCRDTOperations.compress(ops).pack()
+    assert [CRDTOperation.unpack(r) for r in raws] == ops
+    assert CompressedCRDTOperations.unpack(batch).expand() == ops
+    for raw in raws + [batch]:
+        assert unpackb(raw) == msgpack.unpackb(raw, raw=False, strict_map_key=False)
