@@ -233,6 +233,27 @@ router, the owner's IngestActor pulls them back, and both sides hold
 equal rows again; no ERROR record, `check_healthy` by delta. It prints
 `{"replica": ...}` with the op count by model, the ingest's ops/s, the
 write-combined transactions and the seconds of each step.
+Phase 16 is the p2p transport, on its own `P2P` instances and
+identities on 127.0.0.1 (no Node), with the ladder and the controller
+reset first. (a) Two instances find each other by unicast
+`MdnsDiscovery` beacons; the sender takes >= 32 MiB of phase 3's files
+from the snapshot (the largest, 4 more over 100 KiB and 8 under it),
+computes each one's cas_id with `cas.cas_id_cpu`, opens a stream with
+`P2P.new_stream` and sends them by Spaceblock over Noise XX under a
+SPACEDROP header that carries its trace; the receiver, in a span under
+that trace, reads the received files' sampled messages and hashes them
+with `cas.cas_ids` on the card (K1 launched): equal bytes, cas_ids
+equal bit for bit, the span's trace id the sender's. (b) A local
+`RelayServer` introduces `RelayClient`s: 8 MiB over the hole-punched
+UDP stream (a direct stream, no pipe spliced) and 8 MiB from a client
+with punching off over the relay's splice, each acknowledged by the
+BLAKE3 of what the receiver read (host C hasher); `check_healthy` by
+delta. (c) `p2p.connect:reset:times=1` fails one dial with
+ConnectionResetError and the next opens; `p2p.write:reset:times=1`
+fails a punched stream's write with UdpStreamError, poisons its reader
+and puts `stream_failed` on the `p2p` ring; the degradation counters
+move by those 2 fault activations alone. It prints `{"p2p": ...}` with
+the MB/s of (a) and (b) and the seconds of each step.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -241,8 +262,8 @@ non-zero before any work. The last line of standard output is
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
 decoders', the API's, the observability plane's, the verdicts', the
-live location's and the replica's numbers, and each phase's wall
-seconds, as JSON.
+live location's, the replica's and the p2p transport's numbers, and
+each phase's wall seconds, as JSON.
 """
 
 from __future__ import annotations
@@ -5518,11 +5539,350 @@ def report_replica(got: dict) -> dict:
     return {"launches": launches}
 
 
+# --- phase 16: the p2p transport ----------------------------------------------------
+
+P2P_SEND_BYTES = 32 << 20  # (a): at least this much of phase 3's files
+P2P_PUNCH_BYTES = 8 << 20  # (b): over the punched path, and again over the splice
+P2P_WAIT_S = 60  # the bound on one step of the phase
+
+
+def p2p_files(snapshot: str) -> list[str]:
+    """(a)'s files from phase 3's snapshot: the largest first until
+    P2P_SEND_BYTES (PNGs of up to ~3 MB), the 4 largest `.bin` files
+    over 100 KiB (the cas_id's sampled read) and 8 under 100 KiB (the
+    whole-file message), in sorted order."""
+    from spacedrive_tpu_torch.ops import cas
+
+    sized = sorted(((os.path.getsize(os.path.join(d, f)), os.path.join(d, f))
+                    for d, _, fs in os.walk(snapshot) for f in fs), reverse=True)
+    picked, total = [], 0
+    for size, path in sized:
+        if total >= P2P_SEND_BYTES:
+            break
+        picked.append(path)
+        total += size
+    bins = [p for s, p in sized if p.endswith(".bin") and s > cas.MINIMUM_FILE_SIZE]
+    small = [p for s, p in sized if 1024 < s <= cas.MINIMUM_FILE_SIZE]
+    picked += [p for p in bins if p not in picked][:4] + small[::max(1, len(small) // 8)][:8]
+    return sorted(set(picked))
+
+
+def unicast_beacons(discovery, p2ps, ports) -> list:
+    """Discovery backends for two P2Ps that beacon to each other on
+    127.0.0.1 (multicast may be closed on the host), on free UDP ports
+    taken before either starts."""
+    import socket
+
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for _ in p2ps]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        udp = [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+    return [discovery(p, port, bind_port=udp[i], interval=0.05, expiry=5.0,
+                      beacon_addrs=[("127.0.0.1", udp[1 - i])])
+            for i, (p, port) in enumerate(zip(p2ps, ports))]
+
+
+async def p2p_spacedrop(tmp: str, paths: list[str], want: list[str]) -> dict:
+    """16(a): two P2Ps find each other by unicast beacons on 127.0.0.1;
+    one opens a stream to the other with a SPACEDROP header that carries
+    its trace, and sends `paths` by Spaceblock over Noise; the receiver,
+    under the sender's trace, hashes what it received on the card, and
+    its cas_ids must be `want`."""
+    import asyncio
+
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.ops import cas
+    from spacedrive_tpu_torch.p2p import (
+        P2P, BlockSize, Header, HeaderType, Identity, SpaceblockRequest, SpaceblockRequests,
+        Transfer,
+    )
+    from spacedrive_tpu_torch.p2p.mdns import MdnsDiscovery
+    from spacedrive_tpu_torch.telemetry import trace
+
+    steps: dict[str, float] = {}
+    recv_dir = os.path.join(tmp, "p2p_received")
+    os.makedirs(recv_dir)
+    got: dict = {}
+    done = asyncio.Event()
+
+    async def handler(stream) -> None:
+        try:
+            header = await Header.read(stream)
+            check(header.type == HeaderType.SPACEDROP, f"16(a): header {header.type!r}")
+            with trace.use(trace.TraceContext.from_wire(header.trace)):
+                with telemetry.span("p2p.spacedrop_receive") as sp:
+                    sinks = [open(os.path.join(recv_dir, f"{i:03d}_{os.path.basename(r.name)}"),
+                                  "wb") for i, r in enumerate(header.spacedrop.requests)]
+                    try:
+                        await Transfer(header.spacedrop).receive(stream, sinks)
+                    finally:
+                        for f in sinks:
+                            f.close()
+                    t0 = time.perf_counter()
+                    # off the loop, so the sender's last ack is read on time
+                    got["cas"] = await asyncio.to_thread(
+                        lambda: cas.cas_ids([cas.read_message(f.name) for f in sinks], DEVICE))
+                    got["cas_s"] = time.perf_counter() - t0
+            got["trace_id"], got["sizes"] = sp.trace_id, [os.path.getsize(f.name) for f in sinks]
+        except Exception as exc:  # surfaced by the sender below
+            got["error"] = exc
+        finally:
+            done.set()
+
+    sender, receiver = P2P("sd-smoke", Identity()), P2P("sd-smoke", Identity())
+    receiver.set_stream_handler(handler)
+    try:
+        t0 = time.perf_counter()
+        ports = [await p.listen(host="127.0.0.1") for p in (sender, receiver)]
+        beacons = unicast_beacons(MdnsDiscovery, (sender, receiver), ports)
+        for d in beacons:
+            await d.start()
+        async with asyncio.timeout(P2P_WAIT_S):
+            while not (sender.discovered_peers() and receiver.discovered_peers()):
+                await asyncio.sleep(0.01)
+        check([p.identity for p in sender.discovered_peers()] == [receiver.remote_identity],
+              "16(a): the sender discovered the receiver alone")
+        steps["discovery_s"] = time.perf_counter() - t0
+
+        sizes = [os.path.getsize(p) for p in paths]
+        reqs = SpaceblockRequests(
+            # the block size of a spacedrop (JAX p2p/operations.py:112)
+            id=uuid.UUID(int=16), block_size=BlockSize.from_file_size(max(sizes)),
+            requests=[SpaceblockRequest(name=os.path.basename(p), size=s)
+                      for p, s in zip(paths, sizes)])
+        ctx = trace.new_context()
+        t0 = time.perf_counter()
+        stream = await sender.new_stream(receiver.remote_identity)
+        files = [open(p, "rb") for p in paths]
+        try:
+            with trace.use(ctx):
+                await Header(HeaderType.SPACEDROP, spacedrop=reqs,
+                             trace=trace.wire_current()).write(stream)
+            await Transfer(reqs).send(stream, files)
+            steps["send_s"] = time.perf_counter() - t0
+            async with asyncio.timeout(P2P_WAIT_S):
+                await done.wait()
+        finally:
+            for f in files:
+                f.close()
+            await stream.close()
+        steps["received_and_hashed_s"] = time.perf_counter() - t0
+    finally:
+        for p in (sender, receiver):
+            await p.shutdown()
+    if "error" in got:
+        raise SmokeFailure(f"16(a): the receiver failed: {got['error']!r}") from got["error"]
+    check(got["sizes"] == sizes, "16(a): received sizes")
+    for i, path in enumerate(paths):
+        with open(path, "rb") as f, open(os.path.join(
+                recv_dir, f"{i:03d}_{os.path.basename(path)}"), "rb") as g:
+            check(f.read() == g.read(), f"16(a): the received bytes of {path}")
+    bad = [p for p, g, w in zip(paths, got["cas"], want) if g != w]
+    check(not bad, f"16(a): card cas_ids differ from cas_id_cpu for {len(bad)} files: {bad[:4]}")
+    check(got["trace_id"] == ctx.trace_id, "16(a): the receiver's span is not in the sender's trace")
+    return {"files": len(paths), "bytes": sum(sizes), "over_100k": sum(
+        s > cas.MINIMUM_FILE_SIZE for s in sizes), "block_size": reqs.block_size.size,
+        "mb_per_s": sum(sizes) / 1e6 / steps["send_s"], "card_cas_s": got["cas_s"],
+        "steps_s": steps}
+
+
+async def p2p_punched(rng) -> dict:
+    """16(b): a local RelayServer introduces two RelayClients; P2P_PUNCH_BYTES
+    go over the hole-punched UDP stream and again over the relay's
+    splice from a third client with punching off. The receiver returns
+    the BLAKE3 of what it read (host C hasher)."""
+    import asyncio
+
+    from spacedrive_tpu_torch.ops.blake3_host import blake3_digest
+    from spacedrive_tpu_torch.p2p import P2P, Identity
+    from spacedrive_tpu_torch.p2p.relay import RelayClient, RelayServer
+
+    payload = rng.bytes(P2P_PUNCH_BYTES)
+    want = blake3_digest(payload)
+
+    async def on_stream(stream) -> None:
+        data = await stream.read_exact(P2P_PUNCH_BYTES)
+        await stream.write(blake3_digest(data))
+        try:  # hold the stream until the dialer closes it
+            await stream.read_exact(1)
+        except asyncio.IncompleteReadError:
+            pass
+
+    srv = RelayServer()
+    port = await srv.start()
+    peers = [P2P("sd-smoke", Identity()) for _ in range(3)]
+    clients = [RelayClient(p, ("127.0.0.1", port), on_stream, query_interval=0.1, punch=punch)
+               for p, punch in zip(peers, (True, True, False))]
+    out: dict = {}
+    try:
+        for c in clients:
+            await c.start()
+        target = peers[1].remote_identity
+        async with asyncio.timeout(P2P_WAIT_S):
+            while not all(c._ctrl and c._relay_udp for c in clients) or not all(
+                    target in p.peers and p.peers[target].relayed for p in (peers[0], peers[2])):
+                await asyncio.sleep(0.01)
+        for name, p in (("punched", peers[0]), ("spliced", peers[2])):
+            t0 = time.perf_counter()
+            stream = await p.new_stream(target, timeout=20)
+            dial_s = time.perf_counter() - t0
+            check(bool(getattr(stream, "direct", False)) == (name == "punched"),
+                  f"16(b): the {name} stream took the other path")
+            t0 = time.perf_counter()
+            try:
+                await stream.write(payload)
+                async with asyncio.timeout(P2P_WAIT_S):
+                    digest = await stream.read_exact(32)
+            finally:
+                await stream.close()
+            seconds = time.perf_counter() - t0
+            check(digest == want, f"16(b): BLAKE3 of the {name} bytes differs")
+            out[name] = {"dial_s": dial_s, "seconds": seconds,
+                         "mb_per_s": P2P_PUNCH_BYTES / 1e6 / seconds}
+        check(clients[0].punch_stats["direct"] == 1 and clients[1].punch_stats["accepted"] == 1,
+              f"16(b): punch stats {clients[0].punch_stats} {clients[1].punch_stats}")
+        check(srv.stats.pipes_opened == 1 and srv.stats.bytes_relayed > P2P_PUNCH_BYTES,
+              f"16(b): the relay spliced {srv.stats.snapshot()}")
+        out["relay"] = srv.stats.snapshot()
+    finally:
+        for c in clients:
+            await c.shutdown()
+        for p in peers:
+            await p.shutdown()
+        await srv.shutdown()
+    return out
+
+
+async def p2p_faults() -> dict:
+    """16(c): `p2p.connect:reset:times=1` fails one dial with a
+    ConnectionResetError and the next dial opens; `p2p.write:reset:times=1`
+    fails the first write on a punched stream with UdpStreamError,
+    poisons its reader and puts `stream_failed` on the `p2p` ring."""
+    import asyncio
+
+    from spacedrive_tpu_torch.p2p import P2P, Identity
+    from spacedrive_tpu_torch.p2p.mdns import MdnsDiscovery
+    from spacedrive_tpu_torch.p2p.relay import RelayClient, RelayServer
+    from spacedrive_tpu_torch.p2p.udpstream import UdpStreamError
+    from spacedrive_tpu_torch.telemetry.events import P2P_EVENTS
+    from spacedrive_tpu_torch.utils import faults
+
+    released = asyncio.Event()
+
+    async def on_stream(stream) -> None:
+        await released.wait()
+
+    a, b = P2P("sd-smoke", Identity()), P2P("sd-smoke", Identity())
+    b.set_stream_handler(on_stream)
+    srv = RelayServer()
+    port = await srv.start()
+    clients = [RelayClient(p, ("127.0.0.1", port), on_stream, query_interval=0.1) for p in (a, b)]
+    out: dict = {}
+    try:
+        ports = [await p.listen(host="127.0.0.1") for p in (a, b)]
+        for d in unicast_beacons(MdnsDiscovery, (a, b), ports):
+            await d.start()
+        for c in clients:
+            await c.start()
+        async with asyncio.timeout(P2P_WAIT_S):
+            while not (a.discovered_peers() and all(c._ctrl and c._relay_udp for c in clients)):
+                await asyncio.sleep(0.01)
+        with faults.active(faults.FaultPlan.parse("p2p.connect:reset:times=1")) as plan:
+            try:
+                await a.new_stream(b.remote_identity)
+                check(False, "16(c): p2p.connect:reset did not fail the dial")
+            except ConnectionResetError:
+                pass
+            stream = await a.new_stream(b.remote_identity)
+            await stream.close()
+            out["connect"] = plan.activations()
+        stream = await clients[0].punch_dial(b.remote_identity)
+        failed_before = sum(e["type"] == "stream_failed" for e in P2P_EVENTS.snapshot())
+        try:
+            with faults.active(faults.FaultPlan.parse("p2p.write:reset:times=1")) as plan:
+                try:
+                    await stream.write(b"x" * 4096)
+                    check(False, "16(c): p2p.write:reset did not fail the write")
+                except UdpStreamError:
+                    pass
+                out["write"] = plan.activations()
+            try:
+                await stream.read_exact(1)
+                check(False, "16(c): the failed stream's reader still reads")
+            except UdpStreamError:
+                pass
+        finally:
+            await stream.close()
+        out["stream_failed_events"] = sum(
+            e["type"] == "stream_failed" for e in P2P_EVENTS.snapshot()) - failed_before
+        # the accepting side closes its end; its FIN goes unanswered (the
+        # failed stream shut its socket), and shutting its relay client
+        # down cancels that wait
+        released.set()
+        await asyncio.sleep(0.05)
+    finally:
+        for c in clients:
+            await c.shutdown()
+        for p in (a, b):
+            await p.shutdown()
+        await srv.shutdown()
+    check(out["connect"] == {"p2p.connect": 1} and out["write"] == {"p2p.write": 1}
+          and out["stream_failed_events"] == 1, f"16(c): {out}")
+    return out
+
+
+def phase_p2p(rng, tmp: str, snapshot: str) -> dict:
+    """Phase 16: the p2p transport on its own P2P instances on 127.0.0.1
+    (no Node): (a) discovery and a Spaceblock over Noise TCP, hashed on
+    the card by the receiver; (b) a hole-punched UDP stream and the
+    relay's splice; (c) the `p2p.connect` and `p2p.write` fault points."""
+    import asyncio
+
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    since = degradation()
+    paths = p2p_files(snapshot)
+    t0 = time.perf_counter()
+    want = [cas.cas_id_cpu(p) for p in paths]  # the sender's host path, before it sends
+    expected_s = time.perf_counter() - t0
+    blake3_cuda.chunk_cvs.launches = 0
+    spacedrop = asyncio.run(p2p_spacedrop(tmp, paths, want))
+    launches = blake3_cuda.chunk_cvs.launches
+    spacedrop["steps_s"]["expected_cas_s"] = expected_s
+    punched = asyncio.run(p2p_punched(rng))
+    check_healthy("16", since)
+    clean = degradation()
+    fault_points = asyncio.run(p2p_faults())
+    moved = {k: v - clean[k] for k, v in degradation().items() if not k.startswith("demotion")}
+    check(moved == {**{k: 0 for k in moved}, "fault_activations": 2},
+          f"16(c): degradation counters moved {moved}")
+    return {"spacedrop": spacedrop, "punched": punched, "faults": fault_points,
+            "launches": launches, "seconds": time.perf_counter() - t_phase}
+
+
+def report_p2p(got: dict) -> dict:
+    check(got["launches"] > 0, "16(a): the receiver's cas_ids launched K1 no time")
+    print(json.dumps({"p2p": got}), flush=True)
+    print(f"phase 16: the p2p transport in {got['seconds']:.1f} s: (a) "
+          f"{got['spacedrop']['mb_per_s']:.1f} MB/s over Noise TCP, (b) "
+          f"{got['punched']['punched']['mb_per_s']:.1f} MB/s punched, "
+          f"{got['punched']['spliced']['mb_per_s']:.1f} MB/s spliced", flush=True)
+    return {"launches": {"p2p_transfer": got["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=15, choices=range(3, 16),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 15: all); "
+    parser.add_argument("--stop-after", type=int, default=16, choices=range(3, 17),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 16: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -5611,6 +5971,9 @@ def main() -> int:
             if then is not None:
                 launches.update(report_replica(live["then"])["launches"])
             lap("14" if then is None else "14 and 15")  # 15 runs on 14's Node
+        if args.stop_after >= 16:
+            launches.update(report_p2p(phase_p2p(rng, tmp, snapshot))["launches"])
+            lap("16")
     lap("cleanup")
     print(json.dumps({"wall_s": {"phases": phase_s,
                                  "smoke": time.perf_counter() - _T_START}}), flush=True)

@@ -36,9 +36,9 @@ samplers and the pool are refcounted, so two nodes in one process share
 one controller, one thread per sampler and one worker set. A Node lives
 within one event loop (one `asyncio.run`).
 
-Not ported: P2P and cloud sync (6.7, 6.8), which wire a library's
-ingest actor to its peers, and the serve runtime and the API server
-(6.9).
+Not ported: the node's P2P manager and cloud sync (6.7b, 6.8; the p2p
+transport under `p2p/` is ported), which wire a library's ingest actor
+to its peers, and the serve runtime and the API server (6.9).
 """
 
 from __future__ import annotations

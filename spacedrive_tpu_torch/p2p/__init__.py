@@ -1,2 +1,35 @@
-"""Node identity (ed25519 keypairs); counterpart of the identity part of
-`spacedrive_tpu/p2p/`."""
+"""P2P mesh: identity, transport, discovery, protocol, transfer.
+
+Parity: ref:crates/p2p2 (runtime), crates/p2p-block (Spaceblock),
+crates/p2p-proto (wire helpers), core/src/p2p (protocol + operations).
+The reference rides QUIC on a patched libp2p; here streams are
+length-framed asyncio TCP with an ed25519-authenticated X25519 +
+ChaCha20-Poly1305 channel (same trust model: identity keypairs, no CA).
+
+Counterpart of the transport half of `spacedrive_tpu/p2p/` (identity,
+wire, Spaceblock, headers, Noise XX, the encrypted streams, the `P2P`
+runtime, UDP streams, hole punching, the relay, tunnels and discovery),
+with the same exports. The node's half (the manager, its operations,
+pairing, sync and work over the mesh, and the loopback link) is not
+ported yet.
+"""
+
+from .block import BlockSize, Range, SpaceblockRequest, SpaceblockRequests, Transfer
+from .identity import Identity, RemoteIdentity
+from .p2p import P2P, Peer
+from .protocol import FileRequest, Header, HeaderType
+
+__all__ = [
+    "BlockSize",
+    "FileRequest",
+    "Header",
+    "HeaderType",
+    "Identity",
+    "P2P",
+    "Peer",
+    "Range",
+    "RemoteIdentity",
+    "SpaceblockRequest",
+    "SpaceblockRequests",
+    "Transfer",
+]

@@ -9,8 +9,7 @@ the peer address on the mesh.
 Counterpart of `Identity` and `RemoteIdentity` in
 `spacedrive_tpu/p2p/identity.py`, with the same gate: the
 `cryptography` package when it imports, else the pure-Python RFC 8032
-fallback (utils/ed25519_fallback.py). The rest of the P2P layer is not
-ported.
+fallback (utils/ed25519_fallback.py).
 """
 
 from __future__ import annotations

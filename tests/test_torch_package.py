@@ -102,6 +102,55 @@ def test_the_scan_covers_sync_ingest_and_crypto():
             assert "msgpack" not in names, f"{f} imports msgpack"
 
 
+
+P2P_TRANSPORT = ("__init__.py", "identity.py", "wire.py", "block.py", "protocol.py", "noise.py",
+                 "transport.py", "p2p.py", "udp.py", "udpstream.py", "punch.py", "relay.py",
+                 "tunnel.py", "mdns.py")
+
+
+def test_the_scan_covers_the_p2p_transport():
+    """The p2p transport (owned copies of the JAX modules) is scanned
+    too, and its MessagePack frames come from utils/msgpack_codec: none
+    imports the `msgpack` package."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    files = {os.path.join("p2p", f) for f in P2P_TRANSPORT}
+    assert files <= rel
+    for f in files:
+        assert "msgpack" not in set(_imported_modules(os.path.join(PACKAGE, f))), f
+
+
+def test_p2p_imports_without_cryptography():
+    """With `cryptography` absent the p2p package still imports, as the
+    JAX package's does (identities fall back to the pure-Python
+    ed25519), while every encrypted channel refuses: a keyed cipher, a
+    handshake state and a client handshake raise NoiseError; nothing
+    falls back to plaintext."""
+    modules = ["spacedrive_tpu_torch.p2p" + ("" if f == "__init__.py" else "." + f[:-3])
+               for f in P2P_TRANSPORT]
+    code = (
+        "import asyncio, importlib, sys\n"
+        "sys.modules['cryptography'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from spacedrive_tpu_torch.p2p import Identity, noise, transport\n"
+        "ident = Identity()\n"
+        "assert ident.to_remote_identity().verify(ident.sign(b'm'), b'm')\n"
+        "refused = []\n"
+        "for attempt in (lambda: noise.CipherState(b'k' * 32),\n"
+        "                lambda: noise.HandshakeState(True, None),\n"
+        "                lambda: asyncio.run(transport._client_handshake(None, None, ident, None))):\n"
+        "    try:\n"
+        "        attempt()\n"
+        "    except noise.NoiseError:\n"
+        "        refused.append(1)\n"
+        "assert len(refused) == 3, refused\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
 def test_sklearn_only_inside_digits_demo_dataset():
     """scikit-learn, which the card's machine lacks, is imported by one
     function of the port, lazily: `models/train.py`'s

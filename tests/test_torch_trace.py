@@ -14,10 +14,13 @@ pointed at the port).
   `serialize_state` bytes equal JAX's for the same job;
 - the window pipeline's producer and its restart join the trace of the
   code that built the pipeline; a thumbnail batch persists its trace
-  in the JAX package's state-file bytes.
+  in the JAX package's state-file bytes;
+- the p2p header hop: a SYNC or SPACEDROP header carries the
+  initiator's context over the wire, and the responder's span records
+  under its trace id.
 
-Cases of tests/test_trace.py left for later planes: the P2P header hop
-and the ingest actor (6.5, 6.7b).
+tests/test_trace.py's ingest actor case is in
+tests/test_torch_sync_ingest.py.
 """
 
 import asyncio
@@ -332,6 +335,68 @@ def test_serialized_job_state_equals_jax(traced):
     assert (back.trace_ctx.trace_id if traced else back.trace_ctx) == ("c" * 32 if traced
                                                                        else None)
     assert back.next_jobs[0].trace_ctx is not None or not traced
+
+
+
+# --- the p2p header hop ----------------------------------------------------------
+
+
+class _PipeStream:
+    """Loopback stream: write() appends, read_exact() blocks."""
+
+    def __init__(self):
+        self._buf = bytearray()
+        self._event = asyncio.Event()
+
+    async def write(self, data: bytes) -> None:
+        self._buf += data
+        self._event.set()
+
+    async def read_exact(self, n: int) -> bytes:
+        while len(self._buf) < n:
+            self._event.clear()
+            await self._event.wait()
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+
+def test_sync_header_carries_trace_and_responder_joins_it():
+    from spacedrive_tpu_torch.p2p.block import BlockSize, SpaceblockRequest, SpaceblockRequests
+    from spacedrive_tpu_torch.p2p.protocol import Header, HeaderType
+
+    async def run():
+        telemetry.reset()
+        initiator_ctx = trace.new_context()
+        pipe = _PipeStream()
+        with trace.use(initiator_ctx):
+            await Header(HeaderType.SYNC, library_id=uuid.uuid4(),
+                         trace=trace.wire_current()).write(pipe)
+        # --- remote node ---
+        header = await Header.read(pipe)
+        wire_ctx = trace.TraceContext.from_wire(header.trace)
+        assert wire_ctx is not None
+        with trace.use(wire_ctx):
+            with telemetry.span("p2p.sync_notify") as sp:
+                pass
+        assert sp.trace_id == initiator_ctx.trace_id
+        assert sp.parent_id == initiator_ctx.span_id
+
+        # spacedrop headers carry it the same way
+        reqs = SpaceblockRequests(id=uuid.uuid4(), block_size=BlockSize.from_file_size(10),
+                                  requests=[SpaceblockRequest(name="a", size=10)])
+        pipe2 = _PipeStream()
+        with trace.use(initiator_ctx):
+            await Header(HeaderType.SPACEDROP, spacedrop=reqs,
+                         trace=trace.wire_current()).write(pipe2)
+        back = await Header.read(pipe2)
+        assert trace.TraceContext.from_wire(back.trace).trace_id == initiator_ctx.trace_id
+        # and headers without a context stay clean
+        pipe3 = _PipeStream()
+        await Header(HeaderType.SYNC, library_id=uuid.uuid4()).write(pipe3)
+        assert (await Header.read(pipe3)).trace is None
+
+    asyncio.run(asyncio.wait_for(run(), 10))
 
 
 # --- the feeder thread and the thumbnail batch ---------------------------------
