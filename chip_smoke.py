@@ -254,6 +254,31 @@ fails a punched stream's write with UdpStreamError, poisons its reader
 and puts `stream_failed` on the `p2p` ring; the degradation counters
 move by those 2 fault activations alone. It prints `{"p2p": ...}` with
 the MB/s of (a) and (b) and the seconds of each step.
+Phase 17 is the node's p2p, on two port Nodes on the card (A and B,
+without the labeler), their P2P managers attached on 127.0.0.1 with
+unicast beacons and every stream Noise over TCP, with the ladder and
+the controller reset first; K1's launches are told apart by the Node
+whose identifier window made them. (a) A indexes 64 of 80 files taken
+evenly from phase 3's snapshot (hard links) through K1; B joins A's library by
+`p2p.pairLibrary` through its router and A consents by
+`p2p.acceptPairing` through its own; B's rows equal A's on every row
+and field A's op log carries (phase 15's comparison), and the join
+launches K1 no time. (b) A indexes 16 more of them through K1; B
+converges by the SYNC alert and its pull alone, launching K1 no time.
+The media job writes media_data rows without an op, as JAX's does, so
+B gets those of (a)'s images from A's backfill at the join and not the
+new image's: rows no op carries are counted (`uncarried`), and may be
+media_data rows only. (c) A sends >= 8 MiB of
+its files (most over 100 KiB, 4 under) to B by `p2p.spacedrop` under a
+trace, B accepts by `p2p.acceptSpacedrop`; the bytes arrive equal, B's
+receive span is in A's trace, and B indexes the received folder into a
+library of its own through K1 on the card: its cas_ids equal A's rows
+bit for bit. (d) `check_healthy` by delta, then one
+`p2p.sync_serve:vanish` activation, armed as B's next pull starts,
+fails that pull once: the sync policy retries it and B converges on
+A's new tag; the degradation counters move by that one activation. It
+prints `{"node_p2p": ...}` with the seconds of each step, the join's
+ops/s and the Spacedrop's MB/s.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -262,8 +287,8 @@ non-zero before any work. The last line of standard output is
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
 decoders', the API's, the observability plane's, the verdicts', the
-live location's, the replica's and the p2p transport's numbers, and
-each phase's wall seconds, as JSON.
+live location's, the replica's, the p2p transport's and the node's
+p2p's numbers, and each phase's wall seconds, as JSON.
 """
 
 from __future__ import annotations
@@ -812,6 +837,7 @@ def run_library_pass(corpus: str, data_dir: str) -> dict:
     from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
 
     node = Node(data_dir, device=DEVICE)
+    node.config.config.p2p.enabled = False
     blake3_cuda.chunk_cvs.launches = 0
     t0 = time.perf_counter()
     summary = asyncio.run(index_library(corpus, data_dir, "smoke", DEVICE, node=node))
@@ -1197,6 +1223,7 @@ def run_validator(data_dir: str, corpus: str) -> dict:
 
     async def run() -> dict:
         node = Node(data_dir, device=DEVICE)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             (lib,) = node.libraries.libraries.values()
@@ -2698,7 +2725,8 @@ def check_inventory_and_profile(name_power: str, snapshot: str, tmp: str) -> dic
     os.environ[profiler.ENV_VAR] = logdir
     blake3_cuda.chunk_cvs.launches = 0
     try:
-        asyncio.run(index_library(corpus, os.path.join(tmp, "seam_profile_data"), "prof", DEVICE))
+        asyncio.run(index_library(corpus, os.path.join(tmp, "seam_profile_data"), "prof", DEVICE,
+                                  no_p2p=True))
     finally:
         del os.environ[profiler.ENV_VAR]
     launches = blake3_cuda.chunk_cvs.launches
@@ -2832,6 +2860,7 @@ def _pool_duplicates(data_dir: str) -> tuple[list, float, float, dict]:
     from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
 
     node = Node(data_dir, device=DEVICE, with_labeler=False)
+    node.config.config.p2p.enabled = False
     t0 = time.perf_counter()
     groups = asyncio.run(duplicates_library(data_dir, POOL_LIBRARY, DUP_THRESHOLD, DEVICE,
                                             node=node))
@@ -2861,6 +2890,7 @@ def pool_leg(corpus: str, data_dir: str, procs: int, crash_copy: str | None = No
 
     os.environ["SD_PROCS"] = str(procs)
     node = Node(data_dir, device=DEVICE, with_labeler=False)
+    node.config.config.p2p.enabled = False
     blake3_cuda.chunk_cvs.launches = 0
     t0 = time.perf_counter()
     asyncio.run(index_library(corpus, data_dir, POOL_LIBRARY, DEVICE, node=node))
@@ -3035,6 +3065,7 @@ def _identify_again(src: str, dst: str, plan: str | None) -> dict:
 
     async def run() -> None:
         node = Node(dst, device=DEVICE, with_labeler=False)
+        node.config.config.p2p.enabled = False
         try:
             lib = await _open(node, POOL_LIBRARY)
             loc = lib.db.query("SELECT id FROM location")[0]
@@ -3957,6 +3988,7 @@ def phase_api(rng, tmp: str, p4: dict) -> dict:
     async def run() -> dict:
         t0 = time.perf_counter()
         node = Node(p4["data_dir"], device=DEVICE)
+        node.config.config.p2p.enabled = False
         await node.start()
         steps["boot_s"] = time.perf_counter() - t0
         try:
@@ -4091,6 +4123,7 @@ def phase_observability(rng, tmp: str) -> dict:
     async def profiled() -> dict:
         data_dir = os.path.join(tmp, "p12_sdx")
         node = Node(data_dir, device=DEVICE)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             check(node._profiler_started and sampler.SAMPLER.running(), "the sampler is not running")
@@ -4115,6 +4148,7 @@ def phase_observability(rng, tmp: str) -> dict:
     async def unprofiled() -> dict:
         data_dir = os.path.join(tmp, "p12_sdx_off")
         node = Node(data_dir, device=DEVICE)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             check(not node._profiler_started and not sampler.SAMPLER.running(),
@@ -4284,6 +4318,7 @@ def phase_verdicts(rng, tmp: str) -> dict:
     async def scan(tag: str, trace_path: str | None = None) -> dict:
         data_dir = os.path.join(tmp, f"p13_sdx_{tag}")
         node = Node(data_dir, device=DEVICE)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             if trace_path is None:
@@ -5026,6 +5061,7 @@ def phase_live(rng, tmp: str, p4: dict, then=None) -> dict:
         # no labeler: phase 6 holds the labelled scan, and it would relabel
         # every image in the closing fullRescan
         node = Node(p4["data_dir"], device=DEVICE, with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         steps["boot_s"] = time.perf_counter() - t0
         try:
@@ -5142,6 +5178,18 @@ def _sync_view(db, fields: dict[str, set[str]]) -> dict[str, dict]:
                          for c in sorted(cols)}
         view[model.name] = rows
     return view
+
+
+def _carried_ids(db) -> dict[str, set]:
+    """The record ids each model's ops carry in a library's op log, keyed
+    as `_sync_view` keys its rows."""
+    from spacedrive_tpu_torch.utils.msgpack_codec import unpackb
+
+    ids: dict[str, set] = collections.defaultdict(set)
+    for x in db.query("SELECT DISTINCT model, record_id FROM crdt_operation"):
+        rid = unpackb(x["record_id"])
+        ids[x["model"]].add((rid["item"], rid["group"]) if isinstance(rid, dict) else rid)
+    return ids
 
 
 def _table_columns(db, table: str) -> list[str]:
@@ -5392,6 +5440,7 @@ async def replica_join(ctx: dict, rng, tmp: str) -> dict:
 
     t0 = time.perf_counter()
     joiner = Node(os.path.join(tmp, "p15_joiner"), device=DEVICE, with_labeler=False)
+    joiner.config.config.p2p.enabled = False
     await joiner.start()
     try:
         jlib = _join_library(joiner, lib)
@@ -5878,11 +5927,325 @@ def report_p2p(got: dict) -> dict:
     return {"launches": {"p2p_transfer": got["launches"]}}
 
 
+# --- phase 17: the node's p2p ---------------------------------------------------------
+
+P2P_NODE_FILES = 80  # (a) and (b): every n-th of phase 3's files, 64 then 16
+P2P_NODE_DROP_BYTES = 8 << 20  # (c): at least this much of A's files
+
+
+class _K1Owners:
+    """K1's CUDA launches by the Node whose FileIdentifierJob window made
+    them (its config name), "other" for any launch outside a window: the
+    wrapper of `chunk_cvs` reads a thread-local owner that a wrapper of
+    `FileIdentifierJob._fetch_window` sets around the window it fetches."""
+
+    def __init__(self):
+        import threading
+
+        self.by = collections.Counter()
+        self._local = threading.local()
+
+    def __enter__(self):
+        from spacedrive_tpu_torch.object.file_identifier.job import FileIdentifierJob
+        from spacedrive_tpu_torch.ops import blake3_cuda
+
+        chunk_cvs, fetch = blake3_cuda.chunk_cvs, FileIdentifierJob._fetch_window
+        local, by = self._local, self.by
+
+        def counted(words, *a, **k):
+            if words.is_cuda:
+                by[getattr(local, "owner", None) or "other"] += 1
+            return chunk_cvs(words, *a, **k)
+
+        def owned(job, library, *a, **k):
+            local.owner = library.node.config.config.name
+            try:
+                return fetch(job, library, *a, **k)
+            finally:
+                local.owner = None
+
+        # the kernel's wrapper counts its launches on the module's
+        # `chunk_cvs`, this wrapper while it is in place
+        counted.launches = chunk_cvs.launches
+        self._saved = (blake3_cuda, chunk_cvs, FileIdentifierJob, fetch)
+        blake3_cuda.chunk_cvs, FileIdentifierJob._fetch_window = counted, owned
+        return self
+
+    def __exit__(self, *exc):
+        blake3_cuda, chunk_cvs, job_cls, fetch = self._saved
+        chunk_cvs.launches = blake3_cuda.chunk_cvs.launches
+        blake3_cuda.chunk_cvs, job_cls._fetch_window = chunk_cvs, fetch
+
+    def take(self) -> dict:
+        out = dict(self.by)
+        self.by.clear()
+        return out
+
+
+async def node_p2p(tmp: str, snapshot: str, since: dict) -> dict:
+    """17(a)-(d) on two port Nodes on the card, their managers on
+    127.0.0.1 with unicast beacons, every stream Noise over TCP; `since`
+    is the degradation counters before the phase."""
+    import asyncio
+
+    from spacedrive_tpu_torch.location.locations import LocationCreateArgs, scan_location
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.p2p.manager import P2PManager
+    from spacedrive_tpu_torch.telemetry import trace
+    from spacedrive_tpu_torch.telemetry.events import RESILIENCE_EVENTS
+    from spacedrive_tpu_torch.utils import faults
+
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(snapshot) for f in fs)
+    picked = files[::len(files) // P2P_NODE_FILES][:P2P_NODE_FILES]
+    more = picked[4::5]
+    first = [f for f in picked if f not in more]
+    loc_dir = os.path.join(tmp, "p17_a_location")
+    os.makedirs(loc_dir)
+
+    def link(paths) -> None:
+        for path in paths:
+            os.link(path, os.path.join(loc_dir, f"{picked.index(path):03d}_{os.path.basename(path)}"))
+
+    steps: dict[str, float] = {}
+    out: dict = {"steps_s": steps}
+    t0 = time.perf_counter()
+    nodes = []
+    for name in ("p17-a", "p17-b"):
+        node = Node(os.path.join(tmp, name), device=DEVICE, with_labeler=False)
+        node.config.config.p2p.enabled = False  # the manager is attached below
+        node.config.config.name = name
+        await node.start()
+        node.p2p = P2PManager(node, beacon_addrs=[("127.0.0.1", 1)], bind_host="127.0.0.1")
+        nodes.append(node)
+    a, b = nodes
+    owners = _K1Owners()
+    try:
+        with owners:
+            for n in nodes:
+                await n.p2p.start()
+            da, db_ = (n.p2p.p2p._discovery[0] for n in nodes)
+            da.beacon_addrs, db_.beacon_addrs = [("127.0.0.1", db_.bind_port)], [("127.0.0.1", da.bind_port)]
+            da.interval = db_.interval = 0.05
+            async with asyncio.timeout(P2P_WAIT_S):
+                while not (a.p2p.p2p.discovered_peers() and b.p2p.p2p.discovered_peers()):
+                    await asyncio.sleep(0.01)
+            steps["start_s"] = time.perf_counter() - t0
+
+            # (a) A indexes 64 files through K1; B joins A's library
+            t0 = time.perf_counter()
+            lid = (await a.router.exec(a, "library.create", {"name": "p17"}))["uuid"]
+            lib_a = a.libraries.get(uuid.UUID(lid))
+            link(first)
+            loc = LocationCreateArgs(path=loc_dir).create(lib_a)
+            await scan_location(lib_a, loc, a.jobs, backend=DEVICE)
+            await a.jobs.wait_idle()
+            steps["a_index_s"] = time.perf_counter() - t0
+            out["a_index_launches"] = owners.take()
+            check(out["a_index_launches"].get("p17-a", 0) > 0 and set(out["a_index_launches"])
+                  == {"p17-a"}, f"17(a): A's index launched K1 {out['a_index_launches']}")
+
+            offers = []
+            a.event_bus.on(lambda ev: offers.append(ev[1]) if isinstance(ev, tuple) and ev
+                           and ev[0] == "PairingRequest" else None)
+
+            async def consent():
+                while not offers:
+                    await asyncio.sleep(0.01)
+                await a.router.exec(a, "p2p.acceptPairing", str(offers[0].id))
+
+            def views() -> tuple[dict, dict, dict]:
+                """A's and B's rows that A's op log carries, on the fields
+                its ops carry, and the count of A's rows no op carries by
+                model (the media job writes media_data without an op, as
+                JAX's does: a replica gets those rows only from the
+                owner's backfill at the join)."""
+                fields, carried = _synced_fields(lib_a.db), _carried_ids(lib_a.db)
+                a_view, b_view = _sync_view(lib_a.db, fields), _sync_view(lib_b.db, fields)
+                keep = {m: {k: r for k, r in rows.items() if k in carried[m]}
+                        for m, rows in a_view.items()}
+                return (keep, {m: {k: r for k, r in rows.items() if k in carried[m]}
+                               for m, rows in b_view.items()},
+                        {m: len(a_view[m]) - len(keep[m]) for m in a_view
+                         if len(a_view[m]) != len(keep[m])})
+
+            async def converged(what: str) -> dict:
+                """B's rows once they equal A's as `views` gives them; past
+                P2P_WAIT_S the check names the rows that differ."""
+                try:
+                    async with asyncio.timeout(P2P_WAIT_S):
+                        while (got := views())[0] != got[1]:
+                            await asyncio.sleep(0.02)
+                except TimeoutError:
+                    pass
+                a_rows, b_rows, uncarried = views()
+                check(set(uncarried) <= {"media_data"}, f"{what}: rows no op carries {uncarried}")
+                return {"rows": _check_views_equal(a_rows, b_rows, what), "uncarried": uncarried}
+
+            t0 = time.perf_counter()
+            async with asyncio.timeout(P2P_WAIT_S):
+                joined, _ = await asyncio.gather(
+                    b.router.exec(b, "p2p.pairLibrary",
+                                  {"identity": str(a.p2p.p2p.remote_identity), "library_id": lid}),
+                    consent())
+                check(joined == lid, f"17(a): B joined {joined}, not {lid}")
+            lib_b = b.libraries.get(uuid.UUID(lid))
+            out["rows_a"] = await converged("17(a) after the join")
+            steps["join_s"] = time.perf_counter() - t0
+            n_ops = lib_a.db.count("crdt_operation")
+            out["join_ops"] = n_ops
+            out["join_ops_per_s"] = n_ops / steps["join_s"]
+            out["join_launches"] = owners.take()
+            check(not out["join_launches"], f"17(a): the join launched K1 {out['join_launches']}")
+
+            # (b) A indexes 16 more; B converges by the SYNC alert and pull alone
+            t0 = time.perf_counter()
+            link(more)
+            await scan_location(lib_a, loc, a.jobs, backend=DEVICE)
+            await a.jobs.wait_idle()
+            steps["a_index_more_s"] = time.perf_counter() - t0
+            out["rows_b"] = await converged("17(b) after A's second scan")
+            steps["sync_s"] = time.perf_counter() - t0
+            out["sync_launches"] = owners.take()
+            check(set(out["sync_launches"]) == {"p17-a"},
+                  f"17(b): K1 launched {out['sync_launches']} (A's scan alone may)")
+            check(lib_b.db.count("file_path", "is_dir = 0") == len(picked),
+                  f"17(b): B holds {lib_b.db.count('file_path', 'is_dir = 0')} files")
+
+            # (c) A spacedrops >= 8 MiB to B; B indexes what it received on the card
+            rows_a = {(r["name"], r["extension"]): r["cas_id"] for r in lib_a.db.query(
+                "SELECT name, extension, cas_id FROM file_path WHERE is_dir = 0")}
+            by_size = sorted((os.path.getsize(os.path.join(loc_dir, f)), f)
+                             for f in os.listdir(loc_dir))
+            drop, total = [], 0
+            for size, f in reversed(by_size):
+                if total >= P2P_NODE_DROP_BYTES:
+                    break
+                drop.append(os.path.join(loc_dir, f))
+                total += size
+            drop += [os.path.join(loc_dir, f) for size, f in by_size if 1024 < size <= 100 * 1024][:4]
+            dest = os.path.join(tmp, "p17_b_inbox")
+            drops = []
+            b.event_bus.on(lambda ev: drops.append(ev[1]) if isinstance(ev, tuple) and ev
+                           and ev[0] == "SpacedropRequest" else None)
+
+            async def accept():
+                while not drops:
+                    await asyncio.sleep(0.01)
+                await b.router.exec(b, "p2p.acceptSpacedrop", {"id": str(drops[0].id),
+                                                                "target_dir": dest})
+
+            ctx = trace.new_context()
+            t0 = time.perf_counter()
+            async with asyncio.timeout(P2P_WAIT_S):
+                with trace.use(ctx):
+                    await asyncio.gather(a.router.exec(a, "p2p.spacedrop", {
+                        "identity": str(b.p2p.p2p.remote_identity), "file_paths": drop}), accept())
+            steps["spacedrop_s"] = time.perf_counter() - t0
+            sizes = [os.path.getsize(p) for p in drop]
+            out["drop"] = {"files": len(drop), "bytes": sum(sizes), "over_100k": sum(
+                s > 100 * 1024 for s in sizes), "mb_per_s": sum(sizes) / 1e6 / steps["spacedrop_s"]}
+            for p in drop:
+                with open(p, "rb") as f, open(os.path.join(dest, os.path.basename(p)), "rb") as g:
+                    check(f.read() == g.read(), f"17(c): the received bytes of {p}")
+            spans = [r for r in trace.recent(ctx.trace_id)
+                     if r["stage"].endswith("p2p.spacedrop_receive")]
+            check(len(spans) == 1, f"17(c): {len(spans)} receive spans in A's trace")
+            t0 = time.perf_counter()
+            inbox_id = (await b.router.exec(b, "library.create", {"name": "p17 inbox"}))["uuid"]
+            inbox = b.libraries.get(uuid.UUID(inbox_id))
+            inbox_loc = LocationCreateArgs(path=dest).create(inbox)
+            await scan_location(inbox, inbox_loc, b.jobs, backend=DEVICE)
+            await b.jobs.wait_idle()
+            steps["b_index_s"] = time.perf_counter() - t0
+            out["b_index_launches"] = owners.take()
+            check(set(out["b_index_launches"]) == {"p17-b"},
+                  f"17(c): B's index launched K1 {out['b_index_launches']}")
+            got = {(r["name"], r["extension"]): r["cas_id"] for r in inbox.db.query(
+                "SELECT name, extension, cas_id FROM file_path WHERE is_dir = 0")}
+            check(len(got) == len(drop) and all(rows_a[k] == v for k, v in got.items()),
+                  f"17(c): B's cas_ids differ from A's rows: "
+                  f"{[k for k, v in got.items() if rows_a.get(k) != v][:4]}")
+
+            # (d) one p2p.sync_serve activation fails B's next pull, which retries
+            check_healthy("17", since)
+            t0 = time.perf_counter()
+            retries0 = sum(e["type"] == "retry" and e["fields"]["policy"] == "p2p_sync"
+                           for e in RESILIENCE_EVENTS.snapshot())
+            actor, pull = lib_b.ingest, lib_b.ingest.request_ops
+            plan = faults.FaultPlan.parse("p2p.sync_serve:vanish:times=1")
+
+            async def armed_pull(timestamps, count):
+                if faults.active_plan() is None:
+                    faults.install(plan)  # B's pull is the next sync leg A serves
+                return await pull(timestamps, count)
+
+            actor.request_ops = armed_pull
+            try:
+                await a.router.exec(a, "tags.create", {"name": "p17", "color": "#2a9d8f"},
+                                    library_id=lid)
+                out["rows_d"] = await converged("17(d) after the failed pull")
+            finally:
+                actor.request_ops = pull
+                faults.install(None)
+            steps["fault_s"] = time.perf_counter() - t0
+            retried = [e["fields"] for e in RESILIENCE_EVENTS.snapshot()
+                       if e["type"] == "retry" and e["fields"]["policy"] == "p2p_sync"][retries0:]
+            out["fault"] = {"activations": plan.activations(), "retries": retried}
+            check(plan.activations() == {"p2p.sync_serve": 1} and len(retried) == 1,
+                  f"17(d): {out['fault']}")
+            out["fault_launches"] = owners.take()
+            check(not out["fault_launches"], f"17(d): K1 launched {out['fault_launches']}")
+    finally:
+        for n in nodes:
+            await n.shutdown()
+    out["launches"] = sum(sum(out[k].values()) for k in (
+        "a_index_launches", "join_launches", "sync_launches", "b_index_launches", "fault_launches"))
+    return out
+
+
+def phase_node_p2p(tmp: str, snapshot: str) -> dict:
+    """Phase 17: the node's p2p on two port Nodes on the card: (a) B pairs
+    into A's library, (b) sync over the wire, (c) Spacedrop, (d) a
+    failed pull that retries."""
+    import asyncio
+
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    since = degradation()
+    blake3_cuda.chunk_cvs.launches = 0
+    got = asyncio.run(node_p2p(tmp, snapshot, since))
+    check(blake3_cuda.chunk_cvs.launches == got["launches"],
+          f"17: K1 launched {blake3_cuda.chunk_cvs.launches} times, {got['launches']} in windows")
+    moved = {k: v - since[k] for k, v in degradation().items() if not k.startswith("demotion")}
+    check(moved == {**{k: 0 for k in moved}, "fault_activations": 1},
+          f"17(d): degradation counters moved {moved}")
+    got["seconds"] = time.perf_counter() - t_phase
+    return got
+
+
+def report_node_p2p(got: dict) -> dict:
+    print(json.dumps({"node_p2p": got}), flush=True)
+    steps = got["steps_s"]
+    print(f"phase 17: the node's p2p in {got['seconds']:.1f} s: (a) A indexed "
+          f"{got['rows_a']['rows']['file_path']} files ({got['a_index_launches']['p17-a']} K1 "
+          f"launches), "
+          f"B joined "
+          f"{got['join_ops']} ops in {steps['join_s']:.2f} s ({got['join_ops_per_s']:.0f} ops/s, "
+          f"K1 0 on B), (b) synced in {steps['sync_s']:.2f} s, (c) spacedrop "
+          f"{got['drop']['mb_per_s']:.1f} MB/s, B's cas_ids equal A's, (d) the failed pull "
+          f"retried", flush=True)
+    return {"launches": {"p2p_node": got["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=16, choices=range(3, 17),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 16: all); "
+    parser.add_argument("--stop-after", type=int, default=17, choices=range(3, 18),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 17: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -5974,6 +6337,9 @@ def main() -> int:
         if args.stop_after >= 16:
             launches.update(report_p2p(phase_p2p(rng, tmp, snapshot))["launches"])
             lap("16")
+        if args.stop_after >= 17:
+            launches.update(report_node_p2p(phase_node_p2p(tmp, snapshot))["launches"])
+            lap("17")
     lap("cleanup")
     print(json.dumps({"wall_s": {"phases": phase_s,
                                  "smoke": time.perf_counter() - _T_START}}), flush=True)

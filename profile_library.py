@@ -86,7 +86,8 @@ def main() -> int:
             prof = cProfile.Profile()
             t0 = time.perf_counter()
             prof.enable()
-            summary = asyncio.run(index_library(tree, data_dir, "profile", args.device))
+            summary = asyncio.run(index_library(tree, data_dir, "profile", args.device,
+                                                no_p2p=True))
             prof.disable()
             wall = time.perf_counter() - t0
             print(json.dumps({"run": run, "device": args.device, "files": summary["files"],

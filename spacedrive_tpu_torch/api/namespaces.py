@@ -41,9 +41,6 @@ VERSION = "0.1.0"
 #: the JAX router's procedures this one does not register yet, each with
 #: the ROADMAP plane that brings what it drives
 DEFERRED: dict[str, str] = {
-    **{f"p2p.{k}": "6.7" for k in (
-        "state", "spacedrop", "acceptSpacedrop", "cancelSpacedrop", "rejectSpacedrop",
-        "pairLibrary", "acceptPairing", "rejectPairing", "events")},
     **{f"cloud.{k}": "6.8" for k in (
         "getApiOrigin", "setApiOrigin", "library.get", "sync.enable", "sync.state")},
 }
@@ -64,6 +61,7 @@ def mount() -> Router:
     _albums(r)
     _labels(r)
     _sync(r)
+    _p2p(r)
     _nodes(r)
     _volumes(r)
     _keys(r)
@@ -1078,6 +1076,148 @@ def _labels(r: Router) -> None:
         return None
 
 
+# --- p2p -----------------------------------------------------------------
+
+
+def _p2p(r: Router) -> None:
+    @r.query("p2p.state")
+    def state(node):
+        if node.p2p is None:
+            return {"enabled": False, "peers": []}
+        relay_client = node.p2p.relay_client
+        return {
+            "enabled": True,
+            "port": node.p2p.port,
+            "identity": str(node.p2p.p2p.remote_identity),
+            # path-selection telemetry: punched-direct vs relayed dials
+            "punch": (dict(relay_client.punch_stats)
+                      if relay_client is not None else None),
+            "peers": [
+                {
+                    "identity": str(p.identity),
+                    "metadata": p.metadata,
+                    "addrs": sorted(f"{h}:{pt}" for h, pt in p.addrs),
+                    "connected": p.is_connected,
+                }
+                for p in node.p2p.p2p.peers.values()
+            ],
+        }
+
+    @r.mutation("p2p.spacedrop")
+    async def spacedrop(node, arg):
+        from ..p2p.identity import RemoteIdentity
+
+        if node.p2p is None:
+            raise RspcError.bad_request("p2p disabled")
+        drop_id = await node.p2p.spacedrop.send(
+            RemoteIdentity.from_str(arg["identity"]), list(arg["file_paths"])
+        )
+        return str(drop_id)
+
+    def _require_p2p(node):
+        if node.p2p is None:
+            raise RspcError.bad_request("p2p disabled")
+        return node.p2p
+
+    @r.mutation("p2p.acceptSpacedrop")
+    def accept(node, arg):
+        ok = _require_p2p(node).spacedrop.accept(
+            uuid.UUID(arg["id"]), arg.get("target_dir")
+        )
+        if not ok:
+            raise RspcError.not_found("spacedrop request")
+        return None
+
+    @r.mutation("p2p.cancelSpacedrop")
+    def cancel(node, arg):
+        _require_p2p(node).spacedrop.cancel(uuid.UUID(arg))
+        return None
+
+    @r.mutation("p2p.rejectSpacedrop")
+    def reject(node, arg):
+        _require_p2p(node).spacedrop.reject(uuid.UUID(arg))
+        return None
+
+    @r.mutation("p2p.pairLibrary")
+    async def pair_library(node, arg):
+        """Join a peer's library (joiner side of the pairing flow)."""
+        from ..p2p.identity import RemoteIdentity
+
+        mgr = _require_p2p(node)
+        lib = await mgr.pairing.join(
+            mgr.p2p,
+            RemoteIdentity.from_str(arg["identity"]),
+            uuid.UUID(arg["library_id"]) if arg.get("library_id") else None,
+        )
+        invalidate_query(node, "library.list")
+        return str(lib.id)
+
+    @r.mutation("p2p.acceptPairing")
+    def accept_pairing(node, arg):
+        if not _require_p2p(node).pairing.accept(uuid.UUID(arg)):
+            raise RspcError.not_found("pairing request")
+        return None
+
+    @r.mutation("p2p.rejectPairing")
+    def reject_pairing(node, arg):
+        _require_p2p(node).pairing.reject(uuid.UUID(arg))
+        return None
+
+    @r.subscription("p2p.events")
+    async def events(node) -> AsyncIterator[Any]:
+        """Peer lifecycle (P2P-internal bus) merged with spacedrop
+        offers/progress (node event bus — SpacedropManager emits
+        there, p2p/manager.py:37); ref:spacedrop.rs:203."""
+        if node.p2p is None:
+            return
+        queue: asyncio.Queue = asyncio.Queue()
+        _SENTINEL = object()
+
+        async def pump(gen):
+            try:
+                async for ev in gen:
+                    await queue.put(ev)
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:  # close the subscription, don't
+                await queue.put((_SENTINEL, exc))  # half-starve it
+            else:
+                await queue.put((_SENTINEL, None))
+
+        pumps = [
+            asyncio.create_task(pump(_bus_events_for(node.p2p.p2p.events))),
+            asyncio.create_task(pump(_bus_events(node))),
+        ]
+        try:
+            while True:
+                event = await queue.get()
+                if isinstance(event, tuple) and event and event[0] is _SENTINEL:
+                    if event[1] is not None:
+                        raise event[1]
+                    return  # a source ended cleanly (p2p torn down)
+                kind = event[0] if isinstance(event, tuple) and event else None
+                if kind in ("PeerDiscovered", "PeerExpired",
+                            "PeerConnected", "PeerDisconnected"):
+                    yield {"kind": kind, "identity": str(event[1])}
+                elif kind == "SpacedropRequest":
+                    req = event[1]  # inbound offer → accept/reject dialog
+                    yield {
+                        "kind": kind,
+                        "id": str(req.id),
+                        "peer": str(req.peer),
+                        "files": list(req.files),
+                        "total_size": req.total_size,
+                    }
+                elif kind == "SpacedropProgress":
+                    yield {
+                        "kind": kind, "id": str(event[1]),
+                        "percent": event[2],
+                    }
+        finally:
+            for t in pumps:
+                t.cancel()
+
+
 # --- nodes / volumes / preferences / notifications -----------------------
 
 
@@ -1470,10 +1610,14 @@ def _telemetry(r: Router) -> None:
 
     @r.query("telemetry.mesh")
     async def mesh(node, arg=None):
-        # this node's snapshot and the federation's peers; arg
-        # {refresh?, force?} steers the peer refresh, which comes with
-        # the p2p plane (until then the view holds this node alone)
-        return telemetry.federation.mesh_status(node)
+        # this node's snapshot and the federation's peers, freshness-
+        # marked; arg {refresh?: bool, force?: bool} steers the refresh
+        opts = arg if isinstance(arg, dict) else {}
+        return await telemetry.federation.mesh_status_cached(
+            node,
+            refresh=bool(opts.get("refresh", True)),
+            force=bool(opts.get("force")),
+        )
 
     @r.query("telemetry.attrib")
     async def attrib(node, arg=None):
@@ -1490,7 +1634,7 @@ def _telemetry(r: Router) -> None:
     async def profile(node, arg=None):
         # the host sampler: frame groups, on-CPU vs GIL-wait split,
         # capture windows; arg {mesh?: bool, format?: "folded"} (the
-        # mesh view is this node's alone until p2p is ported)
+        # mesh view pulls every peer's profile)
         opts = arg if isinstance(arg, dict) else {}
         if opts.get("format") == "folded":
             return {"folded": telemetry.sampler.SAMPLER.folded()}

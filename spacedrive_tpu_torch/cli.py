@@ -2,6 +2,7 @@
 
     python -m spacedrive_tpu_torch index <path> --data-dir D [--device cuda|cpu]
     python -m spacedrive_tpu_torch index <path> --data-dir D --library NAME [--device cuda|cpu]
+        [--no-p2p]
     python -m spacedrive_tpu_torch duplicates --data-dir D --library NAME [--threshold 8] [--device ...]
     python -m spacedrive_tpu_torch search QUERY --data-dir D --library NAME [--semantic] [--take 10]
         [--device ...]
@@ -16,7 +17,16 @@
         [--device ...]
     python -m spacedrive_tpu_torch trace-export [--url URL] [--trace-id HEX] [--out F]
     python -m spacedrive_tpu_torch profile [--url URL] [--folded] [--out F]
+    python -m spacedrive_tpu_torch profile --peer IDENTITY --data-dir D [--folded] [--wait 3]
+        [--out F] [--device ...]
     python -m spacedrive_tpu_torch debug-bundle [--data-dir D | --url URL] [--out F]
+    python -m spacedrive_tpu_torch debug-bundle --peer IDENTITY --data-dir D [--wait 3] [--out F]
+        [--device ...]
+    python -m spacedrive_tpu_torch peers --data-dir D [--wait 3] [--device ...]
+    python -m spacedrive_tpu_torch pair IDENTITY --data-dir D [--library UUID] [--wait 3]
+        [--device ...]
+    python -m spacedrive_tpu_torch spacedrop IDENTITY FILE... --data-dir D [--wait 3]
+        [--device ...]
     python -m spacedrive_tpu_torch licenses [--out F]
     python -m spacedrive_tpu_torch crypto inspect FILE
     python -m spacedrive_tpu_torch crypto encrypt|decrypt FILE [--password PW]
@@ -32,7 +42,8 @@ JSON line: files, objects (distinct cas_ids), bytes, thumbnails,
 backend, seconds.
 
 With `--library NAME`: the library path (counterpart of
-`spacedrive_tpu/cli.py cmd_index`). It starts a Node on the device,
+`spacedrive_tpu/cli.py cmd_index`). It starts a Node on the device
+(with its P2P manager, as JAX's does, unless `--no-p2p`),
 opens or creates the library NAME under `D/libraries/`, adds <path> as
 a location if it is not one yet, and runs `scan_location` (IndexerJob →
 FileIdentifierJob → MediaProcessorJob) on the node's job system: the
@@ -54,6 +65,9 @@ library's files, or with `--semantic` the cosine top-k of the vector
 index: QUERY is an image path to embed or a stored label name; a query
 that resolves to neither exits 1. Both build their node without the
 labeler.
+
+`duplicates`, `search` and `status` build their nodes without p2p, as
+the JAX commands do (their `--no-p2p` defaults on).
 
 `status` (counterpart of `sdx status`) starts a Node on the device
 (without the labeler), and prints the router's `nodeState` (the card in
@@ -101,16 +115,29 @@ attribution of the last settled pass or of TRACE_ID (`GET /attrib`;
 /rspc/telemetry.slo`), the tenant sketches (`GET /tenants`) and the
 mesh view (`GET /mesh`; `--no-refresh` serves the cached one). Without
 `--url`, `slo` evaluates the history under `--data-dir` offline (the
-history survives restarts), and `tenants` and `mesh-status` answer
-through an in-process Node on `--data-dir` (the router's
-`telemetry.tenants` and `telemetry.mesh`); the mesh holds this node
-alone until the p2p plane.
+history survives restarts), and `tenants` and `mesh-status` boot a mesh
+node on `--data-dir`, let discovery settle for `--wait` seconds, pull
+every discovered peer's snapshot and print this node's view and each
+peer's, freshness-marked (`tenants --peer LABEL` shows one peer's
+federated tenant digest).
+
+The mesh commands (counterparts of `sdx peers`, `pair`, `spacedrop`,
+`profile --peer` and `debug-bundle --peer`) boot a node on `--data-dir`
+with its P2P manager (exit 1 when p2p is disabled in the node config)
+and let discovery settle for `--wait` seconds: `peers` lists the
+discovered peers; `pair` joins IDENTITY's library (the peer consents);
+`spacedrop` sends files to IDENTITY (the peer accepts or rejects);
+`profile --peer` pulls IDENTITY's host profile over the TELEMETRY wire
+(library members only); `debug-bundle --peer` pulls IDENTITY's bundle,
+redacted on the owning node, by remote rspc (the peer must enable
+`remoteRspc`).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import os
 import sys
@@ -119,7 +146,8 @@ import time
 
 def cmd_index(args: argparse.Namespace) -> int:
     if args.library is not None:
-        summary = asyncio.run(index_library(args.path, args.data_dir, args.library, args.device))
+        summary = asyncio.run(index_library(args.path, args.data_dir, args.library, args.device,
+                                            no_p2p=args.no_p2p))
         print(json.dumps(summary))
         return 0
     from .index_pass import index_pass
@@ -127,6 +155,17 @@ def cmd_index(args: argparse.Namespace) -> int:
     result = index_pass(args.path, args.data_dir, device=args.device)
     print(json.dumps(result.summary))
     return 0
+
+
+def _node_without_p2p(data_dir: str, backend: str):
+    """A Node on `backend` without the labeler or its P2P manager (the
+    JAX commands' `--no-p2p`, on by default for status, duplicates and
+    search)."""
+    from .node.node import Node
+
+    node = Node(data_dir, device=backend, with_labeler=False)
+    node.config.config.p2p.enabled = False
+    return node
 
 
 async def _open(node, library: str):
@@ -138,13 +177,14 @@ async def _open(node, library: str):
 
 
 async def index_library(path: str, data_dir: str, library: str, backend: str = "cuda",
-                        node=None) -> dict:
+                        node=None, no_p2p: bool = False) -> dict:
     """Scan `path` into the library called `library` (created if absent)
     on a Node on `backend`, wait for the scan's jobs and thumbnails, and
     return the summary line (the JAX package's `sdx index` keys). A
     caller that reads the node's stage seconds afterwards passes its own
     `node`, built on `data_dir` and `backend`; it is started and shut
-    down here all the same. Raises if a job of the scan failed."""
+    down here all the same. `no_p2p` starts the node without its P2P
+    manager. Raises if a job of the scan failed."""
     from .db.database import now_iso
     from .jobs import JobStatus
     from .location.locations import LocationCreateArgs, scan_location
@@ -153,6 +193,8 @@ async def index_library(path: str, data_dir: str, library: str, backend: str = "
 
     if node is None:
         node = Node(data_dir, device=backend)
+    if no_p2p:
+        node.config.config.p2p.enabled = False
     try:
         lib = await _open(node, library)
         t0 = time.perf_counter()
@@ -194,11 +236,10 @@ async def duplicates_library(data_dir: str, library: str, threshold: int = 8,
     passes its own `node`; it is started and shut down here all the
     same. Raises if the job failed."""
     from .jobs import JobBuilder, JobStatus
-    from .node.node import Node
     from .object.duplicates import DuplicateDetectorJob, find_duplicates
 
     if node is None:
-        node = Node(data_dir, device=backend, with_labeler=False)
+        node = _node_without_p2p(data_dir, backend)
     try:
         lib = await _open(node, library)
         job = DuplicateDetectorJob({"threshold": threshold})
@@ -218,10 +259,9 @@ async def search_library(query: str, data_dir: str, library: str, semantic: bool
     Node on `backend`; returns the result (`resolved` False when a
     semantic query names no image path and no stored label)."""
     from .api.search import search_paths, search_semantic
-    from .node.node import Node
 
     if node is None:
-        node = Node(data_dir, device=backend, with_labeler=False)
+        node = _node_without_p2p(data_dir, backend)
     try:
         lib = await _open(node, library)
         if semantic:
@@ -235,9 +275,7 @@ async def search_library(query: str, data_dir: str, library: str, semantic: bool
 async def node_status(data_dir: str, backend: str = "cuda") -> dict:
     """`nodeState` of a Node on `backend` over `data_dir`, and each
     library's counts and five newest job reports, through the router."""
-    from .node.node import Node
-
-    node = Node(data_dir, device=backend, with_labeler=False)
+    node = _node_without_p2p(data_dir, backend)
     await node.start()
     try:
         out = await node.router.exec(node, "nodeState")
@@ -419,8 +457,13 @@ def cmd_trace_export(args: argparse.Namespace) -> int:
 
 
 def cmd_profile(args: argparse.Namespace) -> int:
-    """A running node's host profile (GET /profile); --folded gives
-    flamegraph.pl collapsed-stack text."""
+    """A running node's host profile (GET /profile), or a mesh peer's
+    (--peer); --folded gives flamegraph.pl collapsed-stack text."""
+    if args.peer:
+        if not args.data_dir:
+            print("profile: --peer needs --data-dir", file=sys.stderr)
+            return 1
+        return asyncio.run(_profile_peer(args))
     import urllib.error
 
     url = args.url.rstrip("/") + "/profile"
@@ -449,10 +492,16 @@ def cmd_profile(args: argparse.Namespace) -> int:
 
 
 def cmd_debug_bundle(args: argparse.Namespace) -> int:
-    """The redacted debug bundle: from a running node (--url), or built
-    offline from the data dir."""
+    """The redacted debug bundle: from a running node (--url), from a
+    mesh peer (--peer, redacted on the owning node), or built offline
+    from the data dir."""
     from .telemetry.bundle import render_bundle
 
+    if args.peer:
+        if not args.data_dir:
+            print("debug-bundle: --peer needs --data-dir", file=sys.stderr)
+            return 1
+        return asyncio.run(_debug_bundle_peer(args))
     if args.url:
         import urllib.error
         import urllib.request
@@ -541,61 +590,240 @@ def cmd_slo(args: argparse.Namespace) -> int:
     return 0
 
 
-async def _in_process(data_dir: str, device: str, key: str) -> object:
-    """`key` answered by the router of a Node on `device` over `data_dir`."""
+@contextlib.asynccontextmanager
+async def _mesh_node(args: argparse.Namespace):
+    """A started Node on --data-dir (without the labeler) with its P2P
+    manager up and discovery settled for --wait seconds, or
+    SystemExit(1) when p2p is disabled in the node config."""
     from .node.node import Node
 
-    node = Node(data_dir, device=device, with_labeler=False)
+    node = Node(args.data_dir, device=args.device, with_labeler=False)
     await node.start()
     try:
-        return await node.router.exec(node, key)
+        if node.p2p is None:
+            print("p2p is disabled in the node config", file=sys.stderr)
+            raise SystemExit(1)
+        await asyncio.sleep(args.wait)  # let discovery settle
+        yield node
     finally:
         await node.shutdown()
 
 
-def _read_node(args: argparse.Namespace, what: str, path: str, key: str) -> object | None:
-    """GET `path` of the node at --url, or `key` through an in-process
-    Node on --data-dir; None (after a message) when neither answers."""
-    if args.url:
-        import urllib.error
+def _get_url(args: argparse.Namespace, what: str, path: str) -> object | None:
+    """GET `path` of the node at --url as JSON; None after a message."""
+    import urllib.error
 
-        url = args.url.rstrip("/") + path
-        try:
-            return json.loads(_http_get(url, timeout=30.0))
-        except (urllib.error.URLError, OSError, ValueError) as e:
-            print(f"{what}: cannot reach {url}: {e}", file=sys.stderr)
-            return None
-    if not args.data_dir:
-        print(f"{what}: give --url or --data-dir", file=sys.stderr)
+    url = args.url.rstrip("/") + path
+    try:
+        return json.loads(_http_get(url, timeout=30.0))
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"{what}: cannot reach {url}: {e}", file=sys.stderr)
         return None
-    return asyncio.run(_in_process(args.data_dir, args.device, key))
+
+
+async def _federated_mesh(args: argparse.Namespace) -> dict:
+    """`mesh_status` of a mesh node on --data-dir after a forced pull of
+    every discovered peer's snapshot."""
+    from .telemetry.federation import mesh_status
+
+    async with _mesh_node(args) as node:
+        await node.p2p.refresh_federation(force=True)
+        return mesh_status(node)
 
 
 def cmd_tenants(args: argparse.Namespace) -> int:
     """Per-tenant accounting: the heavy-hitter sketches per surface
-    (hashed tenant labels, never raw UUIDs)."""
-    doc = _read_node(args, "tenants", "/tenants", "telemetry.tenants")
-    if doc is None:
+    (hashed tenant labels, never raw UUIDs): a running node's (--url),
+    or this node's and every mesh peer's federated digest (--peer: one
+    peer's, by peer_label or identity prefix)."""
+    if args.url:
+        doc = _get_url(args, "tenants", "/tenants")
+        if doc is None:
+            return 1
+    elif not args.data_dir:
+        print("tenants: give --url or --data-dir", file=sys.stderr)
         return 1
-    if not args.url:
-        # the JAX command's shape: this node's sketches and each peer's
-        # federated digest (no peers until the p2p plane)
-        doc = {"local": doc, "peers": {}}
+    else:
+        from .telemetry import tenants as _tenants_mod
+
+        mesh = asyncio.run(_federated_mesh(args))["mesh"]
+        peers = {
+            pid: {
+                "peer_label": p.get("peer_label"),
+                "stale": p.get("stale"),
+                "tenants": (p.get("snapshot") or {}).get("tenants"),
+            }
+            for pid, p in mesh.get("peers", {}).items()
+        }
+        if args.peer:
+            want = args.peer
+            match = {pid: p for pid, p in peers.items()
+                     if want in (pid, p.get("peer_label")) or pid.startswith(want)}
+            if not match:
+                print(f"tenants: no mesh peer matches {want!r} (known: {sorted(peers)})",
+                      file=sys.stderr)
+                return 1
+            doc = {"peers": match}
+        else:
+            doc = {"local": _tenants_mod.snapshot(), "peers": peers}
     _write_or_print(json.dumps(doc, indent=2, default=str), args.out)
     return 0
 
 
 def cmd_mesh_status(args: argparse.Namespace) -> int:
     """The mesh view: this node's snapshot (health, metrics, ring
-    digests, libraries) and every peer's, freshness-marked."""
-    path = "/mesh" + ("?refresh=0" if args.no_refresh else "")
-    doc = _read_node(args, "mesh-status", path, "telemetry.mesh")
-    if doc is None:
+    digests, libraries) and every peer's, freshness-marked: a running
+    node's (--url), or a mesh node's on --data-dir after pulling every
+    discovered peer."""
+    if args.url:
+        doc = _get_url(args, "mesh-status", "/mesh" + ("?refresh=0" if args.no_refresh else ""))
+        if doc is None:
+            return 1
+    elif not args.data_dir:
+        print("mesh-status: give --url or --data-dir", file=sys.stderr)
         return 1
+    else:
+        doc = asyncio.run(_federated_mesh(args))
     _write_or_print(json.dumps(doc, indent=2, default=str), args.out)
     if not args.url and not doc["mesh"]["peers"]:
         print("no peers in the federation cache (none discovered?)", file=sys.stderr)
     return 0
+
+
+async def _peers(args: argparse.Namespace) -> int:
+    async with _mesh_node(args) as node:
+        peers = node.p2p.p2p.discovered_peers()
+        for p in peers:
+            print(json.dumps({
+                "identity": str(p.identity),
+                "name": p.metadata.get("name"),
+                "os": p.metadata.get("operating_system"),
+                "libraries": [x for x in p.metadata.get("libraries", "").split(",") if x],
+                "addrs": sorted(f"{h}:{pt}" for h, pt in p.addrs),
+            }))
+        if not peers:
+            print("no peers discovered", file=sys.stderr)
+        return 0
+
+
+def cmd_peers(args: argparse.Namespace) -> int:
+    """Discover mesh peers for --wait seconds and list them."""
+    return asyncio.run(_peers(args))
+
+
+async def _pair(args: argparse.Namespace) -> int:
+    import uuid
+
+    from .p2p.identity import RemoteIdentity
+
+    async with _mesh_node(args) as node:
+        try:
+            lib = await node.p2p.pairing.join(
+                node.p2p.p2p,
+                RemoteIdentity.from_str(args.identity),
+                uuid.UUID(args.library) if args.library else None,
+            )
+        except PermissionError as e:
+            print(f"rejected: {e}", file=sys.stderr)
+            return 1
+        except asyncio.TimeoutError:
+            print("peer did not respond (offline, or consent timed out)", file=sys.stderr)
+            return 1
+        except FileExistsError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        except (ValueError, ConnectionError) as e:
+            print(f"pairing failed: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"library": str(lib.id), "name": lib.name}))
+        # give the first sync pull a moment before tearing down
+        await asyncio.sleep(2)
+        return 0
+
+
+def cmd_pair(args: argparse.Namespace) -> int:
+    """Join a peer's library over the mesh (consent happens on the peer)."""
+    return asyncio.run(_pair(args))
+
+
+async def _spacedrop(args: argparse.Namespace) -> int:
+    from .p2p.identity import RemoteIdentity
+
+    async with _mesh_node(args) as node:
+        try:
+            drop_id = await node.p2p.spacedrop.send(
+                RemoteIdentity.from_str(args.identity), list(args.files))
+        except PermissionError as e:
+            print(f"rejected: {e}", file=sys.stderr)
+            return 1
+        except asyncio.TimeoutError:
+            print("peer did not respond", file=sys.stderr)
+            return 1
+        except (ValueError, ConnectionError, OSError) as e:
+            print(f"spacedrop failed: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"drop_id": str(drop_id), "sent": len(args.files)}))
+        return 0
+
+
+def cmd_spacedrop(args: argparse.Namespace) -> int:
+    """Send files to a peer (they accept or reject on their end)."""
+    return asyncio.run(_spacedrop(args))
+
+
+async def _profile_peer(args: argparse.Namespace) -> int:
+    """Pull a mesh peer's host profile over the TELEMETRY wire
+    (profile_pull: library members only, as trace_pull; frame names are
+    module:function only, so nothing needing redaction rides the wire)."""
+    from .p2p.identity import RemoteIdentity
+    from .p2p.manager import SYNC_POLICY
+    from .p2p.operations import request_profile
+    from .utils.resilience import BreakerOpen
+
+    async with _mesh_node(args) as node:
+        try:
+            doc = await SYNC_POLICY.call(
+                args.peer,
+                lambda: request_profile(node.p2p.p2p, RemoteIdentity.from_str(args.peer)),
+            )
+        except PermissionError as e:
+            print(f"profile: peer refused: {e}", file=sys.stderr)
+            return 1
+        except (BreakerOpen, ValueError, ConnectionError, OSError, EOFError,
+                asyncio.TimeoutError) as e:
+            print(f"profile: cannot reach peer: {e}", file=sys.stderr)
+            return 1
+        if args.folded:
+            _write_or_print(str(doc.get("folded", "")).rstrip("\n"), args.out)
+        else:
+            _write_or_print(json.dumps(doc.get("profile"), indent=2), args.out)
+        return 0
+
+
+async def _debug_bundle_peer(args: argparse.Namespace) -> int:
+    """Pull a mesh peer's debug bundle, built and redacted by the owning
+    node before it rides the wire (the peer must enable remoteRspc)."""
+    from .p2p.identity import RemoteIdentity
+    from .p2p.rspc import RSPC_POLICY, RemoteRspcError, remote_exec
+
+    async with _mesh_node(args) as node:
+        try:
+            bundle = await RSPC_POLICY.call(
+                args.peer,
+                lambda: remote_exec(node.p2p.p2p, RemoteIdentity.from_str(args.peer),
+                                    "telemetry.debug_bundle"),
+            )
+        except RemoteRspcError as e:
+            print(f"debug-bundle: peer refused: {e} (code {e.code})", file=sys.stderr)
+            if e.code == 403:
+                print("the peer must enable the remoteRspc feature (toggleFeature remoteRspc)",
+                      file=sys.stderr)
+            return 1
+        except (ValueError, ConnectionError, OSError, EOFError, asyncio.TimeoutError) as e:
+            print(f"debug-bundle: cannot reach peer: {e}", file=sys.stderr)
+            return 1
+        _write_or_print(json.dumps(bundle, indent=2), args.out)
+        return 0
 
 
 def cmd_crypto(args: argparse.Namespace) -> int:
@@ -673,6 +901,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--library", default=None,
                    help="index into this library (created if absent) through the job chain")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--no-p2p", action="store_true",
+                   help="with --library: start the node without its P2P manager")
     p.set_defaults(func=cmd_index)
 
     du = sub.add_parser("duplicates", help="find duplicate images in a library")
@@ -750,8 +980,15 @@ def build_parser() -> argparse.ArgumentParser:
     pf = sub.add_parser("profile", help="a running node's host profile: frame groups, on-CPU "
                         "vs GIL-wait split, capture windows (flamegraph.pl text with --folded)")
     pf.add_argument("--url", default="http://127.0.0.1:8080", help="the node's HTTP API origin")
+    pf.add_argument("--peer", default=None, metavar="IDENTITY",
+                    help="pull a mesh peer's profile over the TELEMETRY wire (library "
+                         "members only), from a node on --data-dir")
     pf.add_argument("--folded", action="store_true",
                     help="flamegraph.pl collapsed-stack text instead of the JSON document")
+    pf.add_argument("--data-dir", default=None, help="with --peer: the dialing node's data dir")
+    pf.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    pf.add_argument("--wait", type=float, default=3.0,
+                    help="discovery settle time before dialing --peer")
     pf.add_argument("--out", help="write output here instead of stdout")
     pf.set_defaults(func=cmd_profile)
 
@@ -760,6 +997,12 @@ def build_parser() -> argparse.ArgumentParser:
     db.add_argument("--data-dir", default=None, help="build offline from this data dir")
     db.add_argument("--url", default=None,
                     help="pull the bundle from a running node instead of building it offline")
+    db.add_argument("--peer", default=None, metavar="IDENTITY",
+                    help="pull a mesh peer's bundle (redacted on the owning node; the peer "
+                         "must have remoteRspc enabled), from a node on --data-dir")
+    db.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    db.add_argument("--wait", type=float, default=3.0,
+                    help="discovery settle time before dialing --peer")
     db.add_argument("--out", help="write JSON here instead of stdout")
     db.set_defaults(func=cmd_debug_bundle)
 
@@ -784,22 +1027,40 @@ def build_parser() -> argparse.ArgumentParser:
     tn = sub.add_parser("tenants", help="per-tenant accounting: heavy-hitter sketches per "
                         "surface, fairness index, dominant share (hashed tenant labels)")
     tn.add_argument("--url", default=None,
-                    help="read a running node's GET /tenants instead of an in-process node")
-    tn.add_argument("--data-dir", default=None, help="the in-process node's data dir")
+                    help="read a running node's GET /tenants instead of booting a mesh node")
+    tn.add_argument("--peer", default=None, metavar="LABEL",
+                    help="show one mesh peer's federated tenant digest (peer_label or "
+                         "identity prefix)")
+    tn.add_argument("--data-dir", default=None, help="the mesh node's data dir")
     tn.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    tn.add_argument("--wait", type=float, default=3.0, help="discovery settle time")
     tn.add_argument("--out", help="write JSON here instead of stdout")
     tn.set_defaults(func=cmd_tenants)
 
     ms = sub.add_parser("mesh-status", help="mesh-wide observability: this node's health, "
                         "metrics and ring digests and every peer's snapshot")
     ms.add_argument("--url", default=None,
-                    help="read a running node's GET /mesh instead of an in-process node")
+                    help="read a running node's GET /mesh instead of booting a mesh node")
     ms.add_argument("--no-refresh", action="store_true",
                     help="with --url: serve the cached mesh view without re-pulling peers")
-    ms.add_argument("--data-dir", default=None, help="the in-process node's data dir")
+    ms.add_argument("--data-dir", default=None, help="the mesh node's data dir")
     ms.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ms.add_argument("--wait", type=float, default=3.0, help="discovery settle time")
     ms.add_argument("--out", help="write JSON here instead of stdout")
     ms.set_defaults(func=cmd_mesh_status)
+
+    pe = sub.add_parser("peers", help="discover and list mesh peers")
+    pa = sub.add_parser("pair", help="join a peer's library")
+    pa.add_argument("identity", help="the peer's identity string (see peers)")
+    pa.add_argument("--library", help="library uuid (default: the peer's first)")
+    sd = sub.add_parser("spacedrop", help="send files to a peer")
+    sd.add_argument("identity")
+    sd.add_argument("files", nargs="+")
+    for sp, fn in ((pe, cmd_peers), (pa, cmd_pair), (sd, cmd_spacedrop)):
+        sp.add_argument("--data-dir", required=True)
+        sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        sp.add_argument("--wait", type=float, default=3.0, help="discovery settle time")
+        sp.set_defaults(func=fn)
 
     cr = sub.add_parser("crypto", help="encrypted-file tools")
     crs = cr.add_subparsers(dest="crypto_cmd", required=True)

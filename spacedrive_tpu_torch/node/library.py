@@ -157,6 +157,9 @@ class Libraries:
         seed_rules(db)
         return lib
 
+    def get(self, lib_id: uuid.UUID) -> Library | None:
+        return self.libraries.get(lib_id)
+
     def save_config(self, lib: Library) -> None:
         """Persist a library's (possibly edited) config file."""
         _config_vm.save(self._config_path(lib.id), lib.config.to_dict())

@@ -36,9 +36,15 @@ samplers and the pool are refcounted, so two nodes in one process share
 one controller, one thread per sampler and one worker set. A Node lives
 within one event loop (one `asyncio.run`).
 
-Not ported: the node's P2P manager and cloud sync (6.7b, 6.8; the p2p
-transport under `p2p/` is ported), which wire a library's ingest actor
-to its peers, and the serve runtime and the API server (6.9).
+When `config.p2p.enabled` (the default), `start` builds and starts the
+node's P2P manager (p2p/manager.py: the listener, discovery, and each
+library's sync over the mesh, its ingest actor pulling from peers) as
+`node.p2p`, after the libraries load; `create_library` registers a new
+library with it and `shutdown` stops it. A node with p2p disabled has
+`node.p2p` None, as in JAX.
+
+Not ported: cloud sync (6.8), the serve runtime and the API server
+(6.9).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import collections
 import os
 import threading
 import uuid
+from typing import Any
 
 import torch
 
@@ -102,6 +109,7 @@ class Node:
                                        event_bus=self.event_bus, device=self.device,
                                        use_device=self.device.type != "cpu")
         self.image_labeler: ImageLabeler | None = None
+        self.p2p: Any = None  # P2PManager, attached by start() when enabled
         if with_labeler:
             self.image_labeler = ImageLabeler(os.path.join(self.data_dir, "image_labeler"),
                                               device=self.device)
@@ -197,6 +205,11 @@ class Node:
         self.thumbnailer._ensure_started()
         for lib in self.libraries.load_all():
             await self._init_library(lib)
+        if self.config.config.p2p.enabled:
+            from ..p2p.manager import P2PManager
+
+            self.p2p = P2PManager(self)
+            await self.p2p.start()
 
     async def _init_library(self, lib: Library) -> None:
         """Per-library wiring at load (ref:library/manager/mod.rs:387-535):
@@ -221,6 +234,8 @@ class Node:
             node_name=self.config.config.name,
         )
         await self._init_library(lib)
+        if self.p2p is not None:
+            self.p2p.register_library(lib)
         return lib
 
     async def close_library(self, lib_id: uuid.UUID) -> None:
@@ -267,6 +282,8 @@ class Node:
             await self.image_labeler.shutdown()
         await self.location_manager.shutdown()
         await self.actors.shutdown()
+        if self.p2p is not None:
+            await self.p2p.shutdown()
         await self.task_system.shutdown()
         for lib in list(self.libraries.libraries.values()):
             lib.close()

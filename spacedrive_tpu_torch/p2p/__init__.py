@@ -6,12 +6,14 @@ The reference rides QUIC on a patched libp2p; here streams are
 length-framed asyncio TCP with an ed25519-authenticated X25519 +
 ChaCha20-Poly1305 channel (same trust model: identity keypairs, no CA).
 
-Counterpart of the transport half of `spacedrive_tpu/p2p/` (identity,
-wire, Spaceblock, headers, Noise XX, the encrypted streams, the `P2P`
-runtime, UDP streams, hole punching, the relay, tunnels and discovery),
-with the same exports. The node's half (the manager, its operations,
-pairing, sync and work over the mesh, and the loopback link) is not
-ported yet.
+Counterpart of `spacedrive_tpu/p2p/`, with the same exports: the
+transport (identity, wire, Spaceblock, headers, Noise XX, the encrypted
+streams, the `P2P` runtime, UDP streams, hole punching, the relay,
+tunnels and discovery) and the node's half (the manager, its
+operations, pairing, sync and remote rspc over the mesh, and the
+loopback link). The work plane (`work.py`) is not ported yet: the
+manager answers a library member's WORK stream as JAX's does on a node
+whose work plane is not running.
 """
 
 from .block import BlockSize, Range, SpaceblockRequest, SpaceblockRequests, Transfer

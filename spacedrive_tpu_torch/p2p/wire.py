@@ -8,7 +8,9 @@ reference's `AsyncWriteExt` usage.
 Counterpart of `spacedrive_tpu/p2p/wire.py`: the same frames, byte for
 byte. MessagePack payloads go through the port's own codec
 (`utils/msgpack_codec`), which writes `msgpack.packb(obj,
-use_bin_type=True)`'s bytes.
+use_bin_type=True)`'s bytes and reads a frame as `msgpack.unpackb(raw,
+raw=False)` does: map keys str or bytes only, nesting bounded, every
+refusal a ValueError.
 """
 
 from __future__ import annotations
@@ -93,4 +95,4 @@ class Reader:
         return await self.exact(n)
 
     async def msgpack(self) -> Any:
-        return unpackb(await self.buf())
+        return unpackb(await self.buf(), strict_map_key=True)

@@ -5,9 +5,10 @@ vocabulary, stage table and sweep unchanged. Given a ``trace_id`` (or
 "the last pass", via the job-boundary markers ``jobs/manager.py`` drops
 here), it:
 
-1. takes the trace's spans from the local trace ring (the peer pull of
-   executor-side spans comes with the p2p plane; until then a report is
-   never ``partial``, as a JAX node's without p2p);
+1. takes the trace's spans from the local trace ring and, on a node
+   with a P2P manager, every reachable peer's executor-side spans of the
+   trace (the ``trace_pull`` TELEMETRY op; a failed pull makes the
+   report ``partial``);
 2. computes the **critical path**: a sweep over span boundaries
    attributes every wall-clock slice of the pass window to the most
    blocking active span (resource priority, then nesting depth) —
@@ -333,13 +334,13 @@ def _cache_store(trace_id: str, doc: dict[str, Any]) -> None:
 
 
 async def assemble(node: Any, trace_id: str | None = None, *,
+                   remote: bool = True,
                    refresh: bool = False) -> dict[str, Any]:
-    """The report of one trace over this node's spans (default: the last
-    settled pass). ``refresh`` bypasses the per-trace report cache (a
-    settled pass's report is immutable in practice). The keys are those
-    of the JAX package's assembly on a node with no p2p manager: no
-    remote spans, never ``partial``; ``node`` is the caller's Node, whose
-    peers the p2p plane will pull from."""
+    """The full distributed report: local spans plus executor-side
+    spans pulled from every reachable mesh peer for this trace. Pull
+    failures degrade the report to ``partial`` (with per-peer errors)
+    — they never block or raise. ``refresh`` bypasses the per-trace
+    report cache (a settled pass's report is immutable in practice)."""
     if trace_id is None:
         trace_id = last_pass_trace()
     if trace_id is None:
@@ -350,16 +351,27 @@ async def assemble(node: Any, trace_id: str | None = None, *,
         if got is not None:
             return got
     spans = [dict(r, node="local") for r in _trace.recent(trace_id)]
+    pull_failures: dict[str, str] = {}
+    remote_n = 0
+    manager = getattr(node, "p2p", None)
+    if remote and manager is not None:
+        remote_spans, pull_failures = await manager.pull_remote_spans(
+            trace_id
+        )
+        remote_n = len(remote_spans)
+        spans.extend(remote_spans)
     doc = report(trace_id, spans)
-    doc["remote_spans"] = 0
-    doc["partial"] = False
+    doc["remote_spans"] = remote_n
+    doc["partial"] = bool(pull_failures)
+    if pull_failures:
+        doc["pull_failures"] = pull_failures
     doc["passes"] = [
         p for p in recent_passes() if p["trace_id"] == trace_id
     ]
-    # cache ONLY immutable answers: a settled pass's report. A
-    # still-running pass (more spans coming) is recomputed on the next
-    # read
-    if _pass_settled(trace_id):
+    # cache ONLY immutable answers: a settled pass's complete
+    # assembly. A still-running pass (more spans coming) or a partial
+    # pull (a peer may come back) must be recomputed on the next read
+    if not pull_failures and _pass_settled(trace_id):
         _cache_store(trace_id, doc)
     return doc
 

@@ -765,10 +765,25 @@ def reset() -> None:
 
 
 async def mesh_profile(node: Any) -> dict[str, Any]:
-    """The mesh-wide profile view: this node's full profile. The peers'
-    profiles (pulled over the TELEMETRY wire) join it with the p2p
-    plane; until then ``mesh`` is empty, as for a JAX node without p2p."""
-    return {"local": SAMPLER.profile(), "mesh": {}, "partial": False}
+    """The mesh-wide profile view: this node's full profile plus every
+    reachable peer's (pulled over the TELEMETRY wire's ``profile_pull``
+    op). A vanished peer degrades the view to ``partial`` with the
+    failure recorded — the trace_pull contract, never a block."""
+    doc: dict[str, Any] = {
+        "local": SAMPLER.profile(),
+        "mesh": {},
+        "partial": False,
+    }
+    manager = getattr(node, "p2p", None)
+    if manager is not None:
+        profiles, failures = await manager.pull_remote_profiles()
+        doc["mesh"] = {
+            label: p.get("profile") for label, p in profiles.items()
+        }
+        doc["partial"] = bool(failures)
+        if failures:
+            doc["pull_failures"] = failures
+    return doc
 
 
 # --- attribution decomposition -------------------------------------------

@@ -11,8 +11,8 @@ rows, ids, counts, orders, cursors, cas_ids, checksums, statistics,
 tags and labels, and the invalidated keys of a rescan;
 `search.semantic` scores agree within 1e-5.
 
-Also: the port's key set is the JAX router's less `DEFERRED` (14 keys,
-each naming its ROADMAP plane), `client_gen` emits the JAX package's
+Also: the port's key set is the JAX router's less `DEFERRED` (the five
+`cloud.*` keys, each naming its ROADMAP plane), `client_gen` emits the JAX package's
 module for the ported keys, and with the bundled labeler checkpoint a
 labelled scan invalidates `labels.list` as the JAX actor does. The
 `sync.*` procedures answer as JAX's after the same writes; `keys.*`
@@ -40,7 +40,7 @@ from spacedrive_tpu.api.router import CoreEventKind as JCoreEventKind
 from spacedrive_tpu_torch.api.router import CoreEventKind
 
 #: JAX plane numbers in ROADMAP.md's plane list
-PLANES = {"6.7", "6.8"}
+PLANES = {"6.8"}
 
 
 @pytest.fixture(autouse=True)
@@ -91,7 +91,9 @@ def _jax_node(data_dir, **kw):
 def _port_node(data_dir, **kw):
     from spacedrive_tpu_torch.node.node import Node
 
-    return Node(data_dir, device="cpu", with_labeler=False, **kw)
+    node = Node(data_dir, device="cpu", with_labeler=False, **kw)
+    node.config.config.p2p.enabled = False
+    return node
 
 
 NODES = {"jax": _jax_node, "port": _port_node}
@@ -146,15 +148,18 @@ def test_keys_equal_jax_less_deferred():
     jkeys = set(japi.mount().keys())
     pkeys = set(papi.mount().keys())
     assert len(japi.mount().keys()) == 127
-    assert len(papi.DEFERRED) == 14 and len(pkeys) == 113
+    assert len(papi.DEFERRED) == 5 and len(pkeys) == 122
     assert set(papi.DEFERRED) <= jkeys
     assert pkeys == jkeys - set(papi.DEFERRED)
+    # the router's keys are JAX's less the five cloud.* procedures
+    assert pkeys == jkeys - {f"cloud.{k}" for k in (
+        "getApiOrigin", "setApiOrigin", "library.get", "sync.enable", "sync.state")}
     assert set(papi.DEFERRED.values()) == PLANES
     counts = {}
     for key, plane in papi.DEFERRED.items():
         counts[plane] = counts.get(plane, 0) + 1
-    assert counts == {"6.7": 9, "6.8": 5}
-    assert {k.split(".")[0] for k in papi.DEFERRED} == {"p2p", "cloud"}
+    assert counts == {"6.8": 5}
+    assert {k.split(".")[0] for k in papi.DEFERRED} == {"cloud"}
     assert not any(k.startswith("telemetry.") for k in papi.DEFERRED)
 
 
@@ -181,7 +186,7 @@ def test_client_bindings_equal_jax_on_ported_keys():
                        "spacedrive_tpu.api.client_gen") == want
     assert "spacedrive_tpu_torch.api.client_gen" in got.splitlines()[0]
     assert '"semantic"' in got and "telemetry.trace_export" in got
-    assert "telemetry.tenants" in got and "p2p.state" not in got
+    assert "telemetry.tenants" in got and "p2p.state" in got and "cloud.sync.state" not in got
 
 
 def test_router_keys_unique_and_library_resolution(tmp_path):
@@ -845,6 +850,7 @@ async def _labelled_scan(pkg, tmp, corpus):
         from spacedrive_tpu_torch.node.node import Node
 
         node = Node(data_dir, device="cpu")
+        node.config.config.p2p.enabled = False
     await node.start()
     try:
         r = node.router

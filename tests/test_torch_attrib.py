@@ -327,6 +327,7 @@ async def _identify_pass(pkg, data_dir, corpus):
         from spacedrive_tpu_torch.object.file_identifier.job import FileIdentifierJob
 
         node = Node(data_dir, device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         mod, tr, backend = attrib, sdtrace, "cpu"
     await node.start()
     try:

@@ -351,6 +351,7 @@ def test_encrypt_decrypt_jobs(tmp_path):
         payload = os.urandom(300_000)
         (corpus / "secret.bin").write_bytes(payload)
         node = Node(str(tmp_path / "node"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             lib = await node.create_library("vault")
@@ -430,6 +431,7 @@ def test_jobs_on_a_watched_location_reach_the_library(tmp_path):
         for name, data in files.items():
             (corpus / name).write_bytes(data)
         node = Node(str(tmp_path / "node"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             r = node.router

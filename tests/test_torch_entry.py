@@ -117,6 +117,7 @@ def test_a_node_on_an_indexed_device_scans_on_it(tmp_path, monkeypatch):
 
     async def run():
         node = Node(os.path.join(tmp_path, "node"), device="cpu:0", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             r = node.router

@@ -180,6 +180,7 @@ def _media_chain(data_dir, loc, device):
     from spacedrive_tpu_torch.object.media.thumbnail.store import ThumbnailStore
 
     node = Node(str(data_dir), device=device)
+    node.config.config.p2p.enabled = False
     node.thumbnailer.use_device = True
     summary = asyncio.run(index_library(str(loc), str(data_dir), "gpu-media", device, node=node))
     (lib,) = Libraries(data_dir).load_all()
@@ -787,6 +788,7 @@ async def _api_scan(data_dir, loc, device):
     from spacedrive_tpu_torch.node.node import Node
 
     node = Node(str(data_dir), device=device, with_labeler=False)
+    node.config.config.p2p.enabled = False
     await node.start()
     try:
         r = node.router
@@ -873,8 +875,11 @@ async def _joined_search(tmp_path, loc):
     from spacedrive_tpu_torch.sync.ingest import IngestActor, backfill_operations
 
     owner = Node(str(tmp_path / "owner"), device="cpu", with_labeler=False)
+    owner.config.config.p2p.enabled = False
     await owner.start()
     joiners = {d: Node(str(tmp_path / d), device=d, with_labeler=False) for d in ("cuda", "cpu")}
+    for joiner in joiners.values():
+        joiner.config.config.p2p.enabled = False
     try:
         lid = (await owner.router.exec(owner, "library.create", {"name": "shared"}))["uuid"]
         await owner.router.exec(owner, "locations.create", {"path": str(loc)}, library_id=lid)

@@ -311,16 +311,26 @@ def test_procedures_after_a_scan_beside_jax(tmp_path):
 
 
 def test_cli_tenants_and_mesh_status_in_process(tmp_path, capsys):
+    """Without --url both commands boot a mesh node on the data dir (as
+    JAX's do); with discovery off in its config it finds no peer."""
+    from spacedrive_tpu_torch.node.config import P2PDiscoveryState
+    from spacedrive_tpu_torch.node.node import Node
+
     data_dir = str(tmp_path / "node")
-    assert cli.main(["tenants", "--data-dir", data_dir, "--device", "cpu"]) == 0
+    node = Node(data_dir, device="cpu", with_labeler=False)
+    node.config.config.p2p.discovery = P2PDiscoveryState.DISABLED
+    node.config.save()
+    assert cli.main(["tenants", "--data-dir", data_dir, "--device", "cpu", "--wait", "0"]) == 0
     assert json.loads(capsys.readouterr().out) == {
         "local": jtenants.snapshot(), "peers": {}}
     out = str(tmp_path / "mesh.json")
-    assert cli.main(["mesh-status", "--data-dir", data_dir, "--device", "cpu",
+    assert cli.main(["mesh-status", "--data-dir", data_dir, "--device", "cpu", "--wait", "0",
                      "--out", out]) == 0
     assert "no peers" in capsys.readouterr().err
     doc = json.load(open(out))
-    assert doc["mesh"] == {"peers": {}} and doc["local"]["v"] == 1
+    # the federation cache's view, as JAX's manager gives it: no peers
+    assert doc["mesh"]["peers"] == {} and doc["mesh"]["stale_after_seconds"] == 60.0
+    assert doc["local"]["v"] == 1
     assert doc["local"]["health"]["subsystems"]["serve"]["status"] == "unknown"
     assert cli.main(["tenants"]) == 1 and cli.main(["mesh-status"]) == 1
 

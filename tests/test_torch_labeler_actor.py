@@ -405,7 +405,7 @@ def test_index_library_with_the_bundled_model(tmp_path, capsys, no_network):
     for _ in range(2):
         capsys.readouterr()
         assert main(["index", str(corpus), "--data-dir", data_dir, "--library", "L",
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", "--no-p2p"]) == 0
         summaries.append(json.loads(capsys.readouterr().out))
         if not summaries[1:]:
             first = _label_rows(data_dir)

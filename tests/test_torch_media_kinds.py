@@ -199,7 +199,7 @@ def test_index_library_labels_image_rows_only(tmp_path, capsys, no_network):  # 
     assert cli.main(["labeler", "provision", "--bundled", "--data-dir", data_dir]) == 0
     capsys.readouterr()
     assert cli.main(["index", str(loc), "--data-dir", data_dir, "--library", "L",
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", "--no-p2p"]) == 0
     summary = __import__("json").loads(capsys.readouterr().out)
     images = sorted(n for n, k in kinds.items() if k == "image")
     assert summary["labeled"] == len(images)

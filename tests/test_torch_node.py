@@ -337,6 +337,7 @@ def test_node_lifecycle(tmp_path):
 
     async def run():
         node = Node(tmp_path, device="cpu")
+        node.config.config.p2p.enabled = False
         await node.start()
         lib = await node.create_library("home", "my files")
         assert node.libraries.libraries.get(lib.id) is lib and lib.node is node
@@ -348,6 +349,7 @@ def test_node_lifecycle(tmp_path):
         await node.shutdown()
 
         node2 = Node(tmp_path, device="cpu")
+        node2.config.config.p2p.enabled = False
         assert node2.id == node.id
         assert node2.identity.to_bytes() == node.identity.to_bytes()
         await node2.start()
@@ -375,6 +377,7 @@ def test_node_loads_a_jax_nodes_data_dir(tmp_path):
         jlib = await jnode.create_library("shared")
         await jnode.shutdown()
         pnode = PNode(tmp_path, device="cpu", with_labeler=False)
+        pnode.config.config.p2p.enabled = False
         await pnode.start()
         try:
             assert pnode.id == jnode.id
@@ -429,6 +432,7 @@ def test_thumbnailer_background_percentage_matches_jax(tmp_path):
 
     async def run():
         node = Node(tmp_path / "n", device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             await node.router.exec(node, "nodes.updateThumbnailerPreferences",

@@ -314,6 +314,7 @@ async def _ephemeral_on(pkg, data_dir, root):
         from spacedrive_tpu_torch.node.node import Node
 
         node = Node(data_dir, device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
     await node.start()
     try:
         listing = await node.router.exec(node, "ephemeralFiles.list", {"path": root})

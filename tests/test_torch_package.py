@@ -119,6 +119,21 @@ def test_the_scan_covers_the_p2p_transport():
         assert "msgpack" not in set(_imported_modules(os.path.join(PACKAGE, f))), f
 
 
+P2P_NODE = ("sync.py", "operations.py", "rspc.py", "pairing.py", "manager.py", "loopback.py")
+
+
+def test_the_scan_covers_the_node_p2p():
+    """The node's p2p (owned copies of the JAX modules but the work
+    plane, which waits for the continuum stages) is scanned too, with
+    the federation's peer half; none imports the `msgpack` package."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    files = {os.path.join("p2p", f) for f in P2P_NODE}
+    assert files | {os.path.join("telemetry", "federation.py")} <= rel
+    assert os.path.join("p2p", "work.py") not in rel
+    for f in files:
+        assert "msgpack" not in set(_imported_modules(os.path.join(PACKAGE, f))), f
+
+
 def test_p2p_imports_without_cryptography():
     """With `cryptography` absent the p2p package still imports, as the
     JAX package's does (identities fall back to the pure-Python
@@ -126,7 +141,7 @@ def test_p2p_imports_without_cryptography():
     handshake state and a client handshake raise NoiseError; nothing
     falls back to plaintext."""
     modules = ["spacedrive_tpu_torch.p2p" + ("" if f == "__init__.py" else "." + f[:-3])
-               for f in P2P_TRANSPORT]
+               for f in P2P_TRANSPORT + P2P_NODE]
     code = (
         "import asyncio, importlib, sys\n"
         "sys.modules['cryptography'] = None\n"

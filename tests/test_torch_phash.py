@@ -341,7 +341,7 @@ def test_cli_duplicates_matches_sdx(tmp_path, capsys):
     _pics(corpus)
     pdata, jdata = str(tmp_path / "port"), str(tmp_path / "jax")
     assert cli.main(["index", str(corpus), "--data-dir", pdata, "--library", "L",
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", "--no-p2p"]) == 0
     assert jcli.main(["--data-dir", jdata, "index", str(corpus), "--library", "L",
                       "--backend", "cpu", "--no-p2p"]) == 0
     capsys.readouterr()

@@ -525,7 +525,8 @@ async def test_a_cpu_node_thumbnails_through_the_software_path(tmp_path, monkeyp
 
     monkeypatch.setattr(procpool.POOL, "run", recording_run)
     data = tmp_path / "data"
-    summary = await cli.index_library(str(tmp_path / "in"), str(data), "sw", "cpu")
+    summary = await cli.index_library(str(tmp_path / "in"), str(data), "sw", "cpu",
+                                      no_p2p=True)
     # the tree also holds files no kind decodes (a truncated clip)
     dispatched = sum(thumb_host.can_generate(f.rsplit(".", 1)[-1])
                      for f in os.listdir(tmp_path / "in"))
@@ -560,7 +561,7 @@ def _corpus(root):
 async def _library_run(corpus, data_dir):
     """`index --library` then `duplicates` on the CPU; everything the
     equality covers."""
-    await cli.index_library(str(corpus), str(data_dir), "pool", "cpu")
+    await cli.index_library(str(corpus), str(data_dir), "pool", "cpu", no_p2p=True)
     groups = await cli.duplicates_library(str(data_dir), "pool", 8, "cpu")
     (lib,) = Libraries(str(data_dir)).load_all()
     try:

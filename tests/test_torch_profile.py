@@ -296,6 +296,7 @@ async def _scan(data_dir, corpus):
     from spacedrive_tpu_torch.node.node import Node
 
     node = Node(data_dir, device="cpu", with_labeler=False)
+    node.config.config.p2p.enabled = False
     await node.start()
     try:
         lib = await node.create_library("profiled")

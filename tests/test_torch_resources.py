@@ -255,6 +255,7 @@ def test_node_samples_resources_and_leaves_no_thread(tmp_path, monkeypatch):
 
     async def run():
         node = Node(str(tmp_path / "data"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             assert node._resources_started and resources.SAMPLER.running()

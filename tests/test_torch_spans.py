@@ -162,6 +162,7 @@ def test_node_scan_populates_dispatch_feeder_identifier_and_phase_metrics(tmp_pa
 
     async def run():
         node = Node(os.path.join(tmp_path, "node"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             lib = await node.create_library("telemetry-lib")
@@ -221,6 +222,7 @@ def test_node_debug_bundle_is_secret_free(tmp_path, monkeypatch):
 
     async def run():
         node = Node(os.path.join(tmp_path, "node"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             await node.create_library("bundle-lib")

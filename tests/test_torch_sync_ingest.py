@@ -779,6 +779,7 @@ def test_a_watched_rename_and_remove_reach_a_replica(tmp_path):
 
     async def run():
         node = Node(str(tmp_path / "node"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             r = node.router

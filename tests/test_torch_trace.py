@@ -211,6 +211,7 @@ async def _scan(data_dir, corpus, device="cpu"):
     from spacedrive_tpu_torch.node.node import Node
 
     node = Node(data_dir, device=device, with_labeler=False)
+    node.config.config.p2p.enabled = False
     await node.start()
     try:
         lib = await node.create_library("trace-lib")

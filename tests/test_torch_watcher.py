@@ -407,6 +407,7 @@ async def _script_on(pkg, data_dir, root, steps):
 
         Kind, Event = EventKind, WatchEvent
         node = Node(data_dir, device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         scan_kw = {"backend": "cpu"}
     await node.start()
     try:
@@ -482,6 +483,7 @@ def test_rescans_run_on_the_nodes_device(tmp_path, monkeypatch):
 
     async def run():
         node = Node(str(tmp_path / "node"), device="cpu", with_labeler=False)
+        node.config.config.p2p.enabled = False
         await node.start()
         try:
             entry = manager_mod._Watched(library=None, location={"id": 1}, watcher=None)
@@ -527,6 +529,7 @@ async def _live_node(tmp_path, corpus):
     from spacedrive_tpu_torch.node.node import Node
 
     node = Node(str(tmp_path / "node"), device="cpu", with_labeler=False)
+    node.config.config.p2p.enabled = False
     await node.start()
     lib = await node.create_library("watched")
     loc = LocationCreateArgs(path=str(corpus), name="corpus").create(lib)
