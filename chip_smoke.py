@@ -279,6 +279,28 @@ fails that pull once: the sync policy retries it and B converges on
 A's new tag; the degradation counters move by that one activation. It
 prints `{"node_p2p": ...}` with the seconds of each step, the join's
 ops/s and the Spacedrop's MB/s.
+Phase 18 is cloud sync, with the ladder and the controller reset
+first: a port `CloudRelay` on 127.0.0.1 in this process and two port
+Nodes on the card (A and B, without the labeler), their P2P managers
+on 127.0.0.1 with discovery disabled, so the relay is their only route.
+(a) A indexes 64 of 80 files taken evenly from phase 3's snapshot (hard
+links) through K1; B holds A's library as a joined library is written
+(phase 15's `_join_library`); both set the relay's origin and enable
+cloud sync through their routers (`cloud.setApiOrigin`,
+`cloud.sync.enable`); A backfills; B's rows equal A's on what A's op
+log carries (phase 17's comparison, media_data counted), K1 launched
+no time for B, and `cloud.sync.state` shows A's pushed ops and B's
+received collections and ingested ops. (b) A indexes the 16 others
+through K1; they reach B by A's push and B's poll alone, K1 launched
+no time for B. (c) One `relay.http:500` and one `relay.http:truncate`
+activation, armed as B's next pull starts (A's requests held back
+meanwhile), fail two attempts of that pull, which the relay policy
+retries: `sd_resilience_retries_total` rises by >= 2, B converges on
+A's new tag, and the degradation counters move by those 2 activations
+alone. (d) B's `refresh_federation(force=True)` pushes its snapshot and
+A's, which reaches no peer directly, stores it with `transport ==
+"relay"`. It prints `{"cloud_sync": ...}` with the ops A pushed, the
+collections B received, B's ingest ops/s and the seconds of each step.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -287,8 +309,8 @@ non-zero before any work. The last line of standard output is
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
 decoders', the API's, the observability plane's, the verdicts', the
-live location's, the replica's, the p2p transport's and the node's
-p2p's numbers, and each phase's wall seconds, as JSON.
+live location's, the replica's, the p2p transport's, the node's p2p's
+and cloud sync's numbers, and each phase's wall seconds, as JSON.
 """
 
 from __future__ import annotations
@@ -6241,11 +6263,264 @@ def report_node_p2p(got: dict) -> dict:
     return {"launches": {"p2p_node": got["launches"]}}
 
 
+# --- phase 18: cloud sync ----------------------------------------------------------------
+
+CLOUD_FILES = 80  # (a) and (b): every n-th of phase 3's files, 64 then 16
+CLOUD_WAIT_S = 60  # the bound on one step of the phase
+CLOUD_FAULTS = "relay.http:500:times=1;relay.http:truncate:times=1"
+
+
+async def cloud_sync(tmp: str, snapshot: str, since: dict) -> dict:
+    """18(a)-(d) on two port Nodes on the card and a port relay in this
+    process; `since` is the degradation counters before the phase."""
+    import asyncio
+
+    from spacedrive_tpu_torch.cloud.relay import CloudRelay
+    from spacedrive_tpu_torch.location.locations import LocationCreateArgs, scan_location
+    from spacedrive_tpu_torch.node.config import P2PDiscoveryState
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.p2p.manager import P2PManager
+    from spacedrive_tpu_torch.sync.ingest import backfill_operations
+    from spacedrive_tpu_torch.telemetry import counter_value
+    from spacedrive_tpu_torch.telemetry.events import RESILIENCE_EVENTS
+    from spacedrive_tpu_torch.utils import faults
+
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(snapshot) for f in fs)
+    picked = files[::len(files) // CLOUD_FILES][:CLOUD_FILES]
+    more = picked[4::5]
+    first = [f for f in picked if f not in more]
+    loc_dir = os.path.join(tmp, "p18_a_location")
+    os.makedirs(loc_dir)
+
+    def link(paths) -> None:
+        for path in paths:
+            os.link(path, os.path.join(loc_dir, f"{picked.index(path):03d}_{os.path.basename(path)}"))
+
+    steps: dict[str, float] = {}
+    out: dict = {"steps_s": steps}
+    t0 = time.perf_counter()
+    relay = CloudRelay()
+    origin = f"http://127.0.0.1:{await relay.start()}"
+    nodes = []
+    for name in ("p18-a", "p18-b"):
+        node = Node(os.path.join(tmp, name), device=DEVICE, with_labeler=False)
+        node.config.config.p2p.enabled = False  # the manager is attached below
+        node.config.config.p2p.discovery = P2PDiscoveryState.DISABLED
+        node.config.config.name = name
+        await node.start()
+        node.p2p = P2PManager(node, beacon_addrs=[], bind_host="127.0.0.1")
+        nodes.append(node)
+    a, b = nodes
+    owners = _K1Owners()
+    try:
+        with owners:
+            for n in nodes:
+                await n.p2p.start()
+                check(not n.p2p.p2p._discovery, "18: a Node runs LAN discovery")
+            steps["start_s"] = time.perf_counter() - t0
+
+            # (a) A indexes 64 files through K1; B holds A's library and
+            # converges through the relay alone
+            t0 = time.perf_counter()
+            lid = (await a.router.exec(a, "library.create", {"name": "p18"}))["uuid"]
+            lib_a = a.libraries.get(uuid.UUID(lid))
+            link(first)
+            loc = LocationCreateArgs(path=loc_dir).create(lib_a)
+            await scan_location(lib_a, loc, a.jobs, backend=DEVICE)
+            await a.jobs.wait_idle()
+            steps["a_index_s"] = time.perf_counter() - t0
+            out["a_index_launches"] = owners.take()
+            check(out["a_index_launches"].get("p18-a", 0) > 0 and set(out["a_index_launches"])
+                  == {"p18-a"}, f"18(a): A's index launched K1 {out['a_index_launches']}")
+
+            def views() -> tuple[dict, dict, dict]:
+                """As phase 17's: A's and B's rows that A's op log carries,
+                and A's rows no op carries, counted by model."""
+                fields, carried = _synced_fields(lib_a.db), _carried_ids(lib_a.db)
+                a_view, b_view = _sync_view(lib_a.db, fields), _sync_view(lib_b.db, fields)
+                keep = {m: {k: r for k, r in rows.items() if k in carried[m]}
+                        for m, rows in a_view.items()}
+                return (keep, {m: {k: r for k, r in rows.items() if k in carried[m]}
+                               for m, rows in b_view.items()},
+                        {m: len(a_view[m]) - len(keep[m]) for m in a_view
+                         if len(a_view[m]) != len(keep[m])})
+
+            async def converged(what: str) -> dict:
+                try:
+                    async with asyncio.timeout(CLOUD_WAIT_S):
+                        while (got := views())[0] != got[1]:
+                            await asyncio.sleep(0.02)
+                except TimeoutError:
+                    pass
+                a_rows, b_rows, uncarried = views()
+                check(set(uncarried) <= {"media_data"}, f"{what}: rows no op carries {uncarried}")
+                return {"rows": _check_views_equal(a_rows, b_rows, what), "uncarried": uncarried}
+
+            t0 = time.perf_counter()
+            lib_b = _join_library(b, lib_a)
+            await b._init_library(lib_b)
+            for n in nodes:
+                await n.router.exec(n, "cloud.setApiOrigin", origin)
+                got = await n.router.exec(n, "cloud.sync.enable", library_id=lid)
+                check(got["enabled"] and n.libraries.get(uuid.UUID(lid)).cloud_sync is not None,
+                      f"18(a): cloud.sync.enable on {n.config.config.name} gave {got}")
+            steps["enable_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["backfilled_ops"] = await asyncio.to_thread(backfill_operations, lib_a.sync)
+            lib_a.sync.event_bus.emit(("SyncMessage", "Created"))  # the sender pushes them now
+            out["rows_a"] = await converged("18(a) through the relay")
+            steps["converge_s"] = time.perf_counter() - t0
+            out["ops"] = lib_a.db.count("crdt_operation")
+            out["converge_launches"] = owners.take()
+            check(not out["converge_launches"],
+                  f"18(a): K1 launched {out['converge_launches']} while B converged")
+            states = [await n.router.exec(n, "cloud.sync.state", library_id=lid) for n in nodes]
+            out["state_a"], out["state_b"] = states
+            check(states[0]["enabled"] and states[0]["sent_ops"] > 0,
+                  f"18(a): A's cloud.sync.state {states[0]}")
+            check(states[1]["enabled"] and states[1]["received_collections"] > 0
+                  and states[1]["ingested_ops"] > 0, f"18(a): B's cloud.sync.state {states[1]}")
+            out["ingest_ops_per_s"] = states[1]["ingested_ops"] / steps["converge_s"]
+
+            # (b) 16 more on A reach B by push and poll
+            t0 = time.perf_counter()
+            link(more)
+            await scan_location(lib_a, loc, a.jobs, backend=DEVICE)
+            await a.jobs.wait_idle()
+            steps["a_index_more_s"] = time.perf_counter() - t0
+            out["rows_b"] = await converged("18(b) after A's second scan")
+            steps["sync_s"] = time.perf_counter() - t0
+            out["sync_launches"] = owners.take()
+            check(set(out["sync_launches"]) == {"p18-a"},
+                  f"18(b): K1 launched {out['sync_launches']} (A's scan alone may)")
+            check(lib_b.db.count("file_path", "is_dir = 0") == len(picked),
+                  f"18(b): B holds {lib_b.db.count('file_path', 'is_dir = 0')} files")
+
+            # (c) a 500 and a truncated body on B's next pull, each retried
+            check_healthy("18", since)
+            t0 = time.perf_counter()
+            a_client, b_client = lib_a.cloud_sync.client, lib_b.cloud_sync.client
+            retries0 = counter_value("sd_resilience_retries_total")
+            since_ts = time.time()
+            plan = faults.FaultPlan.parse(CLOUD_FAULTS)
+            a_open, a_quiet, a_busy, armed = asyncio.Event(), asyncio.Event(), [0], [True]
+            a_open.set()
+            a_quiet.set()
+            a_once, b_pull = a_client._request_once, b_client.pull_ops
+
+            async def a_held(*args):
+                """A's requests wait while B's armed pull runs, so the
+                plan fires on B's attempts alone."""
+                await a_open.wait()
+                a_busy[0] += 1
+                a_quiet.clear()
+                try:
+                    return await a_once(*args)
+                finally:
+                    a_busy[0] -= 1
+                    if not a_busy[0]:
+                        a_quiet.set()
+
+            async def armed_pull(*args, **kwargs):
+                if not armed[0]:
+                    return await b_pull(*args, **kwargs)
+                armed[0] = False
+                a_open.clear()
+                await a_quiet.wait()
+                faults.install(plan)
+                try:
+                    return await b_pull(*args, **kwargs)
+                finally:
+                    faults.install(None)
+                    a_open.set()
+
+            a_client._request_once, b_client.pull_ops = a_held, armed_pull
+            try:
+                await a.router.exec(a, "tags.create", {"name": "p18", "color": "#e76f51"},
+                                    library_id=lid)
+                out["rows_c"] = await converged("18(c) after the failed attempts")
+            finally:
+                a_client._request_once, b_client.pull_ops = a_once, b_pull
+                faults.install(None)
+            steps["fault_s"] = time.perf_counter() - t0
+            retried = [e["fields"] for e in RESILIENCE_EVENTS.snapshot()
+                       if e["type"] == "retry" and e["ts"] >= since_ts]
+            out["fault"] = {"activations": plan.activations(), "retries": retried,
+                            "retries_total": counter_value("sd_resilience_retries_total")
+                            - retries0}
+            check(plan.activations() == {"relay.http": 2} and out["fault"]["retries_total"] >= 2
+                  and len(retried) == 2 and all(r["policy"] == "relay" for r in retried),
+                  f"18(c): {out['fault']}")
+            check(lib_b.db.find_one("tag", name="p18") is not None, "18(c): A's tag is not on B")
+            out["fault_launches"] = owners.take()
+            check(not out["fault_launches"], f"18(c): K1 launched {out['fault_launches']}")
+
+            # (d) the federation's relay leg
+            t0 = time.perf_counter()
+            await b.p2p.refresh_federation(force=True)
+            mesh = await a.p2p.refresh_federation(force=True)
+            pid = f"instance:{lib_b.sync.instance}"
+            got = mesh["peers"].get(pid) or {}
+            check(got.get("transport") == "relay" and got.get("error") is None
+                  and (got.get("snapshot") or {}).get("node", {}).get("name") == "p18-b",
+                  f"18(d): A's view of B {({k: v for k, v in got.items() if k != 'snapshot'})}")
+            steps["federation_s"] = time.perf_counter() - t0
+            out["sent_ops"] = lib_a.cloud_sync.sent_ops
+            out["received_collections"] = lib_b.cloud_sync.received_collections
+            out["ingested_ops"] = lib_b.cloud_sync.ingested_ops
+            out["relay_collections"] = len(relay.libraries[lid]["collections"])
+    finally:
+        for n in nodes:
+            await n.shutdown()
+        await relay.shutdown()
+    out["launches"] = sum(sum(out[k].values()) for k in (
+        "a_index_launches", "converge_launches", "sync_launches", "fault_launches"))
+    return out
+
+
+def phase_cloud_sync(tmp: str, snapshot: str) -> dict:
+    """Phase 18: cloud sync between two port Nodes on the card through a
+    port relay: (a) B converges through the relay, (b) push and poll,
+    (c) two failed attempts of a pull that retries, (d) the federation's
+    relay leg."""
+    import asyncio
+
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    since = degradation()
+    blake3_cuda.chunk_cvs.launches = 0
+    got = asyncio.run(cloud_sync(tmp, snapshot, since))
+    check(blake3_cuda.chunk_cvs.launches == got["launches"],
+          f"18: K1 launched {blake3_cuda.chunk_cvs.launches} times, {got['launches']} in windows")
+    moved = {k: v - since[k] for k, v in degradation().items() if not k.startswith("demotion")}
+    check(moved == {**{k: 0 for k in moved}, "fault_activations": 2},
+          f"18(c): degradation counters moved {moved}")
+    got["seconds"] = time.perf_counter() - t_phase
+    return got
+
+
+def report_cloud_sync(got: dict) -> dict:
+    print(json.dumps({"cloud_sync": got}), flush=True)
+    steps = got["steps_s"]
+    print(f"phase 18: cloud sync in {got['seconds']:.1f} s: (a) A indexed "
+          f"{got['rows_a']['rows']['file_path']} files ({got['a_index_launches']['p18-a']} K1 "
+          f"launches), A pushed {got['sent_ops']} ops, B received "
+          f"{got['received_collections']} collections and converged in "
+          f"{steps['converge_s']:.2f} s ({got['ingest_ops_per_s']:.0f} ops/s, K1 0 on B), "
+          f"(b) synced in {steps['sync_s']:.2f} s, (c) a 500 and a truncated body retried, "
+          f"(d) B's snapshot through the relay", flush=True)
+    return {"launches": {"cloud_node": got["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=17, choices=range(3, 18),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 17: all); "
+    parser.add_argument("--stop-after", type=int, default=18, choices=range(3, 19),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 18: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -6340,6 +6615,9 @@ def main() -> int:
         if args.stop_after >= 17:
             launches.update(report_node_p2p(phase_node_p2p(tmp, snapshot))["launches"])
             lap("17")
+        if args.stop_after >= 18:
+            launches.update(report_cloud_sync(phase_cloud_sync(tmp, snapshot))["launches"])
+            lap("18")
     lap("cleanup")
     print(json.dumps({"wall_s": {"phases": phase_s,
                                  "smoke": time.perf_counter() - _T_START}}), flush=True)

@@ -8,9 +8,9 @@ volumes, preferences, notifications, backups, auth, models,
 invalidation. Handlers are (node[, library][, arg]) per router.py;
 mutations fire `invalidate_query` exactly where the reference does.
 
-Counterpart of `spacedrive_tpu/api/namespaces.py`, registering its
-procedures in its order but for those in `DEFERRED`, each of which
-waits for the plane (a ROADMAP entry) that ports what it drives. The
+Counterpart of `spacedrive_tpu/api/namespaces.py`, registering all of
+its procedures in its order (`DEFERRED`, the procedures still waiting
+for the plane that ports what they drive, is empty). The
 procedures that scan, validate or search run their jobs and ops on the
 node's device. `locations.create` and `locations.delete` start and
 stop the location's watcher (the node's location manager), as the JAX
@@ -39,11 +39,9 @@ from .search import search_objects, search_paths, search_semantic
 VERSION = "0.1.0"
 
 #: the JAX router's procedures this one does not register yet, each with
-#: the ROADMAP plane that brings what it drives
-DEFERRED: dict[str, str] = {
-    **{f"cloud.{k}": "6.8" for k in (
-        "getApiOrigin", "setApiOrigin", "library.get", "sync.enable", "sync.state")},
-}
+#: the ROADMAP plane that brings what it drives (none: the cloud.* five
+#: came with plane 6.8)
+DEFERRED: dict[str, str] = {}
 
 
 def mount() -> Router:
@@ -56,6 +54,7 @@ def mount() -> Router:
     _ephemeral(r)
     _jobs(r)
     _search(r)
+    _cloud(r)
     _tags(r)
     _spaces(r)
     _albums(r)
@@ -816,6 +815,63 @@ def _search(r: Router) -> None:
         library.db.delete("saved_search", id=int(arg))
         invalidate_query(node, "search.saved.list", library)
         return None
+
+
+# --- cloud ---------------------------------------------------------------
+
+
+def _cloud(r: Router) -> None:
+    @r.query("cloud.getApiOrigin")
+    def get_origin(node):
+        return node.config.config.preferences.get("cloud_api_origin")
+
+    @r.mutation("cloud.setApiOrigin")
+    def set_origin(node, arg):
+        node.config.config.preferences["cloud_api_origin"] = str(arg)
+        node.config.save()
+        invalidate_query(node, "cloud.getApiOrigin")
+        return None
+
+    @r.query("cloud.library.get", library=True)
+    async def get_library(node, library):
+        from ..cloud.api import CloudApiError, CloudClient
+        from ..utils.resilience import BreakerOpen
+
+        origin = node.config.config.preferences.get("cloud_api_origin")
+        if not origin:
+            return None
+        client = CloudClient(origin)
+        try:
+            return await client.get_library(str(library.id))
+        except (CloudApiError, BreakerOpen):
+            return None
+        finally:
+            await client.close()
+
+    @r.mutation("cloud.sync.enable", library=True)
+    async def enable(node, library):
+        from ..cloud.api import CloudApiError
+        from ..utils.resilience import BreakerOpen
+
+        try:
+            cloud = await node.enable_cloud_sync(library)
+        except ValueError as e:
+            raise RspcError.bad_request(str(e))
+        except (CloudApiError, BreakerOpen) as e:
+            raise RspcError(502, f"cloud relay unreachable: {e}")
+        return {"instance": str(library.sync.instance), "enabled": cloud is not None}
+
+    @r.query("cloud.sync.state", library=True)
+    def state(node, library):
+        cloud = library.cloud_sync
+        if cloud is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "sent_ops": cloud.sent_ops,
+            "received_collections": cloud.received_collections,
+            "ingested_ops": cloud.ingested_ops,
+        }
 
 
 # --- tags ----------------------------------------------------------------

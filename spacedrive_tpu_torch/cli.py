@@ -27,6 +27,9 @@
         [--device ...]
     python -m spacedrive_tpu_torch spacedrop IDENTITY FILE... --data-dir D [--wait 3]
         [--device ...]
+    python -m spacedrive_tpu_torch relay [--host 0.0.0.0] [--port 8490] [--p2p-port 8491]
+        [--max-pipes-per-target 8] [--max-pipes 256] [--pipe-rate BYTES_PER_S]
+        [--stats-interval 60]
     python -m spacedrive_tpu_torch licenses [--out F]
     python -m spacedrive_tpu_torch crypto inspect FILE
     python -m spacedrive_tpu_torch crypto encrypt|decrypt FILE [--password PW]
@@ -131,6 +134,16 @@ discovered peers; `pair` joins IDENTITY's library (the peer consents);
 (library members only); `debug-bundle --peer` pulls IDENTITY's bundle,
 redacted on the owning node, by remote rspc (the peer must enable
 `remoteRspc`).
+
+`relay` (counterpart of `sdx relay`) runs the standalone self-hosted
+relay until interrupted: the cloud sync API over HTTP (cloud/relay.py,
+on the port's own HTTP layer) and the p2p rendezvous (p2p/relay.py),
+printing both addresses, then the rendezvous's counters every
+`--stats-interval` seconds (0: never). A Node syncs a library through
+it once `cloud.setApiOrigin` names `http://HOST:PORT` and
+`cloud.sync.enable` runs for the library (`Node.enable_cloud_sync`);
+its p2p reaches relayed peers with `p2p.relay = "HOST:P2P_PORT"` in its
+node config. `serve --cloud` comes with the HTTP host.
 """
 
 from __future__ import annotations
@@ -883,6 +896,43 @@ def cmd_licenses(args: argparse.Namespace) -> int:
     return 0
 
 
+async def _relay(args: argparse.Namespace) -> int:
+    from .cloud.relay import CloudRelay
+    from .p2p.relay import RelayLimits
+
+    relay = CloudRelay(p2p_limits=RelayLimits(
+        max_pipes_per_target=args.max_pipes_per_target,
+        max_pipes_total=args.max_pipes,
+        pipe_rate_bytes_per_s=args.pipe_rate,
+    ))
+    port = await relay.start(host=args.host, port=args.port, p2p_port=args.p2p_port)
+    print(f"relay: sync API on http://{args.host}:{port}/api  "
+          f"(point nodes' --cloud at http://{args.host}:{port})", flush=True)
+    print(f"relay: p2p rendezvous on {args.host}:{relay.p2p_port}  "
+          f"(point nodes' p2p.relay at {args.host}:{relay.p2p_port})", flush=True)
+    try:
+        while True:
+            await asyncio.sleep(args.stats_interval or 3600)
+            if args.stats_interval:
+                s = relay.p2p_relay.stats.snapshot()
+                print(f"relay stats: {json.dumps(s)}", flush=True)
+    except asyncio.CancelledError:
+        pass
+    finally:
+        await relay.shutdown()
+    return 0
+
+
+def cmd_relay(args: argparse.Namespace) -> int:
+    """Run the standalone self-hosted relay: WAN sync collections over
+    HTTP and the P2P rendezvous, the deployable form of what the
+    reference's closed cloud provides."""
+    try:
+        return asyncio.run(_relay(args))
+    except KeyboardInterrupt:
+        return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m spacedrive_tpu_torch")
     parser.add_argument(
@@ -1070,6 +1120,20 @@ def build_parser() -> argparse.ArgumentParser:
         if name != "inspect":
             c.add_argument("--password")
     cr.set_defaults(func=cmd_crypto)
+
+    rl = sub.add_parser("relay", help="run the standalone sync relay + P2P rendezvous")
+    rl.add_argument("--host", default="0.0.0.0")
+    rl.add_argument("--port", type=int, default=8490)
+    rl.add_argument("--p2p-port", type=int, default=8491)
+    rl.add_argument("--max-pipes-per-target", type=int, default=8,
+                    help="concurrent relayed pipes per listening identity")
+    rl.add_argument("--max-pipes", type=int, default=256,
+                    help="concurrent relayed pipes across the relay")
+    rl.add_argument("--pipe-rate", type=int, default=None, metavar="BYTES_PER_S",
+                    help="per-direction byte-rate cap per pipe (default unlimited)")
+    rl.add_argument("--stats-interval", type=float, default=60.0,
+                    help="seconds between stats log lines (0 disables)")
+    rl.set_defaults(func=cmd_relay)
 
     li = sub.add_parser("licenses", help="dependency and license inventory")
     li.add_argument("--out", help="write JSON here instead of stdout")

@@ -80,6 +80,7 @@ class Library:
         self.search_index = LibraryIndex(self)
         self.orphan_remover: Any = None
         self.ingest: Any = None  # sync/ingest.IngestActor
+        self.cloud_sync: Any = None  # cloud/sync.CloudSync, by Node.enable_cloud_sync
         self.key_manager: Any = None  # crypto/keys.KeyManager
 
     @property

@@ -43,8 +43,14 @@ library's sync over the mesh, its ingest actor pulling from peers) as
 library with it and `shutdown` stops it. A node with p2p disabled has
 `node.p2p` None, as in JAX.
 
-Not ported: cloud sync (6.8), the serve runtime and the API server
-(6.9).
+`enable_cloud_sync` starts a library's cloud sync (cloud/sync.py: the
+sender, receiver and ingester against a relay's origin, which persists
+in the node's preferences, `cloud_api_origin`, as JAX's does), over the
+port's own HTTP client (utils/http.py); `close_library` and `shutdown`
+stop the trio and close its client.
+
+Not ported: the serve runtime and the API server (6.9), so no
+`start_api`.
 """
 
 from __future__ import annotations
@@ -238,25 +244,62 @@ class Node:
             self.p2p.register_library(lib)
         return lib
 
+    async def enable_cloud_sync(self, lib: Library, api_origin: str | None = None):
+        """Start the cloud sender/receiver/ingester trio for a library
+        (ref:core/src/cloud/sync/mod.rs:14 declare_actors; the origin
+        persists in node preferences like the reference's sd-cloud-api
+        env). Raises ValueError with no origin; an origin that changed
+        moves the library's sync to the new relay."""
+        from ..cloud.api import CloudClient
+        from ..cloud.sync import CloudSync
+
+        prev_origin = self.config.config.preferences.get("cloud_api_origin")
+        if api_origin is not None and api_origin != prev_origin:
+            self.config.config.preferences["cloud_api_origin"] = api_origin
+            self.config.save()
+        origin = self.config.config.preferences.get("cloud_api_origin")
+        if not origin:
+            raise ValueError("no cloud api origin configured")
+        existing = lib.cloud_sync
+        if existing is not None:
+            if existing.client.origin == origin.rstrip("/"):
+                return existing
+            await _stop_cloud_sync(lib)
+        client = CloudClient(origin)
+        cloud = CloudSync(lib, client)
+        try:
+            await cloud.start()
+        except BaseException:
+            await cloud.shutdown()
+            await client.close()
+            raise
+        lib.cloud_sync = cloud
+        if BackendFeature.CLOUD_SYNC not in self.config.config.features:
+            self.toggle_feature(BackendFeature.CLOUD_SYNC, True)
+        return cloud
+
     async def close_library(self, lib_id: uuid.UUID) -> None:
-        """Tear down one loaded library: persist and stop its jobs, close
-        the DB, drop it from the registry (the per-library half of
-        shutdown(); used by delete and restore)."""
+        """Tear down one loaded library: stop its cloud sync, persist and
+        stop its jobs, close the DB, drop it from the registry (the
+        per-library half of shutdown(); used by delete and restore)."""
         lib = self.libraries.libraries.get(lib_id)
         if lib is None:
             return
+        await _stop_cloud_sync(lib)
         await shutdown_jobs(self.jobs, lib)
         await _stop_library_actors(lib)
         lib.close()
         self.libraries.libraries.pop(lib_id, None)
 
     async def shutdown(self) -> None:
-        """Stop the libraries' orphan removers and ingest actors, the loop-lag monitor, the
-        history writer, the controller, the samplers and the pool (each
-        releases its hold), persist the actors' queues, stop the
-        watchers (draining their in-flight rescans), stop the task
-        system and close the libraries (ref:lib.rs:240-250)."""
+        """Stop the libraries' cloud sync, orphan removers and ingest
+        actors, the loop-lag monitor, the history writer, the controller,
+        the samplers and the pool (each releases its hold), persist the
+        actors' queues, stop the watchers (draining their in-flight
+        rescans), stop the task system and close the libraries
+        (ref:lib.rs:240-250)."""
         for lib in list(self.libraries.libraries.values()):
+            await _stop_cloud_sync(lib)
             await _stop_library_actors(lib)
         await self.loop_monitor.stop()
         await self.history.stop()
@@ -294,3 +337,10 @@ async def _stop_library_actors(lib: Library) -> None:
     for actor in (lib.orphan_remover, lib.ingest):
         if actor is not None:
             await actor.stop()
+
+
+async def _stop_cloud_sync(lib: Library) -> None:
+    cloud, lib.cloud_sync = lib.cloud_sync, None
+    if cloud is not None:
+        await cloud.shutdown()
+        await cloud.client.close()

@@ -10,13 +10,12 @@ from `NodeConfig.p2p` (port, discovery mode), advertises node metadata
 Counterpart of `spacedrive_tpu/p2p/manager.py` without the work plane:
 the port has no `p2p/work.py` yet, so the manager has no `work`, and a
 library member's WORK stream gets the answer JAX's `respond_work` gives
-on a node whose work plane is not running. Until the serve runtime and
-cloud sync are ported, the manager takes JAX's own path for a node
-without them: inbound serving is admitted ungated, sync-applied ops
-invalidate no serve cache (the search index still folds them in), and
-the relay leg of the federation refresh finds no cloud-synced library
-(`peer_for_instance`, which the relay leg and the HTTP host's remote
-file serving use, comes with them).
+on a node whose work plane is not running. Until the serve runtime is
+ported, the manager takes JAX's own path for a node without it: inbound
+serving is admitted ungated and sync-applied ops invalidate no serve
+cache (the search index still folds them in). The federation refresh
+falls back to the cloud relay of every cloud-synced library
+(`_relay_federation`, cloud/), as JAX's does.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from ..telemetry import span as _span
 from ..telemetry import tenants as _tenants
 from ..telemetry import trace as _trace
 from ..telemetry.events import P2P_EVENTS
-from ..telemetry.federation import FederationCache
+from ..telemetry.federation import FederationCache, local_snapshot, snapshot_compatible
 from ..utils import faults as _faults
 from ..utils.resilience import (
     PASS,
@@ -54,6 +53,7 @@ from .operations import (
     respond_profile,
     respond_telemetry,
     respond_trace,
+    _wireable_snapshot,
 )
 from .p2p import P2P
 from .protocol import Header, HeaderType
@@ -275,6 +275,15 @@ class P2PManager:
             if lid in p.metadata.get("libraries", "").split(",")
         ]
 
+    def peer_for_instance(self, instance: uuid.UUID) -> Any | None:
+        """The discovered peer advertising a library instance
+        (ref:p2p/libraries.rs instance discovery)."""
+        needle = str(instance)
+        for p in self.p2p.discovered_peers():
+            if needle in p.metadata.get("instances", "").split(","):
+                return p
+        return None
+
     def _is_library_member(self, remote_identity: Any,
                            library_id: uuid.UUID | None = None) -> bool:
         """True when the identity belongs to an instance of a loaded
@@ -348,13 +357,47 @@ class P2PManager:
         return self.federation.mesh()
 
     async def _relay_federation(self, failed: list[tuple[Any, str]]) -> None:
-        """The cloud-relay fallback. JAX pushes this node's snapshot and
-        pulls every other instance's through each cloud-synced library,
-        then marks the peers neither route reached as failed. Until cloud
-        sync is ported no library has a relay client, so every peer the
-        direct pull missed is marked failed."""
+        """Cloud-relay fallback: push our own snapshot and pull every
+        other instance's through each cloud-enabled library, then mark
+        peers that neither route reached as failed."""
+        from ..cloud.api import CloudApiError
+
+        clients = {
+            lib.id: (lib.cloud_sync.client, lib.sync.instance)
+            for lib in self.node.libraries.libraries.values()
+            if lib.cloud_sync is not None
+        }
+        recovered: set[str] = set()
+        if clients:
+            snap = _wireable_snapshot(local_snapshot(self.node))
+            for lib_id, (client, inst) in clients.items():
+                try:
+                    await client.push_telemetry(str(lib_id), str(inst), snap)
+                    rows = await client.pull_telemetry(str(lib_id), str(inst))
+                except (CloudApiError, OSError, asyncio.TimeoutError) as e:
+                    logger.debug("relay federation via %s failed: %s",
+                                 lib_id, e)
+                    continue
+                for row in rows:
+                    remote = row.get("snapshot")
+                    if not snapshot_compatible(remote):
+                        continue
+                    try:
+                        inst_uuid = uuid.UUID(row["instance_uuid"])
+                    except (KeyError, ValueError):
+                        continue
+                    peer = self.peer_for_instance(inst_uuid)
+                    pid = (str(peer.identity) if peer is not None
+                           else f"instance:{inst_uuid}")
+                    self.federation.store(
+                        pid, remote, transport="relay",
+                        age_seconds=float(row.get("age_seconds", 0.0)),
+                    )
+                    recovered.add(pid)
         for peer, err in failed:
-            self.federation.record_failure(str(peer.identity), err)
+            pid = str(peer.identity)
+            if pid not in recovered:
+                self.federation.record_failure(pid, err)
 
     async def pull_remote_spans(
         self, trace_id: str,

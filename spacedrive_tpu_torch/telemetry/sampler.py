@@ -19,8 +19,10 @@ An owned copy of `spacedrive_tpu/telemetry/sampler.py`, stdlib only:
 - a declarative **frame → group classifier** names the code a sample
   sits in (journal consult, SQL prep, msgpack, decode/encode, CRDT
   ingest, device dispatch, …). The group vocabulary is the JAX
-  package's; frames of this package are named relative to it, and
-  ``torch`` takes the place of ``jax``/``jaxlib`` in ``device_dispatch``;
+  package's; frames of this package are named relative to it,
+  ``torch`` takes the place of ``jax``/``jaxlib`` in ``device_dispatch``
+  and the port's own HTTP layer (``utils.http``) that of ``aiohttp`` in
+  ``serve``;
   a bounded timeline of (ts, kind, state, group) records lets
   ``telemetry/attrib.py`` split its ``gap`` and ``host_cpu`` buckets
   into the code that ate them (:func:`decompose_segments`), and
@@ -177,7 +179,7 @@ FRAME_GROUPS: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("task_system", ("tasks.",)),
     ("jobs", ("jobs.",)),
     ("indexer", ("location.",)),
-    ("serve", ("serve.", "api.", "aiohttp")),
+    ("serve", ("serve.", "api.", "utils.http")),
     ("p2p", ("p2p.", "cloud.")),
     ("telemetry", ("telemetry.",)),
     ("loop_idle", ("selectors", "asyncio.base_events",

@@ -3,9 +3,8 @@
 An owned copy of `spacedrive_tpu/utils/faults.py`: the same catalog,
 spec syntax, seeded firing order and activation bookkeeping, so one
 plan and seed fire the same faults in the same order in both packages.
-Points whose modules the port does not have yet (the work plane's
-`p2p.steal`, the cloud relay's `relay.http`) are cataloged and simply
-never hit. The
+The one point whose module the port does not have yet (the work
+plane's `p2p.steal`) is cataloged and simply never hit. The
 ``xla`` modes raise a CUDA-shaped error here (`device_error`).
 
 The real seams carry named injection points: device dispatch, the H2D

@@ -11,9 +11,9 @@ rows, ids, counts, orders, cursors, cas_ids, checksums, statistics,
 tags and labels, and the invalidated keys of a rescan;
 `search.semantic` scores agree within 1e-5.
 
-Also: the port's key set is the JAX router's less `DEFERRED` (the five
-`cloud.*` keys, each naming its ROADMAP plane), `client_gen` emits the JAX package's
-module for the ported keys, and with the bundled labeler checkpoint a
+Also: the port's key set is the JAX router's (`DEFERRED` is empty
+since the five `cloud.*` keys came with plane 6.8), `client_gen` emits
+the JAX package's module, and with the bundled labeler checkpoint a
 labelled scan invalidates `labels.list` as the JAX actor does. The
 `sync.*` procedures answer as JAX's after the same writes; `keys.*`
 run through the router, and a wrong-password retry leaves the vault
@@ -40,7 +40,6 @@ from spacedrive_tpu.api.router import CoreEventKind as JCoreEventKind
 from spacedrive_tpu_torch.api.router import CoreEventKind
 
 #: JAX plane numbers in ROADMAP.md's plane list
-PLANES = {"6.8"}
 
 
 @pytest.fixture(autouse=True)
@@ -148,19 +147,13 @@ def test_keys_equal_jax_less_deferred():
     jkeys = set(japi.mount().keys())
     pkeys = set(papi.mount().keys())
     assert len(japi.mount().keys()) == 127
-    assert len(papi.DEFERRED) == 5 and len(pkeys) == 122
-    assert set(papi.DEFERRED) <= jkeys
-    assert pkeys == jkeys - set(papi.DEFERRED)
-    # the router's keys are JAX's less the five cloud.* procedures
-    assert pkeys == jkeys - {f"cloud.{k}" for k in (
-        "getApiOrigin", "setApiOrigin", "library.get", "sync.enable", "sync.state")}
-    assert set(papi.DEFERRED.values()) == PLANES
-    counts = {}
-    for key, plane in papi.DEFERRED.items():
-        counts[plane] = counts.get(plane, 0) + 1
-    assert counts == {"6.8": 5}
-    assert {k.split(".")[0] for k in papi.DEFERRED} == {"cloud"}
-    assert not any(k.startswith("telemetry.") for k in papi.DEFERRED)
+    # nothing is deferred any more: the router's keys are JAX's, the
+    # five cloud.* procedures among them
+    assert papi.DEFERRED == {} and len(pkeys) == 127
+    assert pkeys == jkeys
+    assert {f"cloud.{k}" for k in (
+        "getApiOrigin", "setApiOrigin", "library.get", "sync.enable", "sync.state")} <= pkeys
+    assert list(papi.mount().keys()) == list(japi.mount().keys())
 
 
 def test_registrations_equal_jax():
@@ -186,7 +179,7 @@ def test_client_bindings_equal_jax_on_ported_keys():
                        "spacedrive_tpu.api.client_gen") == want
     assert "spacedrive_tpu_torch.api.client_gen" in got.splitlines()[0]
     assert '"semantic"' in got and "telemetry.trace_export" in got
-    assert "telemetry.tenants" in got and "p2p.state" in got and "cloud.sync.state" not in got
+    assert "telemetry.tenants" in got and "p2p.state" in got and "cloud.sync.state" in got
 
 
 def test_router_keys_unique_and_library_resolution(tmp_path):

@@ -4,8 +4,8 @@
   discovery and ping, Spacedrop between nodes (accept and reject),
   library pairing over the mesh, transitive sync through a hub, two-node
   sync with a file request and remote rspc (the HTTP custom-URI leg
-  waits for the API server), Spacedrop over the relay's splice, and the
-  relay wired from the node config;
+  waits for the API server), Spacedrop over the cloud relay's splice
+  (`CloudRelay().p2p_port`), and that relay wired from the node config;
 - tests/test_punch.py's Spacedrop over a punched path (and its bulk
   twin, `slow` as JAX's);
 - tests/test_chaos.py's retryable pull failure and the `p2p.sync_serve`
@@ -26,6 +26,7 @@ import uuid
 
 import pytest
 
+from spacedrive_tpu_torch.cloud.relay import CloudRelay
 from spacedrive_tpu_torch.p2p.identity import Identity
 from spacedrive_tpu_torch.p2p.mdns import MdnsDiscovery
 from spacedrive_tpu_torch.p2p.operations import ping, request_file
@@ -367,8 +368,9 @@ def test_spacedrop_over_wan_relay(tmp_path):
     async def run():
         from spacedrive_tpu_torch.node.config import P2PDiscoveryState
 
-        relay = RelayServer()
-        relay_port = await relay.start()
+        relay = CloudRelay()
+        await relay.start()
+        relay_port = relay.p2p_port
         a = await _make_node(tmp_path, "wan-a")
         b = await _make_node(tmp_path, "wan-b")
         clients = []
@@ -421,8 +423,9 @@ def test_relay_from_node_config(tmp_path):
     async def run():
         from spacedrive_tpu_torch.node.config import P2PDiscoveryState
 
-        relay = RelayServer()
-        relay_port = await relay.start()
+        relay = CloudRelay()
+        await relay.start()
+        relay_port = relay.p2p_port
         a = await _make_node(tmp_path, "cfg-a")
         b = await _make_node(tmp_path, "cfg-b")
         try:

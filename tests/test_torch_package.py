@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, no spacedrive_tpu, no build at
-import, and no CUDA needed to import it."""
+"""The PyTorch port stands alone: no JAX, no spacedrive_tpu, no `msgpack`
+or `aiohttp` package (its MessagePack and its HTTP are its own), no build
+at import, and no CUDA needed to import it."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "spacedrive_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "spacedrive_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "spacedrive_tpu", "msgpack", "aiohttp")
 
 
 def _port_sources():
@@ -101,6 +102,21 @@ def test_the_scan_covers_sync_ingest_and_crypto():
                      else [node.module] if isinstance(node, ast.ImportFrom) else [])
             assert "msgpack" not in names, f"{f} imports msgpack"
 
+
+
+def test_the_scan_covers_the_cloud_plane():
+    """The cloud relay, its client, the sync actors and the HTTP layer
+    under them (owned copies of the JAX modules, and the port's own
+    stand-in for aiohttp) are scanned too, chip_smoke.py with them; none
+    imports `aiohttp` or `msgpack`."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    files = {os.path.join("cloud", f) for f in ("__init__.py", "api.py", "relay.py", "sync.py")}
+    files.add(os.path.join("utils", "http.py"))
+    assert files <= rel
+    assert os.path.join("..", "chip_smoke.py") in rel
+    for f in sorted(files) + [os.path.join("..", "chip_smoke.py")]:
+        mods = {m.split(".")[0] for m in _imported_modules(os.path.join(PACKAGE, f))}
+        assert not mods & {"aiohttp", "msgpack"}, f
 
 
 P2P_TRANSPORT = ("__init__.py", "identity.py", "wire.py", "block.py", "protocol.py", "noise.py",

@@ -63,6 +63,9 @@ def test_group_vocabulary_and_table_equal_jax_but_for_torch():
     port, ref = dict(sampler.FRAME_GROUPS), dict(jsampler.FRAME_GROUPS)
     assert port.pop("device_dispatch") == ("ops.", "torch", "numpy")
     assert ref.pop("device_dispatch") == ("ops.", "jax", "jaxlib", "numpy")
+    # the port's own HTTP layer stands where JAX names aiohttp
+    assert port.pop("serve") == ("serve.", "api.", "utils.http")
+    assert ref.pop("serve") == ("serve.", "api.", "aiohttp")
     assert port == ref
 
 
@@ -96,11 +99,14 @@ STACKS = [
     ["parallel.feeder:_run", "object.file_identifier.job:_fetch_window", "io:read"],
     ["tasks.system:_execute", "sync.manager:write_ops", "msgpack:packb"],
     ["node.node:start"],
+    ["asyncio.base_events:_run_once", "cloud.relay:_push", "aiohttp.web_protocol:_handle_request",
+     "streams:readuntil"],
 ]
 
 
 def _to_port(names):
-    return [n.replace("jaxlib:", "torch:").replace("jax:", "torch:") for n in names]
+    return [n.replace("jaxlib:", "torch:").replace("jax:", "torch:")
+            .replace("aiohttp.web_protocol:", "utils.http:") for n in names]
 
 
 @pytest.mark.parametrize("names", STACKS, ids=lambda s: s[-1])
