@@ -151,17 +151,19 @@ by delta. It prints `{"observability": ...}` with its seconds by step,
 span counts and seconds by stage, the sampler's samples, state and
 group shares and overhead.
 Phase 13 is the node's samplers and verdicts, with the ladder, the
-controller and the port's telemetry reset first and the history writer
-and the resource sampler at 0.1 s: phase 12's size mix scanned through
+controller and the port's telemetry reset first, the history writer
+and the resource sampler at 0.1 s, its Nodes as users run them (the serve
+layer on): phase 12's size mix scanned through
 the router on a new Node and data dir, three times. (1) A clean scan,
 the attribution of the pass (`telemetry.attrib`) partitions its window
 (the unrounded sweep to 1e-9 s), and the identify job's pass (the spans
 between its markers) covers >= 0.9 of its wall time; `telemetry.health`
-healthy, `device` and `serve` unknown (one card dispatches no sharded
-part; no serve runtime), `feeder`, `event_loop`, `resilience` and `slo`
+healthy, `device` unknown (one card dispatches no sharded part) and
+`serve` healthy, `feeder`, `event_loop`, `resilience` and `slo`
 neither degraded nor unhealthy; `pass_throughput` not breached;
-`telemetry.tenants` empty, `telemetry.serve` disabled, `telemetry.mesh`
-this node alone; the resource gauges above 0 and >= 5 history records
+`telemetry.tenants` with the library as the serve surface's one tenant,
+`telemetry.serve` enabled with JAX's keys, the gate normal and no class
+shed, `telemetry.mesh` this node alone; the resource gauges above 0 and >= 5 history records
 with the allowlist's keys. (2)
 A scan under `feeder.fetch:stall:delay_s=0.4`: its `link` bucket >= 0.3
 s and above `device` and `host_cpu`. (3) With `SD_HISTORY=0`,
@@ -302,6 +304,36 @@ A's, which reaches no peer directly, stores it with `transport ==
 "relay"`. It prints `{"cloud_sync": ...}` with the ops A pushed, the
 collections B received, B's ingest ops/s and the seconds of each step.
 
+Phase 19 is the HTTP API host, with the ladder and the controller reset
+first: a port Node on the card (without the labeler, p2p off) serves
+`start_api` on 127.0.0.1:0, driven through the port's own HTTP and
+websocket client (utils/http.py). (a) `POST /rspc/locations.create`
+indexes 64 files taken evenly from phase 3's snapshot (56 others, 8
+images; hard links) while a websocket subscribed to
+`invalidation.listen` and `jobs.progress` receives the job's progress
+and the `search.paths` / `locations.list` invalidations; K1 launches for
+this Node's identifier windows alone (`_K1Owners`), every cas_id equals
+the plain path's and `blake3_ref`'s, and the media job embeds on the
+card. (b) `search.paths` by a new tag, posted twice: `X-SD-Cache: miss`
+then `hit` with the same bytes; after `tags.assign` on 8 objects the
+same query misses and returns those 8. (c) `GET /search?q=<an indexed
+image>` embeds the query on the card and ranks the image first, its
+score within 1e-5 of the in-process router's `search.semantic`. (d) A
+thumbnail's bytes equal its file in the store; a 64 KiB `Range` read of
+the largest file answers 206 with the exact bytes and `Content-Range`.
+After the scan the interactive class's latency SLO is `ok` over the
+Node's history, `telemetry.serve` is enabled with JAX's keys, the gate
+normal and no class shed, and `/health` answers 200 with `serve`
+healthy. (e) On the Node's own (default) policy, the interactive budget
+is held on purpose through the gate's `admit`, then 24 cache-cold reads
+sent at once answer 429 with `Retry-After: 1` (a full queue, or its
+deadline), `/health` polled throughout never answers 503, the gate is
+in brownout after it with `serve` degraded, and `/metrics` counts the
+24 sheds. (f) After the Node shuts down, the mobile bridge
+(`mobile.handle_core_msg` on the card) answers (b)'s query on the same
+data dir with (b)'s rows. It prints `{"api_serve": ...}` with each
+step's seconds, the launches, the websocket frames and the sheds.
+
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the card's
@@ -309,8 +341,9 @@ non-zero before any work. The last line of standard output is
 table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
 decoders', the API's, the observability plane's, the verdicts', the
-live location's, the replica's, the p2p transport's, the node's p2p's
-and cloud sync's numbers, and each phase's wall seconds, as JSON.
+live location's, the replica's, the p2p transport's, the node's p2p's,
+cloud sync's and the API host's numbers, and each phase's wall seconds,
+as JSON.
 """
 
 from __future__ import annotations
@@ -4240,6 +4273,33 @@ VERDICT_PARTITION = 1e-9  # the unrounded sweep against its window
 VERDICT_ROUNDING = 3e-6  # five buckets and the window, each rounded to 1 us
 VERDICT_HISTORY_MIN = 5
 RESOURCE_GAUGES = ("sd_resource_rss_bytes", "sd_resource_fds", "sd_resource_threads")
+# `telemetry.serve`'s key tree, JAX's (`ServeRuntime.snapshot` under
+# `enabled`): what a dashboard reads off a node with the serve layer
+_SERVE_CLASS_KEYS = ("inflight", "queued", "admitted_total", "shed_total", "max_inflight",
+                     "sheddable")
+_SERVE_CACHE_KEYS = ("entries", "weight", "max_entries", "max_weight", "inflight_loads")
+SERVE_KEYS = {"enabled": None,
+              "gate": {"enabled": None, "mode": None,
+                       "classes": {c: dict.fromkeys(_SERVE_CLASS_KEYS)
+                                   for c in ("control", "sync", "interactive", "background")}},
+              "caches": {c: dict.fromkeys(_SERVE_CACHE_KEYS) for c in ("query", "thumb", "meta")}}
+
+
+def key_tree(doc):
+    """`doc`'s nested dict keys, every leaf None (SERVE_KEYS's shape)."""
+    return {k: key_tree(v) for k, v in doc.items()} if isinstance(doc, dict) else None
+
+
+def check_serve_doc(doc: dict, where: str) -> dict:
+    """`telemetry.serve` of a Node with the serve layer on, at rest: JAX's
+    keys, the gate in its normal mode, no class shed; its classes."""
+    check(doc.get("enabled") is True and key_tree(doc) == SERVE_KEYS,
+          f"{where}: telemetry.serve {key_tree(doc)}")
+    classes = doc["gate"]["classes"]
+    check(doc["gate"]["mode"] == "normal" and not any(c["shed_total"] for c in classes.values())
+          and classes["interactive"]["admitted_total"] > 0,
+          f"{where}: the gate {doc['gate']}")
+    return classes
 KINETO_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -4375,16 +4435,26 @@ def phase_verdicts(rng, tmp: str) -> dict:
         att = check_attribution(clean["attrib"], clean["wall_s"], "the clean scan")
         health = {k: v["status"] for k, v in clean["health"]["subsystems"].items()}
         check(clean["health"]["status"] == "healthy",
-              f"health {clean['health']['status']}: {health}")
-        check(health["device"] == "unknown" and health["serve"] == "unknown",
-              f"device / serve verdicts {health['device']} / {health['serve']} (want unknown)")
+              f"health {clean['health']['status']}: {health}; feeder "
+              f"{clean['health']['subsystems']['feeder']}; slo "
+              f"{[(x['name'], x['status'], x.get('current')) for x in clean['slo']['slos']]}")
+        check(health["device"] == "unknown" and health["serve"] == "healthy",
+              f"device / serve verdicts {health['device']} / {health['serve']} (want unknown / "
+              "healthy)")
         for sub in ("feeder", "event_loop", "resilience", "slo"):
             check(health[sub] not in ("degraded", "unhealthy"), f"health {sub}: {health[sub]}")
         slos = {x["name"]: x["status"] for x in clean["slo"]["slos"]}
         check(slos["pass_throughput"] != "breach", f"pass_throughput breached: {clean['slo']}")
-        check(clean["tenants"] == {"enabled": True, "k": 8, "surfaces": {}},
-              f"telemetry.tenants: {clean['tenants']}")
-        check(clean["serve"] == {"enabled": False}, f"telemetry.serve: {clean['serve']}")
+        # the router's library-scoped requests are the serve surface's
+        # one tenant, this library
+        tenants = clean["tenants"]
+        serve_surface = tenants["surfaces"].get("serve") or {}
+        residents = serve_surface.get("residents") or [{}]
+        check(tenants["enabled"] is True and tenants["k"] == 8 and set(tenants["surfaces"])
+              == {"serve"} and len(residents) == 1 and residents[0].get("share") == 1.0
+              and serve_surface["total"] == residents[0]["count"] > 0,
+              f"telemetry.tenants: {tenants}")
+        serve_classes = check_serve_doc(clean["serve"], "13 (clean scan)")
         local = clean["mesh"]["local"]
         check(clean["mesh"]["mesh"] == {"peers": {}} and local["health"]["status"] == "healthy"
               and clean["lid"] in local["node"]["libraries"],
@@ -4457,9 +4527,13 @@ def phase_verdicts(rng, tmp: str) -> dict:
         "attribution": {"clean": att, "stalled": stall, "quiet": quiet_att},
         "card": card,
         "health": health,
-        "slo": {x["name"]: {"status": x["status"], "current": x["current"]}
+        "slo": {x["name"]: {"status": x["status"], "current": x["current"],
+                            **({"windows": x["windows"]} if x["name"] == "interactive_p99"
+                               else {})}
                 for x in clean["slo"]["slos"]},
         "slo_status": clean["slo"]["status"],
+        "serve_classes": serve_classes,
+        "tenants": {"total": serve_surface["total"], "residents": len(residents)},
         "history_records": {"clean": len(clean["history"]), "allowlist": len(full),
                             "stalled": len(stalled["history"]), "quiet": 0},
         "resource_gauges": clean["gauges"], "resource_samples": clean["resource_samples"],
@@ -6516,11 +6590,356 @@ def report_cloud_sync(got: dict) -> dict:
     return {"launches": {"cloud_node": got["launches"]}}
 
 
+# --- phase 19: the API host -------------------------------------------------------------
+
+
+SERVE_FILES = (56, 8)  # (a): every n-th of phase 3's other files, and of its images
+SERVE_WAIT_S = 60  # the bound on one step of the phase
+SERVE_BURST = 24  # (e): requests offered past the interactive budget and queue
+SERVE_SCORE_TOL = 1e-5  # (c): /search's score against the in-process router's
+
+
+async def api_serve(tmp: str, snapshot: str, since: dict) -> dict:
+    """19(a)-(f) on a port Node on the card serving its HTTP API on
+    127.0.0.1, driven through the port's own HTTP and websocket client;
+    `since` is the degradation counters before the phase."""
+    import asyncio
+    import threading
+
+    from spacedrive_tpu_torch import mobile
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.ops import embed_torch
+    from spacedrive_tpu_torch.telemetry.events import LOOP_EVENTS, SERVE_EVENTS
+    from spacedrive_tpu_torch.utils import http
+
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(snapshot) for f in fs)
+    images = [f for f in files if f.endswith((".png", ".jpg"))]
+    others = [f for f in files if f not in set(images)]
+    picked = (others[::len(others) // SERVE_FILES[0]][:SERVE_FILES[0]]
+              + images[::len(images) // SERVE_FILES[1]][:SERVE_FILES[1]])
+    loc_dir = os.path.join(tmp, "p19_location")
+    os.makedirs(loc_dir)
+    for i, path in enumerate(picked):
+        os.link(path, os.path.join(loc_dir, f"{i:03d}_{os.path.basename(path)}"))
+    steps: dict[str, float] = {}
+    out: dict = {"steps_s": steps, "files": len(picked)}
+    embeds = {"chunks": 0}
+    embed_chunk = embed_torch._embed_chunk
+
+    def counted(*a, **k):
+        embeds["chunks"] += 1
+        return embed_chunk(*a, **k)
+
+    t0 = time.perf_counter()
+    node = Node(os.path.join(tmp, "p19"), device=DEVICE, with_labeler=False)
+    node.config.config.p2p.enabled = False
+    node.config.config.name = "p19"
+    node.config.save()  # (f)'s bridge builds its Node from this config
+    await node.start()
+    base = f"http://127.0.0.1:{await node.start_api('127.0.0.1', 0)}"
+    client = http.HttpClient()
+    owners = _K1Owners()
+    release = asyncio.Event()
+    held: list = []
+
+    async def rspc(key: str, arg=None, lid=None, expect: int = 200):
+        r = await client.request("POST", f"{base}/rspc/{key}",
+                                 json={"arg": arg, "library_id": lid})
+        check(r.status == expect, f"19: {key} answered {r.status}: {r.body[:200]!r}")
+        return r
+
+    try:
+        embed_torch._embed_chunk = counted
+        with owners:
+            steps["start_s"] = time.perf_counter() - t0
+
+            # (a) locations.create over HTTP: the scan through K1 and the
+            # embedder, its progress and invalidations on a websocket
+            t0 = time.perf_counter()
+            lid = (await rspc("library.create", {"name": "p19"})).json()["result"]["uuid"]
+            ws = await http.ws_connect(base + "/rspc/ws")
+            frames: list = []
+            for mid, key, lib in (("inv", "invalidation.listen", None),
+                                  ("jobs", "jobs.progress", lid)):
+                await ws.send_str(json.dumps({"id": mid, "type": "subscriptionAdd", "key": key,
+                                              "library_id": lib}))
+            await ws.send_str(json.dumps({"id": "rt", "type": "query", "key": "buildInfo"}))
+            check(json.loads((await ws.receive(timeout=SERVE_WAIT_S)).data)["id"] == "rt",
+                  "19(a): the websocket's round trip")
+
+            async def read_frames() -> None:
+                async for msg in ws:
+                    frames.append(json.loads(msg.data))
+
+            reader = asyncio.ensure_future(read_frames())
+            loc_id = (await rspc("locations.create", {"path": loc_dir}, lid)).json()["result"]
+            async with asyncio.timeout(SERVE_WAIT_S):
+                while (await rspc("jobs.isActive", None, lid)).json()["result"]:
+                    await asyncio.sleep(0.05)
+                await node.jobs.wait_idle()
+                await node.thumbnailer.wait_library_batch(lid)
+                while not any(f.get("id") == "inv" and f["event"]["key"] == "search.paths"
+                              for f in frames):
+                    await asyncio.sleep(0.02)
+            steps["scan_s"] = time.perf_counter() - t0
+            out["scan_launches"] = owners.take()
+            # what a frontend met during the scan and the serve layer after
+            # it, read before this phase's own checks: the interactive
+            # class's latency SLO over this Node's history,
+            # `telemetry.serve`, and /health with its verdicts
+            node.history.sample()
+            slo = {x["name"]: x for x in (await rspc("telemetry.slo")).json()["result"]["slos"]}
+            out["interactive_p99"] = {k: slo["interactive_p99"].get(k)
+                                      for k in ("status", "current", "objective")}
+            out["loop_lag_events"] = [e["fields"]["seconds"] for e in LOOP_EVENTS.snapshot()]
+            out["serve_mode_events"] = [e["fields"]["mode"] for e in SERVE_EVENTS.snapshot()
+                                        if e["type"] == "mode"]
+            h = await client.request("GET", f"{base}/health")
+            out["health"] = {k: v["status"] for k, v in h.json()["subsystems"].items()}
+            out["health_status"] = h.status
+            check(out["interactive_p99"]["status"] == "ok",
+                  f"19(a): interactive_p99 over the scan {slo['interactive_p99']}")
+            out["serve_classes"] = check_serve_doc((await rspc("telemetry.serve")).json()["result"],
+                                                   "19(a)")
+            check(h.status == 200 and out["health"]["serve"] == "healthy",
+                  f"19(a): /health answered {h.status}: {out['health']}; loop lags "
+                  f"{out['loop_lag_events']}")
+
+            check(out["scan_launches"].get("p19", 0) > 0 and set(out["scan_launches"]) == {"p19"},
+                  f"19(a): the scan over HTTP launched K1 {out['scan_launches']}")
+            lib = node.libraries.get(uuid.UUID(lid))
+            rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0 AND location_id = ? "
+                                "AND name != '.spacedrive'", (loc_id,))
+            cas_of = {os.path.join(loc_dir, f"{r['name']}.{r['extension']}" if r["extension"]
+                                   else r["name"]): r["cas_id"] for r in rows}
+            linked = sorted(os.path.join(loc_dir, n) for n in os.listdir(loc_dir)
+                            if not n.startswith("."))
+            check(len(rows) == len(linked) == len(picked),
+                  f"19(a): {len(rows)} rows for {len(linked)} files")
+            # the plain path and blake3_ref take seconds: off the Node's loop
+            await asyncio.to_thread(_check_cas, linked, cas_of, "19(a)")
+            out["embed_chunks_scan"] = embeds["chunks"]
+            check(embeds["chunks"] > 0, "19(a): the media job embedded nothing on the card")
+            kinds = {f["id"]: f.get("event") for f in frames}
+            out["ws_frames"] = len(frames)
+            progress = [f for f in frames if f.get("id") == "jobs"]
+            invalidated = {f["event"]["key"] for f in frames if f.get("id") == "inv"}
+            check(progress and kinds.get("jobs") is not None,
+                  "19(a): no job progress on the websocket")
+            check({"search.paths", "locations.list"} <= invalidated,
+                  f"19(a): invalidations on the websocket {sorted(invalidated)}")
+            out["ws"] = {"progress": len(progress), "invalidated": sorted(invalidated)}
+            # (b) search.paths twice (a hit with the same bytes), then a tag
+            # write the same query shows
+            t0 = time.perf_counter()
+            tag_id = (await rspc("tags.create", {"name": "p19"}, lid)).json()["result"]
+            query = {"filter": {"tags": [tag_id]}, "take": 100}
+            first = await rspc("search.paths", query, lid)
+            second = await rspc("search.paths", query, lid)
+            check((first.headers.get("X-SD-Cache"), second.headers.get("X-SD-Cache"))
+                  == ("miss", "hit") and first.body == second.body,
+                  f"19(b): X-SD-Cache {first.headers.get('X-SD-Cache')} then "
+                  f"{second.headers.get('X-SD-Cache')}")
+            oids = sorted({r["object_id"] for r in rows if r["object_id"]})[:8]
+            await rspc("tags.assign", {"tag_id": tag_id, "object_ids": oids}, lid)
+            third = await rspc("search.paths", query, lid)
+            tagged = third.json()["result"]["nodes"]
+            check(third.headers.get("X-SD-Cache") == "miss"
+                  and sorted({n["object_id"] for n in tagged}) == oids,
+                  f"19(b): after the write {third.headers.get('X-SD-Cache')}, "
+                  f"{len(tagged)} rows for {len(oids)} tagged objects")
+            steps["cache_s"] = time.perf_counter() - t0
+            out["tagged_rows"] = len(tagged)
+
+            # (c) GET /search embeds an indexed image on the card and ranks
+            # it first, with the in-process router's score
+            t0 = time.perf_counter()
+            image = next(p for p in linked if p.endswith((".png", ".jpg")))
+            chunks = embeds["chunks"]
+            r = await client.request("GET", f"{base}/search?library_id={lid}&q={image}&take=5")
+            check(r.status == 200, f"19(c): /search answered {r.status}")
+            hits = r.json()["result"]
+            check(embeds["chunks"] > chunks, "19(c): the query image was not embedded on the card")
+            want = await node.router.exec(node, "search.semantic", {"query": image, "take": 5},
+                                          lid)
+            top = hits["nodes"][0]
+            name = os.path.basename(image)
+            check(f"{top['name']}.{top['extension']}" == name,
+                  f"19(c): /search ranked {top['name']} first, not {name}")
+            check(abs(top["score"] - want["nodes"][0]["score"]) <= SERVE_SCORE_TOL
+                  and want["nodes"][0]["id"] == top["id"],
+                  f"19(c): score {top['score']} against the router's {want['nodes'][0]['score']}")
+            out["search"] = {"score": top["score"], "router_score": want["nodes"][0]["score"]}
+            steps["search_s"] = time.perf_counter() - t0
+
+            # (d) a thumbnail's bytes and a ranged read of a file
+            t0 = time.perf_counter()
+            cas = cas_of[image]
+            disk = node.thumbnailer.store.path_for(lid, cas)
+            shard = os.path.basename(os.path.dirname(disk))
+            r = await client.request("GET", f"{base}/spacedrive/thumbnail/{lid}/{shard}/{cas}.webp")
+            with open(disk, "rb") as f:
+                check(r.status == 200 and r.body == f.read(),
+                      f"19(d): the thumbnail answered {r.status}, {len(r.body)} bytes")
+            big = max(linked, key=os.path.getsize)
+            size = os.path.getsize(big)
+            lo, hi = size // 3, size // 3 + 65535
+            r = await client.request(
+                "GET", f"{base}/spacedrive/file/{lid}/{loc_id}/{os.path.basename(big)}",
+                headers={"Range": f"bytes={lo}-{hi}"})
+            with open(big, "rb") as f:
+                f.seek(lo)
+                want_bytes = f.read(hi - lo + 1)
+            check(r.status == 206 and r.body == want_bytes
+                  and r.headers.get("Content-Range") == f"bytes {lo}-{hi}/{size}",
+                  f"19(d): the ranged read answered {r.status} {r.headers.get('Content-Range')}")
+            steps["bytes_s"] = time.perf_counter() - t0
+
+            # (e) a burst on the Node's own policy: the interactive budget
+            # held on purpose through the gate's admission, then SERVE_BURST
+            # cache-cold reads at once, each shed (by a full queue, or by
+            # its queue deadline) with Retry-After, while /health (the
+            # control class) is polled throughout and never answers 503
+            t0 = time.perf_counter()
+            gate = node.serve.gate
+            budget = gate.policy.budgets["interactive"]
+
+            async def hold(entered: asyncio.Event) -> None:
+                async with gate.admit("interactive"):
+                    entered.set()
+                    await release.wait()
+
+            entered = [asyncio.Event() for _ in range(budget.max_inflight)]
+            held += [asyncio.ensure_future(hold(e)) for e in entered]
+            for e in entered:
+                await e.wait()
+            classes = gate.snapshot()["classes"]
+            check(classes["interactive"]["inflight"] == budget.max_inflight,
+                  f"19(e): the held budget {classes['interactive']}")
+            shed0, burst_done, health = gate.shed["interactive"], asyncio.Event(), []
+
+            async def read(i: int):
+                r = await client.request("POST", f"{base}/rspc/search.paths", json={
+                    "library_id": lid, "arg": {"filter": {"search": f"burst{i}"}}})
+                return r.status, r.headers.get("Retry-After")
+
+            async def probe() -> None:
+                while not burst_done.is_set():
+                    h = await client.request("GET", f"{base}/health")
+                    health.append(h.status)
+                    if h.status == 503:
+                        out.setdefault("unhealthy", sorted(
+                            k for k, v in h.json()["subsystems"].items()
+                            if v["status"] == "unhealthy"))
+                    await asyncio.sleep(0.01)
+
+            prober = asyncio.ensure_future(probe())
+            async with asyncio.timeout(SERVE_WAIT_S):
+                answers = await asyncio.gather(*(read(i) for i in range(SERVE_BURST)))
+            burst_done.set()
+            await prober
+            brownout = gate.in_brownout()
+            health_doc = (await client.request("GET", f"{base}/health")).json()
+            metrics = (await client.request("GET", f"{base}/metrics")).text()
+            release.set()
+            await asyncio.gather(*held)
+            shed = gate.shed["interactive"] - shed0
+            line = next((x for x in metrics.splitlines() if x.startswith(
+                'sd_gate_requests_total{klass="interactive",outcome="shed"}')), "")
+            statuses = [a[0] for a in answers]
+            check(statuses == [429] * SERVE_BURST and {a[1] for a in answers} == {"1"}
+                  and shed == SERVE_BURST,
+                  f"19(e): the burst answered {sorted(set(statuses))}, Retry-After "
+                  f"{sorted({str(a[1]) for a in answers})}, {shed} sheds")
+            check(health and 503 not in health and gate.shed["control"] == 0,
+                  f"19(e): /health answered {sorted(set(health))} during the burst "
+                  f"({out.get('unhealthy')})")
+            check(brownout and health_doc["subsystems"]["serve"]["status"] == "degraded",
+                  f"19(e): after the burst the gate's brownout {brownout}, serve "
+                  f"{health_doc['subsystems']['serve']}")
+            check(line and float(line.split()[-1]) >= SERVE_BURST,
+                  f"19(e): /metrics counts {line!r}")
+            out["burst"] = {"shed": shed, "health": sorted(set(health)), "probes": len(health),
+                            "brownout": brownout, "metrics_shed": float(line.split()[-1]),
+                            "max_inflight": budget.max_inflight, "max_queue": budget.max_queue,
+                            "queue_deadline_s": budget.queue_deadline_s}
+            steps["burst_s"] = time.perf_counter() - t0
+            reader.cancel()
+            await ws.close()
+            out["launches"] = sum(owners.by.values()) + sum(out["scan_launches"].values())
+    finally:
+        release.set()
+        embed_torch._embed_chunk = embed_chunk
+        await client.close()
+        await node.shutdown()
+    check_healthy("19", since)
+
+    # (f) the mobile bridge on the card, on the shut-down Node's data dir
+    t0 = time.perf_counter()
+    done, box = threading.Event(), {}
+
+    def on_reply(payload: str) -> None:
+        box["reply"] = json.loads(payload)
+        done.set()
+
+    try:
+        mobile.handle_core_msg(json.dumps({"id": 1, "method": "search.paths", "params": {
+            "arg": query, "library_id": lid}}), node.data_dir, on_reply, device=DEVICE)
+        check(await asyncio.to_thread(done.wait, SERVE_WAIT_S), "19(f): the bridge never answered")
+    finally:
+        await asyncio.to_thread(mobile.shutdown_core)
+    reply = box["reply"][0]["result"]
+    check(reply["type"] == "response" and reply["data"]["nodes"] == tagged,
+          f"19(f): the bridge answered {reply['type']} with "
+          f"{len((reply.get('data') or {}).get('nodes', []))} rows")
+    steps["mobile_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_api_serve(tmp: str, snapshot: str) -> dict:
+    """Phase 19: the HTTP API host of a port Node on the card: (a) a scan
+    through locations.create over HTTP, watched on a websocket, (b) the
+    read cache, (c) /search, (d) a thumbnail and a ranged read, (e) a
+    shed burst, (f) the mobile bridge."""
+    import asyncio
+
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    # /health reads the process's recent series: the earlier phases'
+    # injected stalls and faults must not speak for this Node
+    telemetry.reset()
+    since = degradation()
+    blake3_cuda.chunk_cvs.launches = 0
+    got = asyncio.run(api_serve(tmp, snapshot, since))
+    check(blake3_cuda.chunk_cvs.launches == got["launches"],
+          f"19: K1 launched {blake3_cuda.chunk_cvs.launches} times, {got['launches']} in windows")
+    got["seconds"] = time.perf_counter() - t_phase
+    return got
+
+
+def report_api_serve(got: dict) -> dict:
+    print(json.dumps({"api_serve": got}), flush=True)
+    steps = got["steps_s"]
+    print(f"phase 19: the API host in {got['seconds']:.1f} s: (a) {got['files']} files scanned "
+          f"over HTTP in {steps['scan_s']:.2f} s ({got['launches']} K1 launches, "
+          f"{got['embed_chunks_scan']} embed chunks, {got['ws_frames']} websocket frames), "
+          f"(b) miss, hit, and {got['tagged_rows']} tagged rows after the write, (c) the query "
+          f"image first at {got['search']['score']:.6f}, (d) thumbnail and range exact, (e) "
+          f"{got['burst']['shed']} sheds with /health {got['burst']['health']}, (f) the bridge "
+          f"in {steps['mobile_s']:.2f} s", flush=True)
+    return {"launches": {"api_serve": got["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=18, choices=range(3, 19),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 18: all); "
+    parser.add_argument("--stop-after", type=int, default=19, choices=range(3, 20),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 19: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -6618,6 +7037,9 @@ def main() -> int:
         if args.stop_after >= 18:
             launches.update(report_cloud_sync(phase_cloud_sync(tmp, snapshot))["launches"])
             lap("18")
+        if args.stop_after >= 19:
+            launches.update(report_api_serve(phase_api_serve(tmp, snapshot))["launches"])
+            lap("19")
     lap("cleanup")
     print(json.dumps({"wall_s": {"phases": phase_s,
                                  "smoke": time.perf_counter() - _T_START}}), flush=True)

@@ -2,8 +2,9 @@
 
 Parity: ref:core/src/api (rspc router + CoreEvent + invalidation),
 crates/cache (normalised results). Counterpart of
-`spacedrive_tpu/api/`, without the HTTP host (api/server.py) and the
-custom-URI serving, which come with the serve layer.
+`spacedrive_tpu/api/`; the HTTP host (rspc over HTTP and a websocket,
+the custom URIs, the explorer's assets) is `server.py`, imported where
+a Node starts it (`Node.start_api`).
 """
 
 from .cache import normalise, normalise_one

@@ -8,8 +8,8 @@ emits `CoreEvent::InvalidateOperation{library_id, key, arg}` on the
 event bus; the frontend's `invalidation.listen` subscription maps these
 to react-query refetches.
 
-Counterpart of `spacedrive_tpu/api/invalidate.py`, without the serve
-cache's tag hook (the serve layer is not ported).
+Counterpart of `spacedrive_tpu/api/invalidate.py`: the same call also
+drops the serve layer's cached reads of the library (read-your-writes).
 """
 
 from __future__ import annotations
@@ -73,4 +73,14 @@ def invalidate_query(
         key=key,
         arg=arg,
     )
+    # the serve layer's read-your-writes hook: the same call that tells
+    # the frontend to refetch drops the server-side cached results, so
+    # a mutation is never answered by its own pre-image
+    from ..serve import runtime_for
+
+    serve = runtime_for(node)
+    if serve is not None:
+        serve.invalidate_query(
+            key, library.id if library is not None else None, source="local"
+        )
     node.event_bus.emit((CoreEventKind.INVALIDATE_OPERATION, op))

@@ -297,8 +297,14 @@ def _locations(r: Router) -> None:
             raise RspcError.bad_request(f"location path: {e}")
         if loc is None:
             return None
-        await scan_location(library, loc, node.jobs, backend=str(node.device))
+        # the watcher first: JAX spawns the scan first, and its await on
+        # the watcher's off-loop tree walk then resumes only after the
+        # indexer's first save (one on-loop transaction for the whole
+        # batch), which made this interactive request as slow as that
+        # save (0.3-0.55 s for 256 files on an H100's host); the watcher
+        # sees no write of the scan's either way
         await node.location_manager.add(library, loc)
+        await scan_location(library, loc, node.jobs, backend=str(node.device))
         invalidate_query(node, "locations.list", library)
         return loc["id"]
 
@@ -1028,11 +1034,11 @@ def _tags(r: Router) -> None:
 def _collection_ns(r: Router, ns: str, table: str, link_table: str, link_col: str) -> None:
     """spaces and albums share the same CRUD shape."""
 
-    @r.query(f"{ns}.list", library=True)
+    @r.query(f"{ns}.list", library=True, priority="interactive")
     def list_all(node, library):
         return normalise(table, library.db.find(table))
 
-    @r.query(f"{ns}.getObjects", library=True)
+    @r.query(f"{ns}.getObjects", library=True, priority="interactive")
     def get_objects(node, library, arg):
         rows = library.db.query(
             f"SELECT o.* FROM object o JOIN {link_table} l ON l.object_id = o.id "
@@ -1041,7 +1047,7 @@ def _collection_ns(r: Router, ns: str, table: str, link_table: str, link_col: st
         )
         return normalise("object", rows)
 
-    @r.mutation(f"{ns}.create", library=True)
+    @r.mutation(f"{ns}.create", library=True, priority="interactive")
     def create(node, library, arg):
         cols = dict(
             pub_id=new_pub_id(),
@@ -1055,14 +1061,14 @@ def _collection_ns(r: Router, ns: str, table: str, link_table: str, link_col: st
         invalidate_query(node, f"{ns}.list", library)
         return rid
 
-    @r.mutation(f"{ns}.delete", library=True)
+    @r.mutation(f"{ns}.delete", library=True, priority="interactive")
     def delete(node, library, arg):
         library.db.delete(link_table, **{link_col: int(arg)})
         library.db.delete(table, id=int(arg))
         invalidate_query(node, f"{ns}.list", library)
         return None
 
-    @r.mutation(f"{ns}.addObjects", library=True)
+    @r.mutation(f"{ns}.addObjects", library=True, priority="interactive")
     def add_objects(node, library, arg):
         for oid in arg["object_ids"]:
             if arg.get("remove"):
@@ -1638,7 +1644,7 @@ def _telemetry(r: Router) -> None:
         # the Prometheus text, for copy/paste diagnostics in the UI
         return {"text": telemetry.render()}
 
-    @r.query("telemetry.trace_export")
+    @r.query("telemetry.trace_export", priority="background")
     def trace_export(node, arg=None):
         # Chrome-trace JSON (Perfetto-loadable); arg {trace_id?} filters
         trace_id = (arg or {}).get("trace_id") if isinstance(arg, dict) else None
@@ -1649,12 +1655,12 @@ def _telemetry(r: Router) -> None:
         # the flight recorder's rings, most-recent-last
         return telemetry.events.all_events()
 
-    @r.query("telemetry.debug_bundle")
+    @r.query("telemetry.debug_bundle", priority="background")
     def debug_bundle(node):
         # the redacted support artifact (see telemetry.bundle)
         return telemetry.debug_bundle(node)
 
-    @r.query("telemetry.tenants")
+    @r.query("telemetry.tenants", priority="background")
     def tenants(node):
         # the per-tenant heavy-hitter sketches: hashed tenant labels only
         return telemetry.tenants.snapshot()
@@ -1664,7 +1670,7 @@ def _telemetry(r: Router) -> None:
         # per-subsystem → per-node verdicts (telemetry.health)
         return telemetry.health.evaluate(node)
 
-    @r.query("telemetry.mesh")
+    @r.query("telemetry.mesh", priority="interactive")
     async def mesh(node, arg=None):
         # this node's snapshot and the federation's peers, freshness-
         # marked; arg {refresh?: bool, force?: bool} steers the refresh
@@ -1675,7 +1681,7 @@ def _telemetry(r: Router) -> None:
             force=bool(opts.get("force")),
         )
 
-    @r.query("telemetry.attrib")
+    @r.query("telemetry.attrib", priority="background")
     async def attrib(node, arg=None):
         # critical-path attribution of one trace (default: the last
         # settled pass); arg {trace_id?, refresh?}
@@ -1686,7 +1692,7 @@ def _telemetry(r: Router) -> None:
             refresh=bool(opts.get("refresh")),
         )
 
-    @r.query("telemetry.profile")
+    @r.query("telemetry.profile", priority="background")
     async def profile(node, arg=None):
         # the host sampler: frame groups, on-CPU vs GIL-wait split,
         # capture windows; arg {mesh?: bool, format?: "folded"} (the
@@ -1706,9 +1712,14 @@ def _telemetry(r: Router) -> None:
 
     @r.query("telemetry.serve")
     def serve_status(node):
-        # the admission gate and read caches come with the serve plane;
-        # until then this is JAX's answer without a serve runtime
-        return {"enabled": False}
+        # admission gate + read-cache state (the overload posture):
+        # mode, per-class inflight/shed, cache occupancy
+        from ..serve import runtime_for
+
+        serve = runtime_for(node)
+        if serve is None:
+            return {"enabled": False}
+        return {"enabled": True, **serve.snapshot()}
 
 
 def _invalidation(r: Router) -> None:

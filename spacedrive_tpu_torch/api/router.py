@@ -8,16 +8,19 @@ and the `CoreEvent` stream (:54-58) feeding subscriptions. Procedures
 are query/mutation/subscription keyed "namespace.name" exactly like
 rspc's merge naming.
 
-Counterpart of `spacedrive_tpu/api/router.py`. `exec` takes the JAX
-router's direct path (`_exec_direct`), the one it takes when the node
-has no serve runtime; the admission gate and the read cache come with
-the serve layer, which is not ported yet.
+Counterpart of `spacedrive_tpu/api/router.py`. `exec` puts the node's
+admission gate (serve/gate.py) around each call under the procedure's
+priority class, and serves allowlisted queries from the read cache
+(serve/cache.py); without a serve runtime (``SD_SERVE_GATE=0``) it is
+the direct path alone.
 """
 
 from __future__ import annotations
 
+import asyncio
 import inspect
 import logging
+import time
 import uuid
 from dataclasses import dataclass, field
 from enum import Enum
@@ -58,6 +61,9 @@ class Procedure:
     kind: str  # query | mutation | subscription
     fn: Callable[..., Any]
     library_scoped: bool = False
+    # admission-gate priority class; None resolves through the
+    # serve.policy.NAMESPACE_CLASSES map
+    priority: str | None = None
 
 
 class Router:
@@ -68,23 +74,28 @@ class Router:
 
     # --- registration (decorators) ---
 
-    def _register(self, key: str, kind: str, library: bool):
+    def _register(self, key: str, kind: str, library: bool,
+                  priority: str | None = None):
         def deco(fn):
             if key in self.procedures:
                 raise ValueError(f"duplicate procedure {key}")
-            self.procedures[key] = Procedure(key, kind, fn, library)
+            self.procedures[key] = Procedure(key, kind, fn, library,
+                                             priority=priority)
             return fn
 
         return deco
 
-    def query(self, key: str, *, library: bool = False):
-        return self._register(key, "query", library)
+    def query(self, key: str, *, library: bool = False,
+              priority: str | None = None):
+        return self._register(key, "query", library, priority)
 
-    def mutation(self, key: str, *, library: bool = False):
-        return self._register(key, "mutation", library)
+    def mutation(self, key: str, *, library: bool = False,
+                 priority: str | None = None):
+        return self._register(key, "mutation", library, priority)
 
-    def subscription(self, key: str, *, library: bool = False):
-        return self._register(key, "subscription", library)
+    def subscription(self, key: str, *, library: bool = False,
+                     priority: str | None = None):
+        return self._register(key, "subscription", library, priority)
 
     # --- execution ---
 
@@ -95,17 +106,84 @@ class Router:
         arg: Any = None,
         library_id: str | uuid.UUID | None = None,
     ) -> Any:
-        """Run a query or mutation: the JAX router's direct path, which it
-        takes whenever the node has no serve runtime."""
+        """Run a query/mutation through the serve layer: admission-gate
+        the call under the procedure's priority class, and serve
+        allowlisted queries from the read cache (single-flight, tag-
+        invalidated, stale-while-revalidate in brownout). Without a
+        serve runtime (``SD_SERVE_GATE=0``) this is the direct path."""
         proc = self.procedures.get(key)
         if proc is None:
             raise RspcError.not_found(f"procedure {key!r}")
         if proc.kind == "subscription":
             raise RspcError.bad_request(f"{key} is a subscription; use subscribe()")
-        return await self._exec_direct(node, proc, key, arg, library_id)
+        from ..serve import Shed, class_for_key, runtime_for
+        from ..serve.gate import observe_request_seconds
+
+        serve = runtime_for(node)
+        if serve is None:
+            return await self._exec_direct(node, proc, key, arg, library_id)
+        klass = class_for_key(key, proc.priority)
+        t0 = time.perf_counter()
+        try:
+            result = await self._exec_gated(
+                node, serve, proc, key, arg, library_id, klass
+            )
+        except Shed as e:
+            err = RspcError(429, f"SHED: {e.reason}")
+            err.retry_after_s = e.retry_after_s
+            raise err from None
+        except BaseException:
+            # errored-but-answered work counts toward the class's
+            # latency (sheds stay excluded: fast 429s would bias the
+            # percentile low under overload)
+            observe_request_seconds(klass, time.perf_counter() - t0,
+                                    tenant=library_id)
+            raise
+        observe_request_seconds(klass, time.perf_counter() - t0,
+                                tenant=library_id)
+        return result
+
+    async def _exec_gated(
+        self, node: Any, serve: Any, proc: Procedure, key: str,
+        arg: Any, library_id: Any, klass: str,
+    ) -> Any:
+        """Admission × cache: the gate wraps the cache LOADER, not the
+        lookup, so a fresh hit takes no admission slot and a stampede on
+        one key coalesces onto one admitted load."""
+        from ..serve import CACHEABLE_QUERIES, canonical_library_id, query_cache_key
+
+        if (
+            proc.kind != "query"
+            or key not in CACHEABLE_QUERIES
+            or not proc.library_scoped
+            or library_id is None
+        ):
+            async with serve.gate.admit(klass, key=key):
+                return await self._exec_direct(
+                    node, proc, key, arg, library_id
+                )
+
+        async def load() -> Any:
+            async with serve.gate.admit(klass, key=key):
+                # cache loaders run off the event loop: an allowlisted
+                # query is a pure SQLite read, and a slow disk under it
+                # must stall this request's thread, not the loop
+                return await self._exec_direct(node, proc, key, arg,
+                                               library_id, off_loop=True)
+
+        lib_key = canonical_library_id(library_id)
+        result = await serve.queries.get(
+            query_cache_key(key, library_id, arg),
+            load,
+            tags=(("lib", lib_key), ("q", key, lib_key)),
+            stale_ok=serve.gate.in_brownout(),
+            tenant=lib_key,
+        )
+        return result.value
 
     async def _exec_direct(
-        self, node: Any, proc: Procedure, key: str, arg: Any, library_id: Any,
+        self, node: Any, proc: Procedure, key: str, arg: Any,
+        library_id: Any, off_loop: bool = False,
     ) -> Any:
         args = [node]
         if proc.library_scoped:
@@ -114,7 +192,10 @@ class Router:
         if _wants_arg(proc.fn, proc.library_scoped):
             args.append(arg)
         try:
-            result = proc.fn(*args)
+            if off_loop and not inspect.iscoroutinefunction(proc.fn):
+                result = await asyncio.to_thread(proc.fn, *args)
+            else:
+                result = proc.fn(*args)
             if inspect.isawaitable(result):
                 result = await result
         except (KeyError, TypeError, ValueError) as e:

@@ -30,6 +30,11 @@
     python -m spacedrive_tpu_torch relay [--host 0.0.0.0] [--port 8490] [--p2p-port 8491]
         [--max-pipes-per-target 8] [--max-pipes 256] [--pipe-rate BYTES_PER_S]
         [--stats-interval 60]
+    python -m spacedrive_tpu_torch serve --data-dir D [--host 127.0.0.1] [--port 8080]
+        [--cloud ORIGIN] [--auto-accept-pairing] [--device ...]
+    python -m spacedrive_tpu_torch serve-status [--url URL | --data-dir D] [--out F]
+    python -m spacedrive_tpu_torch desktop --data-dir D [--host H] [--port P] [--open-path PATH]
+        [--no-open] [--quit] [--register] [--device ...]
     python -m spacedrive_tpu_torch licenses [--out F]
     python -m spacedrive_tpu_torch crypto inspect FILE
     python -m spacedrive_tpu_torch crypto encrypt|decrypt FILE [--password PW]
@@ -104,9 +109,10 @@ commands) read a running node's HTTP API at `--url`: its span ring as
 Chrome-trace JSON (`GET /trace`, loadable in Perfetto), its host
 sampler's profile (`GET /profile`; `--folded` gives flamegraph.pl
 text), its redacted debug bundle (`POST /rspc/telemetry.debug_bundle`).
-The port's own node answers these in-process through its router
+A port node serves them once `serve` (or `Node.start_api`) runs;
+in-process, its router answers the same procedures
 (`telemetry.trace_export`, `telemetry.profile`,
-`telemetry.debug_bundle`) until the HTTP host is ported. Without
+`telemetry.debug_bundle`). Without
 `--url`, `debug-bundle` builds the bundle offline from `--data-dir`
 (node config redacted, this process's empty rings). `licenses` prints
 the dependency and license inventory (utils/deps.py).
@@ -143,7 +149,21 @@ printing both addresses, then the rendezvous's counters every
 it once `cloud.setApiOrigin` names `http://HOST:PORT` and
 `cloud.sync.enable` runs for the library (`Node.enable_cloud_sync`);
 its p2p reaches relayed peers with `p2p.relay = "HOST:P2P_PORT"` in its
-node config. `serve --cloud` comes with the HTTP host.
+node config, or once `serve --cloud http://HOST:PORT` names it.
+
+`serve` (counterpart of `sdx serve`) starts a Node on `--device` and
+its HTTP API (api/server.py: `POST /rspc/<key>`, the `/rspc/ws`
+websocket, `/health`, `/metrics`, `/search`, the custom URIs and the
+explorer UI at `/`) until interrupted; `--cloud ORIGIN` persists the
+relay's origin and enables every library's cloud sync against it,
+`--auto-accept-pairing` lets a headless node accept library joins.
+`serve-status` prints the serve layer's posture (admission-gate mode,
+per-class inflight/queued/shed counts, read-cache occupancy): a running
+node's `telemetry.serve` at `--url`, or an idle node's on `--data-dir`.
+`desktop` (counterpart of `sdx desktop`, desktop.py) runs one managed
+node per data dir with its API and opens the explorer in the browser;
+a second launch forwards `--open-path` to the running one, `--quit`
+stops it, `--register` writes the XDG launcher entry.
 """
 
 from __future__ import annotations
@@ -933,6 +953,108 @@ def cmd_relay(args: argparse.Namespace) -> int:
         return 0
 
 
+async def _serve(args: argparse.Namespace) -> int:
+    from .node.node import Node
+
+    node = Node(args.data_dir, device=args.device)
+    await node.start()
+    try:
+        port = await node.start_api(host=args.host, port=args.port)
+        print(f"serving on http://{args.host}:{port}  (rspc: /rspc/<key>)", flush=True)
+        if node.p2p is not None:
+            print(f"p2p on port {node.p2p.port}, identity {node.p2p.p2p.remote_identity}",
+                  flush=True)
+            if args.auto_accept_pairing:
+                node.p2p.pairing.auto_accept = True
+                print("pairing: auto-accept enabled", flush=True)
+        elif args.auto_accept_pairing:
+            print("warning: --auto-accept-pairing ignored (p2p disabled)", file=sys.stderr)
+        if args.cloud:
+            # persist the origin even with zero libraries yet: libraries
+            # created later enable against it through cloud.sync.enable
+            node.config.config.preferences["cloud_api_origin"] = args.cloud
+            node.config.save()
+            enabled = 0
+            for lib in list(node.libraries.libraries.values()):
+                try:
+                    await node.enable_cloud_sync(lib)
+                    enabled += 1
+                except Exception as e:  # noqa: BLE001 - one library's failure is reported
+                    print(f"cloud sync for {lib.name!r} failed: {e}", file=sys.stderr)
+            print(f"cloud sync: {args.cloud} ({enabled} libraries enabled)", flush=True)
+        while True:
+            await asyncio.sleep(3600)
+    except asyncio.CancelledError:
+        pass
+    finally:
+        await node.shutdown()
+    return 0
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Run a node and its HTTP API until interrupted."""
+    try:
+        return asyncio.run(_serve(args))
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_serve_status(args: argparse.Namespace) -> int:
+    """Serve-layer posture: admission-gate mode, per-class
+    inflight/queued/shed counts and read-cache occupancy: a running
+    node's rspc telemetry.serve (--url), or an idle node's (--data-dir)."""
+    if args.url:
+        import urllib.error
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/rspc/telemetry.serve"
+        req = urllib.request.Request(url, data=b"{}", method="POST",
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                doc = json.loads(resp.read().decode()).get("result")
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            print(f"serve-status: cannot reach {url}: {e}", file=sys.stderr)
+            print("is a node running? start one with `serve`", file=sys.stderr)
+            return 1
+        _write_or_print(json.dumps(doc, indent=2), args.out)
+        return 0
+    if not args.data_dir:
+        print("serve-status: give --url or --data-dir", file=sys.stderr)
+        return 1
+
+    async def idle() -> dict:
+        from .node.node import Node
+        from .serve import runtime_for
+
+        node = Node(args.data_dir, with_labeler=False)  # never started: no device work
+        try:
+            serve = runtime_for(node)
+            return {"enabled": False} if serve is None else {"enabled": True,
+                                                             **serve.snapshot()}
+        finally:
+            await node.shutdown()
+
+    _write_or_print(json.dumps(asyncio.run(idle()), indent=2, default=str), args.out)
+    return 0
+
+
+def cmd_desktop(args: argparse.Namespace) -> int:
+    from . import desktop
+
+    if args.register:
+        print(f"registered {desktop.register_xdg()}")
+        return 0
+    try:
+        return asyncio.run(desktop.run_or_forward(
+            args.data_dir, open_path=args.open_path, quit_running=args.quit,
+            host=args.host, port=args.port, open_browser=not args.no_open,
+            device=args.device,
+        ))
+    except KeyboardInterrupt:
+        return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m spacedrive_tpu_torch")
     parser.add_argument(
@@ -1134,6 +1256,41 @@ def build_parser() -> argparse.ArgumentParser:
     rl.add_argument("--stats-interval", type=float, default=60.0,
                     help="seconds between stats log lines (0 disables)")
     rl.set_defaults(func=cmd_relay)
+
+    sv = sub.add_parser("serve", help="run the node and its HTTP API")
+    sv.add_argument("--data-dir", required=True)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8080)
+    sv.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sv.add_argument("--auto-accept-pairing", action="store_true",
+                    help="headless nodes: accept library joins without a prompt")
+    sv.add_argument("--cloud", metavar="ORIGIN",
+                    help="enable cloud sync for all libraries against this relay")
+    sv.set_defaults(func=cmd_serve)
+
+    ss = sub.add_parser("serve-status", help="serve-layer posture: admission-gate mode, "
+                        "per-class inflight/shed counts, read-cache occupancy")
+    ss.add_argument("--url", default=None,
+                    help="read a running node's rspc telemetry.serve")
+    ss.add_argument("--data-dir", default=None,
+                    help="without --url: an idle node on this data dir")
+    ss.add_argument("--out", help="write JSON here instead of stdout")
+    ss.set_defaults(func=cmd_serve_status)
+
+    dk = sub.add_parser("desktop", help="managed desktop host: single instance, browser UI, "
+                        "deep links, background node")
+    dk.add_argument("--data-dir", required=True)
+    dk.add_argument("--host", default="127.0.0.1")
+    dk.add_argument("--port", type=int, default=0)
+    dk.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    dk.add_argument("--open-path", default=None, metavar="PATH",
+                    help="open the explorer on PATH (targets the running instance if any)")
+    dk.add_argument("--no-open", action="store_true", help="don't launch a browser")
+    dk.add_argument("--quit", action="store_true",
+                    help="stop the running instance for this data dir")
+    dk.add_argument("--register", action="store_true",
+                    help="write the XDG launcher/'Open with' entry and exit")
+    dk.set_defaults(func=cmd_desktop)
 
     li = sub.add_parser("licenses", help="dependency and license inventory")
     li.add_argument("--out", help="write JSON here instead of stdout")

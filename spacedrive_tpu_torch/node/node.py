@@ -49,8 +49,11 @@ in the node's preferences, `cloud_api_origin`, as JAX's does), over the
 port's own HTTP client (utils/http.py); `close_library` and `shutdown`
 stop the trio and close its client.
 
-Not ported: the serve runtime and the API server (6.9), so no
-`start_api`.
+The node's serve runtime (`node.serve`, serve/: the admission gate and
+the read caches) is built with it unless `SD_SERVE_GATE=0`, which leaves
+it None: every consumer then takes the ungated path. `start_api` serves
+the router and the custom URIs over HTTP and a websocket (api/server.py,
+on utils/http.py) as `node.http`; `shutdown` stops it first.
 """
 
 from __future__ import annotations
@@ -116,6 +119,13 @@ class Node:
                                        use_device=self.device.type != "cpu")
         self.image_labeler: ImageLabeler | None = None
         self.p2p: Any = None  # P2PManager, attached by start() when enabled
+        self.http: Any = None  # ApiServer handle from start_api()
+        # the serve layer (admission gate + read-path caches): absent
+        # entirely under SD_SERVE_GATE=0, and every consumer treats a
+        # missing runtime as "take the ungated path"
+        from ..serve import ServeRuntime, enabled as _serve_enabled
+
+        self.serve: Any = ServeRuntime() if _serve_enabled() else None
         if with_labeler:
             self.image_labeler = ImageLabeler(os.path.join(self.data_dir, "image_labeler"),
                                               device=self.device)
@@ -291,13 +301,23 @@ class Node:
         lib.close()
         self.libraries.libraries.pop(lib_id, None)
 
+    async def start_api(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Serve /rspc + custom-URI over HTTP (ref:apps/server/src/main.rs)."""
+        from ..api.server import ApiServer
+
+        self.http = ApiServer(self, self.router)
+        return await self.http.start(host, port)
+
     async def shutdown(self) -> None:
-        """Stop the libraries' cloud sync, orphan removers and ingest
+        """Stop the HTTP API, the libraries' cloud sync, orphan removers and ingest
         actors, the loop-lag monitor, the history writer, the controller,
         the samplers and the pool (each releases its hold), persist the
         actors' queues, stop the watchers (draining their in-flight
         rescans), stop the task system and close the libraries
         (ref:lib.rs:240-250)."""
+        if self.http is not None:
+            await self.http.shutdown()
+            self.http = None
         for lib in list(self.libraries.libraries.values()):
             await _stop_cloud_sync(lib)
             await _stop_library_actors(lib)

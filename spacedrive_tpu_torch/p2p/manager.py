@@ -10,10 +10,10 @@ from `NodeConfig.p2p` (port, discovery mode), advertises node metadata
 Counterpart of `spacedrive_tpu/p2p/manager.py` without the work plane:
 the port has no `p2p/work.py` yet, so the manager has no `work`, and a
 library member's WORK stream gets the answer JAX's `respond_work` gives
-on a node whose work plane is not running. Until the serve runtime is
-ported, the manager takes JAX's own path for a node without it: inbound
-serving is admitted ungated and sync-applied ops invalidate no serve
-cache (the search index still folds them in). The federation refresh
+on a node whose work plane is not running. Inbound SYNC_REQUEST,
+TELEMETRY and WORK serving is admitted under the serve gate's sync class
+(counted, never shed), and sync-applied ops drop the library's serve-cache
+tag, as JAX's do. The federation refresh
 falls back to the cloud relay of every cloud-synced library
 (`_relay_federation`, cloud/), as JAX's does.
 """
@@ -21,6 +21,7 @@ falls back to the cloud relay of every cloud-synced library
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import platform
 import uuid
@@ -205,10 +206,18 @@ class P2PManager:
                     logger.debug("sync pull from %s failed: %s", peer.identity, e)
             return [], False
 
-        def on_applied(lib=lib):
-            # JAX first drops the library's serve-cache tag here; without
-            # a serve runtime there is no cache to drop. Replicated
-            # object_embedding rows fold into the vector index, so a
+        def on_applied(lib_id=lib.id, lib=lib):
+            # sync-applied ops dirty this library's cached reads: the
+            # remote mutation plane can't name query keys, so the whole
+            # library tag drops (serve cache read-your-writes, remote
+            # half; the local half lives in api.invalidate)
+            from ..serve import runtime_for
+
+            serve = runtime_for(self.node)
+            if serve is not None:
+                serve.invalidate_library(lib_id, source="sync")
+            # replicated object_embedding rows fold into the vector
+            # index, so a
             # replica answers search.semantic without ever running the
             # embed stage itself (failure-contained: the hook must never
             # wedge the ingest actor)
@@ -482,6 +491,18 @@ class P2PManager:
 
     # --- inbound dispatch (ref:manager.rs stream handler) --------------
 
+    def _serve_admit(self, key: str):
+        """Sync-class admission for inbound P2P serving legs: counted on
+        the gate (so operators see replication traffic riding the same
+        budgets the read path does) but never queued or shed — the sync
+        class is protected by policy. No-op without a serve runtime."""
+        from ..serve import SYNC as _SYNC_CLASS, runtime_for
+
+        serve = runtime_for(self.node)
+        if serve is None:
+            return contextlib.nullcontext()
+        return serve.gate.admit(_SYNC_CLASS, key=key)
+
     async def _handle_stream(self, stream: Any) -> None:
         header = await Header.read(stream)
         P2P_EVENTS.emit(
@@ -528,8 +549,9 @@ class P2PManager:
             lib = self.node.libraries.get(header.library_id)
             if lib is not None:
                 _tenants.observe("p2p_sync", header.library_id)
-                with _span("p2p.sync_serve"):
-                    await respond_sync_request(stream, lib.sync)
+                async with self._serve_admit("p2p.sync_serve"):
+                    with _span("p2p.sync_serve"):
+                        await respond_sync_request(stream, lib.sync)
         elif header.type == HeaderType.FILE:
             if self.node.is_feature_enabled(BackendFeature.FILES_OVER_P2P):
                 await respond_file(stream, header.file, self.node.libraries)
@@ -556,24 +578,27 @@ class P2PManager:
                     if _faults.hit("p2p.trace_pull") is not None:
                         await stream.close()  # peer vanishes mid-pull
                         return
-                    with _span("p2p.trace_serve"):
-                        await respond_trace(
-                            stream,
-                            (header.telemetry_op or {}).get("trace_id"),
-                        )
+                    async with self._serve_admit("p2p.trace_serve"):
+                        with _span("p2p.trace_serve"):
+                            await respond_trace(
+                                stream,
+                                (header.telemetry_op or {}).get("trace_id"),
+                            )
                 elif op == "profile_pull":
                     if _faults.hit("p2p.profile_pull") is not None:
                         await stream.close()  # peer vanishes mid-pull
                         return
-                    with _span("p2p.profile_serve"):
-                        await respond_profile(stream)
+                    async with self._serve_admit("p2p.profile_serve"):
+                        with _span("p2p.profile_serve"):
+                            await respond_profile(stream)
                 elif op not in (None, "snapshot"):
                     w = Writer(stream)
                     w.msgpack({"error": f"unknown TELEMETRY op {op!r}"})
                     await w.flush()
                 else:
-                    with _span("p2p.telemetry_serve"):
-                        await respond_telemetry(stream, self.node)
+                    async with self._serve_admit("p2p.telemetry_serve"):
+                        with _span("p2p.telemetry_serve"):
+                            await respond_telemetry(stream, self.node)
             else:
                 w = Writer(stream)
                 w.msgpack(
@@ -590,8 +615,9 @@ class P2PManager:
                 library_id=header.library_id,
             ):
                 _tenants.observe("p2p_work", header.library_id)
-                with _span("p2p.work_serve"):
-                    await _refuse_work(stream)
+                async with self._serve_admit("p2p.work_serve"):
+                    with _span("p2p.work_serve"):
+                        await _refuse_work(stream)
             else:
                 w = Writer(stream)
                 w.msgpack(

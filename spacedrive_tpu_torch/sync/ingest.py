@@ -15,9 +15,8 @@ cloud relay in production (ref:core/src/p2p/sync/mod.rs:22-70).
 
 Counterpart of `spacedrive_tpu/sync/ingest.py`: the same ops apply to
 the same rows and op log, with the same metrics, spans, flight-recorder
-events, tenant counts and `sync.ingest` fault point. The serve policy
-(plane 6.9) is not ported, so the write-combining quantum is its
-default (`SYNC_TXN_OPS`).
+events, tenant counts and `sync.ingest` fault point; the write-combining
+quantum is the serve policy's `sync_txn_ops` (serve/policy.py).
 """
 
 from __future__ import annotations
@@ -202,24 +201,21 @@ def receive_crdt_operation(sync: SyncManager, op: CRDTOperation) -> bool:
     return outcome in (_APPLIED, _TOMBSTONE)
 
 
-#: remote ops coalesced into one SQLite transaction: the serve policy's
-#: default `sync_txn_ops` (spacedrive_tpu/serve/policy.py:132), until
-#: plane 6.9 ports the policy that tunes it
-SYNC_TXN_OPS = 64
-
-
 def ingest_txn_quantum() -> int:
     """Ops coalesced per SQLite transaction by the ingest actor. 1 (the
     historical op-per-transaction behavior) when write combining is off
     (``SD_SYNC_WRITE_COMBINE=0``) or the serve layer is disabled
     (``SD_SERVE_GATE=0`` reproduces pre-serve behavior exactly); else
-    ``SYNC_TXN_OPS``. Results do not depend on it: only the number of
-    transactions does."""
-    if os.environ.get("SD_SERVE_GATE", "1") == "0" or os.environ.get(
+    the serve policy's ``sync_txn_ops``. Results do not depend on it:
+    only the number of transactions does."""
+    from ..serve import enabled as _serve_enabled
+    from ..serve import policy as _serve_policy
+
+    if not _serve_enabled() or os.environ.get(
         "SD_SYNC_WRITE_COMBINE", "1"
     ) == "0":
         return 1
-    return SYNC_TXN_OPS
+    return max(1, int(_serve_policy().sync_txn_ops))
 
 
 def ingest_batch(

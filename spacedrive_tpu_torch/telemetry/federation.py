@@ -22,10 +22,10 @@ Staleness rules (the contract ``telemetry.mesh`` exposes):
   can't reach it anymore".
 
 The snapshot carries metric *values*, verdicts and digests — never raw
-ring payloads or span bodies, which stay on the owning node. JAX rides
-the snapshot and the mesh view on the serve runtime's caches; the port
-has no serve runtime yet, so each call computes them, as a JAX node
-without one does.
+ring payloads or span bodies, which stay on the owning node. The
+snapshot and the mesh view ride the serve runtime's meta cache (a short
+TTL and single-flight), as JAX's do; without a serve runtime each call
+computes them.
 """
 
 from __future__ import annotations
@@ -95,9 +95,24 @@ def _ring_digests() -> dict[str, Any]:
 
 def local_snapshot(node: Any = None) -> dict[str, Any]:
     """The compact, versioned self-snapshot a node serves to the mesh
-    (the ``local`` half of ``telemetry.mesh``). JAX rides it on the
-    serve runtime's short-TTL cache; the port has no serve runtime yet,
-    so each call computes it, as a JAX node without one does."""
+    (P2P TELEMETRY responder, relay push, and the ``local`` half of
+    ``GET /mesh``). With a serve runtime the computation rides a short
+    TTL cache, so polls inside one window cost one computation (treat
+    the returned dict as read-only)."""
+    if node is not None:
+        from ..serve import runtime_for
+
+        serve = runtime_for(node)
+        if serve is not None:
+            return serve.meta.get_sync(
+                ("local_snapshot",),
+                lambda: _local_snapshot(node),
+                ttl_s=serve.policy.snapshot_ttl_s,
+            )
+    return _local_snapshot(node)
+
+
+def _local_snapshot(node: Any = None) -> dict[str, Any]:
     from . import health as _health
     from . import sampler as _sampler
     from . import tenants as _tenants
@@ -321,11 +336,27 @@ def mesh_status(node: Any) -> dict[str, Any]:
 async def mesh_status_cached(
     node: Any, *, refresh: bool = True, force: bool = False,
 ) -> dict[str, Any]:
-    """``telemetry.mesh`` read path: the federation refresh (``force``
-    re-pulls every peer) and the ``mesh_status`` walk. JAX single-flights
-    it through the serve cache; without a serve runtime, as here, this
-    is its direct path."""
-    p2p = getattr(node, "p2p", None)
-    if p2p is not None and refresh:
-        await p2p.refresh_federation(force=force)
-    return mesh_status(node)
+    """``GET /mesh`` / rspc ``telemetry.mesh`` read path: the federation
+    refresh + snapshot computation behind the serve cache's
+    single-flight, so N concurrent dashboards cost one refresh round
+    and one ``mesh_status`` walk per TTL window. ``force`` coalesces
+    concurrent callers but never serves a stored view; without a serve
+    runtime this is the direct path."""
+    from ..serve import runtime_for
+
+    async def load() -> dict[str, Any]:
+        p2p = getattr(node, "p2p", None)
+        if p2p is not None and refresh:
+            await p2p.refresh_federation(force=force)
+        return mesh_status(node)
+
+    serve = runtime_for(node)
+    if serve is None:
+        return await load()
+    result = await serve.meta.get(
+        ("mesh", bool(refresh), bool(force)),
+        load,
+        ttl_s=0.0 if force else serve.policy.mesh_ttl_s,
+        stale_ok=serve.gate.in_brownout(),
+    )
+    return result.value

@@ -17,8 +17,9 @@ consumer waits), ``device`` (the degradation ladder, then the occupancy
 of sharded dispatches: one card dispatches no sharded part, so it reads
 ``unknown``), ``p2p`` (failure episodes on the p2p ring), ``sync``
 (corroborated replication head gaps and delta-guard trips), ``resilience``
-(open circuit breakers), ``serve`` (``unknown`` until the serve plane:
-a JAX node without a serve runtime answers the same), ``slo`` (burn
+(open circuit breakers), ``serve`` (the admission gate: brownout is
+degraded, a protected-class shed unhealthy, ``unknown`` without a serve
+runtime), ``slo`` (burn
 rates over the node's history), ``resources`` (trend SLOs over RSS and
 fd slopes) and ``tenants`` (the fairness SLO and dominant share). The
 autotune controller's knob state rides the rollup. Thresholds are
@@ -253,10 +254,38 @@ def _sync(node: Any = None) -> dict[str, Any]:
 
 
 def _serve(node: Any = None) -> dict[str, Any]:
-    """Serve layer: the admission gate's overload posture. The port has
-    no serve runtime until its plane lands, so the verdict is the one a
-    JAX node without a serve runtime gives."""
-    return _verdict(UNKNOWN, "serve gate disabled or absent")
+    """Serve layer: the admission gate's overload posture. Brownout or
+    active interactive shedding is degraded — the node still answers,
+    but it is refusing work and serving stale cache entries. A shed in
+    the control or sync class is UNHEALTHY: those classes must never
+    shed (the gate's own contract), so a nonzero count is a serve-layer
+    bug an operator must see."""
+    from ..serve import runtime_for
+
+    serve = runtime_for(node) if node is not None else None
+    if serve is None:
+        return _verdict(UNKNOWN, "serve gate disabled or absent")
+    snap = serve.gate.snapshot()
+    classes = snap["classes"]
+    protected_shed = sum(
+        c["shed_total"] for k, c in classes.items()
+        if not c.get("sheddable", True)
+    )
+    signals = {
+        "mode": snap["mode"],
+        "classes": classes,
+        "caches": serve.snapshot()["caches"],
+    }
+    if protected_shed:
+        return _verdict(
+            UNHEALTHY,
+            f"{protected_shed} control/sync request(s) shed — protected "
+            "classes must never shed",
+            **signals,
+        )
+    if snap["mode"] == "brownout":
+        return _verdict(DEGRADED, "read path in brownout", **signals)
+    return _verdict(HEALTHY, **signals)
 
 
 def _slo(node: Any = None) -> dict[str, Any]:

@@ -447,7 +447,7 @@ AUTOTUNE_POOL_SCALE = REGISTRY.gauge(
     labels=("workload",),
 )
 
-# --- serve layer: admission gate + read cache (not ported yet) -------------
+# --- serve layer: admission gate + read cache ------------------------------
 
 GATE_REQUESTS = REGISTRY.counter(
     "sd_gate_requests_total",

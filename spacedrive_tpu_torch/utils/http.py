@@ -1,10 +1,10 @@
-"""HTTP/1.1 on asyncio streams: a routed server and a JSON client.
+"""HTTP/1.1 and websockets on asyncio streams: a routed server and clients.
 
 The owned counterpart of the parts of `aiohttp` that the JAX package's
-cloud plane stands on (`spacedrive_tpu/cloud/relay.py` serves an
-`aiohttp.web.Application`, `cloud/api.py` calls through an
-`aiohttp.ClientSession`), written so that the port's relay and client,
-and later its API host, need no package beyond the standard library.
+cloud plane and API host stand on (`spacedrive_tpu/cloud/relay.py` and
+`api/server.py` serve an `aiohttp.web.Application`, `cloud/api.py` calls
+through an `aiohttp.ClientSession`), written so that the port's relay,
+client and API host need no package beyond the standard library.
 
 Server (:class:`Application` + :class:`Server`): routes by method and
 path, ``{name}`` and ``{name:regex}`` captures (percent-decoded into
@@ -18,7 +18,26 @@ chunked, whose connection a handler may close mid-body
 another method, a raised :class:`HTTPException` and a handler that
 raises anything else (a bad JSON body, a missing field) answer the
 status and body `aiohttp.web` answers; after an unhandled exception the
-connection closes, as there.
+connection closes, as there. A handler may return an unprepared
+:class:`StreamResponse` (:class:`FileResponse`): the server prepares it.
+``request.route`` is the matched :class:`Route` (its ``canonical`` path
+has the captures' regexes stripped, as aiohttp's resource's has),
+``request.can_read_body`` and ``request.http_range`` read as aiohttp's.
+
+:class:`FileResponse` answers as `aiohttp.web.FileResponse` does: the
+``ETag`` (``"<mtime_ns hex>-<size hex>"``) and ``Last-Modified``,
+``If-None-Match`` / ``If-Modified-Since`` (304), ``If-Match`` /
+``If-Unmodified-Since`` (412), ``If-Range``, and ``Range`` (206 with
+``Content-Range``, suffix ranges, 416 with ``bytes */<size>``);
+``Accept-Ranges: bytes`` always.
+
+Websockets (RFC 6455): :class:`WebSocketResponse` is the server side (the
+handshake with ``Sec-WebSocket-Accept``, aiohttp's 400s on a request
+that is no upgrade, client frames unmasked, fragments joined, pings
+answered, the close handshake with the peer's code echoed) and
+:func:`ws_connect` the client side (frames masked). Both iterate text
+and binary messages until the close, as aiohttp's do; no extension
+(permessage-deflate) is negotiated.
 
 Client (:class:`HttpClient`): one request at a time per connection,
 idle keep-alive connections reused per host, a JSON or bytes body,
@@ -27,20 +46,27 @@ transport failure raises :class:`ClientError`, the counterpart of
 `aiohttp.ClientError`: a refused connection, a reset, a malformed
 status line, a body shorter than its ``Content-Length``, a
 :meth:`ClientResponse.json` on a body that is not JSON by its type.
-
-No websockets yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import email.utils
+import enum
+import hashlib
 import http
 import json as _json
 import logging
+import math
+import mimetypes
+import os
 import re
+import stat as _stat
+import struct
+import time
 import urllib.parse
-from typing import Any, Awaitable, Callable, Iterable
+from typing import Any, Awaitable, Callable, Iterable, NamedTuple
 
 logger = logging.getLogger(__name__)
 
@@ -175,6 +201,7 @@ class Request:
         for k, v in urllib.parse.parse_qsl(self.query_string, keep_blank_values=True):
             self.query.setdefault(k, v)
         self.match_info: dict[str, str] = {}
+        self.route: Route | None = None
         self._reader, self._writer = reader, writer
         self._body: bytes | None = None
         conn = _tokens(headers.get("Connection"))
@@ -207,6 +234,38 @@ class Request:
             self.keep_alive = False  # the body stays unread on the wire
             raise HTTPRequestEntityTooLarge(limit, n)
         return await self._reader.readexactly(n) if n else b""
+
+    @property
+    def can_read_body(self) -> bool:
+        """True while a body is announced and unread (aiohttp's)."""
+        if self._body is not None:
+            return False
+        if "chunked" in _tokens(self.headers.get("Transfer-Encoding")):
+            return True
+        return int(self.headers.get("Content-Length") or 0) > 0
+
+    @property
+    def http_range(self) -> slice:
+        """The ``Range`` header as a slice, as aiohttp's: ``bytes=a-b`` is
+        ``slice(a, b + 1)``, ``bytes=a-`` ``slice(a, None)``, ``bytes=-n``
+        ``slice(-n, None)``; ValueError on any other form."""
+        rng = self.headers.get("Range")
+        start = end = None
+        if rng is not None:
+            m = re.fullmatch(r"bytes=(\d*)-(\d*)", rng, re.ASCII)
+            if m is None:
+                raise ValueError("range not in acceptable format")
+            end = int(m.group(2)) if m.group(2) else None
+            start = int(m.group(1)) if m.group(1) else None
+            if start is None and end is not None:
+                start, end = -end, None
+            if start is not None and end is not None:
+                end += 1
+                if start >= end:
+                    raise ValueError("start cannot be after end")
+            if start is None and end is None:
+                raise ValueError("No start or end of range specified")
+        return slice(start, end, 1)
 
     async def text(self) -> str:
         return (await self.read()).decode("utf-8")
@@ -259,8 +318,10 @@ def _head(status: int, headers: Headers, keep_alive: bool) -> bytes:
     return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
 
-def json_response(data: Any, *, status: int = 200) -> Response:
-    return Response(status=status, text=_json.dumps(data), content_type="application/json")
+def json_response(data: Any, *, status: int = 200, headers: dict[str, str] | None = None,
+                  dumps: Callable[[Any], str] = _json.dumps) -> Response:
+    return Response(status=status, text=dumps(data), content_type="application/json",
+                    headers=headers)
 
 
 class StreamResponse:
@@ -270,9 +331,9 @@ class StreamResponse:
     chunked body after the handler returns; it closes the connection
     when a declared length was not met."""
 
-    def __init__(self, *, status: int = 200):
+    def __init__(self, *, status: int = 200, headers: dict[str, str] | None = None):
         self.status = status
-        self.headers = Headers()
+        self.headers = Headers(headers or {})
         self.content_length: int | None = None
         self.prepared = False
         self._writer: asyncio.StreamWriter | None = None
@@ -284,7 +345,9 @@ class StreamResponse:
             return
         self.prepared = True
         self._writer = request._writer
-        if self.content_length is not None:
+        if self.status in _NO_BODY:
+            self.content_length = 0
+        elif self.content_length is not None:
             self.headers["Content-Length"] = str(self.content_length)
         else:
             self.headers["Transfer-Encoding"] = "chunked"
@@ -313,6 +376,458 @@ class StreamResponse:
     @property
     def complete(self) -> bool:
         return self.content_length is None or self._written == self.content_length
+
+
+class FileResponse(StreamResponse):
+    """A file, answered as `aiohttp.web.FileResponse` answers it (the
+    module docstring lists the headers and statuses)."""
+
+    def __init__(self, path: str | os.PathLike, *, status: int = 200,
+                 headers: dict[str, str] | None = None):
+        super().__init__(status=status, headers=headers)
+        self.path = os.fspath(path)
+
+    async def prepare(self, request: Request) -> None:
+        if self.prepared:
+            return
+        try:
+            fobj, st, verdict = await asyncio.to_thread(self._open, request)
+        except PermissionError:
+            self.status = 403
+            return await self._empty(request)
+        except OSError:
+            self.status = 404
+            return await self._empty(request)
+        if verdict in (403, 412):
+            self.status = verdict
+            return await self._empty(request)
+        etag = f"{st.st_mtime_ns:x}-{st.st_size:x}"
+        if verdict == 304:
+            self.status = 304
+            self._validators(etag, st.st_mtime)
+            return await super().prepare(request)
+        try:
+            await self._send(request, fobj, st, etag)
+        finally:
+            await asyncio.to_thread(fobj.close)
+
+    async def _empty(self, request: Request) -> None:
+        """An answer without a body. aiohttp types it (octet-stream) where
+        its length was left open: every one but the 412 and a HEAD's."""
+        self.content_length = 0
+        if self.status != 412 and request.method != "HEAD" and "Content-Type" not in self.headers:
+            self.headers["Content-Type"] = "application/octet-stream"
+        await super().prepare(request)
+
+    def _validators(self, etag: str, mtime: float) -> None:
+        self.headers["ETag"] = f'"{etag}"'
+        self.headers["Last-Modified"] = time.strftime(
+            "%a, %d %b %Y %H:%M:%S GMT", time.gmtime(math.ceil(mtime)))
+
+    def _open(self, request: Request):
+        st = os.stat(self.path)
+        if not _stat.S_ISREG(st.st_mode):
+            return None, st, 403
+        etag = f"{st.st_mtime_ns:x}-{st.st_size:x}"
+        if_match = _etags(request.headers.get("If-Match"))
+        if if_match is not None and not _etag_match(etag, if_match, weak=False):
+            return None, st, 412
+        unmod = _http_date(request.headers.get("If-Unmodified-Since"))
+        if unmod is not None and if_match is None and st.st_mtime > unmod:
+            return None, st, 412
+        if_none = _etags(request.headers.get("If-None-Match"))
+        if if_none is not None and _etag_match(etag, if_none, weak=True):
+            return None, st, 304
+        modsince = _http_date(request.headers.get("If-Modified-Since"))
+        if modsince is not None and if_none is None and st.st_mtime <= modsince:
+            return None, st, 304
+        fobj = open(self.path, "rb")
+        return fobj, os.fstat(fobj.fileno()), None
+
+    async def _send(self, request: Request, fobj, st: os.stat_result, etag: str) -> None:
+        size = st.st_size
+        count, start = size, None
+        if_range = _http_date(request.headers.get("If-Range"))
+        if if_range is None or st.st_mtime <= if_range:
+            try:
+                rng = request.http_range
+            except ValueError:
+                self.headers["Content-Range"] = f"bytes */{size}"
+                self.status = 416
+                return await self._empty(request)
+            start, end = rng.start, rng.stop
+            if start is not None:
+                if start < 0 and end is None:
+                    start = max(0, start + size)
+                    count = size - start
+                else:
+                    count = min(end if end is not None else size, size) - start
+                if start >= size:
+                    self.headers["Content-Range"] = f"bytes */{size}"
+                    self.status = 416
+                    return await self._empty(request)
+                self.status = 206
+        if "Content-Type" not in self.headers:
+            self.headers["Content-Type"] = (mimetypes.guess_type(self.path)[0]
+                                            or "application/octet-stream")
+        self._validators(etag, st.st_mtime)
+        self.content_length = count
+        self.headers["Accept-Ranges"] = "bytes"
+        if self.status == 206:
+            self.headers["Content-Range"] = f"bytes {start}-{start + count - 1}/{size}"
+        await super().prepare(request)
+        if request.method == "HEAD" or count == 0:
+            self._written = count  # nothing to send: the response is whole
+            return
+        offset = start or 0
+        while count > 0:
+            chunk = await asyncio.to_thread(_pread, fobj, offset, min(FILE_CHUNK, count))
+            if not chunk:
+                break
+            await self.write(chunk)
+            offset += len(chunk)
+            count -= len(chunk)
+
+
+#: the bytes a FileResponse reads (off the loop) and writes at a time
+FILE_CHUNK = 256 * 1024
+
+
+def _pread(fobj, offset: int, n: int) -> bytes:
+    fobj.seek(offset)
+    return fobj.read(n)
+
+
+_ETAG_ITEM = re.compile(r'\s*(W/)?("[^"]*"|\*)\s*(?:,|$)')
+
+
+def _etags(value: str | None) -> list[tuple[bool, str]] | None:
+    """(weak, value) pairs of an If-Match / If-None-Match header."""
+    if value is None:
+        return None
+    out = []
+    for m in _ETAG_ITEM.finditer(value):
+        if m.group(2) == "*":
+            return [(False, "*")]
+        out.append((bool(m.group(1)), m.group(2)[1:-1]))
+    return out
+
+
+def _etag_match(etag: str, etags: list[tuple[bool, str]], *, weak: bool) -> bool:
+    if len(etags) == 1 and etags[0][1] == "*":
+        return True
+    return any(v == etag for is_weak, v in etags if weak or not is_weak)
+
+
+def _http_date(value: str | None) -> float | None:
+    if not value:
+        return None
+    try:
+        parsed = email.utils.parsedate_to_datetime(value)
+    except (TypeError, ValueError):
+        return None
+    return parsed.timestamp() if parsed is not None else None
+
+
+# --- websockets (RFC 6455) ---------------------------------------------------------------
+
+WS_MAGIC = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+#: the largest message either side reads (aiohttp's max_msg_size)
+WS_MAX_MSG = 4 * 1024 * 1024
+
+
+class WSMsgType(enum.IntEnum):
+    """aiohttp's message types: the frame opcodes and its own three."""
+
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    PING = 0x9
+    PONG = 0xA
+    CLOSE = 0x8
+    CLOSING = 0x100
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSCloseCode(enum.IntEnum):
+    OK = 1000
+    PROTOCOL_ERROR = 1002
+    ABNORMAL_CLOSURE = 1006
+    INVALID_TEXT = 1007
+    MESSAGE_TOO_BIG = 1009
+
+
+class WSMessage(NamedTuple):
+    type: WSMsgType
+    data: Any
+    extra: Any = None
+
+
+class _WSProtocolError(Exception):
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+
+
+def ws_accept(key: str) -> str:
+    """The ``Sec-WebSocket-Accept`` value for a client's key."""
+    return base64.b64encode(hashlib.sha1(key.encode() + WS_MAGIC).digest()).decode()
+
+
+def _ws_frame(opcode: int, payload: bytes, mask: bool, fin: bool = True) -> bytes:
+    head = bytearray([(0x80 if fin else 0) | opcode])
+    n = len(payload)
+    bit = 0x80 if mask else 0
+    if n < 126:
+        head.append(bit | n)
+    elif n < 1 << 16:
+        head.append(bit | 126)
+        head += struct.pack("!H", n)
+    else:
+        head.append(bit | 127)
+        head += struct.pack("!Q", n)
+    if mask:
+        key = os.urandom(4)
+        head += key
+        payload = _ws_mask(payload, key)
+    return bytes(head) + payload
+
+
+def _ws_mask(data: bytes, key: bytes) -> bytes:
+    n = len(data)
+    if not n:
+        return b""
+    k = int.from_bytes((key * (n // 4 + 1))[:n], "big")
+    return (int.from_bytes(data, "big") ^ k).to_bytes(n, "big")
+
+
+async def _ws_read_frame(reader: asyncio.StreamReader, limit: int):
+    """(fin, opcode, payload) of the next frame, unmasked."""
+    b0, b1 = await reader.readexactly(2)
+    if b0 & 0x70:
+        raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, "reserved bits set")
+    fin, opcode = bool(b0 & 0x80), b0 & 0x0F
+    n = b1 & 0x7F
+    if n == 126:
+        (n,) = struct.unpack("!H", await reader.readexactly(2))
+    elif n == 127:
+        (n,) = struct.unpack("!Q", await reader.readexactly(8))
+    if opcode >= 0x8:
+        if not fin or n > 125:
+            raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, "bad control frame")
+        if opcode not in (0x8, 0x9, 0xA):
+            raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, f"opcode {opcode}")
+    elif opcode not in (0x0, 0x1, 0x2):
+        raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, f"opcode {opcode}")
+    if n > limit:
+        raise _WSProtocolError(WSCloseCode.MESSAGE_TOO_BIG, f"message of {n} bytes")
+    key = await reader.readexactly(4) if b1 & 0x80 else None
+    payload = await reader.readexactly(n) if n else b""
+    return fin, opcode, _ws_mask(payload, key) if key else payload
+
+
+class _WebSocket:
+    """The message layer both sides share: iteration over text and binary
+    messages (pings answered, fragments joined), sends, the close."""
+
+    _mask = False
+
+    def __init__(self) -> None:
+        self._reader: asyncio.StreamReader | None = None
+        self._writer: asyncio.StreamWriter | None = None
+        self._send_lock = asyncio.Lock()
+        self._closing = False  # our close frame is sent
+        self._closed = False  # the close handshake ended (or the link died)
+        self._reading = False
+        self.close_code: int | None = None
+
+    @property
+    def closed(self) -> bool:
+        return self._closing or self._closed
+
+    async def _send_frame(self, opcode: int, payload: bytes) -> None:
+        if self._closing or self._closed:
+            raise ConnectionResetError("websocket is closing")
+        async with self._send_lock:
+            self._writer.write(_ws_frame(opcode, payload, self._mask))
+            await self._writer.drain()
+
+    async def send_str(self, data: str) -> None:
+        await self._send_frame(0x1, data.encode("utf-8"))
+
+    async def send_bytes(self, data: bytes) -> None:
+        await self._send_frame(0x2, bytes(data))
+
+    async def _send_close(self, code: int, message: bytes = b"") -> None:
+        if self._closing or self._closed:
+            return
+        self._closing = True
+        try:
+            async with self._send_lock:
+                self._writer.write(_ws_frame(0x8, struct.pack("!H", code) + message,
+                                             self._mask))
+                await self._writer.drain()
+        except (ConnectionError, RuntimeError):
+            self._closed = True
+
+    async def receive(self, timeout: float | None = None) -> WSMessage:
+        if self._closed:
+            return WSMessage(WSMsgType.CLOSED, None)
+        if self._reading:
+            raise RuntimeError("concurrent call to receive() is not allowed")
+        self._reading = True
+        try:
+            async with asyncio.timeout(timeout):
+                return await self._receive()
+        finally:
+            self._reading = False
+
+    async def _receive(self) -> WSMessage:
+        parts: list[bytes] = []
+        first = 0
+        while True:
+            try:
+                fin, opcode, payload = await _ws_read_frame(self._reader, WS_MAX_MSG)
+            except _WSProtocolError as e:
+                await self._fail(e.code)
+                return WSMessage(WSMsgType.ERROR, e)
+            except (asyncio.IncompleteReadError, ConnectionError) as e:
+                self._closed = True
+                self.close_code = WSCloseCode.ABNORMAL_CLOSURE
+                self._abort()
+                return WSMessage(WSMsgType.CLOSED, None, str(e) or None)
+            if opcode == 0x9:
+                if not self._closing:
+                    async with self._send_lock:
+                        self._writer.write(_ws_frame(0xA, payload, self._mask))
+                        await self._writer.drain()
+                continue
+            if opcode == 0xA:
+                continue
+            if opcode == 0x8:
+                code = struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else 1000
+                self.close_code = code
+                await self._send_close(code)
+                self._closed = True
+                self._after_close()
+                return WSMessage(WSMsgType.CLOSE, code, payload[2:].decode("utf-8", "replace"))
+            if opcode == 0x0:
+                if not parts:
+                    await self._fail(WSCloseCode.PROTOCOL_ERROR)
+                    return WSMessage(WSMsgType.ERROR, "continuation without a start")
+            elif parts:
+                await self._fail(WSCloseCode.PROTOCOL_ERROR)
+                return WSMessage(WSMsgType.ERROR, "new message inside a fragmented one")
+            else:
+                first = opcode
+            parts.append(payload)
+            if sum(map(len, parts)) > WS_MAX_MSG:
+                await self._fail(WSCloseCode.MESSAGE_TOO_BIG)
+                return WSMessage(WSMsgType.ERROR, "message too big")
+            if not fin:
+                continue
+            data = b"".join(parts)
+            if first == 0x2:
+                return WSMessage(WSMsgType.BINARY, data)
+            try:
+                return WSMessage(WSMsgType.TEXT, data.decode("utf-8"))
+            except UnicodeDecodeError:
+                await self._fail(WSCloseCode.INVALID_TEXT)
+                return WSMessage(WSMsgType.ERROR, "invalid utf-8 text")
+
+    async def _fail(self, code: int) -> None:
+        self.close_code = code
+        await self._send_close(code)
+        self._closed = True
+        self._abort()
+
+    def _abort(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+
+    def _after_close(self) -> None:
+        """The close handshake ended: the client drops its connection;
+        the server's ends when its handler returns."""
+
+    async def close(self, *, code: int = WSCloseCode.OK, message: bytes = b"",
+                    timeout: float = 10.0) -> bool:
+        """Send a close frame and, unless another task is reading, wait
+        for the peer's. False when it was already closed."""
+        if self._closed:
+            return False
+        if self._closing:
+            return False
+        await self._send_close(code, message)
+        if self._closed or self._reading:
+            return True
+        try:
+            async with asyncio.timeout(timeout):
+                while not self._closed:
+                    msg = await self.receive()
+                    if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSED, WSMsgType.ERROR):
+                        break
+        except TimeoutError:
+            self._closed = True
+            self._abort()
+        if self.close_code is None:
+            self.close_code = code
+        return True
+
+    def __aiter__(self) -> "_WebSocket":
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED, WSMsgType.ERROR):
+            raise StopAsyncIteration
+        return msg
+
+
+class WebSocketResponse(_WebSocket, StreamResponse):
+    """The server side: ``await ws.prepare(request)`` answers the upgrade
+    (aiohttp's 400 bodies on a request that is none), then the handler
+    iterates the client's messages; the connection closes when the
+    handler returns."""
+
+    def __init__(self) -> None:
+        StreamResponse.__init__(self, status=101)
+        _WebSocket.__init__(self)
+
+    async def prepare(self, request: Request) -> None:
+        if self.prepared:
+            return
+        h = request.headers
+        if h.get("Upgrade", "").lower().strip() != "websocket":
+            raise HTTPBadRequest(text=f'No WebSocket UPGRADE hdr: {h.get("Upgrade")}\n Can '
+                                      '"Upgrade" only to "WebSocket".')
+        if "upgrade" not in h.get("Connection", "").lower():
+            raise HTTPBadRequest(text=f'No CONNECTION upgrade hdr: {h.get("Connection")}')
+        version = h.get("Sec-WebSocket-Version", "")
+        if version not in ("13", "8", "7"):
+            raise HTTPBadRequest(text=f"Unsupported version: {version}")
+        key = h.get("Sec-WebSocket-Key")
+        try:
+            if not key or len(base64.b64decode(key)) != 16:
+                raise HTTPBadRequest(text=f"Handshake error: {key!r}")
+        except ValueError:
+            raise HTTPBadRequest(text=f"Handshake error: {key!r}") from None
+        self.prepared = True
+        self._reader, self._writer = request._reader, request._writer
+        head = Headers({"Upgrade": "websocket", "Connection": "upgrade",
+                        "Sec-WebSocket-Accept": ws_accept(key)})
+        lines = ["HTTP/1.1 101 Switching Protocols"] + [f"{k}: {v}" for k, v in head.items()]
+        self._writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+        await self._writer.drain()
+
+    async def write_eof(self) -> None:
+        """The handler returned: close with 1000 unless already closed."""
+        if not self._closed and not self._closing and not self._writer.is_closing():
+            await self._send_close(WSCloseCode.OK)
+
+    @property
+    def complete(self) -> bool:
+        return False  # the connection never goes back to HTTP
 
 
 class HTTPException(Exception):
@@ -347,6 +862,10 @@ class HTTPMethodNotAllowed(HTTPException):
 
     def __init__(self, allowed: Iterable[str]):
         super().__init__(headers={"Allow": ",".join(sorted(allowed))})
+
+
+class HTTPRequestRangeNotSatisfiable(HTTPException):
+    status = 416
 
 
 class HTTPRequestEntityTooLarge(HTTPException):
@@ -385,6 +904,7 @@ _PATH_SAFE = "/:@!$&'()*+,;=-._~"
 class Route:
     def __init__(self, method: str, path: str, handler: Handler):
         self.method, self.path, self.handler = method.upper(), path, handler
+        self.canonical = re.sub(r"\{([^}:]+):[^}]*\}", r"{\1}", path)
         parts, pos = [], 0
         for m in _CAPTURE.finditer(path):
             parts.append(re.escape(urllib.parse.quote(path[pos:m.start()], safe=_PATH_SAFE)))
@@ -426,6 +946,7 @@ class Application:
                 continue
             if r.method == request.method or (r.method == "GET" and request.method == "HEAD"):
                 request.match_info = info
+                request.route = r
                 return r.handler
             allowed.add(r.method)
         exc: HTTPException = HTTPMethodNotAllowed(allowed) if allowed else HTTPNotFound()
@@ -515,6 +1036,8 @@ class Server:
     async def _respond(self, request: Request, writer: asyncio.StreamWriter) -> bool:
         """Answer one request; True when the connection stays open."""
         resp = await self.app.handle(request)
+        if isinstance(resp, StreamResponse) and not resp.prepared:
+            await resp.prepare(request)
         if resp.prepared:
             if writer.is_closing():
                 return False
@@ -673,3 +1196,78 @@ class HttpClient:
         for conns in pools.values():
             for _, writer in conns:
                 writer.close()
+
+
+# --- websocket client --------------------------------------------------------------------
+
+
+class WSServerHandshakeError(ClientError):
+    """The server refused the upgrade (aiohttp's WSServerHandshakeError)."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(f"{status}, message={message!r}")
+        self.status = status
+
+
+class ClientWebSocket(_WebSocket):
+    """The client side of a websocket (frames masked); the connection
+    closes once the close handshake ends."""
+
+    _mask = True
+
+    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        super().__init__()
+        self._reader, self._writer = reader, writer
+
+    def _after_close(self) -> None:
+        self._writer.close()
+
+    async def close(self, *, code: int = WSCloseCode.OK, message: bytes = b"",
+                    timeout: float = 10.0) -> bool:
+        try:
+            return await super().close(code=code, message=message, timeout=timeout)
+        finally:
+            if not self._reading:
+                self._writer.close()
+
+
+async def ws_connect(url: str, *, timeout: float = 10.0) -> ClientWebSocket:
+    """Open a websocket to ``url`` (``ws://`` or ``http://``)."""
+    u = urllib.parse.urlsplit(url)
+    if u.scheme not in ("ws", "http") or not u.hostname:
+        raise ClientError(f"unsupported url {url!r}")
+    port = u.port or 80
+    target = (u.path or "/") + (f"?{u.query}" if u.query else "")
+    key = base64.b64encode(os.urandom(16)).decode()
+    h = Headers({"Host": u.hostname if port == 80 else f"{u.hostname}:{port}",
+                 "Upgrade": "websocket", "Connection": "Upgrade",
+                 "Sec-WebSocket-Key": key, "Sec-WebSocket-Version": "13",
+                 "User-Agent": SERVER_NAME})
+    lines = [f"GET {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in h.items()]
+    try:
+        async with asyncio.timeout(timeout):
+            reader, writer = await asyncio.open_connection(u.hostname, port)
+            try:
+                writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+                await writer.drain()
+                first = await reader.readuntil(b"\n")
+                m = _STATUS_LINE.fullmatch(first.rstrip(b"\r\n"))
+                if m is None:
+                    raise ClientError(f"malformed status line {first[:40]!r}")
+                resp_headers = _parse_headers(await _read_lines(reader))
+            except BaseException:
+                writer.close()
+                raise
+    except (OSError, EOFError, ValueError, asyncio.IncompleteReadError) as e:
+        raise ClientError(f"{type(e).__name__}: {e}") from e
+    status = int(m.group(2))
+    if status != 101:
+        writer.close()
+        raise WSServerHandshakeError(status, "Invalid response status")
+    if resp_headers.get("Upgrade", "").lower() != "websocket":
+        writer.close()
+        raise WSServerHandshakeError(status, "Invalid upgrade header")
+    if resp_headers.get("Sec-WebSocket-Accept") != ws_accept(key):
+        writer.close()
+        raise WSServerHandshakeError(status, "Invalid challenge response")
+    return ClientWebSocket(reader, writer)

@@ -13,11 +13,29 @@
   handler that raises and a raised 400/404 answer the same status and
   body from either server to either client.
 
+Websockets and files (the API host's layer):
+
+- the port's websocket server and client together: the handshake's
+  `Sec-WebSocket-Accept` (RFC 6455's own example), text and binary
+  messages, a message fragmented across frames, frames of 125, 126,
+  65,535 and 65,536 bytes (each length form), pings answered, the close
+  handshake with the code echoed, the 400 bodies for a request that is
+  no upgrade, a frame with its reserved bits set closed with 1002;
+- `FileResponse` against `aiohttp.web.FileResponse` on one file: status,
+  body, `Content-Range`, `Accept-Ranges`, `ETag` and `Last-Modified` for
+  every `Range` form, `If-None-Match` / `If-Modified-Since` (304),
+  `If-Match` (412), `If-Range`, HEAD, a missing file and a directory;
+- mixed websocket pairs: `aiohttp`'s client (masked frames, its close
+  handshake) against the port's server, and the port's client against
+  an `aiohttp.web` websocket handler, the same echo both ways.
+
 Every socket binds 127.0.0.1; every case runs under its own timeout.
 """
 
 import asyncio
+import base64
 import json
+import os
 import socket
 import struct
 
@@ -404,3 +422,289 @@ def test_mixed_pairs_answer_alike(method, path, body, data):
             await runner.cleanup()
 
     _run(run())
+
+
+# --- websockets ------------------------------------------------------------------------
+
+
+def _ws_handlers(web, msg_type):
+    """An echo websocket on `web` (the port's http module or aiohttp.web):
+    text back as "echo:" + text, binary back reversed, "close" closes
+    with 4000 from the server."""
+
+    async def ws_echo(request):
+        ws = web.WebSocketResponse()
+        await ws.prepare(request)
+        async for msg in ws:
+            if msg.type == msg_type.TEXT:
+                if msg.data == "close":
+                    await ws.close(code=4000, message=b"bye")
+                    break
+                await ws.send_str("echo:" + msg.data)
+            elif msg.type == msg_type.BINARY:
+                await ws.send_bytes(msg.data[::-1])
+        return ws
+
+    return [web.get("/ws", ws_echo)]
+
+
+async def _port_ws_server():
+    app = http.Application()
+    app.add_routes(_ws_handlers(http, http.WSMsgType))
+    srv = http.Server(app)
+    return srv, await srv.start()
+
+
+def test_ws_accept_is_the_rfc_example():
+    assert http.ws_accept("dGhlIHNhbXBsZSBub25jZQ==") == "s3pPLMBiTxaQ9kYGzzhZRbK+xOo="
+
+
+@pytest.mark.parametrize("size", [0, 125, 126, 65535, 65536, 300_000])
+def test_ws_round_trip_every_length_form(size):
+    async def run():
+        srv, port = await _port_ws_server()
+        ws = await http.ws_connect(f"ws://127.0.0.1:{port}/ws")
+        try:
+            text = "x" * size
+            await ws.send_str(text)
+            msg = await ws.receive(timeout=10)
+            assert (msg.type, msg.data) == (http.WSMsgType.TEXT, "echo:" + text)
+            blob = os.urandom(size)
+            await ws.send_bytes(blob)
+            msg = await ws.receive(timeout=10)
+            assert (msg.type, msg.data) == (http.WSMsgType.BINARY, blob[::-1])
+            assert await ws.close() is True
+            assert ws.close_code == 1000 and ws.closed
+            assert (await ws.receive()).type == http.WSMsgType.CLOSED
+        finally:
+            await srv.shutdown()
+
+    _run(run())
+
+
+def test_ws_fragments_pings_and_server_close():
+    async def run():
+        srv, port = await _port_ws_server()
+        ws = await http.ws_connect(f"http://127.0.0.1:{port}/ws")
+        try:
+            # one text message in three frames, a ping between them
+            w = ws._writer
+            w.write(http._ws_frame(0x1, b"fr", True, fin=False))
+            w.write(http._ws_frame(0x9, b"p!", True))
+            w.write(http._ws_frame(0x0, "ag\u00e9".encode(), True, fin=False))
+            w.write(http._ws_frame(0x0, b"ment", True))
+            await w.drain()
+            # the pong comes back first (the server answers pings inline)
+            fin, opcode, payload = await http._ws_read_frame(ws._reader, 1 << 20)
+            assert (fin, opcode, payload) == (True, 0xA, b"p!")
+            msg = await ws.receive(timeout=10)
+            assert msg.data == "echo:fragment".replace("fragment", "frag\u00e9ment")
+            await ws.send_str("close")
+            msg = await ws.receive(timeout=10)
+            assert (msg.type, msg.data, msg.extra) == (http.WSMsgType.CLOSE, 4000, "bye")
+            assert ws.close_code == 4000
+        finally:
+            await srv.shutdown()
+
+    _run(run())
+
+
+def test_ws_refusals_answer_as_aiohttp():
+    async def run():
+        srv, port = await _port_ws_server()
+        client = http.HttpClient()
+        try:
+            base = f"http://127.0.0.1:{port}/ws"
+            r = await client.request("GET", base)
+            assert (r.status, r.text()) == (400, 'No WebSocket UPGRADE hdr: None\n Can '
+                                                 '"Upgrade" only to "WebSocket".')
+            r = await client.request("GET", base, headers={"Upgrade": "websocket"})
+            assert (r.status, r.text()) == (400, "No CONNECTION upgrade hdr: None")
+            r = await client.request("GET", base, headers={
+                "Upgrade": "websocket", "Connection": "Upgrade", "Sec-WebSocket-Version": "12"})
+            assert (r.status, r.text()) == (400, "Unsupported version: 12")
+            r = await client.request("GET", base, headers={
+                "Upgrade": "websocket", "Connection": "Upgrade", "Sec-WebSocket-Version": "13",
+                "Sec-WebSocket-Key": "c2hvcnQ="})
+            assert (r.status, r.text()) == (400, "Handshake error: 'c2hvcnQ='")
+            with pytest.raises(http.WSServerHandshakeError):
+                await http.ws_connect(f"ws://127.0.0.1:{port}/nope")
+            # a frame with a reserved bit set: the server closes with 1002
+            ws = await http.ws_connect(base)
+            ws._writer.write(bytes([0xC1, 0x80]) + b"\x00" * 4)
+            await ws._writer.drain()
+            msg = await ws.receive(timeout=10)
+            assert (msg.type, msg.data) == (http.WSMsgType.CLOSE, 1002)
+        finally:
+            await client.close()
+            await srv.shutdown()
+
+    _run(run())
+
+
+def test_ws_mixed_pairs_echo_alike():
+    aiohttp = pytest.importorskip("aiohttp")
+    from aiohttp import web
+
+    async def run():
+        app = web.Application()
+        app.add_routes(_ws_handlers(web, aiohttp.WSMsgType))
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        aio_port = site._server.sockets[0].getsockname()[1]
+        srv, port = await _port_ws_server()
+        seen = {}
+        try:
+            async with aiohttp.ClientSession() as session:
+                for server, p in (("aiohttp", aio_port), ("port", port)):
+                    url = f"http://127.0.0.1:{p}/ws"
+                    got = []
+                    async with session.ws_connect(url) as ws:
+                        for text in ("a", "b" * 70_000):
+                            await ws.send_str(text)
+                            got.append((await ws.receive(timeout=10)).data)
+                        await ws.send_bytes(b"xyz")
+                        got.append((await ws.receive(timeout=10)).data)
+                        await ws.send_str("close")
+                        msg = await ws.receive(timeout=10)
+                        got.append((int(msg.type), msg.data, msg.extra))
+                    seen[(server, "aiohttp")] = got
+                    ws = await http.ws_connect(url)
+                    got = []
+                    for text in ("a", "b" * 70_000):
+                        await ws.send_str(text)
+                        got.append((await ws.receive(timeout=10)).data)
+                    await ws.send_bytes(b"xyz")
+                    got.append((await ws.receive(timeout=10)).data)
+                    await ws.send_str("close")
+                    msg = await ws.receive(timeout=10)
+                    got.append((int(msg.type), msg.data, msg.extra))
+                    seen[(server, "port")] = got
+                    ws2 = await http.ws_connect(url)
+                    await ws2.send_str("a")
+                    assert (await ws2.receive(timeout=10)).data == "echo:a"
+                    assert await ws2.close() and ws2.close_code == 1000
+            assert len({json.dumps(v, default=repr) for v in seen.values()}) == 1, seen
+            assert seen[("port", "port")][-1] == (8, 4000, "bye")
+        finally:
+            await srv.shutdown()
+            await runner.cleanup()
+
+    _run(run())
+
+
+# --- files -----------------------------------------------------------------------------
+
+
+FILE_CASES = [
+    {}, {"Range": "bytes=0-99"}, {"Range": "bytes=100-"}, {"Range": "bytes=-100"},
+    {"Range": "bytes=-99999"}, {"Range": "bytes=4999-9999"}, {"Range": "bytes=5000-"},
+    {"Range": "bytes=9-3"}, {"Range": "bytes=a-b"}, {"Range": "bytes=0-1,4-5"},
+    {"If-None-Match": "ETAG"}, {"If-None-Match": '"nope", ETAG'}, {"If-None-Match": "*"},
+    {"If-Match": '"nope"'}, {"If-Match": "ETAG"},
+    {"If-Modified-Since": "Fri, 01 Jan 2100 00:00:00 GMT"},
+    {"If-Modified-Since": "Thu, 01 Jan 1970 00:00:00 GMT"},
+    {"If-Unmodified-Since": "Thu, 01 Jan 1970 00:00:00 GMT"},
+    {"If-Range": "Fri, 01 Jan 2100 00:00:00 GMT", "Range": "bytes=0-9"},
+    {"If-Range": "Thu, 01 Jan 1970 00:00:00 GMT", "Range": "bytes=0-9"},
+]
+
+
+@pytest.mark.parametrize("method", ["GET", "HEAD"])
+def test_file_response_answers_as_aiohttp(tmp_path, method):
+    aiohttp = pytest.importorskip("aiohttp")
+    from aiohttp import web
+
+    data = os.urandom(5000)
+    path = tmp_path / "blob.bin"
+    path.write_bytes(data)
+    (tmp_path / "dir").mkdir()
+
+    def handlers(mod):
+        async def blob(request):
+            return mod.FileResponse(str(path), headers={"Content-Type": "application/x-sd"})
+
+        async def plain(request):
+            return mod.FileResponse(str(path))
+
+        async def gone(request):
+            return mod.FileResponse(str(tmp_path / "missing.bin"))
+
+        async def folder(request):
+            return mod.FileResponse(str(tmp_path / "dir"))
+
+        return [mod.get("/blob", blob), mod.get("/plain", plain), mod.get("/gone", gone),
+                mod.get("/dir", folder)]
+
+    async def run():
+        app = web.Application()
+        app.add_routes(handlers(web))
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        aio_port = site._server.sockets[0].getsockname()[1]
+        papp = http.Application()
+        papp.add_routes(handlers(http))
+        srv = http.Server(papp)
+        port = await srv.start()
+        client = http.HttpClient()
+        try:
+            etag = (await client.request("GET", f"http://127.0.0.1:{aio_port}/blob")
+                    ).headers["ETag"]
+            for route in ("/blob", "/plain", "/gone", "/dir"):
+                for case in FILE_CASES:
+                    headers = {k: v.replace("ETAG", etag) for k, v in case.items()}
+                    seen = {}
+                    for server, p in (("aiohttp", aio_port), ("port", port)):
+                        r = await client.request(method, f"http://127.0.0.1:{p}{route}",
+                                                 headers=headers)
+                        heads = {h: r.headers.get(h) for h in (
+                            "Content-Type", "Content-Range", "Accept-Ranges", "ETag",
+                            "Last-Modified")}
+                        if r.status in (200, 206):
+                            heads["Content-Length"] = r.headers.get("Content-Length")
+                        seen[server] = (r.status, heads, r.body)
+                    assert seen["port"] == seen["aiohttp"], (route, case)
+            r = await client.request(method, f"http://127.0.0.1:{port}/blob",
+                                     headers={"Range": "bytes=-100"})
+            assert r.status == 206 and r.body == (data[-100:] if method == "GET" else b"")
+        finally:
+            await client.close()
+            await srv.shutdown()
+            await runner.cleanup()
+
+    _run(run())
+
+
+def test_request_range_and_body_properties():
+    """`http_range` and `can_read_body` read as aiohttp's request's."""
+    aiohttp = pytest.importorskip("aiohttp")
+    from aiohttp.test_utils import make_mocked_request
+
+    for rng in (None, "bytes=0-9", "bytes=5-", "bytes=-7", "bytes=9-3", "bytes=x", "bytes=-",
+                "bytes=0-1,2-3", "items=1-2"):
+        headers = {"Range": rng} if rng else {}
+        theirs = make_mocked_request("GET", "/", headers=headers)
+        ours = http.Request("GET", "/", "HTTP/1.1", http.Headers(headers), None, _Writer())
+        try:
+            want = theirs.http_range
+        except ValueError as e:
+            with pytest.raises(ValueError, match=str(e)):
+                ours.http_range
+        else:
+            assert ours.http_range == want, rng
+    for headers, want in (({}, False), ({"Content-Length": "0"}, False),
+                          ({"Content-Length": "3"}, True),
+                          ({"Transfer-Encoding": "chunked"}, True)):
+        ours = http.Request("POST", "/", "HTTP/1.1", http.Headers(headers), None, _Writer())
+        assert ours.can_read_body is want, headers
+
+
+class _Writer:
+    transport = None
+
+    def get_extra_info(self, name):
+        return None

@@ -542,7 +542,10 @@ def test_txn_quantum_and_combined_count_equal_jax(env, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     assert pingest.ingest_txn_quantum() == jingest.ingest_txn_quantum()
-    assert pingest.SYNC_TXN_OPS == 64
+    from spacedrive_tpu.serve import policy as jpolicy
+    from spacedrive_tpu_torch.serve import policy as ppolicy
+
+    assert ppolicy().sync_txn_ops == jpolicy().sync_txn_ops == 64
     counts = {}
     for pkg, telemetry in (("jax", jtelemetry), ("port", ptelemetry)):
         src, dst = Instance(pkg, "src"), Instance(pkg, "dst")
