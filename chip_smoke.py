@@ -333,6 +333,31 @@ in brownout after it with `serve` degraded, and `/metrics` counts the
 (`mobile.handle_core_msg` on the card) answers (b)'s query on the same
 data dir with (b)'s rows. It prints `{"api_serve": ...}` with each
 step's seconds, the launches, the websocket frames and the sheds.
+Phase 20 is the mesh work plane and the execution continuum, with the
+ladder, the controller and the telemetry reset first: two port Nodes
+on the card (A and B, without the labeler), their P2P managers on
+127.0.0.1 with unicast beacons and every stream Noise over TCP, B
+joined to A's library by `p2p.pairLibrary` and A's consent, and a solo
+port Node on the card with p2p off; all three read one folder of 64
+files taken evenly from phase 3's snapshot (56 others, 8 images; hard
+links). K1's launches are told apart by the Node whose identifier
+window or mesh identify shard made them. (a) A's
+`distribute_location_index` with 8 files a shard: B executes identify
+shards (`sd_work_shards_total{result="completed_remote"}` > 0), K1
+launches on A, B and the solo Node, every cas_id equals `blake3_ref`,
+and A's rows, object grouping and journal vouches equal the solo
+Node's pass through the same entry point. (b) A's
+`distribute_location_stages` of thumb, media.extract, phash and embed:
+B executes stage shards; webp bytes, media_data rows and pHash bits
+equal the solo pass's, vectors within 1e-5 (the largest |d| and
+whether they matched bit for bit printed), and `check_healthy` by
+delta. (c) 16 more files, distributed in shards of 2 under
+`p2p.steal:vanish` with a 2 s lease clamp: B vanishes with its lease,
+A re-pools it at the deadline and ends with the solo pass's rows,
+objects and journal; the degradation counters move by that one
+activation. It prints `{"mesh_work": ...}` with each step's seconds,
+the shards by executor, the per-stage files/s of `rates_report` and
+K1's launches by Node.
 
 Any failed check exits non-zero. Without a CUDA device the script exits
 non-zero before any work. The last line of standard output is
@@ -342,8 +367,8 @@ table, the pass's stage times, the read side's, the labeler's, the
 training's, the device seam's, the execution plane's, the other
 decoders', the API's, the observability plane's, the verdicts', the
 live location's, the replica's, the p2p transport's, the node's p2p's,
-cloud sync's and the API host's numbers, and each phase's wall seconds,
-as JSON.
+cloud sync's, the API host's and the mesh work plane's numbers, and
+each phase's wall seconds, as JSON.
 """
 
 from __future__ import annotations
@@ -6030,10 +6055,12 @@ P2P_NODE_DROP_BYTES = 8 << 20  # (c): at least this much of A's files
 
 
 class _K1Owners:
-    """K1's CUDA launches by the Node whose FileIdentifierJob window made
-    them (its config name), "other" for any launch outside a window: the
-    wrapper of `chunk_cvs` reads a thread-local owner that a wrapper of
-    `FileIdentifierJob._fetch_window` sets around the window it fetches."""
+    """K1's CUDA launches by the Node whose FileIdentifierJob window or
+    mesh identify shard made them (its config name), "other" for any
+    launch outside both: the wrapper of `chunk_cvs` reads a thread-local
+    owner that wrappers of `FileIdentifierJob._fetch_window` and
+    `location/indexer/mesh._execute_shard_sync` set around the window
+    or shard they run."""
 
     def __init__(self):
         import threading
@@ -6042,10 +6069,12 @@ class _K1Owners:
         self._local = threading.local()
 
     def __enter__(self):
+        from spacedrive_tpu_torch.location.indexer import mesh
         from spacedrive_tpu_torch.object.file_identifier.job import FileIdentifierJob
         from spacedrive_tpu_torch.ops import blake3_cuda
 
         chunk_cvs, fetch = blake3_cuda.chunk_cvs, FileIdentifierJob._fetch_window
+        shard = mesh._execute_shard_sync
         local, by = self._local, self.by
 
         def counted(words, *a, **k):
@@ -6060,17 +6089,26 @@ class _K1Owners:
             finally:
                 local.owner = None
 
+        def owned_shard(library, *a, **k):
+            local.owner = library.node.config.config.name
+            try:
+                return shard(library, *a, **k)
+            finally:
+                local.owner = None
+
         # the kernel's wrapper counts its launches on the module's
         # `chunk_cvs`, this wrapper while it is in place
         counted.launches = chunk_cvs.launches
-        self._saved = (blake3_cuda, chunk_cvs, FileIdentifierJob, fetch)
+        self._saved = (blake3_cuda, chunk_cvs, FileIdentifierJob, fetch, mesh, shard)
         blake3_cuda.chunk_cvs, FileIdentifierJob._fetch_window = counted, owned
+        mesh._execute_shard_sync = owned_shard
         return self
 
     def __exit__(self, *exc):
-        blake3_cuda, chunk_cvs, job_cls, fetch = self._saved
+        blake3_cuda, chunk_cvs, job_cls, fetch, mesh, shard = self._saved
         chunk_cvs.launches = blake3_cuda.chunk_cvs.launches
         blake3_cuda.chunk_cvs, job_cls._fetch_window = chunk_cvs, fetch
+        mesh._execute_shard_sync = shard
 
     def take(self) -> dict:
         out = dict(self.by)
@@ -6935,11 +6973,314 @@ def report_api_serve(got: dict) -> dict:
     return {"launches": {"api_serve": got["launches"]}}
 
 
+# --- phase 20: the mesh work plane and the execution continuum --------------------------
+
+MESH_FILES = 64  # taken evenly from phase 3's files, MESH_IMAGES of them images
+MESH_IMAGES = 8
+MESH_MORE = 16  # (c)'s files, taken with the others
+MESH_SHARD_FILES = 8
+MESH_STAGE_SHARD_FILES = 4  # (b): 2 shards of each stage
+MESH_VANISH_SHARD_FILES = 2  # (c): 8 shards, so B's first claim finds work left
+MESH_LEASE_S = 2.0  # (c)'s lease clamp: the vanished lease re-pools at this deadline
+MESH_WAIT_S = 60  # the bound on one step of the phase
+MESH_STAGES = ("thumb", "media.extract", "phash", "embed")
+
+
+def _mesh_views(node, lib, loc_id: int) -> dict:
+    """A library's observable result of the identify and stage passes,
+    keyed by content or path so two libraries compare: path -> cas_id,
+    cas_id -> the paths of its one object, journal key -> (cas_id, chunk
+    digests, thumb, media, pHash and embed vouches), and cas_id -> webp
+    bytes, media_data row, pHash and vector blob."""
+    from spacedrive_tpu_torch.location.indexer.journal import entry_of_row, key_of
+
+    def key(r):
+        return f"{r['materialized_path']}{r['name']}.{r['extension'] or ''}"
+
+    rows = lib.db.query("SELECT fp.*, o.phash AS ph, oe.vector AS vec FROM file_path fp "
+                        "LEFT JOIN object o ON o.id = fp.object_id LEFT JOIN object_embedding oe "
+                        "ON oe.object_id = o.id WHERE fp.location_id = ? AND fp.is_dir = 0",
+                        (loc_id,))
+    groups: dict = {}
+    for r in rows:
+        if r["object_id"] is not None:
+            groups.setdefault(r["cas_id"], set()).add(key(r))
+    vouches = {}
+    for r in lib.db.query("SELECT * FROM index_journal WHERE location_id = ?", (loc_id,)):
+        e = entry_of_row(r)
+        check(e is not None, "20: a corrupt journal row")
+        # a media digest covers the replica's own object_id: its presence
+        # and emptiness compare across libraries, its value does not
+        vouches[key_of(r)] = (e.cas_id, tuple(e.chunks.digests) if e.chunks else None, e.thumb,
+                              e.media_digest is not None, bool(e.media_digest), e.phash, e.embed)
+    store = node.thumbnailer.store
+    webps = {}
+    for r in rows:
+        path = store.path_for(str(lib.id), r["cas_id"]) if r["cas_id"] else None
+        if path and os.path.exists(path):
+            with open(path, "rb") as f:
+                webps[r["cas_id"]] = f.read()
+    media = {r["cas_id"]: tuple(sorted((k, v) for k, v in r.items()
+                                       if k not in ("id", "object_id", "cas_id")))
+             for r in lib.db.query("SELECT fp.cas_id, md.* FROM file_path fp JOIN media_data md "
+                                   "ON md.object_id = fp.object_id WHERE fp.location_id = ?",
+                                   (loc_id,))}
+    return {"rows": {key(r): r["cas_id"] for r in rows},
+            "groups": {c: frozenset(v) for c, v in groups.items()},
+            "journal": vouches, "webp": webps, "media": media,
+            "phash": {r["cas_id"]: r["ph"] for r in rows if r["ph"] is not None},
+            "vectors": {r["cas_id"]: r["vec"] for r in rows if r["vec"] is not None}}
+
+
+def _vector_diff(got: dict, want: dict) -> tuple[float, bool]:
+    """The largest |d| between two cas -> vector-blob maps of one key
+    set, and whether every blob is equal bit for bit."""
+    check(set(got) == set(want), f"20(b): vectors for {len(got)} objects, want {len(want)}")
+    worst = 0.0
+    for c, blob in want.items():
+        a, b = np.frombuffer(got[c], np.float32), np.frombuffer(blob, np.float32)
+        check(a.shape == b.shape and bool(np.isfinite(a).all()), f"20(b): vector of {c}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst, all(got[c] == want[c] for c in want)
+
+
+async def mesh_work(tmp: str, snapshot: str, since: dict) -> dict:
+    """20(a)-(c) on two port Nodes on the card joined by pairing, their
+    managers on 127.0.0.1 over Noise TCP, against a solo port Node on
+    the card with p2p off; `since` is the degradation counters before
+    the phase."""
+    import asyncio
+
+    from spacedrive_tpu_torch.files.isolated_path import full_path_from_db_row
+    from spacedrive_tpu_torch.location.indexer.mesh import (
+        distribute_location_index,
+        distribute_location_stages,
+    )
+    from spacedrive_tpu_torch.location.locations import LocationCreateArgs
+    from spacedrive_tpu_torch.node.node import Node
+    from spacedrive_tpu_torch.ops import cas
+    from spacedrive_tpu_torch.p2p.manager import P2PManager
+    from spacedrive_tpu_torch.telemetry import counter_value
+    from spacedrive_tpu_torch.utils import faults
+
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(snapshot) for f in fs)
+    images = [f for f in files if f.endswith((".png", ".jpg"))]
+    others = [f for f in files if f not in set(images)]
+    n_others = MESH_FILES - MESH_IMAGES + MESH_MORE
+    picked = (others[::len(others) // n_others][:n_others]
+              + images[::len(images) // MESH_IMAGES][:MESH_IMAGES])
+    more = picked[MESH_FILES - MESH_IMAGES:n_others]
+    loc_dir = os.path.join(tmp, "p20_location")  # one folder, read by A, B and the solo Node
+    os.makedirs(loc_dir)
+
+    def link(paths) -> None:
+        for path in paths:
+            os.link(path, os.path.join(loc_dir, f"{picked.index(path):03d}_{os.path.basename(path)}"))
+
+    link([p for p in picked if p not in more])
+    steps: dict[str, float] = {}
+    out: dict = {"steps_s": steps}
+    t0 = time.perf_counter()
+    nodes = []
+    for name in ("p20-a", "p20-b", "p20-solo"):
+        node = Node(os.path.join(tmp, name), device=DEVICE, with_labeler=False)
+        node.config.config.p2p.enabled = False  # A's and B's managers are attached below
+        node.config.config.name = name
+        await node.start()
+        if name != "p20-solo":
+            node.p2p = P2PManager(node, beacon_addrs=[("127.0.0.1", 1)], bind_host="127.0.0.1")
+        nodes.append(node)
+    a, b, solo = nodes
+    owners = _K1Owners()
+    stage_ids = list(MESH_STAGES)
+    try:
+        with owners:
+            for n in (a, b):
+                await n.p2p.start()
+            da, db_ = (n.p2p.p2p._discovery[0] for n in (a, b))
+            da.beacon_addrs, db_.beacon_addrs = [("127.0.0.1", db_.bind_port)], [("127.0.0.1", da.bind_port)]
+            da.interval = db_.interval = 0.05
+            async with asyncio.timeout(MESH_WAIT_S):
+                while not (a.p2p.p2p.discovered_peers() and b.p2p.p2p.discovered_peers()):
+                    await asyncio.sleep(0.01)
+            lid = (await a.router.exec(a, "library.create", {"name": "p20"}))["uuid"]
+            lib_a = a.libraries.get(uuid.UUID(lid))
+            offers = []
+            a.event_bus.on(lambda ev: offers.append(ev[1]) if isinstance(ev, tuple) and ev
+                           and ev[0] == "PairingRequest" else None)
+
+            async def consent():
+                while not offers:
+                    await asyncio.sleep(0.01)
+                await a.router.exec(a, "p2p.acceptPairing", str(offers[0].id))
+
+            async with asyncio.timeout(MESH_WAIT_S):
+                joined, _ = await asyncio.gather(
+                    b.router.exec(b, "p2p.pairLibrary",
+                                  {"identity": str(a.p2p.p2p.remote_identity), "library_id": lid}),
+                    consent())
+            check(joined == lid, f"20: B joined {joined}, not {lid}")
+            lib_b = b.libraries.get(uuid.UUID(lid))
+            loc = LocationCreateArgs(path=loc_dir).create(lib_a)
+            # B resolves the session's location on its own replica
+            async with asyncio.timeout(MESH_WAIT_S):
+                while lib_b.db.find_one("location", pub_id=loc["pub_id"]) is None:
+                    await a.p2p._alert_peers(lib_a.id)
+                    await asyncio.sleep(0.02)
+            lib_s = await solo.create_library("p20-solo")
+            loc_s = LocationCreateArgs(path=loc_dir).create(lib_s)
+            steps["start_s"] = time.perf_counter() - t0
+            out["launches_start"] = owners.take()
+            check(not out["launches_start"], f"20: the set-up launched K1 {out['launches_start']}")
+
+            # (a) distributed identify against the solo Node's pass
+            b_id = str(b.p2p.p2p.remote_identity)
+            out["b_verdict"] = a.p2p.work.peer_verdict(b_id)
+            print(f"phase 20: B's federated verdict on A: {out['b_verdict']}", flush=True)
+            t0 = time.perf_counter()
+            out["solo_identify"] = await distribute_location_index(
+                solo, lib_s, loc_s["id"], shard_files=MESH_SHARD_FILES)
+            steps["solo_identify_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            async with asyncio.timeout(MESH_WAIT_S):
+                out["identify"] = await distribute_location_index(
+                    a, lib_a, loc["id"], shard_files=MESH_SHARD_FILES)
+            steps["identify_s"] = time.perf_counter() - t0
+            out["identify_launches"] = owners.take()
+            out["b_executed"] = {"identify": b.p2p.work.worker.executed_shards}
+            remote = counter_value("sd_work_shards_total", result="completed_remote",
+                                   stage="identify.hash")
+            check(out["identify"]["remote_shards"] > 0 and out["b_executed"]["identify"] > 0
+                  and remote > 0, f"20(a): B executed no identify shard: {out['identify']}")
+            check({"p20-a", "p20-b", "p20-solo"} <= set(out["identify_launches"])
+                  and "other" not in out["identify_launches"],
+                  f"20(a): K1 launches by Node {out['identify_launches']}")
+            want = _mesh_views(solo, lib_s, loc_s["id"])
+            got = _mesh_views(a, lib_a, loc["id"])
+            hashed = [(full_path_from_db_row(loc_dir, r), r["cas_id"]) for r in lib_a.db.query(
+                "SELECT * FROM file_path WHERE location_id = ? AND is_dir = 0 AND cas_id != ''",
+                (loc["id"],))]
+            check(len(hashed) == sum(1 for c in got["rows"].values() if c),
+                  "20(a): a file without its cas_id")
+            refs = blake3_ref_hexes([cas.read_message(p) for p, _ in hashed])
+            check([c for _, c in hashed] == refs, "20(a): a cas_id differs from blake3_ref")
+            for part in ("rows", "groups", "journal"):
+                check(got[part] == want[part], f"20(a): A's {part} differ from the solo pass's")
+            out["identify_files"] = len(got["rows"])
+
+            # (b) the stage session against the solo Node's
+            t0 = time.perf_counter()
+            out["solo_stages"] = await distribute_location_stages(
+                solo, lib_s, loc_s["id"], stage_ids, shard_files=MESH_STAGE_SHARD_FILES)
+            steps["solo_stages_s"] = time.perf_counter() - t0
+            before = b.p2p.work.worker.executed_shards
+            t0 = time.perf_counter()
+            async with asyncio.timeout(MESH_WAIT_S):
+                out["stages"] = await distribute_location_stages(
+                    a, lib_a, loc["id"], stage_ids, shard_files=MESH_STAGE_SHARD_FILES)
+            steps["stages_s"] = time.perf_counter() - t0
+            out["stage_launches"] = owners.take()
+            check(not out["stage_launches"], f"20(b): the stages launched K1 {out['stage_launches']}")
+            out["b_executed"]["stages"] = b.p2p.work.worker.executed_shards - before
+            check(out["stages"]["remote_shards"] > 0 and out["b_executed"]["stages"] > 0,
+                  f"20(b): B executed no stage shard: {out['stages']}")
+            out["rates_b"] = b.p2p.work.worker.rates_report()
+            out["rates_a"] = a.p2p.work.worker.rates_report()
+            want = _mesh_views(solo, lib_s, loc_s["id"])
+            got = _mesh_views(a, lib_a, loc["id"])
+            for part in ("webp", "media", "phash", "journal"):
+                check(want[part] and got[part] == want[part],
+                      f"20(b): A's {part} ({len(got[part])}) differ from the solo pass's "
+                      f"({len(want[part])})")
+            out["max_vector_d"], out["vectors_bitwise"] = _vector_diff(got["vectors"], want["vectors"])
+            check(out["max_vector_d"] <= 1e-5, f"20(b): vectors differ by {out['max_vector_d']}")
+            print(f"phase 20: vectors {'equal bit for bit' if out['vectors_bitwise'] else 'within 1e-5'}"
+                  f" of the solo pass (max |d| {out['max_vector_d']:.3g})", flush=True)
+            out["stage_files"] = {k: len(got[k]) for k in ("webp", "media", "phash", "vectors")}
+            check_healthy("20(b)", since)
+
+            # (c) B vanishes mid-lease; A re-pools the lease at its deadline
+            link(more)
+            t0 = time.perf_counter()
+            await distribute_location_index(solo, lib_s, loc_s["id"], shard_files=MESH_SHARD_FILES)
+            steps["solo_more_s"] = time.perf_counter() - t0
+            plan = faults.FaultPlan.parse("p2p.steal:vanish:arg=lease,times=1")
+            expired0 = counter_value("sd_work_shards_total", result="expired", stage="identify.hash")
+            t0 = time.perf_counter()
+            with faults.active(plan):
+                async with asyncio.timeout(MESH_WAIT_S):
+                    out["vanish"] = await distribute_location_index(
+                        a, lib_a, loc["id"], shard_files=MESH_VANISH_SHARD_FILES,
+                        lease_max_s=MESH_LEASE_S)
+            steps["vanish_s"] = time.perf_counter() - t0
+            out["vanish_launches"] = owners.take()
+            out["expired"] = counter_value("sd_work_shards_total", result="expired",
+                                           stage="identify.hash") - expired0
+            check(plan.activations() == {"p2p.steal": 1} and out["expired"] >= 1,
+                  f"20(c): activations {plan.activations()}, {out['expired']} leases expired")
+            check(out["vanish"]["local_shards"] + out["vanish"]["remote_shards"]
+                  == out["vanish"]["shards"], f"20(c): {out['vanish']}")
+            want = _mesh_views(solo, lib_s, loc_s["id"])
+            got = _mesh_views(a, lib_a, loc["id"])
+            for part in ("rows", "groups", "journal"):
+                check(got[part] == want[part], f"20(c): A's {part} differ from the solo pass's: "
+                      f"{sorted(k for k in set(got[part]) | set(want[part]) if got[part].get(k) != want[part].get(k))[:4]}")
+            out["vanish_files"] = len(got["rows"])
+    finally:
+        for n in nodes:
+            await n.shutdown()
+    out["launches_by_node"] = dict(collections.Counter(out["identify_launches"])
+                                   + collections.Counter(out["vanish_launches"]))
+    out["launches"] = sum(out["launches_by_node"].values())
+    return out
+
+
+def phase_mesh_work(tmp: str, snapshot: str) -> dict:
+    """Phase 20: the mesh work plane and the execution continuum on two
+    port Nodes on the card against a solo one: (a) distributed identify,
+    (b) a stage session, (c) a vanished lease re-pooled."""
+    import asyncio
+
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.parallel import autotune, mesh
+
+    t_phase = time.perf_counter()
+    mesh.LADDER.reset()
+    autotune.reset()
+    telemetry.reset()  # the work counters and the stage rates count this phase alone
+    since = degradation()
+    blake3_cuda.chunk_cvs.launches = 0
+    got = asyncio.run(mesh_work(tmp, snapshot, since))
+    check(blake3_cuda.chunk_cvs.launches == got["launches"],
+          f"20: K1 launched {blake3_cuda.chunk_cvs.launches} times, {got['launches']} in shards "
+          f"and windows")
+    moved = {k: v - since[k] for k, v in degradation().items() if not k.startswith("demotion")}
+    check(moved == {**{k: 0 for k in moved}, "fault_activations": 1},
+          f"20(c): degradation counters moved {moved}")
+    got["seconds"] = time.perf_counter() - t_phase
+    return got
+
+
+def report_mesh_work(got: dict) -> dict:
+    print(json.dumps({"mesh_work": got}, default=str), flush=True)
+    steps = got["steps_s"]
+    ident, stages = got["identify"], got["stages"]
+    print(f"phase 20: the mesh work plane in {got['seconds']:.1f} s: (a) {got['identify_files']} "
+          f"files in {ident['shards']} identify shards ({ident['peers']}) in "
+          f"{steps['identify_s']:.2f} s, K1 launches by Node {got['launches_by_node']}, rows, "
+          f"objects and journal equal the solo pass's; (b) {stages['shards']} stage shards "
+          f"({stages['peers']}) in {steps['stages_s']:.2f} s, webp, media_data and pHash equal, "
+          f"vectors max |d| {got['max_vector_d']:.3g}; (c) the vanished lease re-pooled, "
+          f"{got['expired']} expired, {got['vanish_files']} rows equal", flush=True)
+    return {"launches": {"mesh_work": got["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--stop-after", type=int, default=19, choices=range(3, 20),
-                        metavar="PHASE", help="run phases 1 to PHASE only (default 19: all); "
+    parser.add_argument("--stop-after", type=int, default=20, choices=range(3, 21),
+                        metavar="PHASE", help="run phases 1 to PHASE only (default 20: all); "
                         "phase 3 alone times the pass on every visible card")
     args = parser.parse_args()
 
@@ -7040,6 +7381,9 @@ def main() -> int:
         if args.stop_after >= 19:
             launches.update(report_api_serve(phase_api_serve(tmp, snapshot))["launches"])
             lap("19")
+        if args.stop_after >= 20:
+            launches.update(report_mesh_work(phase_mesh_work(tmp, snapshot))["launches"])
+            lap("20")
     lap("cleanup")
     print(json.dumps({"wall_s": {"phases": phase_s,
                                  "smoke": time.perf_counter() - _T_START}}), flush=True)

@@ -29,8 +29,9 @@ wrong):
 `SD_INDEX_JOURNAL=0` disables consults AND writes (every lookup is
 `bypassed`).
 
-Counterpart of `spacedrive_tpu/location/indexer/journal.py` without its
-process-pool consult. The payload bytes and the verdicts are the same,
+Counterpart of `spacedrive_tpu/location/indexer/journal.py`, with its
+batched consult (`consult_many`) and that consult's process-pool match
+half (`_consult_pool`). The payload bytes and the verdicts are the same,
 and so is the watcher's surface (`mark_stale_subtree`, `delete_path`,
 `rename_path`: a rename moves the key and keeps every vouch and the
 chunk cache) and the orphan prune (`prune_orphans`,
@@ -54,7 +55,7 @@ from dataclasses import dataclass
 from typing import Any
 
 from ...db.database import blob_u64, now_iso, u64_blob
-from ...ops.cas import ChunkCache
+from ...ops.cas_host import ChunkCache
 from ...telemetry import metrics as _tm
 from ...utils.msgpack_codec import MsgpackError, packb, unpackb
 
@@ -174,6 +175,42 @@ def entry_of_row(row: dict) -> JournalEntry | None:
         return None
 
 
+def entry_to_plain(entry: JournalEntry) -> dict:
+    """A validated entry as a MessagePack-plain dict (the pool's
+    ``journal.match`` reply); `_entry_of_plain` reverses it."""
+    ident = entry.identity
+    return {
+        "identity": ([ident.inode, ident.dev, ident.mtime_ns, ident.size]
+                     if ident is not None else None),
+        "stale": entry.stale,
+        "cas_id": entry.cas_id,
+        "thumb": entry.thumb,
+        "media": entry.media_digest,
+        "phash": entry.phash,
+        "embed": entry.embed,
+        "chunks": entry.chunks.to_payload() if entry.chunks is not None else None,
+    }
+
+
+def _entry_of_plain(plain: dict) -> JournalEntry:
+    chunks = None
+    if plain.get("chunks") is not None:
+        # validated by the worker's entry_of_row: built without a second
+        # O(chunks) pass
+        p = plain["chunks"]
+        chunks = ChunkCache(p["len"], list(p["dig"]), p.get("cvs"))
+    return JournalEntry(
+        identity=Identity(*plain["identity"]) if plain.get("identity") is not None else None,
+        stale=bool(plain["stale"]),
+        cas_id=plain.get("cas_id"),
+        thumb=bool(plain.get("thumb")),
+        media_digest=plain.get("media"),
+        phash=plain.get("phash"),
+        embed=bool(plain.get("embed")),
+        chunks=chunks,
+    )
+
+
 def _decode_payload(blob: Any) -> dict | None:
     """Strictly validated payload decode; None = corrupt/foreign."""
     if blob is None:
@@ -291,6 +328,77 @@ class IndexJournal:
             )
         except sqlite3.Error:
             return BYPASSED, None
+        return self._verdict_of_row(location_id, key, row, identity)
+
+    #: keys per batched consult query: 3 bind parameters a key stay
+    #: under SQLite's default 999-variable limit
+    CONSULT_CHUNK = 300
+    #: the smallest fetched-row count worth a pool round trip
+    POOL_MIN_ITEMS = 16
+
+    def consult_many(
+        self,
+        location_id: int,
+        items: list[tuple[Key, Identity | None]],
+        count_invalidated: bool = True,
+        count: bool = True,
+    ) -> dict[Key, tuple[str, JournalEntry | None]]:
+        """Batched :meth:`lookup`: one row-value ``IN`` query per
+        :data:`CONSULT_CHUNK` keys instead of one SELECT a file, with the
+        same verdicts, counters and corrupt-row drop. With the process
+        pool live and at least :data:`POOL_MIN_ITEMS` rows fetched, the
+        payload decode and identity compare run in a worker
+        (``journal.match``)."""
+        if not items:
+            return {}
+        rows_by_key = self._fetch_many(location_id, items) if enabled() else None
+        if rows_by_key is None:
+            verdicts = [(BYPASSED, None)] * len(items)
+        else:
+            verdicts = self._consult_pool(location_id, items, rows_by_key)
+            if verdicts is None:
+                verdicts = [
+                    self._verdict_of_row(location_id, key, rows_by_key.get(key), ident)
+                    for key, ident in items
+                ]
+        if count:
+            tally: dict[str, int] = {}
+            for verdict, _entry in verdicts:
+                if verdict != INVALIDATED or count_invalidated:
+                    tally[verdict] = tally.get(verdict, 0) + 1
+            for verdict, n in tally.items():
+                _tm.INDEX_JOURNAL_OPS.inc(n, result=verdict)
+                self._loc_count(location_id, _LOC_FIELD_OF[verdict], n)
+        return {key: v for (key, _ident), v in zip(items, verdicts)}
+
+    def _fetch_many(
+        self, location_id: int, items: list[tuple[Key, Identity | None]],
+    ) -> dict[Key, dict] | None:
+        """The journal rows of `items`' keys; None when SQLite fails (every
+        verdict then reads `bypassed`)."""
+        rows_by_key: dict[Key, dict] = {}
+        try:
+            for start in range(0, len(items), self.CONSULT_CHUNK):
+                chunk = items[start:start + self.CONSULT_CHUNK]
+                params: list[Any] = [location_id]
+                for key, _ident in chunk:
+                    params.extend(key)
+                placeholders = ",".join("(?,?,?)" for _ in chunk)
+                for row in self.db.query(
+                    "SELECT * FROM index_journal WHERE location_id = ? "
+                    "AND (materialized_path, name, extension) IN "
+                    f"(VALUES {placeholders})",
+                    params,
+                ):
+                    rows_by_key[(row["materialized_path"], row["name"],
+                                 row["extension"])] = row
+        except sqlite3.Error:
+            return None
+        return rows_by_key
+
+    def _verdict_of_row(
+        self, location_id: int, key: Key, row: dict | None, identity: Identity | None,
+    ) -> tuple[str, JournalEntry | None]:
         if row is None:
             return MISS, None
         entry = entry_of_row(row)
@@ -298,13 +406,59 @@ class IndexJournal:
             # corrupt row: drop it so the next pass starts clean
             self._delete_key(location_id, key)
             return BYPASSED, None
-        if (
-            not entry.stale
-            and identity is not None
-            and entry.identity == identity
-        ):
+        if not entry.stale and identity is not None and entry.identity == identity:
             return HIT, entry
         return INVALIDATED, entry
+
+    def _consult_pool(
+        self,
+        location_id: int,
+        items: list[tuple[Key, Identity | None]],
+        rows_by_key: dict[Key, dict],
+    ) -> list[tuple[str, JournalEntry | None]] | None:
+        """consult_many's match half on the process pool: the fetched rows
+        ship as plain dicts, a worker decodes and validates each payload
+        and compares identities (`procworker._stage_journal_match`), and
+        the counting and the corrupt-row deletes stay here. None (the
+        caller runs the inline loop over the rows in hand) when the pool
+        is off, too few rows were fetched, or the round trip fails; as
+        nothing was counted or deleted yet, nothing counts twice."""
+        if len(rows_by_key) < self.POOL_MIN_ITEMS:
+            return None
+        from ...parallel import procpool as _procpool
+
+        pool = _procpool.get()
+        if pool is None:
+            return None
+        wire_items = [
+            [list(key), [ident.inode, ident.dev, ident.mtime_ns, ident.size]
+             if ident is not None else None]
+            for key, ident in items
+        ]
+        try:
+            reply = pool.request(
+                "journal.match",
+                {"items": wire_items, "rows": [rows_by_key.get(k) for k, _i in items]},
+                rows=len(items),
+            )
+            raw = reply["verdicts"]
+            if len(raw) != len(items):
+                raise ValueError("verdict count mismatch")
+            out: list[tuple[str, JournalEntry | None]] = []
+            corrupt: list[Key] = []
+            for (key, _ident), (verdict, plain, is_corrupt) in zip(items, raw):
+                if is_corrupt:
+                    corrupt.append(key)
+                    out.append((BYPASSED, None))
+                    continue
+                if verdict not in (HIT, MISS, INVALIDATED):
+                    raise ValueError(f"foreign verdict {verdict!r}")
+                out.append((verdict, None if plain is None else _entry_of_plain(plain)))
+        except (_procpool.ProcPoolError, KeyError, TypeError, ValueError):
+            return None
+        for key in corrupt:
+            self._delete_key(location_id, key)
+        return out
 
     def bytes_saved(self, n: int, location_id: int | None = None) -> None:
         """Count `n` bytes whose work a vouch skipped."""

@@ -14,8 +14,8 @@ node's device. The gray-plane decode rides the process pool
 (`phash.gray`, parallel/procpool.py) when the pool is up, one file a
 job, else runs inline; both run `ops/phash_gray.decode_gray`, so the
 planes are bit-identical, and a pool failure decodes that row inline.
-The device pHash and the DB update stay on the owner. Not ported:
-`distribute_phash`.
+The device pHash and the DB update stay on the owner. `distribute_phash`
+runs the pass as the continuum's pHash stage shards over the mesh.
 """
 
 from __future__ import annotations
@@ -258,3 +258,20 @@ def find_duplicates(library: Any, threshold: int = 8,
     for g in out:
         g["files"] = [f for oid in g["object_ids"] for f in by_object.get(oid, [])]
     return out
+
+
+async def distribute_phash(
+    node: Any, library: Any, location_id: int, **kwargs: Any,
+) -> dict[str, Any]:
+    """Distribute one location's duplicates-pHash pass as stage-typed
+    WORK shards (`parallel/scheduler.STAGE_PHASH`): executors reuse
+    journal-vouched hashes, decode the grays through their own process
+    pool, run the DCT in one batch on their device and ship the 8-byte
+    hashes back, so the local-only ``object.phash`` column converges.
+    With no P2P runtime this is a local pass in shards."""
+    from ..location.indexer.mesh import distribute_location_stages
+    from ..parallel import scheduler as _scheduler
+
+    return await distribute_location_stages(
+        node, library, location_id, [_scheduler.STAGE_PHASH], **kwargs
+    )

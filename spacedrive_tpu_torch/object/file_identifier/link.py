@@ -17,8 +17,8 @@ Two call shapes exist over one invariant (same content ⇒ same object):
   rows already carrying the cas are skipped without emitting ops, so
   duplicate completions cost nothing and never bump HLC clocks.
 
-Counterpart of `spacedrive_tpu/object/file_identifier/link.py`, without
-the process-pool prep.
+Counterpart of `spacedrive_tpu/object/file_identifier/link.py`, with
+its process-pool prep (`link.prep`).
 """
 
 from __future__ import annotations
@@ -61,12 +61,16 @@ def object_pub_for(library_id: Any, cas_id: str) -> bytes:
 #: SQLite's default 999-variable limit
 _LINK_CHUNK = 400
 
-def _prep_results(lib_id: Any, results: list[dict]) \
-        -> list[tuple[dict, bytes, str, bytes]]:
-    """``(result, fp_pub, cas, deterministic obj_pub)`` per linkable
-    result — apply_cas_results' pure prep."""
-    usable: list[tuple[dict, bytes, str, bytes]] = []
-    for res in results:
+#: smallest result batch worth a pool round trip for the prep leg
+_PREP_POOL_MIN = 32
+
+
+def prep_inline(lib_id: Any, results: list[dict]) -> list[tuple[int, bytes, str, bytes]]:
+    """``(index, fp_pub, cas, deterministic obj_pub)`` per linkable
+    result: the prep the pool's ``link.prep`` stage runs too, so pooled
+    and inline prep agree by construction."""
+    usable: list[tuple[int, bytes, str, bytes]] = []
+    for i, res in enumerate(results):
         cas = res.get("cas_id")
         if not cas or not isinstance(cas, str):
             continue  # empty/unreadable files carry no cas to link
@@ -74,8 +78,35 @@ def _prep_results(lib_id: Any, results: list[dict]) \
             fp_pub = bytes.fromhex(str(res["pub_id"]))
         except (KeyError, ValueError):
             continue
-        usable.append((res, fp_pub, cas, object_pub_for(lib_id, cas)))
+        usable.append((i, fp_pub, cas, object_pub_for(lib_id, cas)))
     return usable
+
+
+def _prep_results(lib_id: Any, results: list[dict]) \
+        -> list[tuple[dict, bytes, str, bytes]]:
+    """``(result, fp_pub, cas, deterministic obj_pub)`` per linkable
+    result: apply_cas_results' pure prep, on the process pool (stage
+    ``link.prep``) when it is live and the batch is big enough, else
+    inline; a failed pool trip runs inline."""
+    if len(results) >= _PREP_POOL_MIN:
+        from ...parallel import procpool as _procpool
+
+        pool = _procpool.get()
+        if pool is not None:
+            wire = [{"pub_id": r.get("pub_id"), "cas_id": r.get("cas_id"),
+                     "ext": r.get("ext")} for r in results]
+            try:
+                reply = pool.request(
+                    "link.prep", {"library_id": str(lib_id), "results": wire},
+                    rows=len(results),
+                )
+                return [(results[i], bytes(fp_pub), cas, bytes(obj_pub))
+                        for i, fp_pub, cas, obj_pub in reply["usable"]]
+            except (_procpool.ProcPoolError, KeyError, TypeError,
+                    ValueError, IndexError):
+                pass  # the inline prep below
+    return [(results[i], fp_pub, cas, obj_pub)
+            for i, fp_pub, cas, obj_pub in prep_inline(lib_id, results)]
 
 
 def _rows_by_pub(

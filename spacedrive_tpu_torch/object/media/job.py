@@ -431,3 +431,36 @@ class MediaProcessorJob(StatefulJob):
     async def finalize(self, ctx: JobContext) -> Any:
         ctx.progress(message="media processing complete", phase="done")
         return dict(self.run_metadata)
+
+
+async def distribute_media(
+    node: Any, library: Any, location_id: int, **kwargs: Any,
+) -> dict[str, Any]:
+    """Distribute one location's media-metadata extraction as
+    stage-typed WORK shards (`parallel/scheduler.STAGE_MEDIA`). The
+    ``media_data`` table is node-local, so the shipped columns carry the
+    result; each node computes its journal digest against its own
+    object_id, as a local pass does."""
+    from ...location.indexer.mesh import distribute_location_stages
+    from ...parallel import scheduler as _scheduler
+
+    return await distribute_location_stages(
+        node, library, location_id, [_scheduler.STAGE_MEDIA], **kwargs
+    )
+
+
+async def distribute_embeddings(
+    node: Any, library: Any, location_id: int, **kwargs: Any,
+) -> dict[str, Any]:
+    """Distribute one location's semantic-embedding pass as stage-typed
+    WORK shards (`parallel/scheduler.STAGE_EMBED`): executors decode
+    through their own process pool, run the seed-derived forward in one
+    batch on their device, write the CRDT ops a local pass would and
+    ship the vector blobs back. An empty session when SD_EMBED is
+    off."""
+    from ...location.indexer.mesh import distribute_location_stages
+    from ...parallel import scheduler as _scheduler
+
+    return await distribute_location_stages(
+        node, library, location_id, [_scheduler.STAGE_EMBED], **kwargs
+    )

@@ -622,3 +622,21 @@ class Thumbnailer:
                 "type": "NewThumbnail",
                 "thumb_key": (self._ns(library_id), get_shard_hex(cas_id), cas_id),
             })
+
+
+async def distribute_thumbnails(
+    node: Any, library: Any, location_id: int, **kwargs: Any,
+) -> dict[str, Any]:
+    """Distribute one location's thumbnail pass across library peers as
+    stage-typed WORK shards (`parallel/scheduler.STAGE_THUMB`): every
+    executor consults its own journal and store first, encodes on the
+    software path (its process pool's ``thumb.cpu``, as in the JAX
+    package) and ships the webp bytes back, so the coordinator's store
+    converges bit for bit. With no P2P runtime this is a local pass in
+    shards."""
+    from ....location.indexer.mesh import distribute_location_stages
+    from ....parallel import scheduler as _scheduler
+
+    return await distribute_location_stages(
+        node, library, location_id, [_scheduler.STAGE_THUMB], **kwargs
+    )

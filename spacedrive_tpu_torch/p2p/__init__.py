@@ -10,10 +10,8 @@ Counterpart of `spacedrive_tpu/p2p/`, with the same exports: the
 transport (identity, wire, Spaceblock, headers, Noise XX, the encrypted
 streams, the `P2P` runtime, UDP streams, hole punching, the relay,
 tunnels and discovery) and the node's half (the manager, its
-operations, pairing, sync and remote rspc over the mesh, and the
-loopback link). The work plane (`work.py`) is not ported yet: the
-manager answers a library member's WORK stream as JAX's does on a node
-whose work plane is not running.
+operations, pairing, sync and remote rspc over the mesh, the work plane
+and the loopback link).
 """
 
 from .block import BlockSize, Range, SpaceblockRequest, SpaceblockRequests, Transfer

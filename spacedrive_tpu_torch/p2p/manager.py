@@ -7,10 +7,9 @@ from `NodeConfig.p2p` (port, discovery mode), advertises node metadata
 (protocol.rs), pushes sync alerts to library peers on every local
 `write_ops`, and backs each library's ingest actor with peer pulls.
 
-Counterpart of `spacedrive_tpu/p2p/manager.py` without the work plane:
-the port has no `p2p/work.py` yet, so the manager has no `work`, and a
-library member's WORK stream gets the answer JAX's `respond_work` gives
-on a node whose work plane is not running. Inbound SYNC_REQUEST,
+Counterpart of `spacedrive_tpu/p2p/manager.py`: the manager hangs the
+work plane off ``self.work`` (`p2p/work.py`) and answers a library
+member's WORK stream with `respond_work`. Inbound SYNC_REQUEST,
 TELEMETRY and WORK serving is admitted under the serve gate's sync class
 (counted, never shed), and sync-applied ops drop the library's serve-cache
 tag, as JAX's do. The federation refresh
@@ -59,7 +58,7 @@ from .operations import (
 from .p2p import P2P
 from .protocol import Header, HeaderType
 from .sync import alert_new_ops, request_ops_from_peer, respond_sync_request
-from .wire import Reader, Writer
+from .wire import Writer
 
 logger = logging.getLogger(__name__)
 
@@ -102,6 +101,11 @@ class P2PManager:
         # mesh-wide telemetry: freshest snapshot per peer w/ staleness
         # (telemetry/federation.py; read via GET /mesh, telemetry.mesh)
         self.federation = FederationCache()
+        # work-stealing shard plane: board (coordinating) and worker
+        # (stealing); see p2p/work.py and location/indexer/mesh.py
+        from .work import WorkPlane
+
+        self.work = WorkPlane(node, self)
         self._beacon_addrs = beacon_addrs
         self._bind_host = bind_host
         self._unsubs: list[Any] = []
@@ -185,6 +189,13 @@ class P2PManager:
         the ingest actor with peer pulls (ref:p2p/sync/mod.rs)."""
         if lib.id in self.ingest_actors:
             return
+        # the library's own instance row carries this node's identity, so a
+        # joiner's membership gates (TELEMETRY, WORK) admit the owner; JAX's
+        # keeps the random placeholder `Libraries.create` wrote
+        lib.db.execute(
+            "UPDATE instance SET identity = ? WHERE pub_id = ?",
+            (self.p2p.remote_identity.to_bytes(), lib.instance_uuid.bytes),
+        )
 
         async def request_ops(timestamps, count, lib_id=lib.id):
             for peer in self.peers_for_library(lib_id):
@@ -614,10 +625,12 @@ class P2PManager:
                 getattr(stream, "remote_identity", None),
                 library_id=header.library_id,
             ):
+                from .work import respond_work
+
                 _tenants.observe("p2p_work", header.library_id)
                 async with self._serve_admit("p2p.work_serve"):
                     with _span("p2p.work_serve"):
-                        await _refuse_work(stream)
+                        await respond_work(stream, self.node, header)
             else:
                 w = Writer(stream)
                 w.msgpack(
@@ -652,20 +665,9 @@ class P2PManager:
                 if not task.cancelled() and (exc := task.exception()):
                     logger.warning("sync alert task died: %r", exc)
         self._alert_tasks.clear()
+        await self.work.stop()
         for actor in self.ingest_actors.values():
             await actor.stop()
         self.ingest_actors.clear()
         await self.p2p.shutdown()
 
-
-async def _refuse_work(stream: Any) -> None:
-    """JAX's `respond_work` on a node whose work plane is not running:
-    read the request frame, answer the refusal (a frame that is not a
-    map gets JAX's malformed-request answer first)."""
-    body = await Reader(stream).msgpack()
-    w = Writer(stream)
-    if not isinstance(body, dict):
-        w.msgpack({"error": "malformed WORK request"})
-    else:
-        w.msgpack({"error": "work plane not running"})
-    await w.flush()

@@ -32,9 +32,10 @@ and shrinks on slow or underfilled batches. The rung never exceeds what
 the `DeviceLadder` level allows (`_ladder_rung_cap`): full set → top
 rung, subset → middle, host → bottom.
 
-Not ported: the stage plane (`_tick_stages`, `stage_rate`,
-`stage_lease`, `reset_stage_targets` and the snapshot's ``stages``),
-which reads `parallel/scheduler` and `p2p.work`; a tick skips it.
+The stage plane folds `parallel/scheduler`'s per-stage files/s EWMAs
+into per-stage lease targets each tick (`_tick_stages`): the WORK
+board's lease fallback when a claimer reports no rate for a stage
+(`stage_rate`), carried on the snapshot's ``stages``.
 :func:`observed_files_per_s` (the history's ``files_per_s`` series)
 reads only the identifier's registry series.
 
@@ -107,6 +108,10 @@ POOL_DISPATCH_SHARE = 0.15
 POOL_RT_SLOW_S = 2.0
 POOL_SCALE_MIN = 1.0
 POOL_SCALE_MAX = 8.0
+
+#: per-stage lease-target hysteresis: a stage's lease target is
+#: republished only when it moved by at least 25%
+STAGE_LEASE_HYSTERESIS = 0.25
 
 WORKLOADS = ("identify", "thumbnail", "embed")
 
@@ -266,6 +271,10 @@ class Controller:
         self._prev: dict[str, Any] | None = None
         # (workload, knob) -> signed streak of same-direction wishes
         self._streaks: dict[tuple[str, str], int] = {}
+        # the stage plane's outputs: per-stage observed rate (folded from
+        # scheduler.RATES each tick) and the derived lease target
+        self.stage_rates: dict[str, float] = {}
+        self.stage_lease: dict[str, float] = {}
         self._task: Any = None
         self._tasks: set = set()
         self._stopped = False
@@ -332,8 +341,22 @@ class Controller:
             self._prev = None
             self._streaks.clear()
             self.ticks = 0
+            self.stage_rates.clear()
+            self.stage_lease.clear()
         for w, p in self.policies.items():
             self._export_gauges(w, p)
+
+    def stage_rate(self, stage_id: str) -> float:
+        """The per-stage rate output (files/s), 0.0 until the stage has
+        executed shards here: the WORK board's lease fallback when a
+        claimer reports no rate for a stage."""
+        return self.stage_rates.get(stage_id, 0.0)
+
+    def reset_stage_targets(self) -> None:
+        """Clear the stage plane (``scheduler.reset()`` fans out here;
+        ``telemetry.reset()`` zeroes the gauges themselves)."""
+        self.stage_rates.clear()
+        self.stage_lease.clear()
 
     # ---- sampling -----------------------------------------------------
 
@@ -398,7 +421,53 @@ class Controller:
             decisions: list[dict[str, Any]] = []
             for workload, pol in self.policies.items():
                 decisions.extend(self._tick_workload(workload, pol, sample))
+            decisions.extend(self._tick_stages(sample))
         return decisions
+
+    def _tick_stages(self, s: Sample) -> list[dict[str, Any]]:
+        """Per-stage lease targets: the lease a default-sized shard needs
+        at the stage's observed rate, clamped to the board's lease law,
+        republished only past the hysteresis band."""
+        from ..location.indexer.mesh import shard_files_default
+        from ..p2p import work as _work
+        from ..telemetry import metrics as _tm
+        from ..telemetry.events import AUTOTUNE_EVENTS
+        from . import scheduler as _scheduler
+
+        out: list[dict[str, Any]] = []
+        try:
+            files = shard_files_default()
+        except ValueError:  # a malformed SD_WORK_SHARD_FILES
+            files = 128
+        for stage_id in _scheduler.STAGES:
+            rate = _scheduler.RATES.rate(stage_id)
+            if rate <= 0:
+                continue
+            self.stage_rates[stage_id] = rate
+            target = min(
+                _work.LEASE_MAX_S,
+                max(_work.LEASE_MIN_S, files / rate * _work.LEASE_SLACK),
+            )
+            old = self.stage_lease.get(stage_id)
+            if old is not None and old > 0 \
+                    and abs(target - old) <= STAGE_LEASE_HYSTERESIS * old:
+                continue
+            self.stage_lease[stage_id] = target
+            AUTOTUNE_EVENTS.emit(
+                "stage-lease",
+                stage=stage_id,
+                rate_files_per_s=round(rate, 3),
+                old=None if old is None else round(old, 3),
+                new=round(target, 3),
+            )
+            _tm.WORK_STAGE_LEASE_TARGET.set(
+                target, stage=_scheduler.stage_label(stage_id))
+            out.append({
+                "knob": "stage_lease", "stage": stage_id,
+                "from": old, "to": target,
+                "rate_files_per_s": round(rate, 3),
+            })
+        return out
 
     def _tick_workload(self, workload: str, pol: PipelinePolicy, s: Sample) -> list[dict[str, Any]]:
         """Per-knob wishes are three-valued: ±1 asks for a damped step,
@@ -608,11 +677,20 @@ class Controller:
             float(new if knob == "pool_scale" else pol.pool_scale), workload=workload)
 
     def snapshot(self) -> dict[str, Any]:
-        """Current knob state."""
+        """Current knob state, with the stage plane's per-stage rates and
+        lease targets."""
+        from . import scheduler as _scheduler
+
         return {
             "enabled": enabled(),
             "ticks": self.ticks,
             "policies": {w: p.snapshot() for w, p in self.policies.items()},
+            "stages": {
+                **_scheduler.snapshot(),
+                "lease_targets": {
+                    st: round(v, 3) for st, v in self.stage_lease.items()
+                },
+            },
         }
 
 

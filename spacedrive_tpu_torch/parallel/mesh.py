@@ -21,13 +21,15 @@ caller's default device alone, strict, and its failure raises (the JAX
 cas ladder ends on the host instead).
 
 `make_mesh`, `flat_mesh`, `batch_sharding` and `replicated` build JAX
-sharding objects and have no counterpart; `multihost_init` waits for
-the mesh identify.
+sharding objects and have no counterpart. `multihost_init` joins a
+`torch.distributed` process group where JAX's joins a
+`jax.distributed` cluster, under the same contract.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from typing import Callable, Sequence, TypeVar
@@ -334,3 +336,45 @@ def run_on_ladder(device: str | torch.device, n_rows: int,
             LADDER.probe_inconclusive(level)
         return out
     raise RuntimeError("unreachable: the ladder loop ran out of attempts")
+
+
+#: the bound on joining a process group (every peer must arrive in it)
+MULTIHOST_TIMEOUT_S = 300.0
+
+
+def multihost_init(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+) -> bool:
+    """Join a multi-host `torch.distributed` process group: ``gloo`` on
+    a host without CUDA, ``nccl`` with a card. The address is
+    ``host:port`` (``SD_COORDINATOR_ADDRESS``), the world size and the
+    rank come from the arguments or ``SD_NUM_PROCESSES`` and
+    ``SD_PROCESS_ID``. Returns False with no address and no process
+    count (a single host keeps working untouched) and when joining
+    fails; True once this process is in a group. Where a shard hashes
+    stays the Node's device: the group decides nothing about it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    env = os.environ
+    coordinator_address = coordinator_address or env.get("SD_COORDINATOR_ADDRESS")
+    if coordinator_address is None and num_processes is None:
+        return False
+    if dist.is_available() and dist.is_initialized():
+        return True
+    try:
+        world = num_processes if num_processes is not None else int(env["SD_NUM_PROCESSES"])
+        rank = process_id if process_id is not None else int(env["SD_PROCESS_ID"])
+        dist.init_process_group(
+            "nccl" if torch.cuda.is_available() else "gloo",
+            init_method=f"tcp://{coordinator_address}",
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=MULTIHOST_TIMEOUT_S),
+        )
+        return True
+    except Exception:  # noqa: BLE001 - JAX's contract: False on any failure
+        logger.warning("multihost_init: joining %s failed", coordinator_address, exc_info=True)
+        return False

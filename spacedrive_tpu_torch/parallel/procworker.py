@@ -23,9 +23,10 @@ corrupt the framing. The contract:
   never shipped a delta, so a retried job counts once.
 
 Stages run the same functions as the inline paths, so ``SD_PROCS=0``
-and the pool give identical output. The stages of the JAX worker that
-serve the mesh identify (`identify.hash_entries`, `journal.match`,
-`link.prep`) are not ported.
+and the pool give identical output. The mesh identify's three stages
+(`identify.hash_entries`, `journal.match`, `link.prep`) hash through
+the host C hasher (`ops/cas_host.cas_ids_host`), never through pure
+Python, and import no torch either.
 
 Wire frames (owner → worker): ``[job_id, stage, payload_blob,
 stall_s]``; (worker → owner): ``[job_id, ok, body_blob, delta_blob]``.
@@ -78,6 +79,104 @@ def write_frame(fp: Any, blob: bytes) -> None:
 def _stage_echo(payload: dict) -> dict:
     """Round-trip probe (tests and pool warm-up)."""
     return payload
+
+
+def _stage_hash_entries(payload: dict) -> dict:
+    """The mesh shard's host hash leg: stat, sampled read, chunk-cache
+    digests and host cas_ids for journal-keyed entries
+    (location/indexer/mesh.py `_execute_shard_sync`'s read and hash).
+
+    payload: {"loc_path": str, "entries": [{"pub_id", "mat", "name",
+    "ext"}, ...]}
+    result:  {"results": [{"pub_id", "cas_id" | None, "identity" |
+    None, "chunks" | None, "error" | None}, ...]}
+    """
+    from ..files.isolated_path import full_path_from_db_row
+    from ..location.indexer.journal import stat_identity
+    from ..ops import cas_host
+    from ..telemetry import metrics as _tm
+
+    loc_path = payload["loc_path"]
+    out: list[dict] = []
+    messages: list[bytes] = []
+    msg_idx: list[int] = []
+    for e in payload["entries"]:
+        row = {"materialized_path": e["mat"], "name": e["name"],
+               "extension": e["ext"], "is_dir": False}
+        full = full_path_from_db_row(loc_path, row)
+        ident = stat_identity(full)
+        rec: dict[str, Any] = {
+            "pub_id": e["pub_id"],
+            "identity": (
+                [ident.inode, ident.dev, ident.mtime_ns, ident.size]
+                if ident is not None else None
+            ),
+            "cas_id": None, "chunks": None, "error": None,
+        }
+        out.append(rec)
+        if ident is None:
+            continue  # vanished or unreadable: the next walk removes it
+        if ident.size == 0:
+            rec["cas_id"] = ""  # the vouched-empty sentinel
+            continue
+        try:
+            msg = cas_host.read_message(full, ident.size)
+        except OSError:
+            rec["identity"] = None  # no vouch for an unreadable file
+            rec["error"] = "unreadable"
+            continue
+        rec["chunks"] = cas_host.build_chunk_cache(msg).to_payload()
+        messages.append(msg)
+        msg_idx.append(len(out) - 1)
+    if messages:
+        for i, cas_hex in zip(msg_idx, cas_host.cas_ids_host(messages)):
+            out[i]["cas_id"] = cas_hex
+        # bytes add up across workers; the hash leg's wall is observed
+        # once by the owner (mesh._pool_hash)
+        _tm.INDEX_BYTES_HASHED.inc(sum(len(m) for m in messages))
+    return {"results": out}
+
+
+def _stage_journal_match(payload: dict) -> dict:
+    """consult_many's match half: the payload decode, strict validation
+    and identity compare of each pre-fetched journal row (the SQL, the
+    counting and the corrupt-row deletes stay in the owner).
+
+    payload: {"items": [[[mat, name, ext], identity | None], ...],
+              "rows": [row | None, aligned with items]}
+    result:  {"verdicts": [[verdict, entry | None, corrupt], ...]}
+    """
+    from ..location.indexer import journal as _journal
+
+    verdicts: list[list] = []
+    for (_key, ident_raw), row in zip(payload["items"], payload["rows"]):
+        if row is None:
+            verdicts.append([_journal.MISS, None, False])
+            continue
+        entry = _journal.entry_of_row(row)
+        if entry is None:
+            verdicts.append([_journal.BYPASSED, None, True])
+            continue
+        ident = (_journal.Identity(*(int(x) for x in ident_raw))
+                 if ident_raw is not None else None)
+        hit = not entry.stale and ident is not None and entry.identity == ident
+        verdicts.append([_journal.HIT if hit else _journal.INVALIDATED,
+                         _journal.entry_to_plain(entry), False])
+    return {"verdicts": verdicts}
+
+
+def _stage_link_prep(payload: dict) -> dict:
+    """apply_cas_results' pure prep: pub_id validation and the
+    deterministic (library, cas) object pub_id per result
+    (object/file_identifier/link.py `prep_inline`, the inline path).
+
+    payload: {"library_id": str, "results": [{"pub_id", "cas_id",
+    "ext"}, ...]}
+    result:  {"usable": [[idx, fp_pub, cas, obj_pub], ...]}
+    """
+    from ..object.file_identifier.link import prep_inline
+
+    return {"usable": [list(u) for u in prep_inline(payload["library_id"], payload["results"])]}
 
 
 def _stage_phash_gray(payload: dict) -> dict:
@@ -140,6 +239,9 @@ def _stage_thumb_cpu(payload: dict) -> dict:
 
 STAGES = {
     "echo": _stage_echo,
+    "identify.hash_entries": _stage_hash_entries,
+    "journal.match": _stage_journal_match,
+    "link.prep": _stage_link_prep,
     "phash.gray": _stage_phash_gray,
     "embed.decode": _stage_embed_decode,
     "thumb.cpu": _stage_thumb_cpu,

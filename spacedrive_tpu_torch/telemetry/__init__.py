@@ -68,8 +68,9 @@ def reset() -> None:
     the host sampler's accumulators, timeline, capture ring and trigger
     state, the resource sampler's last-sample state and planted test
     leaks, the tenant plane's sketches, every history writer's
-    in-memory tail (durable segments are data-dir state and survive)
-    and the index journal's per-location runtime counters. Circuit
+    in-memory tail (durable segments are data-dir state and survive),
+    the index journal's per-location runtime counters and the
+    continuum's per-stage rates and lease targets. Circuit
     breakers survive, as in the JAX package
     (``utils.resilience.reset_breakers`` drops them)."""
     REGISTRY.reset()
@@ -87,6 +88,11 @@ def reset() -> None:
     from ..location.indexer.journal import reset_runtime
 
     reset_runtime()
+    # the continuum's per-stage EWMAs and the Controller's derived lease
+    # targets are registry-like state too
+    from ..parallel import scheduler as _scheduler
+
+    _scheduler.reset()
 
 
 def trace_export(trace_id=None):

@@ -3,14 +3,15 @@ event loop, and every body this plane writes against JAX's bytes.
 
 - mixed cases, each way: Spacedrop, pairing (a port Node joins a JAX
   library and the reverse), sync convergence by alerts and pulls after
-  the join, a TELEMETRY pull, and a JAX worker's WORK stream answered by
-  the port with JAX's "work plane not running";
+  the join, a TELEMETRY pull, and a JAX worker claiming and completing
+  shards of a port coordinator over the WORK wire;
 - under pinned randomness (`uuid.uuid4`, the trace context) and the
   same inputs, each operation of the port writes JAX's bytes: ping,
   the sync alert, pull and page, the Spacedrop offer and decision, the
   pairing request, reply and instance frame, the telemetry, trace and
   profile pulls and answers, the remote rspc call and answers, the WORK
-  refusal, and the file request and refusal.
+  answer of a node without a work plane, and the file request and
+  refusal.
 
 Every mixed case binds 127.0.0.1 with unicast beacons, runs under its
 own asyncio timeout and shuts its nodes down in `finally`.
@@ -35,11 +36,11 @@ import spacedrive_tpu.telemetry.federation as j_federation
 import spacedrive_tpu.telemetry.sampler as j_sampler
 import spacedrive_tpu.telemetry.trace as j_trace
 import spacedrive_tpu_torch.p2p.identity as p_identity
-import spacedrive_tpu_torch.p2p.manager as p_manager
 import spacedrive_tpu_torch.p2p.operations as p_operations
 import spacedrive_tpu_torch.p2p.pairing as p_pairing
 import spacedrive_tpu_torch.p2p.rspc as p_rspc
 import spacedrive_tpu_torch.p2p.sync as p_sync
+import spacedrive_tpu_torch.p2p.work as p_work
 import spacedrive_tpu_torch.sync.ingest as p_ingest
 import spacedrive_tpu_torch.telemetry.federation as p_federation
 import spacedrive_tpu_torch.telemetry.sampler as p_sampler
@@ -276,19 +277,36 @@ def test_mixed_telemetry_pull(tmp_path, puller, served):
 
 
 def test_mixed_work_stream_refused_by_the_port(tmp_path):
-    """A JAX node's WORK exchange with a port node of its library gets
-    JAX's "work plane not running" (a PermissionError at the caller); a
-    stranger gets the members-only refusal."""
+    """A JAX node claims from a port coordinator of its library over the
+    WORK wire: it is granted the port board's shards, its complete is
+    counted once and a repeat is absorbed as a duplicate; a claim
+    scoped to another library gets the members-only refusal."""
 
     async def run():
+        from spacedrive_tpu_torch.p2p.work import WorkSession, WorkShard
+
         a, b = await _pair_of(tmp_path, "port", "jax")
         try:
             lib_a = await a.create_library("work")
             a.p2p.pairing.auto_accept = True
             await b.p2p.pairing.join(b.p2p.p2p, _ident(b, a), lib_a.id)
-            with pytest.raises(PermissionError, match="work plane not running"):
-                await j_work.request_work(b.p2p.p2p, _ident(b, a), lib_a.id,
-                                          {"op": "claim", "max_shards": 1})
+            session = WorkSession(id="ab" * 16, library_id=lib_a.id, location_pub="00" * 16)
+            for i in range(3):
+                session.shards[f"s{i}"] = WorkShard(
+                    id=f"s{i}", entries=[{"pub_id": f"{i:02x}" * 16, "mat": "/", "name": f"f{i}",
+                                          "ext": "bin", "size": 1, "identity": None}])
+            a.p2p.work.board.publish(session)
+            grant = await j_work.request_work(b.p2p.p2p, _ident(b, a), lib_a.id,
+                                              {"op": "claim", "max_shards": 2,
+                                               "files_per_s": 10.0})
+            assert grant["ok"] and grant["session"] == session.id and not grant["done"]
+            assert [sh["id"] for sh in grant["shards"]] == ["s0", "s1"]
+            assert grant["shards"][0] == session.shards["s0"].to_wire()
+            body = {"op": "complete", "session": session.id, "shard": "s0", "results": []}
+            done = await j_work.request_work(b.p2p.p2p, _ident(b, a), lib_a.id, body)
+            again = await j_work.request_work(b.p2p.p2p, _ident(b, a), lib_a.id, body)
+            assert (done["outcome"], again["outcome"]) == ("completed", "duplicate")
+            assert session.completed_by["s0"] == str(b.p2p.p2p.remote_identity)
             with pytest.raises(PermissionError, match="members only"):
                 await j_work.request_work(b.p2p.p2p, _ident(b, a), uuid.uuid4(),
                                           {"op": "claim"})
@@ -306,11 +324,11 @@ PKG = {
     "jax": types.SimpleNamespace(identity=j_identity, operations=j_operations,
                                  pairing=j_pairing, rspc=j_rspc, sync=j_sync,
                                  ingest=j_ingest, federation=j_federation, sampler=j_sampler,
-                                 trace=j_trace),
+                                 trace=j_trace, work=j_work),
     "port": types.SimpleNamespace(identity=p_identity, operations=p_operations,
                                   pairing=p_pairing, rspc=p_rspc, sync=p_sync,
                                   ingest=p_ingest, federation=p_federation, sampler=p_sampler,
-                                  trace=p_trace),
+                                  trace=p_trace, work=p_work),
 }
 TRACE = {"trace_id": "ab" * 16, "span_id": "cd" * 8}
 SEED = bytes(range(32))
@@ -540,10 +558,7 @@ async def _work_refusal(pkg, tmp):
     stream = _Stream()
     for body in ({"op": "claim"}, "junk"):
         s = _Stream(_frame(body))
-        if pkg == "jax":
-            await j_work.respond_work(s, _stub_node(pkg), None)
-        else:
-            await p_manager._refuse_work(s)
+        await PKG[pkg].work.respond_work(s, _stub_node(pkg), None)
         stream.wrote += s.wrote
     return stream
 

@@ -10,8 +10,8 @@
   twin, `slow` as JAX's);
 - tests/test_chaos.py's retryable pull failure and the `p2p.sync_serve`
   vanish;
-- a library member's WORK stream answered as JAX's `respond_work`
-  answers on a node whose work plane is not running.
+- a library member's WORK stream answered by the port's work plane as
+  a JAX Node's `respond_work` answers it.
 
 Port Nodes run on the CPU; every case binds 127.0.0.1 with unicast
 beacons, runs under its own asyncio timeout and shuts its nodes down in
@@ -592,48 +592,69 @@ def test_sync_serve_vanish_closes_stream_before_response(tmp_path):
 
 
 def test_work_stream_answered_work_plane_not_running(tmp_path):
-    """The port has no work plane yet: a member's WORK stream gets the
-    answer JAX's `respond_work` gives without one, a stranger's the
-    members-only refusal, and a malformed body JAX's malformed answer."""
+    """A member's WORK stream is answered by the port's work plane as a
+    JAX Node's `respond_work` answers it: a claim with no session open
+    (the board's empty grant), a status probe, a malformed frame, and a
+    stranger's members-only refusal, byte for byte."""
 
     async def run():
         import msgpack
 
+        import spacedrive_tpu.p2p.identity as j_identity
+        from spacedrive_tpu.node import Node as JNode
+        from spacedrive_tpu.p2p.manager import P2PManager as JManager
+        from spacedrive_tpu.p2p.protocol import Header as JHeader
+        from spacedrive_tpu.p2p.protocol import HeaderType as JHeaderType
         from spacedrive_tpu_torch.node.node import Node
         from spacedrive_tpu_torch.p2p.manager import P2PManager
+        from spacedrive_tpu_torch.p2p.work import WorkPlane
 
-        node = Node(os.path.join(tmp_path, "n"), device="cpu", with_labeler=False)
-        node.config.config.p2p.enabled = False
-        await node.start()
-        try:
-            lib = await node.create_library("work")
-            member = Identity().to_remote_identity()
-            inst = lib.db.find_one("instance", pub_id=lib.instance_uuid.bytes)
-            lib.db.insert("instance", pub_id=uuid.uuid4().bytes, identity=member.to_bytes(),
-                          node_id=inst["node_id"], node_name="m", node_platform=0,
-                          last_seen=inst["last_seen"], date_created=inst["date_created"])
-            mgr = P2PManager(node)
+        def frame(obj):
+            raw = msgpack.packb(obj, use_bin_type=True)
+            return len(raw).to_bytes(4, "big") + raw
 
-            def frame(obj):
-                raw = msgpack.packb(obj, use_bin_type=True)
-                return len(raw).to_bytes(4, "big") + raw
-
-            header = Header(HeaderType.WORK, library_id=lib.id)
-            got = {}
-            for who, ident, body in (("member", member, {"op": "claim"}),
-                                     ("malformed", member, [1]),
-                                     ("stranger", Identity().to_remote_identity(),
-                                      {"op": "claim"})):
-                stream = _Stream(ident, frame(body))
-                await mgr._handle_stream_traced(stream, header, None)
-                got[who] = msgpack.unpackb(stream.wrote[4:])
-            assert got == {
-                "member": {"error": "work plane not running"},
-                "malformed": {"error": "malformed WORK request"},
-                "stranger": {"error": "the work plane is served to library members only"},
-            }
-            assert not hasattr(mgr, "work")
-        finally:
-            await node.shutdown()
+        got = {}
+        for pkg in ("jax", "port"):
+            if pkg == "jax":
+                node = JNode(os.path.join(tmp_path, "j"), use_device=False, with_labeler=False)
+                ident_mod, manager, head, wtype = j_identity, JManager, JHeader, JHeaderType.WORK
+            else:
+                node = Node(os.path.join(tmp_path, "p"), device="cpu", with_labeler=False)
+                ident_mod, manager, head, wtype = (
+                    __import__("spacedrive_tpu_torch.p2p.identity", fromlist=["x"]),
+                    P2PManager, Header, HeaderType.WORK)
+            node.config.config.p2p.enabled = False
+            await node.start()
+            try:
+                lib = await node.create_library("work")
+                member = ident_mod.Identity.from_bytes(bytes(range(32))).to_remote_identity()
+                stranger = ident_mod.Identity.from_bytes(bytes(range(1, 33))).to_remote_identity()
+                inst = lib.db.find_one("instance", pub_id=lib.instance_uuid.bytes)
+                lib.db.insert("instance", pub_id=uuid.uuid4().bytes, identity=member.to_bytes(),
+                              node_id=inst["node_id"], node_name="m", node_platform=0,
+                              last_seen=inst["last_seen"], date_created=inst["date_created"])
+                mgr = node.p2p = manager(node)
+                if pkg == "port":
+                    assert isinstance(mgr.work, WorkPlane)
+                header = head(wtype, library_id=lib.id)
+                answers = {}
+                for who, ident, body in (("member", member, {"op": "claim", "max_shards": 2}),
+                                         ("status", member, {"op": "status", "session": "s"}),
+                                         ("unknown", member, {"op": "steal"}),
+                                         ("malformed", member, [1]),
+                                         ("stranger", stranger, {"op": "claim"})):
+                    stream = _Stream(ident, frame(body))
+                    await mgr._handle_stream_traced(stream, header, None)
+                    answers[who] = bytes(stream.wrote)
+                got[pkg] = answers
+            finally:
+                await node.shutdown()
+        assert got["port"] == got["jax"]
+        decoded = {k: msgpack.unpackb(v[4:]) for k, v in got["port"].items()}
+        assert decoded["member"] == {"ok": True, "session": None, "location_pub": None,
+                                     "shards": [], "lease_s": 0.0, "done": True}
+        assert decoded["malformed"] == {"error": "malformed WORK request"}
+        assert decoded["stranger"] == {
+            "error": "the work plane is served to library members only"}
 
     _run(run(), 60)

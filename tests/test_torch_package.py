@@ -135,19 +135,65 @@ def test_the_scan_covers_the_p2p_transport():
         assert "msgpack" not in set(_imported_modules(os.path.join(PACKAGE, f))), f
 
 
-P2P_NODE = ("sync.py", "operations.py", "rspc.py", "pairing.py", "manager.py", "loopback.py")
+P2P_NODE = ("sync.py", "operations.py", "rspc.py", "pairing.py", "manager.py", "loopback.py",
+            "work.py")
 
 
 def test_the_scan_covers_the_node_p2p():
-    """The node's p2p (owned copies of the JAX modules but the work
-    plane, which waits for the continuum stages) is scanned too, with
-    the federation's peer half; none imports the `msgpack` package."""
+    """The node's p2p (owned copies of the JAX modules, the work plane
+    among them) is scanned too, with the federation's peer half; none
+    imports the `msgpack` package."""
     rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
     files = {os.path.join("p2p", f) for f in P2P_NODE}
     assert files | {os.path.join("telemetry", "federation.py")} <= rel
-    assert os.path.join("p2p", "work.py") not in rel
     for f in files:
         assert "msgpack" not in set(_imported_modules(os.path.join(PACKAGE, f))), f
+
+
+CONTINUUM = (os.path.join("p2p", "work.py"), os.path.join("parallel", "scheduler.py"),
+             os.path.join("location", "indexer", "mesh.py"),
+             os.path.join("location", "indexer", "stages.py"), os.path.join("ops", "cas_host.py"))
+
+
+def test_the_scan_covers_the_work_plane_and_the_continuum():
+    """The mesh work plane, the stage scheduler, the mesh identify and
+    the stage legs (owned copies of the JAX modules) are scanned too,
+    and every device-free JAX module now has its port file."""
+    rel = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    assert set(CONTINUUM) <= rel
+    jax_pkg = os.path.join(ROOT, "spacedrive_tpu")
+    missing = []
+    for dirpath, _, files in os.walk(jax_pkg):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            if not f.endswith(".py") or "jax" in {m.split(".")[0] for m in _imported_modules(path)}:
+                continue  # a device module: its counterpart has another name
+            if os.path.relpath(path, jax_pkg) not in rel:
+                missing.append(os.path.relpath(path, jax_pkg))
+    assert missing == []
+
+
+def test_the_pool_worker_stages_import_no_torch():
+    """The host halves the pool's identify stages need (`ops/cas_host`,
+    the journal, the linker's prep) import no torch, and `ops/cas`
+    re-exports the host half unchanged."""
+    code = (
+        "import sys\n"
+        "import spacedrive_tpu_torch.ops.cas_host as h\n"
+        "import spacedrive_tpu_torch.location.indexer.journal\n"
+        "import spacedrive_tpu_torch.object.file_identifier.link\n"
+        "from spacedrive_tpu_torch.parallel import procworker\n"
+        "assert 'torch' not in sys.modules, 'torch'\n"
+        "from spacedrive_tpu_torch.ops import cas\n"
+        "for n in ('read_message', 'message_len', 'build_chunk_cache', 'ChunkCache',\n"
+        "          'sample_ranges', 'chunk_digests', 'message_from_bytes'):\n"
+        "    assert getattr(cas, n) is getattr(h, n), n\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_p2p_imports_without_cryptography():
