@@ -38,6 +38,7 @@ from ..location.indexer import journal as _journal
 from ..ops import phash_torch
 from ..ops.phash_gray import decode_gray
 from ..parallel import procpool as _procpool
+from ..telemetry import span
 from .file_identifier.job import BACKENDS
 from .search.index import device_of
 
@@ -225,38 +226,50 @@ def find_duplicates(library: Any, threshold: int = 8,
                     device: str | torch.device = "cuda") -> list[dict[str, Any]]:
     """Near-duplicate groups over all hashed objects (on `device`) and
     exact cas_id groups. Returns [{object_ids, kind: 'near'|'exact',
-    files}]."""
-    rows = library.db.query("SELECT id, phash FROM object WHERE phash IS NOT NULL")
-    near = phash_torch.duplicate_groups([(r["id"], r["phash"]) for r in rows],
-                                        threshold=threshold, device=device)
-    out = [{"object_ids": g, "kind": "near"} for g in near]
-    exact = library.db.query(
-        "SELECT cas_id, GROUP_CONCAT(DISTINCT object_id) AS ids FROM file_path "
-        "WHERE cas_id IS NOT NULL AND object_id IS NOT NULL "
-        "GROUP BY cas_id HAVING COUNT(DISTINCT object_id) > 1"
-    )
-    for r in exact:
-        out.append({"object_ids": [int(i) for i in r["ids"].split(",")], "kind": "exact"})
-    # the file_path rows, so clients can render the groups
-    all_ids = sorted({oid for g in out for oid in g["object_ids"]})
-    by_object: dict[int, list[dict[str, Any]]] = {}
-    for off in range(0, len(all_ids), 900):  # SQLite bind-variable limit
-        chunk = all_ids[off:off + 900]
-        qmarks = ",".join("?" * len(chunk))
-        for row in library.db.query(
-            f"SELECT object_id, name, extension, materialized_path, cas_id, "
-            f"size_in_bytes_bytes FROM file_path WHERE object_id IN ({qmarks})",
-            tuple(chunk),
-        ):
-            by_object.setdefault(row["object_id"], []).append({
-                "name": row["name"],
-                "extension": row["extension"],
-                "materialized_path": row["materialized_path"],
-                "cas_id": row["cas_id"],
-                "size_in_bytes": blob_u64(row["size_in_bytes_bytes"]) or 0,
-            })
-    for g in out:
-        g["files"] = [f for oid in g["object_ids"] for f in by_object.get(oid, [])]
+    files}].
+
+    Spans: `duplicates` the pass (fields `objects`, `pairs`, `groups`),
+    with `select` (the pHash rows), the grouping's `near`, `exact` (the
+    cas_id GROUP BY) and `files` (the groups' file rows) inside it."""
+    with span("duplicates") as root:
+        with span("select"):
+            hashes = [(r["id"], r["phash"]) for r in library.db.query(
+                "SELECT id, phash FROM object WHERE phash IS NOT NULL")]
+        root.annotate(objects=len(hashes))
+        near = phash_torch.duplicate_groups(hashes, threshold=threshold, device=device)
+        del hashes  # a million rows are freed inside the pass's span, not after it
+        out = [{"object_ids": g, "kind": "near"} for g in near]
+        with span("exact"):
+            exact = library.db.query(
+                "SELECT cas_id, GROUP_CONCAT(DISTINCT object_id) AS ids FROM file_path "
+                "WHERE cas_id IS NOT NULL AND object_id IS NOT NULL "
+                "GROUP BY cas_id HAVING COUNT(DISTINCT object_id) > 1"
+            )
+            for r in exact:
+                out.append({"object_ids": [int(i) for i in r["ids"].split(",")],
+                            "kind": "exact"})
+        # the file_path rows, so clients can render the groups
+        with span("files"):
+            all_ids = sorted({oid for g in out for oid in g["object_ids"]})
+            by_object: dict[int, list[dict[str, Any]]] = {}
+            for off in range(0, len(all_ids), 900):  # SQLite bind-variable limit
+                chunk = all_ids[off:off + 900]
+                qmarks = ",".join("?" * len(chunk))
+                for row in library.db.query(
+                    f"SELECT object_id, name, extension, materialized_path, cas_id, "
+                    f"size_in_bytes_bytes FROM file_path WHERE object_id IN ({qmarks})",
+                    tuple(chunk),
+                ):
+                    by_object.setdefault(row["object_id"], []).append({
+                        "name": row["name"],
+                        "extension": row["extension"],
+                        "materialized_path": row["materialized_path"],
+                        "cas_id": row["cas_id"],
+                        "size_in_bytes": blob_u64(row["size_in_bytes_bytes"]) or 0,
+                    })
+            for g in out:
+                g["files"] = [f for oid in g["object_ids"] for f in by_object.get(oid, [])]
+        root.annotate(groups=len(out))
     return out
 
 

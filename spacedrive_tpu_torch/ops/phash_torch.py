@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as _mesh
+from ..telemetry import current_span, span
 from .phash_gray import DCT_SIZE, to_gray32  # noqa: F401 - re-exported
 
 HASH_BITS = 64
@@ -160,28 +161,49 @@ def near_pairs(hashes: list[bytes], threshold: int,
     """Yield (i, j) index pairs (i < j) within `threshold` bits, in
     row-major order, in blocks of PAIR_BLOCK rows: device memory stays
     O(PAIR_BLOCK × N), and the bitmap's nonzero bytes are decoded on the
-    device, so only the pairs come back to the host."""
+    device, so only the pairs come back to the host.
+
+    Spans: `prepare` (the unpack, the pad and the upload), then one
+    `block` a block, closed once the block's pairs are a host list: a
+    generator runs in its consumer's context, so no span stays open
+    across a yield. On a card each block's span carries `device_s`, the
+    seconds between CUDA events recorded before its product and after
+    its last kernel."""
     if not hashes:
         return
-    bits = unpack_hashes(hashes)
-    n = bits.shape[0]
-    # one padded array serves as rows AND columns; the phantom pad rows
-    # (all ones) are dropped on decode
-    pad = (-n) % PAIR_BLOCK
-    if pad:
-        bits = np.concatenate([bits, np.ones((pad, HASH_BITS), bool)])
-    pm = _plus_minus(torch.from_numpy(bits).to(device))
-    thr = max(0, min(HASH_BITS, int(threshold)))
-    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=pm.device)
-    offsets = torch.arange(8, device=pm.device)
+    with span("prepare"):
+        bits = unpack_hashes(hashes)
+        n = bits.shape[0]
+        # one padded array serves as rows AND columns; the phantom pad rows
+        # (all ones) are dropped on decode
+        pad = (-n) % PAIR_BLOCK
+        if pad:
+            bits = np.concatenate([bits, np.ones((pad, HASH_BITS), bool)])
+        pm = _plus_minus(torch.from_numpy(bits).to(device))
+        thr = max(0, min(HASH_BITS, int(threshold)))
+        shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=pm.device)
+        offsets = torch.arange(8, device=pm.device)
+    cuda = pm.device.type == "cuda"
     for off in range(0, n, PAIR_BLOCK):
-        packed = match_bitmap(pm[off:off + PAIR_BLOCK], pm, thr)  # [B, P/8]
-        r, byte = torch.nonzero(packed, as_tuple=True)  # row-major
-        set_bits = ((packed[r, byte][:, None] >> shifts) & 1).bool()  # [M, 8]
-        i = (off + r)[:, None].expand(-1, 8)
-        c = byte[:, None] * 8 + offsets
-        keep = set_bits & (i < c) & (c < n)
-        pairs = torch.stack([i[keep], c[keep]], dim=1).cpu().tolist()
+        with span("block") as block:
+            if cuda:
+                stream = torch.cuda.current_stream(pm.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+            packed = match_bitmap(pm[off:off + PAIR_BLOCK], pm, thr)  # [B, P/8]
+            r, byte = torch.nonzero(packed, as_tuple=True)  # row-major
+            set_bits = ((packed[r, byte][:, None] >> shifts) & 1).bool()  # [M, 8]
+            i = (off + r)[:, None].expand(-1, 8)
+            c = byte[:, None] * 8 + offsets
+            keep = set_bits & (i < c) & (c < n)
+            found = torch.stack([i[keep], c[keep]], dim=1)
+            if cuda:
+                end.record(stream)
+            pairs = found.cpu().tolist()
+            if cuda:
+                end.synchronize()  # no wait: the copy to the host came after it
+                block.annotate(device_s=start.elapsed_time(end) / 1e3)
         yield from ((a, b) for a, b in pairs)
 
 
@@ -190,9 +212,23 @@ def duplicate_groups(hashes: list[tuple[Any, bytes]], threshold: int = 8,
     """Group ids whose pHashes are within `threshold` bits (union-find
     over the blockwise-thresholded pairs; never builds the N×N matrix).
     Each group lists its ids in input order; groups come in the order of
-    their first id."""
-    if not hashes:
-        return []
+    their first id.
+
+    Spans: `near` the whole grouping, `near_pairs`' spans inside it, and
+    `components` the final find of every id and the groups. The number of
+    pairs goes on the caller's span as `pairs`, where there is one."""
+    caller = current_span()
+    with span("near"):
+        groups, pairs = _union_find(hashes, threshold, device)
+    if caller is not None:
+        caller.annotate(pairs=pairs)
+    return groups
+
+
+def _union_find(hashes: list[tuple[Any, bytes]], threshold: int,
+                device: str | torch.device) -> tuple[list[list[Any]], int]:
+    """`duplicate_groups`' groups and the number of pairs found; its
+    million-entry lists are freed on return, inside the caller's span."""
     ids = [i for i, _h in hashes]
     n = len(ids)
     parent = list(range(n))
@@ -203,11 +239,14 @@ def duplicate_groups(hashes: list[tuple[Any, bytes]], threshold: int = 8,
             x = parent[x]
         return x
 
+    pairs = 0
     for r, c in near_pairs([h for _i, h in hashes], threshold, device):
+        pairs += 1
         ra, rb = find(r), find(c)
         if ra != rb:
             parent[rb] = ra
-    groups: dict[int, list[Any]] = {}
-    for idx in range(n):
-        groups.setdefault(find(idx), []).append(ids[idx])
-    return [g for g in groups.values() if len(g) > 1]
+    with span("components"):
+        groups: dict[int, list[Any]] = {}
+        for idx in range(n):
+            groups.setdefault(find(idx), []).append(ids[idx])
+        return [g for g in groups.values() if len(g) > 1], pairs

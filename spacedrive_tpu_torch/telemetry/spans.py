@@ -143,7 +143,9 @@ class Span:
             rec["fields"] = dict(self.fields)
         with _recent_lock:
             _recent.append(rec)
-        _trace.record_span({**rec, "t0": self._t0_wall})
+        # pc0: the start on time.perf_counter(), the clock a device trace
+        # can be mapped onto, so spans and kernels share one timeline
+        _trace.record_span({**rec, "t0": self._t0_wall, "pc0": self._t0})
         if self.duration >= _events.SLOW_OP_SECONDS:
             _events.watchdog_slow_op(self.path, self.duration)
         logger.debug("span %s: %.3fms%s", self.path, self.duration * 1e3,

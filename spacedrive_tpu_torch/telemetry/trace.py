@@ -129,8 +129,9 @@ def record_span(rec: dict[str, Any]) -> None:
     """Append one completed span record. Expected keys: ``stage``,
     ``trace_id``, ``span_id``, ``parent_id``, ``t0`` (epoch seconds),
     ``seconds``, plus optional ``bytes``/``error``/extra args. Spans
-    call this on exit; boundary shims (task dispatch) record synthetic
-    spans directly."""
+    call this on exit, adding ``pc0`` (the start on
+    ``time.perf_counter()``); boundary shims (task dispatch) record
+    synthetic spans directly."""
     with _ring_lock:
         _ring.append(rec)
 
