@@ -35,7 +35,9 @@ reference), `duplicates` and `search` run through their CLI helpers
 groups against the DB after one object is split in two; semantic, name
 and label queries), and
 `near_pairs` and the scorer run at 262,144 seeded hashes and vectors
-against host references. Phase 6 runs the labeler: LabelerNet at full
+against host references (`near_pairs` through H1, the pair-search
+kernel, against its plain torch path too, and on a 4096 x 2^20 block,
+timed; the `kernels` line gains H1's entry). Phase 6 runs the labeler: LabelerNet at full
 width (seeded weights) on 16 seeded 224² images on the card against the
 CPU in bf16 (decisions may flip only within 0.35 ± 0.05), timed at batch
 16 and 256 with CUDA events and traced with torch.profiler; `labeler
@@ -406,6 +408,13 @@ HBM_BYTES_PER_S = 3.35e12
 # b ^= c, b >>>= 12 or 7 (one SHF funnel shift): 6 instructions, all on
 # the integer pipe of 64 lanes per SM.
 OPS_PER_BLOCK = 7 * 8 * 12 + 8
+# POPC issues at 16 a clock on an sm_90 SM (the CUDA programming guide's
+# throughput table). H1 spends at least one on a pair: its filter on one
+# 32-bit half rejects most pairs after one, a pair it passes takes two
+POPC_PER_SM, POPC_PER_PAIR = 16, 1
+# the benchmark's count of a pair (sdbench/core/roofline.py): a 64-term
+# ±1 dot product, 128 operations, against the int8 dense peak
+OPS_PER_PAIR, INT8_OPS_PER_S = 128, 1979e12
 
 DEVICE = "cuda"
 # the corpus: a 1M-file library cut to 4,096 files for the time limit;
@@ -1458,14 +1467,17 @@ def check_duplicates(data_dir: str, corpus: str, pairs: list[tuple[str, str]]) -
     every image object hashed (8 bytes), the bits equal to the plain CPU
     path on the same gray planes but for counted near-median flips,
     every planted pair in one near group, the exact groups equal to the
-    DB's cas_id groups (one), and a second run hashing nothing."""
+    DB's cas_id groups (one), a second run hashing nothing, and H1
+    launched by each run, whole blocks of the objects' hashes."""
     import torch as _torch
 
     from spacedrive_tpu_torch.files.kind import ObjectKind
-    from spacedrive_tpu_torch.ops import phash_torch
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
 
     split_one_object(data_dir)
+    hamming_cuda.near_pairs_block.launches = 0
     groups, meta, seconds = _duplicates_run(data_dir)
+    launches = [hamming_cuda.near_pairs_block.launches]
     lib = _open_library(data_dir)
     try:
         objs = lib.db.query("SELECT id, phash FROM object WHERE kind = ?", (int(ObjectKind.Image),))
@@ -1504,15 +1516,21 @@ def check_duplicates(data_dir: str, corpus: str, pairs: list[tuple[str, str]]) -
     check(got_exact == want_exact and len(want_exact) == 1,
           f"exact groups {got_exact} != the DB's cas_id groups {want_exact}")
 
+    hamming_cuda.near_pairs_block.launches = 0
     groups2, meta2, seconds2 = _duplicates_run(data_dir)
+    launches.append(hamming_cuda.near_pairs_block.launches)
+    blocks = -(-len(objs) // phash_torch.PAIR_BLOCK)
+    check(all(k > 0 and k % blocks == 0 for k in launches),
+          f"the duplicates runs launched H1 {launches} times, not whole passes of {blocks} blocks")
     check(meta2["hashed"] == 0, f"the second duplicates run hashed {meta2['hashed']}")
     check([sorted(g["object_ids"]) for g in groups2] == [sorted(g["object_ids"]) for g in groups],
           "the second duplicates run found other groups")
     print(f"phase 5: duplicates: {len(objs)} image objects hashed on the card, {int(flips.sum())} "
           f"bits differ from the plain CPU path (all within 1e-5 of the median); {len(near)} near "
           f"groups hold every one of the {len(pairs)} planted pairs; {len(got_exact)} exact "
-          f"groups == the DB's; a second run hashed 0", flush=True)
+          f"groups == the DB's; a second run hashed 0; H1 launches {launches}", flush=True)
     return {"images": len(objs), "seconds": seconds, "second_run_s": seconds2,
+            "h1_launches": sum(launches),
             "near_groups": len(near), "exact_groups": len(got_exact),
             "flips_near_median": int(flips.sum()), "reused": meta.get("reused", 0)}
 
@@ -1539,10 +1557,14 @@ def host_pairs(h64: np.ndarray, threshold: int) -> list[tuple[int, int]]:
 def check_near_pairs_at_scale(rng) -> dict:
     """`near_pairs` at N_PAIR_HASHES seeded hashes with N_PAIR_CLUSTERS
     planted clusters (2-4 members, each at most DUP_THRESHOLD/2 bits from
-    its centre): every planted pair returned, every returned pair within
-    the threshold by host XOR-popcount, and on the first N_PAIR_SUBSET
-    hashes the pair set equal to a host all-pairs."""
-    from spacedrive_tpu_torch.ops import phash_torch
+    its centre): one H1 launch a block, the pairs equal to the plain
+    torch path's (`plain_block` on the card, exact in bf16), every
+    planted pair returned, every returned pair within the threshold by
+    host XOR-popcount, and on the first N_PAIR_SUBSET hashes the pairs
+    equal to a host all-pairs and to the plain path's on the CPU. Then
+    H1 against the plain path on the first block of a 2^20-hash library
+    (`h1_block_ms`)."""
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
 
     bits = rng.integers(0, 2, (N_PAIR_HASHES, 64)).astype(bool)
     members = rng.permutation(N_PAIR_HASHES)[:N_PAIR_CLUSTERS * 4].reshape(N_PAIR_CLUSTERS, 4)
@@ -1563,10 +1585,23 @@ def check_near_pairs_at_scale(rng) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    hamming_cuda.near_pairs_block.launches = 0
     t0 = time.perf_counter()
     pairs = list(phash_torch.near_pairs(hashes, DUP_THRESHOLD, DEVICE))
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    launches = {"near_pairs_at_scale": hamming_cuda.near_pairs_block.launches}
+    blocks = -(-N_PAIR_HASHES // phash_torch.PAIR_BLOCK)
+    check(launches["near_pairs_at_scale"] == blocks,
+          f"near_pairs launched H1 {launches['near_pairs_at_scale']} times for {blocks} blocks")
+    pm = phash_torch._plus_minus(torch.from_numpy(bits).to(DEVICE))
+    plain = phash_torch._plain_launcher(pm, N_PAIR_HASHES, DUP_THRESHOLD)
+    want = [p for off in range(0, N_PAIR_HASHES, phash_torch.PAIR_BLOCK)
+            for p in phash_torch.block_pairs(plain, off, phash_torch.PAIR_CAPACITY)[0]]
+    del pm, plain
+    torch.cuda.empty_cache()
+    check(pairs == want, f"H1's {len(pairs)} pairs on {N_PAIR_HASHES} hashes != the plain "
+          f"torch path's {len(want)} on the card")
     got = set(pairs)
     check(len(got) == len(pairs), "near_pairs returned a pair twice")
     check(planted <= got, f"{len(planted - got)} planted pairs missing from near_pairs")
@@ -1574,15 +1609,90 @@ def check_near_pairs_at_scale(rng) -> dict:
     b = np.array([p[1] for p in pairs])
     dist = _popcount64(h64[a] ^ h64[b])
     check(bool((dist <= DUP_THRESHOLD).all()), "near_pairs returned a pair beyond the threshold")
+    hamming_cuda.near_pairs_block.launches = 0
     sub = list(phash_torch.near_pairs(hashes[:N_PAIR_SUBSET], DUP_THRESHOLD, DEVICE))
+    launches["near_pairs_subset"] = hamming_cuda.near_pairs_block.launches
     check(sub == host_pairs(h64[:N_PAIR_SUBSET], DUP_THRESHOLD),
           f"near_pairs on {N_PAIR_SUBSET} hashes != the host all-pairs")
+    check(sub == list(phash_torch.near_pairs(hashes[:N_PAIR_SUBSET], DUP_THRESHOLD, "cpu")),
+          f"H1's pairs on {N_PAIR_SUBSET} hashes != the plain torch path's")
+    block = h1_block_ms(rng)
     print(f"phase 5: near_pairs at {N_PAIR_HASHES} hashes: {len(pairs)} pairs in {seconds:.3f} s "
-          f"(peak device memory {peak / 2**30:.2f} GiB), all {len(planted)} planted pairs among "
+          f"(peak device memory {peak / 2**30:.2f} GiB, {launches['near_pairs_at_scale']} H1 "
+          f"launches) == the plain path's on the card; all {len(planted)} planted pairs among "
           f"them, all within {DUP_THRESHOLD} bits; the {N_PAIR_SUBSET}-hash subset's {len(sub)} "
-          f"pairs == host all-pairs", flush=True)
+          f"pairs == host all-pairs == plain path on the CPU; H1 {block['ms']:.4f} ms a 4096 x "
+          f"2^20 block with its buffer to the host, {block['block_pairs']} pairs == the plain "
+          f"path's (POPC bound {block['popc_bound_ms']:.4f} ms, the benchmark's count "
+          f"{block['count_bound_ms']:.4f} ms; the plain path {block['plain_ms']:.2f} ms)",
+          flush=True)
     return {"hashes": N_PAIR_HASHES, "pairs": len(pairs), "planted_pairs": len(planted),
-            "seconds": seconds, "peak_device_bytes": peak, "subset_pairs": len(sub)}
+            "seconds": seconds, "peak_device_bytes": peak, "subset_pairs": len(sub),
+            "h1_launches": launches, "h1_block": block}
+
+
+def h1_block_ms(rng, n: int = 2**20, planted: int = 1024) -> dict:
+    """H1 on the first block of `n` uniform hashes at DUP_THRESHOLD, with
+    `planted` of its rows given a copy within the threshold at a later
+    column: its pairs equal to the plain path's (`plain_block` on the
+    card) on the same block, and the median ms of each, its pairs to the
+    host included, beside H1's bounds (the POPC bound of the block's
+    pairs at POPC_PER_PAIR and the card's maximum SM clock; the
+    benchmark's count, OPS_PER_PAIR a pair at the int8 dense peak)."""
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
+
+    rows, capacity = phash_torch.PAIR_BLOCK, phash_torch.PAIR_CAPACITY
+    words = rng.integers(0, 2**64, n, dtype=np.uint64)
+    for r in rng.choice(rows, planted, replace=False):
+        flip = rng.choice(64, int(rng.integers(0, DUP_THRESHOLD + 1)), replace=False)
+        words[rng.integers(rows, n)] = words[r] ^ np.uint64(sum(1 << int(f) for f in flip))
+    table = torch.from_numpy(words.view(np.int64)).to(DEVICE)
+    bits = np.unpackbits(words.view(np.uint8).reshape(n, 8), axis=1).astype(bool)
+    pm = phash_torch._plus_minus(torch.from_numpy(bits).to(DEVICE))
+
+    buf = hamming_cuda.near_pairs_block(table, n, 0, rows, DUP_THRESHOLD, capacity).cpu().numpy()
+    count = int(buf[0])
+    check(0 < count <= capacity, f"H1 found {count} pairs in the block, room for {capacity}")
+    got = phash_torch.decode_pairs(buf[1:1 + count])
+    want = phash_torch.decode_pairs(phash_torch.plain_block(pm, n, 0, DUP_THRESHOLD))
+    check(got == want, f"H1's {len(got)} pairs in a 4096 x {n} block != the plain path's "
+          f"{len(want)}")
+    ms = cuda_ms(lambda: hamming_cuda.near_pairs_block(
+        table, n, 0, rows, DUP_THRESHOLD, capacity).cpu(), reps=10)
+    plain_ms = cuda_ms(lambda: phash_torch.plain_block(pm, n, 0, DUP_THRESHOLD),
+                       reps=3, warmup=1)
+    del pm
+    torch.cuda.empty_cache()
+    pairs = rows * (n - rows) + rows * (rows - 1) // 2
+    sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"rows": rows, "columns": n, "pairs": pairs, "block_pairs": count, "ms": ms,
+            "plain_ms": plain_ms,
+            "popc_bound_ms": pairs * POPC_PER_PAIR / (sms * POPC_PER_SM * sm_clock_hz) * 1e3,
+            "count_bound_ms": pairs * OPS_PER_PAIR / INT8_OPS_PER_S * 1e3}
+
+
+def h1_kernel(read: dict) -> dict:
+    """H1's entry in the smoke's `kernels` line, from phase 5's numbers:
+    `launches_by_path` counts each path from 0 just before it."""
+    block = read["near_pairs"]["h1_block"]
+    by_path = {"duplicates": read["duplicates"]["h1_launches"],
+               **read["near_pairs"]["h1_launches"]}
+    return {
+        "name": "hamming_near_pairs",
+        "route": "cuda",
+        "source": "spacedrive_tpu_torch/ops/csrc/hamming_pairs.cu",
+        "replaces": "none",
+        "parity": "exact",
+        "ms": block["ms"],
+        "plain_ms": block["plain_ms"],
+        "bound_ms": block["popc_bound_ms"],
+        "bound_by": "popc",
+        "bound_ms_by_count": block["count_bound_ms"],
+        "library_ms": None,
+        "launches_by_path": by_path,
+        "launches": sum(by_path.values()),
+    }
 
 
 def _search(data_dir: str, query: str, semantic: bool, take: int) -> dict:
@@ -1694,19 +1804,11 @@ def check_query_at_scale(rng) -> dict:
 
 def read_side_ops_ms(rng) -> dict:
     """The read side's torch programs at the main path's shapes: the DCT
-    of 64 planes (one duplicate step), one near_pairs block (4096 rows
-    against 262,144 columns)."""
+    of 64 planes (one duplicate step)."""
     from spacedrive_tpu_torch.ops import phash_torch
 
     gray = torch.from_numpy(rng.random((64, 32, 32), dtype=np.float32)).to(DEVICE)
-    cols = phash_torch._plus_minus(torch.from_numpy(
-        rng.integers(0, 2, (N_PAIR_HASHES, 64)).astype(bool)).to(DEVICE))
-    return {
-        "phash_64_ms": cuda_ms(lambda: phash_torch.phash_bits(gray), reps=20),
-        "near_pairs_block_4096x262144_ms": cuda_ms(
-            lambda: phash_torch.match_bitmap(cols[:phash_torch.PAIR_BLOCK], cols, DUP_THRESHOLD),
-            reps=10),
-    }
+    return {"phash_64_ms": cuda_ms(lambda: phash_torch.phash_bits(gray), reps=20)}
 
 
 def phase_read_side(rng, p4: dict) -> dict:
@@ -1743,7 +1845,8 @@ def phase_read_side(rng, p4: dict) -> dict:
            "search": {**search, **query}, "torch_ops_ms": ops_ms, "steps_s": steps_s,
            "seconds": time.perf_counter() - t_phase}
     print(json.dumps({"read_side": out}), flush=True)
-    return {"launches": {"read_side_rescan": scan["launches"], "validator": got["launches"]}}
+    return {"launches": {"read_side_rescan": scan["launches"], "validator": got["launches"]},
+            "h1": h1_kernel(out)}
 
 
 # --- phase 6: the labeler --------------------------------------------------
@@ -7312,6 +7415,7 @@ def main() -> int:
     check_healthy("2")
     lap("2")
     launches: dict[str, int] = {}
+    kernels = [kernel]  # K1, then H1 once phase 5 has run
     with tempfile.TemporaryDirectory(prefix="sd_chip_smoke_") as tmp:
         got = phase_pass(rng, tmp)
         check_healthy("3")
@@ -7327,6 +7431,7 @@ def main() -> int:
             read = phase_read_side(rng, lib)
             check_healthy("5")
             launches.update(read["launches"])
+            kernels.append(read["h1"])
             lap("5")
         if args.stop_after >= 6:
             labels = phase_labeler(rng, tmp, lib)
@@ -7390,7 +7495,7 @@ def main() -> int:
     # launches on the main paths, each counted from 0 just before it
     kernel["launches_by_path"] = launches
     kernel["launches"] = sum(launches.values())
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -20,31 +20,17 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
-)
-SOURCE = os.path.join(_CSRC, "blake3_chunk.cu")
-NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-shared",
-              "-Xcompiler", "-fPIC")
+from .nvcc_build import BUILD_DIR, CSRC, shared_library
+
+SOURCE = os.path.join(CSRC, "blake3_chunk.cu")
 
 _build_lock = threading.Lock()
 _built: list = []  # the loaded library, once built
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
@@ -54,23 +40,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     failed build raises RuntimeError with nvcc's output."""
     with _build_lock:
         if not _built:
-            with open(SOURCE, "rb") as f:
-                digest = hashlib.sha256(f.read()).hexdigest()[:16]
-            build_dir = os.path.join(BUILD_DIR, "blake3_chunk")
-            so = os.path.join(build_dir, f"blake3_chunk_{digest}.so")
-            if not os.path.exists(so):
-                os.makedirs(build_dir, exist_ok=True)
-                tmp = f"{so}.{os.getpid()}.tmp"  # no process loads a half-written library
-                cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-                       "-o", tmp, SOURCE]
-                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-                if verbose:
-                    print(proc.stdout + proc.stderr, flush=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc exited {proc.returncode} building {SOURCE}:\n"
-                                       f"{proc.stdout}{proc.stderr}")
-                os.replace(tmp, so)
-            lib = ctypes.CDLL(so)
+            lib = ctypes.CDLL(shared_library(SOURCE, "blake3_chunk", verbose))
             lib.sd_blake3_chunk_cvs.argtypes = [ctypes.c_void_p] * 5 + [
                 ctypes.c_int64, ctypes.c_void_p]
             lib.sd_blake3_chunk_cvs.restype = ctypes.c_int

@@ -13,7 +13,11 @@ big-endian as `np.packbits` packs them. Similarity: with bits mapped to
 hamming = (64 − G) / 2.
 
 These are torch ops on the caller's device (the JAX package leaves them
-to XLA); no hand kernel. Precision:
+to XLA), but for the pair search on a card: there each row block of
+`near_pairs` is one hand-written kernel, H1 (`hamming_cuda.py`), an
+XOR-popcount over the upper triangle that writes only the pairs; the ±1
+product (`plain_block`) is its plain version and the CPU's path.
+Precision:
 
 - The DCT runs in float64 on every device. A float32 product on the
   card may run in TF32 under `torch.backends.cuda.matmul.allow_tf32` or
@@ -30,7 +34,7 @@ to XLA); no hand kernel. Precision:
 from __future__ import annotations
 
 import functools
-from collections.abc import Iterator
+from collections.abc import Callable, Iterator
 from typing import Any, Sequence
 
 import numpy as np
@@ -38,13 +42,18 @@ import torch
 
 from ..parallel import mesh as _mesh
 from ..telemetry import current_span, span
+from . import hamming_cuda
 from .phash_gray import DCT_SIZE, to_gray32  # noqa: F401 - re-exported
 
 HASH_BITS = 64
 LOW_FREQ = 8
-#: rows of one `near_pairs` block; a multiple of 8, so one padded
-#: array serves as the block's rows and as every column
+#: rows of one `near_pairs` block; a multiple of 8 and of H1's tile, so
+#: one padded array serves as the block's rows and as every column
 PAIR_BLOCK = 4096
+#: pairs a block's first launch has room for; a block with more is
+#: launched once more at its count (~230 a block in a 2^20-image library
+#: with 4% of its images in near clusters)
+PAIR_CAPACITY = 1 << 16
 
 _BIT_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)  # big-endian, as np.packbits
 
@@ -156,55 +165,125 @@ def match_bitmap(rows: torch.Tensor, cols: torch.Tensor, threshold: int) -> torc
     return pack_bits(rows @ cols.T >= HASH_BITS - 2 * threshold)
 
 
+def plain_block(pm: torch.Tensor, n: int, off: int, threshold: int) -> np.ndarray:
+    """H1's function in torch ops: the pairs (i, j) of the row block at
+    `off` (PAIR_BLOCK rows of the padded ±1 operand `pm`, whose first n
+    rows are the hashes) with i < j < n within `threshold` bits, on the
+    host as int64 (i << 32) | j in row-major order, every one of them."""
+    packed = match_bitmap(pm[off:off + PAIR_BLOCK], pm, threshold)  # [B, P/8]
+    r, byte = torch.nonzero(packed, as_tuple=True)  # row-major
+    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=pm.device)
+    set_bits = ((packed[r, byte][:, None] >> shifts) & 1).bool()  # [M, 8]
+    i = (off + r)[:, None].expand(-1, 8)
+    c = byte[:, None] * 8 + torch.arange(8, device=pm.device)
+    keep = set_bits & (i < c) & (c < n)
+    return ((i[keep] << 32) | c[keep]).cpu().numpy()
+
+
+def decode_pairs(packed: np.ndarray) -> list[tuple[int, int]]:
+    """int64 pairs packed as (i << 32) | j, in any order → [(i, j)] in
+    row-major order (i, then j, ascending)."""
+    packed = np.sort(packed)
+    return list(zip((packed >> 32).tolist(), (packed & 0xFFFFFFFF).tolist()))
+
+
+def block_pairs(launch: Callable[[int, int], tuple[np.ndarray, float | None]], off: int,
+                capacity: int) -> tuple[list[tuple[int, int]], int, float | None]:
+    """One row block's pairs in row-major order, whether the block took
+    a second launch (0 or 1), and the device seconds of its launches
+    (None where the launcher times nothing).
+
+    `launch(off, capacity)` returns the block's buffer on the host (H1's
+    layout: the count of pairs, then room for at least `capacity` of
+    them, the first ones found, in any order) and its device seconds. A
+    count past the buffer's room launches the block once more, with the
+    exact count as its capacity; a second count that differs raises
+    RuntimeError."""
+    buf, device_s = launch(off, capacity)
+    count = int(buf[0])
+    relaunched = 0
+    if count > buf.size - 1:
+        buf, again_s = launch(off, count)
+        relaunched = 1
+        if int(buf[0]) != count:
+            raise RuntimeError(f"the block at row {off} found {int(buf[0])} pairs on its "
+                               f"relaunch, {count} on its first launch")
+        if device_s is not None:
+            device_s += again_s
+    return decode_pairs(buf[1:1 + count]), relaunched, device_s
+
+
+def _plain_launcher(pm: torch.Tensor, n: int, threshold: int):
+    """`block_pairs`' launcher off a card: `plain_block`, untimed, with
+    room for every pair it finds, so a block never takes a relaunch."""
+
+    def launch(off: int, capacity: int) -> tuple[np.ndarray, None]:
+        found = plain_block(pm, n, off, threshold)
+        return np.concatenate(([found.size], found)), None
+
+    return launch
+
+
+def _card_launcher(table: torch.Tensor, n: int, threshold: int):
+    """`block_pairs`' launcher on a card: H1 on the current stream, timed
+    by CUDA events around the launch, its buffer copied to the host."""
+
+    def launch(off: int, capacity: int) -> tuple[np.ndarray, float]:
+        stream = torch.cuda.current_stream(table.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        buf = hamming_cuda.near_pairs_block(table, n, off, PAIR_BLOCK, threshold, capacity)
+        end.record(stream)
+        host = buf.cpu().numpy()
+        end.synchronize()  # no wait: the copy to the host came after it
+        return host, start.elapsed_time(end) / 1e3
+
+    return launch
+
+
 def near_pairs(hashes: list[bytes], threshold: int,
                device: str | torch.device = "cuda") -> Iterator[tuple[int, int]]:
     """Yield (i, j) index pairs (i < j) within `threshold` bits, in
-    row-major order, in blocks of PAIR_BLOCK rows: device memory stays
-    O(PAIR_BLOCK × N), and the bitmap's nonzero bytes are decoded on the
-    device, so only the pairs come back to the host.
+    row-major order, in blocks of PAIR_BLOCK rows. On a card each block
+    is one launch of H1, which writes only the block's pairs (at most
+    PAIR_CAPACITY, counting past it; a block with more is launched once
+    more at its count): device memory stays O(N + pairs). Elsewhere each
+    block is one `plain_block`, O(PAIR_BLOCK × N), which returns all its
+    pairs at once. Either way only the pairs come back to the host,
+    sorted by `block_pairs`.
 
-    Spans: `prepare` (the unpack, the pad and the upload), then one
-    `block` a block, closed once the block's pairs are a host list: a
-    generator runs in its consumer's context, so no span stays open
-    across a yield. On a card each block's span carries `device_s`, the
-    seconds between CUDA events recorded before its product and after
-    its last kernel."""
+    Spans: `prepare` (the pad and the upload: the hashes as int64 on a
+    card, the ±1 operand elsewhere), then one `block` a block, closed
+    once the block's pairs are a host list: a generator runs in its
+    consumer's context, so no span stays open across a yield. Each
+    block's span carries `pairs` (the block's pairs) and `relaunched`
+    (0 or 1); on a card also `device_s`, the seconds between CUDA events
+    recorded before and after its launches."""
     if not hashes:
         return
     with span("prepare"):
-        bits = unpack_hashes(hashes)
-        n = bits.shape[0]
-        # one padded array serves as rows AND columns; the phantom pad rows
-        # (all ones) are dropped on decode
-        pad = (-n) % PAIR_BLOCK
-        if pad:
-            bits = np.concatenate([bits, np.ones((pad, HASH_BITS), bool)])
-        pm = _plus_minus(torch.from_numpy(bits).to(device))
+        n = len(hashes)
+        pad = (-n) % PAIR_BLOCK  # one padded array serves as rows AND columns
         thr = max(0, min(HASH_BITS, int(threshold)))
-        shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=pm.device)
-        offsets = torch.arange(8, device=pm.device)
-    cuda = pm.device.type == "cuda"
+        if torch.device(device).type == "cuda":
+            joined = b"".join(hashes)
+            if len(joined) != 8 * n:
+                raise ValueError("near_pairs takes 8-byte hashes")
+            table = torch.frombuffer(bytearray(joined) + bytes(8 * pad), dtype=torch.int64)
+            launch = _card_launcher(table.to(device), n, thr)
+        else:
+            bits = unpack_hashes(hashes)
+            if pad:
+                bits = np.concatenate([bits, np.ones((pad, HASH_BITS), bool)])
+            launch = _plain_launcher(_plus_minus(torch.from_numpy(bits).to(device)), n, thr)
     for off in range(0, n, PAIR_BLOCK):
         with span("block") as block:
-            if cuda:
-                stream = torch.cuda.current_stream(pm.device)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record(stream)
-            packed = match_bitmap(pm[off:off + PAIR_BLOCK], pm, thr)  # [B, P/8]
-            r, byte = torch.nonzero(packed, as_tuple=True)  # row-major
-            set_bits = ((packed[r, byte][:, None] >> shifts) & 1).bool()  # [M, 8]
-            i = (off + r)[:, None].expand(-1, 8)
-            c = byte[:, None] * 8 + offsets
-            keep = set_bits & (i < c) & (c < n)
-            found = torch.stack([i[keep], c[keep]], dim=1)
-            if cuda:
-                end.record(stream)
-            pairs = found.cpu().tolist()
-            if cuda:
-                end.synchronize()  # no wait: the copy to the host came after it
-                block.annotate(device_s=start.elapsed_time(end) / 1e3)
-        yield from ((a, b) for a, b in pairs)
+            pairs, relaunched, device_s = block_pairs(launch, off, PAIR_CAPACITY)
+            block.annotate(pairs=len(pairs), relaunched=relaunched)
+            if device_s is not None:
+                block.annotate(device_s=device_s)
+        yield from pairs
 
 
 def duplicate_groups(hashes: list[tuple[Any, bytes]], threshold: int = 8,

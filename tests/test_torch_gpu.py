@@ -7,6 +7,10 @@ import nothing of JAX, so they also run where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
+H1 (the near-pairs kernel) against the plain path: the same pairs in
+the same order, on planted hashes and on equal ones that overflow a
+launch's capacity, and one launch a block (plus one a relaunch).
+
 Tolerances: K1 and the hashes bit-identical; resize within 1 uint8 level
 (float32 sums in another order); embed allclose(atol=1e-5, rtol=1e-5);
 pHash bits equal except within 1e-5 × max|coefficient| of the median
@@ -261,6 +265,121 @@ def test_near_pairs_on_cuda_match_cpu_and_xor():
     sub = hashes[:500]
     assert np.array_equal(phash_torch.hamming_matrix(sub, "cuda"),
                           phash_torch.hamming_matrix(sub, "cpu"))
+
+
+def _planted_hashes(n: int, seed: int) -> list[bytes]:
+    """n random hashes, every 13th followed by a copy 1-5 bits away."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (n, 64)).astype(bool)
+    for c in range(0, n - 1, 13):
+        bits[c + 1] = bits[c]
+        bits[c + 1, rng.choice(64, int(rng.integers(1, 6)), replace=False)] ^= True
+    return [h.tobytes() for h in np.packbits(bits, axis=1)]
+
+
+def _plain_pairs_on_the_card(hashes: list[bytes], threshold: int) -> list[tuple[int, int]]:
+    """The plain path's pairs (`plain_block`, its ±1 operand in bf16 on
+    the card, exact) where the CPU's float32 products would take minutes."""
+    from spacedrive_tpu_torch.ops import phash_torch as pt
+
+    n = len(hashes)
+    bits = pt.unpack_hashes(hashes)
+    bits = np.concatenate([bits, np.ones(((-n) % pt.PAIR_BLOCK, 64), bool)])
+    launch = pt._plain_launcher(pt._plus_minus(torch.from_numpy(bits).cuda()), n, threshold)
+    pairs = []
+    for off in range(0, n, pt.PAIR_BLOCK):
+        pairs += pt.block_pairs(launch, off, pt.PAIR_CAPACITY)[0]
+    return pairs
+
+
+# the thresholds at each N: every one up to 4,097 hashes; past that the
+# pairs of the dense thresholds (~N²/2 at 64) outgrow the host's lists
+H1_CASES = [(n, t) for n in (1, 2, 4095, 4096, 4097) for t in (0, 1, 8, 32, 64)] + [
+    (9000, t) for t in (0, 1, 8, 32)] + [(262_144, t) for t in (0, 1, 8)]
+
+
+@pytest.mark.parametrize("n, threshold", H1_CASES)
+def test_h1_pairs_equal_the_plain_path_in_order(n, threshold):
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
+
+    hashes = _planted_hashes(n, seed=n)
+    before = hamming_cuda.near_pairs_block.launches
+    got = list(phash_torch.near_pairs(hashes, threshold, "cuda"))
+    torch.cuda.synchronize()
+    assert hamming_cuda.near_pairs_block.launches > before
+    if n > 9000:
+        want = _plain_pairs_on_the_card(hashes, threshold)
+    else:
+        want = list(phash_torch.near_pairs(hashes, threshold, "cpu"))
+    assert got == want
+    assert len(got) > 0 or n < 9 or threshold < 8
+
+
+def test_h1_relaunches_a_block_past_its_capacity():
+    """1,500 equal hashes: 1,124,250 pairs in one block, past the first
+    launch's room for PAIR_CAPACITY, so the block is launched again."""
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
+    from spacedrive_tpu_torch.telemetry import trace
+
+    n = 1500
+    hashes = [b"\x5a\x0f\xf0\x00\xff\x13\x37\x99"] * n
+    before = hamming_cuda.near_pairs_block.launches
+    got = list(phash_torch.near_pairs(hashes, 0, "cuda"))
+    assert hamming_cuda.near_pairs_block.launches == before + 2
+    block = [r for r in trace.recent() if r["stage"] == "block"][-1]
+    assert block["fields"]["relaunched"] > 0 and block["fields"]["pairs"] == len(got)
+    assert 0 < block["fields"]["device_s"] <= block["seconds"]
+    assert len(got) == n * (n - 1) // 2 > phash_torch.PAIR_CAPACITY
+    assert got == [(i, j) for i in range(n) for j in range(i + 1, n)]
+    assert got == list(phash_torch.near_pairs(hashes, 0, "cpu"))
+
+
+def test_h1_on_no_hashes_launches_nothing():
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
+
+    before = hamming_cuda.near_pairs_block.launches
+    assert list(phash_torch.near_pairs([], 8, "cuda")) == []
+    assert phash_torch.duplicate_groups([], device="cuda") == []
+    assert hamming_cuda.near_pairs_block.launches == before
+
+
+@pytest.mark.parametrize("equal", [0, 400])
+def test_duplicate_groups_on_cuda_launch_h1_once_a_block(equal):
+    """One grouping of 9,000 hashes launches H1 once for each of its 3
+    blocks, and once more for a block past its capacity (the first, when
+    its first `equal` hashes are equal: 79,800 pairs); its groups are
+    the CPU's."""
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash_torch
+    from spacedrive_tpu_torch.telemetry import trace
+
+    n = 9000
+    hashes = _planted_hashes(n, seed=11)
+    hashes[:equal] = [b"\x01" * 8] * equal
+    ids = [f"o{k}" for k in range(n)]
+    before = hamming_cuda.near_pairs_block.launches
+    got = phash_torch.duplicate_groups(list(zip(ids, hashes)), threshold=8, device="cuda")
+    blocks = [r for r in trace.recent() if r["stage"] == "near.block"][-3:]
+    relaunched = sum(r["fields"]["relaunched"] for r in blocks)
+    assert relaunched == (1 if equal else 0)
+    assert hamming_cuda.near_pairs_block.launches == before + 3 + relaunched
+    assert got == phash_torch.duplicate_groups(list(zip(ids, hashes)), threshold=8, device="cpu")
+    assert len(got) > 600
+
+
+def test_h1_wrapper_rejects_bad_tables():
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    table = torch.zeros(8192, dtype=torch.int64, device="cuda")
+    hamming_cuda.near_pairs_block(table, 5000, 4096, 4096, 8, 4)  # fits
+    for args in ((table.to(torch.int32), 5000, 0, 4096, 8, 4),
+                 (table[:5000], 5000, 0, 4096, 8, 4),  # not whole tiles
+                 (table[1:1 + 4096], 4096, 0, 4096, 8, 4),  # not 16-byte aligned
+                 (table, 5000, 100, 4096, 8, 4),  # off inside a tile
+                 (table, 5000, 4096, 8192, 8, 4),  # rows past the table
+                 (table, 9000, 0, 4096, 8, 4),  # n past the table
+                 (table, 5000, 0, 4096, 65, 4)):
+        with pytest.raises(ValueError):
+            hamming_cuda.near_pairs_block(*args)
 
 
 def test_query_on_cuda_matches_cpu_with_ties():

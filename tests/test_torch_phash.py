@@ -11,6 +11,10 @@ CPU, on the same seeded inputs:
 - `hamming_matrix`, `near_pairs` and `duplicate_groups` exact on the
   same packed hashes at N ∈ {1, 7, 4096, 4097} (4097 crosses the
   PAIR_BLOCK pad);
+- the host side of the card's pair search on the CPU: an unordered
+  pair buffer and its count decoded into row-major pairs, the capacity
+  and relaunch decision against a fake launcher, and `near_pairs` with
+  a capacity small enough to relaunch blocks, still JAX's pairs;
 - the JAX package's tests/test_phash.py cases on the port (properties,
   gram against XOR, union-find, the job end to end);
 - both packages' scan chain and DuplicateDetectorJob over one seeded
@@ -159,6 +163,125 @@ def test_hamming_near_pairs_and_groups_exact_on_equal_hashes(n):
     got = phash_torch.duplicate_groups(pairs, threshold=4, device="cpu")
     assert got == phash_jax.duplicate_groups(pairs, threshold=4)
     assert (len(got) > 0) == (n > 3)
+
+
+# --- the host side of the card's pair search -----------------------------------
+
+
+def _packed(pairs) -> np.ndarray:
+    return np.array([(i << 32) | j for i, j in pairs], np.int64)
+
+
+def test_decode_pairs_turns_an_unordered_buffer_into_row_major_pairs():
+    rng = np.random.default_rng(3)
+    want = sorted({(int(i), int(j)) for i, j in rng.integers(0, 2**31 - 1, (500, 2)) if i < j})
+    want += [(0, 1), (0, 2**31 - 1), (2**31 - 2, 2**31 - 1)]
+    want.sort()
+    buf = np.concatenate([[len(want)], rng.permutation(_packed(want)),
+                          rng.integers(0, 2**62, 7)])  # words past the count: not pairs
+    got, relaunched, device_s = phash_torch.block_pairs(lambda off, cap: (buf, None), 0,
+                                                        len(want) + 7)
+    assert got == want and relaunched == 0 and device_s is None
+    assert phash_torch.decode_pairs(np.zeros(0, np.int64)) == []
+
+
+@pytest.mark.parametrize("found, capacity", [(0, 4), (3, 4), (4, 4), (5, 4), (40, 0)])
+def test_block_pairs_relaunches_once_at_the_exact_count(found, capacity):
+    """A fake launcher that finds `found` pairs at row 4096, keeps the
+    first `capacity` of them, out of order, and takes 0.25 s a launch."""
+    pairs = [(4096 + k // 3, 4100 + k) for k in range(found)]
+    calls = []
+
+    def launch(off, cap):
+        calls.append((off, cap))
+        kept = _packed(pairs[::-1][:cap])
+        buf = np.zeros(1 + cap, np.int64)
+        buf[0], buf[1:1 + kept.size] = found, kept
+        return buf, 0.25
+
+    got, relaunched, device_s = phash_torch.block_pairs(launch, 4096, capacity)
+    assert got == pairs
+    assert relaunched == int(found > capacity)
+    assert calls == [(4096, capacity)] + ([(4096, found)] if found > capacity else [])
+    assert device_s == 0.25 * len(calls)
+
+
+def test_block_pairs_refuses_a_relaunch_that_counts_otherwise():
+    counts = iter([9, 8])
+
+    def launch(off, cap):
+        buf = np.zeros(1 + cap, np.int64)
+        buf[0] = next(counts)
+        return buf, None
+
+    with pytest.raises(RuntimeError, match="found 8 pairs on its relaunch, 9"):
+        phash_torch.block_pairs(launch, 0, 2)
+
+
+@pytest.mark.parametrize("capacity", [0, 1, 5])
+def test_near_pairs_through_relaunched_blocks_equal_jax(monkeypatch, capacity):
+    """With the plain launcher's buffers cut to room for `capacity`
+    pairs, as H1's are, blocks with more pairs take their second launch,
+    and the pairs are still JAX's."""
+    hashes = _hashes(9000, seed=capacity)
+    plain = phash_torch._plain_launcher
+
+    def cut(pm, n, threshold):
+        launch = plain(pm, n, threshold)
+        return lambda off, cap: (launch(off, cap)[0][:1 + cap], None)
+
+    monkeypatch.setattr(phash_torch, "PAIR_CAPACITY", capacity)
+    monkeypatch.setattr(phash_torch, "_plain_launcher", cut)
+    relaunched = []
+    for threshold in (0, 6):
+        ptelemetry.reset()
+        got = list(phash_torch.near_pairs(hashes, threshold, "cpu"))
+        assert got == list(phash_jax.near_pairs(hashes, threshold))
+        blocks = [r["fields"] for r in ptelemetry.trace.recent() if r["stage"] == "block"]
+        assert [b["pairs"] for b in blocks] == [
+            sum(1 for i, _j in got if off <= i < off + phash_torch.PAIR_BLOCK)
+            for off in range(0, 9000, phash_torch.PAIR_BLOCK)]
+        assert [b["relaunched"] for b in blocks] == [int(b["pairs"] > capacity) for b in blocks]
+        assert all("device_s" not in b for b in blocks)
+        relaunched += [b["relaunched"] for b in blocks]
+    assert any(relaunched)
+
+
+def test_the_plain_path_never_relaunches_a_block():
+    """Off a card a block's one `plain_block` returns every pair, so a
+    block with more pairs than PAIR_CAPACITY takes no second launch."""
+    import torch
+
+    hashes = [b"\x5a\x0f\xf0\x00\xff\x13\x37\x99"] * 400  # 79,800 pairs, one block
+    calls = []
+    plain = phash_torch._plain_launcher(
+        phash_torch._plus_minus(torch.ones(phash_torch.PAIR_BLOCK, 64, dtype=torch.bool)), 400, 0)
+
+    def launch(off, cap):
+        calls.append(cap)
+        return plain(off, cap)
+
+    got, relaunched, device_s = phash_torch.block_pairs(launch, 0, phash_torch.PAIR_CAPACITY)
+    assert len(got) == 400 * 399 // 2 > phash_torch.PAIR_CAPACITY
+    assert got == [(i, j) for i in range(400) for j in range(i + 1, 400)]
+    assert relaunched == 0 and calls == [phash_torch.PAIR_CAPACITY] and device_s is None
+    ptelemetry.reset()
+    assert list(phash_torch.near_pairs(hashes, 0, "cpu")) == got
+    block = [r["fields"] for r in ptelemetry.trace.recent() if r["stage"] == "block"]
+    assert [(b["pairs"], b["relaunched"]) for b in block] == [(len(got), 0)]
+
+
+def test_the_kernel_wrapper_builds_nothing_and_takes_only_cuda_tables():
+    import torch
+
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    assert hamming_cuda._built == []  # the build happens at first CUDA use
+    before = hamming_cuda.near_pairs_block.launches
+    table = torch.zeros(4096, dtype=torch.int64)
+    with pytest.raises(ValueError, match="runs on cuda tensors"):
+        hamming_cuda.near_pairs_block(table, 10, 0, 4096, 8, 16)
+    assert hamming_cuda._built == [] and hamming_cuda.near_pairs_block.launches == before
 
 
 # --- tests/test_phash.py on the port ------------------------------------------
